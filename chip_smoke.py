@@ -3,18 +3,33 @@
 
 The main path is activation collection at Whisper-tiny width (d 384, 6
 heads, 4 layers, random weights from a seed): WAV → decode → CUDA log-mel
-kernel → encoder up to block 2 (fused q/k/v attention kernel) → store.
+kernel → encoder up to block 2 (fused q/k/v attention kernel) → store; then
+SAE training on that store at tiny_topk / tiny_l1 width (d_in 384, n_dict
+6144, k 32; 50 files × 1500 frames = 75,000 rows a step): store → train
+step (TopK: fused forward kernel; multi_topk: thresholds kernel) →
+checkpoint; then collection with the trained SAE attached.
 
-  0. the card (nvidia-smi name and power limit), torch and CUDA versions;
-  1. build both kernels from csrc/ with nvcc for sm_90a;
+  0. the card (nvidia-smi name and power limit), torch and CUDA versions,
+     whether TensorBoard imports;
+  1. build all four kernels from csrc/ with nvcc for sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes, with its stated tolerance, and both timed (median
-     CUDA-event time after warm-up);
+     main path's shapes (and edge rows for the TopK kernels), with its
+     stated tolerance, and both timed (median CUDA-event time after
+     warm-up);
   3. the collection CLI (``python -m freud_tpu_torch.scripts.collect_activations
      --config ...``, run in-process) over 48 30-s WAVs, 3 shorter ones and
      an undecodable one at batch 32 (a ragged tail batch): store shape, finiteness, metadata and
      the kernels' launch counts in that run; files/s and RTFx;
-  4. the same collection of 2 files on the CPU plain path against the card.
+  4. the same collection of 2 files on the CPU plain path against the card;
+  5. the train CLI (``python -m freud_tpu_torch.scripts.train_sae``, run
+     in-process) on that store from configs/train/tiny_topk.json: 30 steps
+     with AuxK active from step 2, checkpoints that load with
+     weights_only=True, kernel #4's launches; then 4 steps with multi_topk
+     (kernel #3's launches) and 4 steps of tiny_l1.json; steps/s each;
+  6. one TopK batch (2 files) at full width on the card and on the CPU from
+     the same weights: losses and parameter gradients;
+  7. collection with the trained TopK checkpoint as sae_model: the indexed
+     store.
 
 Every phase asserts; any failure exits nonzero. The last two lines of
 standard output are the kernels' JSON record and the device JSON.
@@ -46,6 +61,10 @@ LAYER = "encoder.blocks.2"
 # bf16 attention products in blocks 0-2 against the f32 CPU path, relative
 # to the CPU store's max |value|
 CARD_VS_CPU_TOL = 5e-2
+# TopK training at tiny_topk width
+D_IN, N_DICT, K, K_AUX = 384, 6144, 32, 192
+M_ROWS = 50 * 1500  # one step's rows
+TRAIN_STEPS = 30
 
 
 def card_line() -> str:
@@ -134,6 +153,151 @@ def check_attention(torch, device, card):
     return record
 
 
+def _acts_agreement(got, want, x, w_enc, b_dec):
+    """Share of acts that differ, and the largest difference in units of
+    one bf16 ulp of the pre-activation bf16((x − b_dec)·W_encᵀ) plus one of
+    the act: the card's f32 sums may round that product the other way, and
+    after the bias and ReLU one ulp there can be a zero against a small
+    positive value."""
+    import torch
+
+    bf16 = torch.bfloat16
+    z = (x - b_dec).to(bf16).float() @ w_enc.to(bf16).float().T
+
+    def ulp(v):
+        _, e = torch.frexp(v.to(bf16).float())
+        return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v), e - 8))
+
+    diff = (got.float() - want.float()).abs()
+    units = diff / (ulp(z) + ulp(want.float())).clamp_min(1e-38)
+    return (diff > 0).float().mean().item(), units.max().item()
+
+
+def _topk_inputs(torch, device, m, gen):
+    x = torch.randn((m, D_IN), generator=gen)
+    w_enc = (torch.rand((N_DICT, D_IN), generator=gen) * 2 - 1) * D_IN ** -0.5
+    b_enc = -(torch.rand((N_DICT,), generator=gen) * 0.1)  # <= 0: silent rows exist
+    b_dec = torch.randn((D_IN,), generator=gen) * 0.1
+    w_dec = w_enc / w_enc.norm(dim=1, keepdim=True)
+    x[7] = b_dec  # silent rows: x − b_dec = 0, so every act is relu(b_enc) = 0
+    x[m - 1] = b_dec
+    return [t.to(device) for t in (x, w_enc, b_enc, b_dec, w_dec)]
+
+
+def check_topk_fused(torch, device, card):
+    """Kernel #4 against its plain version; selection and decodes are held
+    against the plain selection run on the kernel's own acts."""
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired_plain
+
+    gen = torch.Generator().manual_seed(SEED + 2)
+    record = None
+    for m in (M_ROWS, 77):
+        x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen)
+        third = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
+        few = torch.zeros((N_DICT,), dtype=torch.bool, device=device)
+        few[:100] = True  # fewer dead than k_aux: select all dead
+        cases = {"a third dead": third, "none dead": torch.zeros_like(third),
+                 "100 dead": few} if m == M_ROWS else {"a third dead": third}
+        for name, dead in cases.items():
+            dead_f = dead.float()
+            got = topk_sae_forward(x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, K_AUX)
+            want = topk_sae_forward_plain(x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, K_AUX)
+            torch.cuda.synchronize()
+            acts = got[0]
+            share, max_ulp = _acts_agreement(acts, want[0], x, w_enc, b_dec)
+            # selection on the kernel's own acts: bit-equal
+            tm, ta, _, fired = topk_thresholds_fired_plain(acts, dead, K, K_AUX)
+            assert torch.equal(got[3], tm) and torch.equal(got[4], ta), name
+            assert torch.equal(got[5], fired), name
+            af = acts.float()
+            w = w_dec.to(torch.bfloat16).float()
+            y_main = torch.where(af >= tm, af, 0.0) @ w
+            y_aux = torch.where((af >= ta) & dead, af, 0.0) @ w
+            abs_err = max((got[1] - y_main).abs().max().item(),
+                          (got[2] - y_aux).abs().max().item())
+            err = abs_err / max(y_main.abs().max().item(), y_aux.abs().max().item())
+            print(f"topk_sae_forward m={m} ({name}): acts differ on {share:.2e} "
+                  f"(bound 1e-3), by at most {max_ulp:.3f} ulp (bound 1), "
+                  "thresholds/fired bit-equal, "
+                  f"decode max|Δ|/max|plain| {err:.3e} (bound 1e-3)")
+            assert max_ulp <= 1 and share < 1e-3, (share, max_ulp)
+            assert err < 1e-3, err
+            assert torch.isinf(got[4]).all() if name == "none dead" else True
+            assert (got[3][7] == 0).all() and not got[1][7].any()  # silent row
+            # bf16 rounding makes ties at the k-th value common: rows with
+            # a positive threshold that select more than k latents
+            ties = (((af >= tm).sum(dim=1) > K) & (tm[:, 0] > 0)).sum().item()
+            print(f"  rows with a tie at t_main: {ties} of {m}")
+            assert m < M_ROWS or ties > 0
+        if m == M_ROWS:
+            args = (x, w_enc.T, b_enc, b_dec, w_dec, third.float(), K, K_AUX)
+            ms = cuda_ms(lambda: topk_sae_forward(*args), reps=10)
+            plain_ms = cuda_ms(lambda: topk_sae_forward_plain(*args), warmup=1, reps=5)
+            print(f"topk_sae_forward m={m} d_in={D_IN} n_dict={N_DICT}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+    return record
+
+
+def _threshold_err(got, want) -> float:
+    """Largest |Δ| over the finite thresholds and the fired mask."""
+    import torch
+
+    err = 0.0
+    for g, w in zip(got, want):
+        if w is not None:
+            g, w = g.float(), w.float()
+            fin = torch.isfinite(w)
+            err = max(err, (g - w).abs()[fin].max().item() if fin.any() else 0.0)
+    return err
+
+
+def check_topk_threshold(torch, device, card):
+    """Kernel #3 against its plain version: thresholds and fired bit-equal,
+    bf16 (exact path, k_multi 128) and f32 / signed (float bisection)."""
+    from freud_tpu_torch.ops.topk_threshold import (
+        topk_thresholds_fired,
+        topk_thresholds_fired_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 3)
+    a = torch.relu(torch.randn((M_ROWS, N_DICT), generator=gen)).to(device)
+    a[5] = 0.0  # silent row
+    a[6] = 0.5  # one tie across the row
+    dead = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
+    record = None
+    cases = [("bf16", a.to(torch.bfloat16), dict(k_multi=4 * K)),
+             ("f32", a, dict(k_multi=4 * K)),
+             ("bf16 signed", (a - 0.5).to(torch.bfloat16), dict(signed=True))]
+    for name, acts, kw in cases:
+        for dname, dm in (("a third dead", dead), ("none dead", torch.zeros_like(dead))):
+            got = topk_thresholds_fired(acts, dm, K, K_AUX, **kw)
+            want = topk_thresholds_fired_plain(acts, dm, K, K_AUX, **kw)
+            torch.cuda.synchronize()
+            for g, w in zip(got, want):
+                assert (g is None and w is None) or torch.equal(g, w), (name, dname)
+            err = _threshold_err(got, want)
+            print(f"topk_thresholds_fired {name} ({dname}): thresholds and fired "
+                  "bit-equal to plain")
+        if name == "bf16":
+            ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, K_AUX, **kw), reps=10)
+            plain_ms = cuda_ms(
+                lambda: topk_thresholds_fired_plain(acts, dead, K, K_AUX, **kw),
+                warmup=1, reps=5)
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            print(f"topk_thresholds_fired bf16 m={M_ROWS} n_dict={N_DICT}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+        if name == "f32":
+            ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, K_AUX, **kw), reps=5)
+            plain_ms = cuda_ms(
+                lambda: topk_thresholds_fired_plain(acts, dead, K, K_AUX, **kw),
+                warmup=1, reps=3)
+            print(f"topk_thresholds_fired f32 m={M_ROWS} n_dict={N_DICT}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    return record
+
+
 def write_wavs(folder: Path) -> list[tuple[str, int]]:
     """Seeded noise clips as 16-bit PCM WAV, plus one broken file;
     → [(path, n_samples)] of the decodable ones."""
@@ -154,25 +318,98 @@ def write_wavs(folder: Path) -> list[tuple[str, int]]:
     return out
 
 
-def collect(config: dict, cfg_path: Path) -> dict:
-    """``python -m freud_tpu_torch.scripts.collect_activations --config``,
-    in this process (so the launch counters are readable). → its stats."""
+def run_cli(module: str, config: dict, cfg_path: Path) -> dict:
+    """``python -m <module> --config <cfg_path>``, in this process (so the
+    launch counters are readable). → the JSON stats of its last line."""
     from freud_tpu_torch import profiling
 
     profiling.reset()  # one stage table per run
     cfg_path.write_text(json.dumps(config))
     argv = sys.argv
     buf = io.StringIO()
-    sys.argv = ["collect_activations", "--config", str(cfg_path)]
+    sys.argv = [module.rsplit(".", 1)[-1], "--config", str(cfg_path)]
     try:
         with contextlib.redirect_stdout(buf):
-            runpy.run_module("freud_tpu_torch.scripts.collect_activations",
-                             run_name="__main__", alter_sys=True)
+            runpy.run_module(module, run_name="__main__", alter_sys=True)
     finally:
         sys.argv = argv
     lines = buf.getvalue().strip().splitlines()
-    print("\n".join("  | " + ln.split("\r")[-1] for ln in lines))
+    print("\n".join("  | " + ln.split("\r")[-1] for ln in lines[-12:]))
     return json.loads(lines[-1])
+
+
+def collect(config: dict, cfg_path: Path) -> dict:
+    return run_cli("freud_tpu_torch.scripts.collect_activations", config, cfg_path)
+
+
+def train(config: dict, cfg_path: Path) -> tuple[dict, list[dict]]:
+    """The train CLI in this process; → (its stats, every step's metrics as
+    floats)."""
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    seen = []
+    step = SAETrainer.train_step
+
+    def spy(self, batch):
+        metrics = step(self, batch)
+        seen.append({k: float(v) for k, v in metrics.items()})
+        return metrics
+
+    SAETrainer.train_step = spy
+    try:
+        stats = run_cli("freud_tpu_torch.scripts.train_sae", config, cfg_path)
+    finally:
+        SAETrainer.train_step = step
+    return stats, seen
+
+
+def check_checkpoints(torch, ckpt_dir: Path, names: list[str]) -> None:
+    for name in names:
+        ck = torch.load(ckpt_dir / name, map_location="cpu", weights_only=True)
+        assert {"model", "optimizer", "step", "hparams",
+                "num_frames_since_fired"} <= set(ck), (name, sorted(ck))
+        assert all(torch.isfinite(v).all() for v in ck["model"].values()), name
+
+
+def card_vs_cpu_batch(torch, device, store) -> float:
+    """One TopK step's losses and parameter gradients at full width (2
+    files), on the card (kernel #4) and on the CPU (plain), from the same
+    numpy weights. → the largest gradient error relative to its max."""
+    from freud_tpu_torch.models.sae import params_from_jax
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
+
+    rng = np.random.default_rng(SEED + 4)
+    bound = D_IN ** -0.5
+    w = rng.uniform(-bound, bound, (N_DICT, D_IN)).astype(np.float32)
+    np_params = {"encoder_weight": w, "W_dec": w / np.linalg.norm(w, axis=1, keepdims=True),
+                 "encoder_bias": (rng.standard_normal(N_DICT) * 0.01).astype(np.float32),
+                 "b_dec": (rng.standard_normal(D_IN) * 0.01).astype(np.float32)}
+    x = torch.from_numpy(np.array(store[:2], np.float32))
+    dead = torch.from_numpy(rng.random(N_DICT) < 1 / 3)
+    cfg = TopKAutoEncoderConfig(expansion_factor=16, k=K, auxk_alpha=1 / 32)
+    out = {}
+    for dev in (device, torch.device("cpu")):
+        params = params_from_jax("topk", np_params, dev)
+        terms, _ = topk_mod.training_losses(params, x.to(dev), cfg, dead.to(dev),
+                                            matmul_dtype=torch.bfloat16)
+        loss = terms["fvu"] + terms["auxk_loss"]
+        loss.backward()
+        out[dev.type] = ({k: float(v) for k, v in terms.items()},
+                         {n: p.grad.cpu() for n, p in params.named_parameters()})
+    (card_terms, card_g), (cpu_terms, cpu_g) = out["cuda"], out["cpu"]
+    for k in ("fvu", "auxk_loss"):
+        rel = abs(card_terms[k] - cpu_terms[k]) / abs(cpu_terms[k])
+        print(f"card vs CPU, one batch: {k} {card_terms[k]:.6f} vs {cpu_terms[k]:.6f} "
+              f"(rel {rel:.2e}, bound 1e-2)")
+        assert rel < 1e-2, (k, rel)
+    worst = 0.0
+    for n, g in cpu_g.items():
+        err = ((card_g[n] - g).abs().max() / g.abs().max()).item()
+        print(f"card vs CPU, one batch: grad {n} max|Δ|/max|cpu| {err:.3e} (bound 3e-2)")
+        assert err < 3e-2, (n, err)
+        worst = max(worst, err)
+    return worst
 
 
 def read_store(folder: Path):
@@ -188,24 +425,30 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 1
-    from freud_tpu_torch import _native
+    from freud_tpu_torch import _native, profiling
     from freud_tpu_torch.analysis.features import activation_length_from_samples
     from freud_tpu_torch.ops.attention import fused_qkv_attention
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
 
     # phase 0 — the card
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, "
           f"{torch.cuda.get_device_name(0)} × {torch.cuda.device_count()}")
+    try:
+        import tensorboard  # noqa: F401 — host-side logging only
+        print("tensorboard: imports; the trainer logs through torch.utils.tensorboard")
+    except ImportError:
+        print("tensorboard: missing; the trainer runs with TensorBoard logging off")
     device = torch.device("cuda:0")
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
 
-    # phase 1 — build
+    # phase 1 — build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    for name in ("mel", "attention"):
-        _native.cuda_library(name)
+    _native.cuda_libraries("mel", "attention", "topk_threshold", "topk_fused")
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
     for name, log in _native.build_logs.items():
@@ -216,6 +459,8 @@ def main() -> int:
     # phase 2 — kernels against their plain versions
     mel_rec = check_mel(torch, device, card)
     attn_rec = check_attention(torch, device, card)
+    fused_rec = check_topk_fused(torch, device, card)
+    thresh_rec = check_topk_threshold(torch, device, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -271,6 +516,84 @@ def main() -> int:
               f"(bound {CARD_VS_CPU_TOL})")
         assert rel < CARD_VS_CPU_TOL, rel
 
+        # phase 5 — SAE training on the card's store, counting launches
+        store_dir = str(tmp / "card")
+        tbase = json.loads((REPO / "configs/train/tiny_topk.json").read_text())
+        assert tbase["batch_size"] == 50 and tbase["device"] == "tpu"
+        assert tbase["whisper_config"]["layer_name"] == LAYER
+        tcfg = {**tbase, "train_folder": store_dir, "val_folder": store_dir,
+                "run_dir": str(tmp / "run_topk"), "steps": TRAIN_STEPS,
+                "lr": 1e-3, "scheduler_params": {"num_warmup_steps": 2},
+                "save_every": 10, "val_every": 10, "log_tb_every": 10,
+                # below one step's 75,000 frames: latents that did not fire
+                # in step 1 are dead from step 2, so AuxK runs
+                "autoencoder_config": {**tbase["autoencoder_config"],
+                                       "dead_feature_threshold": M_ROWS // 2}}
+        topk_sae_forward.launches = 0
+        topk_thresholds_fired.launches = 0
+        tstats, steps = train(tcfg, tmp / "topk.json")
+        launches["topk_sae_forward"] = topk_sae_forward.launches
+        span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
+        dead = [m["dead_pct"] for m in steps]
+        aux = [m["auxk_loss"] for m in steps]
+        print(f"tiny_topk: {tstats['steps']} steps, steps_per_sec "
+              f"{tstats['steps_per_sec']:.3f} (incl. 3 validations and checkpoint "
+              f"writes), median train_step {span_ms:.3f} ms on {card}; dead_pct "
+              f"step 2 {dead[1]:.4f}, last {dead[-1]:.4f}; auxk_loss step 2 "
+              f"{aux[1]:.4e}; loss {steps[0]['loss']:.4f} → {steps[-1]['loss']:.4f}; "
+              f"kernel #4 launches {launches['topk_sae_forward']}")
+        assert len(steps) == TRAIN_STEPS and tstats["steps"] == TRAIN_STEPS
+        assert all(np.isfinite(list(m.values())).all() for m in steps)
+        assert max(dead[1:]) > 0 and max(aux[1:]) > 0, (dead, aux)
+        assert launches["topk_sae_forward"] >= TRAIN_STEPS, launches
+        assert topk_thresholds_fired.launches == 0
+        ckpts = tmp / "run_topk" / "checkpoints"
+        check_checkpoints(torch, ckpts, ["step10.pth", "step20.pth",
+                                         "step30.pth", "bestval.pth"])
+
+        topk_thresholds_fired.launches = 0
+        mstats, msteps = train(
+            {**tcfg, "run_dir": str(tmp / "run_multi"), "steps": 4,
+             "save_every": 4, "val_every": 4,
+             "autoencoder_config": {**tcfg["autoencoder_config"], "multi_topk": True}},
+            tmp / "multi.json")
+        launches["topk_thresholds_fired"] = topk_thresholds_fired.launches
+        print(f"tiny_topk multi_topk: steps_per_sec {mstats['steps_per_sec']:.3f}, "
+              f"multi_topk_fvu {msteps[-1]['multi_topk_fvu']:.4f}; kernel #3 "
+              f"launches {launches['topk_thresholds_fired']}")
+        assert launches["topk_thresholds_fired"] >= 4, launches
+        assert all(np.isfinite(list(m.values())).all() for m in msteps)
+
+        lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
+        lstats, lsteps = train(
+            {**lbase, "train_folder": store_dir, "val_folder": store_dir,
+             "run_dir": str(tmp / "run_l1"), "steps": 4, "save_every": 4,
+             "val_every": 4, "log_tb_every": 2,
+             # the 51-file store holds no batch of tiny_l1's 100 files
+             "batch_size": 50}, tmp / "l1.json")
+        print(f"tiny_l1 (batch 50): steps_per_sec {lstats['steps_per_sec']:.3f} on "
+              f"{card}; loss {lsteps[0]['loss']:.4f} → {lsteps[-1]['loss']:.4f}")
+        assert all(np.isfinite(list(m.values())).all() for m in lsteps)
+        check_checkpoints(torch, tmp / "run_l1" / "checkpoints", ["step4.pth"])
+
+        # phase 6 — one TopK batch at full width, card against CPU
+        card_vs_cpu_batch(torch, device, store)
+
+        # phase 7 — collection with the trained TopK SAE attached
+        sstats = collect({**config, "sae_model": str(ckpts / "bestval.pth"),
+                          "out_folder": str(tmp / "sae")}, tmp / "sae.json")
+        smeta = json.loads((tmp / "sae" / f"{LAYER}_metadata.json").read_text())
+        vals = np.load(tmp / "sae" / f"{LAYER}_activation_values.npy", mmap_mode="r")
+        idx = np.load(tmp / "sae" / f"{LAYER}_feature_indices.npy", mmap_mode="r")
+        vals = vals.reshape(vals.shape[0], *smeta["tensor_shape"])
+        idx = idx.reshape(idx.shape[0], *smeta["tensor_shape"])
+        print(f"SAE-attached collection: values {vals.shape}, indices {idx.shape}, "
+              f"RTFx {sstats['rtfx']:.1f} on {card}")
+        assert vals.shape == idx.shape == (n_files, 1500, K), (vals.shape, idx.shape)
+        assert smeta["activation_shape"] == [1500, N_DICT]
+        assert np.isfinite(vals).all() and (vals >= 0).all()
+        assert idx.min() >= 0 and idx.max() < N_DICT
+
     kernels = [
         {"name": "log_mel", "route": "cuda",
          "source": "freud_tpu_torch/csrc/mel.cu",
@@ -280,6 +603,14 @@ def main() -> int:
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
          "launches": launches["fused_qkv_attention"], **attn_rec},
+        {"name": "topk_sae_forward", "route": "cuda",
+         "source": "freud_tpu_torch/csrc/topk_fused.cu",
+         "replaces": "freud_tpu/ops/topk_fused.py:455",
+         "launches": launches["topk_sae_forward"], **fused_rec},
+        {"name": "topk_thresholds_fired", "route": "cuda",
+         "source": "freud_tpu_torch/csrc/topk_threshold.cu",
+         "replaces": "freud_tpu/ops/topk_threshold.py:225",
+         "launches": launches["topk_thresholds_fired"], **thresh_rec},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

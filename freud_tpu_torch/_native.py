@@ -97,37 +97,49 @@ def _nvcc() -> str:
     )
 
 
-def cuda_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu`` as a ctypes library."""
-    lib = _cuda_libs.get(name)
-    if lib is not None:
-        return lib
+def _library_path(name: str) -> Path:
     src = CSRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
     for header in sorted(CSRC_DIR.glob("*.cuh")):  # the shared headers
         h.update(header.read_bytes())
-    digest = h.hexdigest()[:12]
-    out = BUILD_DIR / f"lib{name}-{digest}.so"
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
+def cuda_libraries(*names: str) -> list[ctypes.CDLL]:
+    """Build (once) and load ``csrc/<name>.cu`` for each name as a ctypes
+    library; the missing ones compile in parallel, one nvcc each."""
+    if all(n in _cuda_libs for n in names):
+        return [_cuda_libs[n] for n in names]
     with build_lock():
-        lib = _cuda_libs.get(name)
-        if lib is not None:
-            return lib
-        if not out.exists():
-            t0 = time.perf_counter()
-            tmp = out.with_name(out.name + f".{os.getpid()}.tmp")
-            proc = subprocess.run(
-                [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                capture_output=True, text=True,
-            )
+        todo = [n for n in names if n not in _cuda_libs]
+        outs = {n: _library_path(n) for n in todo}
+        procs = {}
+        t0 = time.perf_counter()
+        for n in todo:
+            if not outs[n].exists():
+                tmp = outs[n].with_name(outs[n].name + f".{os.getpid()}.tmp")
+                procs[n] = (tmp, subprocess.Popen(
+                    [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC_DIR / f"{n}.cu")],
+                    stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        failed = []
+        for n, (tmp, proc) in procs.items():
+            log = proc.communicate()[0]
+            build_seconds[n] = time.perf_counter() - t0
+            build_logs[n] = log
             if proc.returncode != 0:
-                raise RuntimeError(
-                    f"nvcc failed for {src.name}:\n{proc.stdout}{proc.stderr}")
-            os.replace(tmp, out)
-            build_seconds[name] = time.perf_counter() - t0
-            build_logs[name] = proc.stdout + proc.stderr
-        lib = ctypes.CDLL(str(out))
-        _cuda_libs[name] = lib
-    return lib
+                failed.append(f"nvcc failed for {n}.cu:\n{log}")
+            else:
+                os.replace(tmp, outs[n])
+        if failed:
+            raise RuntimeError("\n".join(failed))
+        for n in todo:
+            _cuda_libs[n] = ctypes.CDLL(str(outs[n]))
+    return [_cuda_libs[n] for n in names]
+
+
+def cuda_library(name: str) -> ctypes.CDLL:
+    """Build (once) and load ``csrc/<name>.cu`` as a ctypes library."""
+    return cuda_libraries(name)[0]
 
 
 def check_cuda_status(status: int, what: str, lib: ctypes.CDLL) -> None:

@@ -1,11 +1,15 @@
-"""On-the-fly activation loader: audio → log-mel → encoder capture.
+"""Activation loaders: on-the-fly (Whisper → SAE) and memory-mapped.
 
-The encoder-layer part of ``freud_tpu/data/loaders.py``'s
-``FlyActivationLoader``: audio batches stream through the native decoder →
-on-device mel → one encoder forward that stops after the captured layer.
-``iter_with_lengths`` yields (activations, filenames, n_frames). An
-attached SAE (L1 latents, TopK indexed outputs) comes with the SAE slice of
-the port.
+The port of ``freud_tpu/data/loaders.py``:
+
+* ``FlyActivationLoader`` (encoder layers): audio batches stream through the
+  native decoder → on-device mel → one encoder forward that stops after the
+  captured layer → with an attached SAE, its encode on the same device.
+  ``iter_with_lengths`` yields (activations, filenames, n_frames); an L1 SAE
+  yields its dense latent, a TopK SAE the pair (top_acts, top_indices).
+* ``MemoryMappedActivationLoader``: shuffled batches gathered from a
+  collected store, the order a pure function of (seed, epoch), so a step
+  count is a resume position. Framework-free, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -18,8 +22,13 @@ import torch
 from .. import profiling
 from ..analysis.features import activation_length_from_samples
 from ..constants import get_n_mels
+from ..models.sae import config as sae_config
+from ..models.sae import l1 as l1_mod
+from ..models.sae import serialize as sae_serialize
+from ..models.sae import topk as topk_mod
 from ..models.whisper import WhisperRuntime
 from .audio_dataset import AudioBatchPipeline
+from .store import ActivationStoreReader
 
 
 def decodable_mask(lengths: np.ndarray, filenames: list[str]) -> np.ndarray:
@@ -30,6 +39,57 @@ def decodable_mask(lengths: np.ndarray, filenames: list[str]) -> np.ndarray:
         bad = [f for f, good in zip(filenames, ok) if not good]
         print(f"skipping {len(bad)} undecodable file(s): {bad[:3]}…")
     return ok
+
+
+def load_sae(checkpoint: str, device: torch.device | str = "cpu"):
+    """(variant, cfg, activation_size, module) from a trainer checkpoint."""
+    return sae_serialize.sae_from_checkpoint(checkpoint, device)
+
+
+def resample_padding_rows(
+    x: np.ndarray,
+    file_indices,
+    n_frames,
+    seed: int,
+) -> np.ndarray:
+    """Replace each file's padding rows with draws from its VALID rows.
+
+    Decoder-layer stores are EOT-padded: row ``t >= n_frames[f]`` of file
+    ``f`` is teacher-forced garbage past the position where greedy decode
+    sampled EOT (the JAX package's decoder capture) — often the majority of
+    the (n_prompt + max_new) buffer for short transcripts. Training consumes
+    full fixed-shape (B, T, d) batches, so instead of masking inside every
+    loss and kernel, the padding rows are RESAMPLED uniformly from the
+    file's valid rows at load time: each file still contributes exactly T
+    frames, every frame is a real decode position, and the train/val stack
+    downstream is untouched.
+
+    Deterministic per (seed, file index): reloading a file in any epoch
+    reproduces the identical rows. Mutates and returns ``x`` (callers pass
+    freshly-gathered batches). Files with ``n_frames == 0`` (undecodable
+    audio stored as zeros) are left as-is.
+    """
+    t = x.shape[1]
+    for row, (fi, n) in enumerate(zip(file_indices, n_frames)):
+        n = int(n)
+        if 0 < n < t:
+            rng = np.random.default_rng((seed, int(fi)))
+            x[row, n:] = x[row, rng.integers(0, n, t - n)]
+    return x
+
+
+def _sae_tail(acts: torch.Tensor, sae) -> tuple:
+    """The attached SAE's encode of captured activations (the JAX package's
+    ``_sae_fetch_tail``): dense → (acts,); L1 → (latent,); TopK →
+    (top_acts, top_indices)."""
+    if sae is None:
+        return (acts,)
+    variant, cfg, params = sae
+    x = acts.to(torch.float32)  # JAX promotes a bf16 capture against f32 params
+    if variant == "l1":
+        return (l1_mod.encode(params, x).latent,)
+    enc = topk_mod.encode(params, x, cfg)
+    return (enc.top_acts, enc.top_indices)
 
 
 class DeviceFetch:
@@ -68,11 +128,6 @@ class FlyActivationLoader:
         fetch_dtype: torch.dtype | None = None,
         device: torch.device | str = "cpu",
     ):
-        if sae_checkpoint:
-            raise NotImplementedError(
-                "collection with an attached SAE comes with the SAE slice of "
-                "freud_tpu_torch (SAE models + training); collect raw "
-                "activations (sae_model: null) for now")
         self.device = torch.device(device)
         self.runtime = WhisperRuntime(whisper_model, layer_name,
                                       compute_dtype=compute_dtype,
@@ -88,8 +143,19 @@ class FlyActivationLoader:
             exclude=exclude,
             device=self.device,
         )
-        self.activation_shape = (self.runtime.activation_frames,
-                                 self.runtime.activation_width)
+        self.sae = None
+        self.activation_type = "tensor"
+        width = self.runtime.activation_width
+        if sae_checkpoint:
+            variant, cfg, _, params = load_sae(sae_checkpoint, self.device)
+            self.sae = (variant, cfg, params.eval())
+            if variant == "topk":
+                self.activation_type = "indexed"
+            # reported like the reference: (T, n_dict) for both variants,
+            # though a TopK store's rows are (T, k) indexed pairs
+            width = sae_config.get_n_dict_components(
+                width, cfg.expansion_factor, cfg.n_dict_components)
+        self.activation_shape = (self.runtime.activation_frames, width)
 
     @property
     def dataset_length(self) -> int:
@@ -105,19 +171,29 @@ class FlyActivationLoader:
             mels = torch.cat([mels, mels.new_zeros((pad, *mels.shape[1:]))])
         with profiling.span("encoder_capture"):
             acts = self.runtime.activations(mels)
-        if pad:
-            acts = acts[:n]
-        if self.fetch_dtype is not None:
-            # cast on the device before the host fetch: a float16 store then
-            # moves half the bytes
-            acts = acts.to(self.fetch_dtype)
-        elif acts.dtype == torch.bfloat16:
-            # numpy has no bfloat16; the store keeps float32
-            acts = acts.to(torch.float32)
-        if acts.is_cuda:
-            # start the device→host copy now, ahead of the next batch's work
-            return (DeviceFetch(acts),)
-        return (acts,)
+            with torch.inference_mode():
+                outs = _sae_tail(acts, self.sae)
+        fetched = []
+        for o in outs:
+            if pad:
+                o = o[:n]
+            if o.is_floating_point():
+                if self.fetch_dtype is not None:
+                    # cast on the device before the host fetch: a float16
+                    # store then moves half the bytes
+                    o = o.to(self.fetch_dtype)
+                elif o.dtype == torch.bfloat16:
+                    # numpy has no bfloat16; the store keeps float32
+                    o = o.to(torch.float32)
+            # on the card, start the device→host copy now, ahead of the next
+            # batch's work
+            fetched.append(DeviceFetch(o) if o.is_cuda else o)
+        return tuple(fetched)
+
+    def __iter__(self) -> Iterator[tuple]:
+        """Yields (*outputs, filenames), undecodable files dropped."""
+        for *outs, filenames, _ in self.iter_with_lengths():
+            yield (*(np.asarray(o) for o in outs), filenames)
 
     def iter_with_lengths(self) -> Iterator[tuple]:
         """Yields (activations, filenames, n_frames): per-file true
@@ -147,3 +223,117 @@ class FlyActivationLoader:
             [activation_length_from_samples(int(n)) for n in lengths],
             np.int64)
         return (*outs, filenames, n_frames)
+
+
+class MemoryMappedActivationLoader:
+    """Batched reader over a collected activation store."""
+
+    def __init__(
+        self,
+        data_path: str,
+        layer_name: str,
+        batch_size: int,
+        subset_size: Optional[int] = None,
+        shuffle: bool = False,
+        drop_last: bool = False,
+        seed: int = 0,
+        resample_padding: bool = False,
+    ):
+        """``resample_padding``: replace EOT-padding rows of decoder-layer
+        stores with per-file-deterministic draws from the valid rows (see
+        ``resample_padding_rows``)."""
+        self.reader = ActivationStoreReader(data_path, layer_name, subset_size)
+        self.batch_size = batch_size
+        self.shuffle = shuffle
+        self.drop_last = drop_last
+        self.activation_shape = self.reader.activation_shape
+        self.activation_type = self.reader.activation_type
+        self.tensor_shape = self.reader.tensor_shape
+        self.dataset_length = len(self.reader)
+        self.seed = seed
+        self.resample_padding = bool(
+            resample_padding
+            and self.activation_type == "tensor"
+            and self.reader.n_frames is not None
+        )
+        # Position state for deterministic resume: the shuffle order is a
+        # pure function of (seed, epoch), so a checkpointed batch count fully
+        # determines the remaining data stream.
+        self.epoch = 0
+        self.cursor = 0  # batches already yielded in the current epoch
+
+    def __len__(self) -> int:
+        # the reference's MemoryMappedActivationDataLoader.__len__ floors
+        return self.dataset_length // self.batch_size
+
+    @property
+    def batches_per_epoch(self) -> int:
+        n, b = self.dataset_length, self.batch_size
+        return n // b if self.drop_last else -(-n // b)
+
+    def _epoch_order(self, epoch: int) -> np.ndarray:
+        if not self.shuffle:
+            return np.arange(self.dataset_length)
+        return np.random.default_rng((self.seed, epoch)).permutation(
+            self.dataset_length
+        )
+
+    def set_position(self, consumed_batches: int) -> None:
+        """Jump to the state after ``consumed_batches`` total batches."""
+        per = max(self.batches_per_epoch, 1)
+        self.epoch = consumed_batches // per
+        self.cursor = consumed_batches % per
+
+    def __iter__(self) -> Iterator[tuple]:
+        order = self._epoch_order(self.epoch)
+        stop = len(self) * self.batch_size if self.drop_last else self.dataset_length
+        for i in range(self.cursor * self.batch_size, stop, self.batch_size):
+            idx = order[i : i + self.batch_size]
+            if self.drop_last and len(idx) < self.batch_size:
+                break
+            # advance BEFORE yielding: if the consumer abandons the iteration
+            # mid-epoch (the train loop breaking at `steps`), a later iter()
+            # resumes at the next unseen batch instead of re-yielding this one
+            self.cursor += 1
+            with profiling.span("mmap_batch"):
+                batch = self.reader.batch(idx)
+            if self.resample_padding:
+                # reader.batch gathers fresh arrays (fancy indexing copies
+                # out of the mmap), so in-place resampling is safe
+                resample_padding_rows(
+                    batch[0], idx,
+                    [self.reader.n_frames[i] for i in idx], self.seed)
+            yield batch
+        self.epoch += 1
+        self.cursor = 0
+
+
+def init_dataloader(
+    from_disk: bool,
+    data_path: str,
+    whisper_model: str,
+    sae_checkpoint: Optional[str],
+    layer_name: str,
+    batch_size: int,
+    subset_size: Optional[int] = None,
+    shuffle: bool = False,
+    drop_last: bool = False,
+    seed: int = 0,
+    resample_padding: bool = False,
+    device: torch.device | str = "cpu",
+):
+    """(loader, feat_dim, dataset_len). ``seed`` drives the shuffle stream;
+    ``device`` is where a fly loader computes."""
+    if from_disk:
+        loader = MemoryMappedActivationLoader(
+            data_path, layer_name, batch_size,
+            subset_size=subset_size, shuffle=shuffle, drop_last=drop_last,
+            seed=seed, resample_padding=resample_padding,
+        )
+    else:
+        loader = FlyActivationLoader(
+            data_path, whisper_model, sae_checkpoint, layer_name, batch_size,
+            subset_size=subset_size, device=device,
+        )
+    feat_dim = loader.activation_shape[-1]
+    return loader, feat_dim, loader.dataset_length

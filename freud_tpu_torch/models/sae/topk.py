@@ -1,0 +1,374 @@
+"""TopK sparse autoencoder with AuxK and multi-TopK losses (PyTorch).
+
+The port of ``freud_tpu/models/sae/topk.py``: the same functions under the
+same names, taking a ``TopKSAE`` module where JAX takes ``TopKParams``
+(parameters ``encoder_weight`` (n_dict, d_in), ``encoder_bias``, ``W_dec``
+(n_dict, d_in), ``b_dec``, the reference state-dict names). Losses are
+normalised by the total variance Σ(x − mean₀(x))² over the file axis:
+
+  fvu            = Σ(x̂ − x)² / tv
+  auxk_loss      = auxk_alpha · min(num_dead/k_aux, 1) · Σ(ê − e)² / tv
+                   (k_aux = d_in // 2, a decode of the dead latents)
+  multi_topk_fvu = FVU of a 4k-sparse decode
+
+``forward``/``forward_with_fired`` are the validation path (``torch.topk``
+by a stable sort, no kernel). ``training_losses`` is the train step, routed
+as JAX routes it (``topk.py:310-329``): multi_topk and n_dict ≥ 2¹⁵ take an
+autograd formulation over kernel #3 (``ops/topk_threshold``); otherwise a
+``torch.autograd.Function`` whose forward is kernel #4 (``ops/topk_fused``)
+under bf16 matmuls or kernel #3 in f32, and whose backward is the five
+matmuls of JAX's hand-written VJP (``topk.py:409-470``).
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+from torch import nn
+
+from ...ops.topk_fused import topk_sae_forward
+from ...ops.topk_threshold import bisect_kth, topk_thresholds_fired
+from .config import TopKAutoEncoderConfig, get_n_dict_components
+
+
+class TopKEncoderOutput(NamedTuple):
+    top_acts: torch.Tensor  # (…, k)
+    top_indices: torch.Tensor  # (…, k) int64
+
+
+class TopKForwardOutput(NamedTuple):
+    sae_out: torch.Tensor
+    encoded: TopKEncoderOutput
+    fvu: torch.Tensor
+    auxk_loss: torch.Tensor
+    multi_topk_fvu: torch.Tensor
+
+
+class TopKSAE(nn.Module):
+    """The TopK SAE's parameters (torch ``Linear`` layout for the encoder)."""
+
+    def __init__(self, encoder_weight, encoder_bias, W_dec, b_dec):
+        super().__init__()
+        self.encoder_weight = nn.Parameter(torch.as_tensor(encoder_weight, dtype=torch.float32))
+        self.encoder_bias = nn.Parameter(torch.as_tensor(encoder_bias, dtype=torch.float32))
+        self.W_dec = nn.Parameter(torch.as_tensor(W_dec, dtype=torch.float32))
+        self.b_dec = nn.Parameter(torch.as_tensor(b_dec, dtype=torch.float32))
+
+
+TopKParams = TopKSAE  # the JAX package's name for the parameter set
+
+
+def init_topk(activation_size: int, cfg: TopKAutoEncoderConfig, seed: int = 0,
+              device: torch.device | str = "cpu") -> TopKSAE:
+    """Uniform(±1/√d_in) encoder, W_dec its (row-normalised) copy, zero
+    biases. The generator is torch's, so the numbers differ from JAX's for
+    the same seed (``serialize.params_from_jax`` carries JAX's across)."""
+    n_dict = get_n_dict_components(
+        activation_size, cfg.expansion_factor, cfg.n_dict_components)
+    gen = torch.Generator().manual_seed(seed)
+    bound = 1.0 / np.sqrt(activation_size)
+    enc_w = (torch.rand((n_dict, activation_size), generator=gen) * 2 - 1) * bound
+    W_dec = enc_w.clone()
+    if cfg.normalize_decoder:
+        W_dec = set_decoder_norm_to_unit_norm(W_dec)
+    return TopKSAE(enc_w, torch.zeros(n_dict), W_dec,
+                   torch.zeros(activation_size)).to(device)
+
+
+def set_decoder_norm_to_unit_norm(W_dec: torch.Tensor) -> torch.Tensor:
+    """Row-normalise W_dec (per dictionary component)."""
+    norm = torch.sqrt(torch.sum(W_dec * W_dec, dim=1, keepdim=True))
+    return W_dec / (norm + torch.finfo(W_dec.dtype).eps)
+
+
+def _dot_f32(a: torch.Tensor, b: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    """a @ b with operands rounded to ``matmul_dtype`` and f32 sums and
+    result — JAX's ``dot(..., preferred_element_type=f32)``; differentiable."""
+    if matmul_dtype is not None:
+        a, b = a.to(matmul_dtype), b.to(matmul_dtype)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool,
+        out_dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    """The backward's products (no autograd): bf16 operands when ``bf16``,
+    f32 sums, ``out_dtype`` result. On the card a bf16 product with an f32
+    result is one tensor-core GEMM; the CPU has no such op and sums the
+    same bf16 products in f32."""
+    if not bf16:
+        return (a.to(torch.float32) @ b.to(torch.float32)).to(out_dtype)
+    a, b = a.to(torch.bfloat16), b.to(torch.bfloat16)
+    if out_dtype == torch.bfloat16:
+        return a @ b
+    if a.is_cuda:
+        return torch.mm(a, b, out_dtype=out_dtype)
+    return a.to(torch.float32) @ b.to(torch.float32)
+
+
+def pre_acts(params, x: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
+    sae_in = x - params.b_dec
+    W = params.encoder_weight
+    if matmul_dtype is not None:
+        sae_in, W = sae_in.to(matmul_dtype), W.to(matmul_dtype)
+    return torch.relu(sae_in @ W.T + params.encoder_bias.to(sae_in.dtype))
+
+
+def select_topk(latents: torch.Tensor, k: int) -> TopKEncoderOutput:
+    """The k largest per position, ties to the lower index (``lax.top_k``'s
+    order; a stable descending sort keeps it)."""
+    vals, idx = torch.sort(latents, dim=-1, descending=True, stable=True)
+    return TopKEncoderOutput(top_acts=vals[..., :k], top_indices=idx[..., :k])
+
+
+def encode(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig) -> TopKEncoderOutput:
+    return select_topk(pre_acts(params, x), cfg.k)
+
+
+def dense_latent(top_acts: torch.Tensor, top_indices: torch.Tensor, n_dict: int) -> torch.Tensor:
+    """Scatter an indexed activation back to a dense (…, n_dict) tensor."""
+    dense = torch.zeros((*top_acts.shape[:-1], n_dict), dtype=top_acts.dtype,
+                        device=top_acts.device)
+    return dense.scatter_add(-1, top_indices.long(), top_acts)
+
+
+def decode(params, top_acts: torch.Tensor, top_indices: torch.Tensor,
+           matmul_dtype=None) -> torch.Tensor:
+    """Sparse decode: gather k dictionary rows and weight them when
+    k·d_in ≤ n_dict, else scatter to the dense latent and multiply."""
+    n_dict, d_in = params.W_dec.shape
+    k = top_acts.shape[-1]
+    if k * d_in <= n_dict:
+        rows = params.W_dec[top_indices.long()]  # (…, k, d_in)
+        y = torch.einsum("...k,...kd->...d", top_acts, rows)
+    else:
+        y = _dot_f32(dense_latent(top_acts, top_indices, n_dict), params.W_dec,
+                     matmul_dtype)
+    return y + params.b_dec
+
+
+def kth_threshold(acts: torch.Tensor, k: int, mask=None, iters: int = 24) -> torch.Tensor:
+    """Per-position k-th-largest threshold by bisection: the largest t found
+    with count(acts ≥ t) ≥ k (ties may admit extras); +inf when nothing is
+    finite."""
+    masked = acts if mask is None else torch.where(
+        mask, acts, torch.tensor(float("-inf"), dtype=acts.dtype, device=acts.device))
+    return bisect_kth(masked, k, iters)
+
+
+def _masked_dense_decode(params, acts, threshold, matmul_dtype, select_mask=None):
+    """Decode the latents ≥ the per-position threshold as one product
+    (gradients reach exactly the selected entries)."""
+    keep = acts >= threshold
+    if select_mask is not None:
+        keep = keep & select_mask
+    dense = torch.where(keep, acts, torch.zeros((), dtype=acts.dtype, device=acts.device))
+    return _dot_f32(dense, params.W_dec, matmul_dtype) + params.b_dec
+
+
+def _total_variance(x: torch.Tensor) -> torch.Tensor:
+    """Σ(x − mean over the leading (file) axis)²; 1 where it is 0."""
+    tv = torch.sum((x - x.mean(dim=0)) ** 2)
+    return torch.where(tv == 0, torch.ones_like(tv), tv)
+
+
+def forward(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
+            dead_mask: Optional[torch.Tensor] = None, matmul_dtype=None) -> TopKForwardOutput:
+    return _forward_impl(params, x, cfg, dead_mask, matmul_dtype)[0]
+
+
+def forward_with_fired(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
+                       dead_mask: Optional[torch.Tensor] = None, matmul_dtype=None):
+    """(forward output, fired) — ``fired[j]``: latent j was selected (with a
+    positive value) anywhere in the batch."""
+    return _forward_impl(params, x, cfg, dead_mask, matmul_dtype)
+
+
+def _forward_impl(params, x, cfg, dead_mask, matmul_dtype):
+    acts = pre_acts(params, x, matmul_dtype=matmul_dtype)
+    top = select_topk(acts, cfg.k)
+    thresh = top.top_acts.amin(dim=-1, keepdim=True)
+    keep = acts >= thresh
+    # zero activations never fire: a silent frame's threshold is 0
+    fired = (keep & (acts > 0)).reshape(-1, keep.shape[-1]).any(dim=0)
+    sae_out = _masked_dense_decode(params, acts, thresh, matmul_dtype).to(x.dtype)
+    e = sae_out - x
+    tv = _total_variance(x)
+
+    if dead_mask is not None:
+        k_aux = x.shape[-1] // 2
+        scale = torch.clamp(dead_mask.sum() / k_aux, max=1.0)
+        dead = dead_mask.expand(acts.shape)
+        aux_thresh = kth_threshold(acts, k_aux, mask=dead)
+        e_hat = _masked_dense_decode(params, acts, aux_thresh, matmul_dtype,
+                                     select_mask=dead)
+        auxk_loss = scale * torch.sum((e_hat - e) ** 2) / tv
+    else:
+        auxk_loss = torch.zeros((), dtype=x.dtype, device=x.device)
+
+    fvu = torch.sum(e * e) / tv
+
+    if cfg.multi_topk:
+        thresh4 = select_topk(acts, 4 * cfg.k).top_acts.amin(dim=-1, keepdim=True)
+        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype)
+        multi_topk_fvu = torch.sum((multi_out - x) ** 2) / tv
+    else:
+        multi_topk_fvu = torch.zeros((), dtype=x.dtype, device=x.device)
+
+    out = TopKForwardOutput(sae_out=sae_out, encoded=top, fvu=fvu,
+                            auxk_loss=auxk_loss * cfg.auxk_alpha,
+                            multi_topk_fvu=multi_topk_fvu)
+    return out, fired
+
+
+def training_losses(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
+                    dead_mask: torch.Tensor, matmul_dtype=None):
+    """Loss terms and the fired mask for the TRAIN step:
+    → ({fvu, auxk_loss, multi_topk_fvu}, fired). Differentiable in the
+    parameters (and in x)."""
+    if cfg.multi_topk or params.W_dec.shape[0] >= 2 ** 15:
+        return _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype)
+    # JAX also sends recipes whose bf16 W_enc + W_dec exceed 64 MB to the
+    # formulation above (KERNEL_RESIDENT_BUDGET, topk.py:41-46): that is the
+    # TPU kernel's VMEM arena. The CUDA kernel keeps no weights resident, so
+    # every size goes to it; the selection is the same exact bf16 selection.
+    bf16 = matmul_dtype == torch.bfloat16
+    fvu, auxk_loss, fired = _FusedLosses.apply(
+        x, params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec,
+        dead_mask.to(torch.float32), cfg.k, x.shape[-1] // 2,
+        float(cfg.auxk_alpha), bf16)
+    return {
+        "fvu": fvu,
+        "auxk_loss": auxk_loss,
+        "multi_topk_fvu": torch.zeros((), dtype=x.dtype, device=x.device),
+    }, fired
+
+
+class _FusedLosses(torch.autograd.Function):
+    """Forward: kernel #4 (bf16) or kernel #3 (f32) plus the loss
+    reductions. Backward: JAX's ``_fused_losses_bwd``. Thresholds are
+    selection boundaries without gradient."""
+
+    @staticmethod
+    def forward(ctx, x, enc_w, enc_b, W_dec, b_dec, dead_f, k, k_aux, alpha, bf16):
+        d_in = x.shape[-1]
+        x2 = x.reshape(-1, d_in)
+        if bf16:
+            acts, y_main, y_aux, t_main, t_aux, fired = topk_sae_forward(
+                x2, enc_w.T, enc_b, b_dec, W_dec, dead_f, k, k_aux)
+        else:
+            acts = torch.relu((x2 - b_dec) @ enc_w.T + enc_b)
+            dead = dead_f > 0
+            t_main, t_aux, _, fired = topk_thresholds_fired(acts, dead, k, k_aux)
+            zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
+            y_main = torch.where(acts >= t_main, acts, zero) @ W_dec
+            y_aux = torch.where((acts >= t_aux) & dead, acts, zero) @ W_dec
+        e = y_main + b_dec - x2  # = sae_out − x
+        r = y_aux - y_main + x2  # = ê − e   (b_dec cancels)
+        tv = _total_variance(x)
+        scale = torch.clamp(dead_f.sum() / k_aux, max=1.0)
+        fvu = torch.sum(e * e) / tv
+        auxk_loss = alpha * scale * torch.sum(r * r) / tv
+        ctx.save_for_backward(x, enc_w, W_dec, b_dec, acts, t_main, t_aux,
+                              dead_f, e, r, tv, scale)
+        ctx.consts = (alpha, bf16)
+        ctx.mark_non_differentiable(fired)
+        return fvu, auxk_loss, fired
+
+    @staticmethod
+    def backward(ctx, g_fvu, g_aux, _g_fired):
+        x, enc_w, W_dec, b_dec, acts, t_main, t_aux, dead_f, e, r, tv, scale = (
+            ctx.saved_tensors)
+        alpha, bf16 = ctx.consts
+        x2 = x.reshape(-1, x.shape[-1])
+        sae_in = x2 - b_dec
+        c1 = 2.0 * g_fvu / tv
+        c2 = 2.0 * g_aux * alpha * scale / tv
+        g_main = c1 * e - c2 * r  # ∂L/∂y_main (M, d)
+        g_auxd = c2 * r  # ∂L/∂y_aux
+
+        zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
+        keep_main = acts >= t_main
+        keep_aux = (acts >= t_aux) & (dead_f > 0)
+        dense_main = torch.where(keep_main, acts, zero)
+        dense_aux = torch.where(keep_aux, acts, zero)
+        dW_dec = _mm(dense_main.T, g_main, bf16) + _mm(dense_aux.T, g_auxd, bf16)
+        del dense_main, dense_aux
+        db_dec = c1 * torch.sum(e, dim=0)  # Σ(∂L/∂y_main + ∂L/∂y_aux) = c1·Σe
+
+        # only selected entries carry gradient; under bf16 the (M, n_dict)
+        # cotangents stay bf16, as in JAX (topk.py:435)
+        ct = torch.bfloat16 if bf16 else torch.float32
+        live = acts > 0
+        d1 = _mm(g_main, W_dec.T, bf16, out_dtype=ct)
+        d2 = _mm(g_auxd, W_dec.T, bf16, out_dtype=ct)
+        zct = torch.zeros((), dtype=ct, device=acts.device)
+        d_acts = (torch.where(keep_main & live, d1, zct)
+                  + torch.where(keep_aux & live, d2, zct))
+        del d1, d2, keep_main, keep_aux, live
+
+        dW_enc = _mm(d_acts.T, sae_in, bf16)
+        db_enc = torch.sum(d_acts, dim=0, dtype=torch.float32)
+        db_dec = db_dec - _mm(db_enc[None, :], enc_w, bf16)[0]
+
+        dx = None
+        if ctx.needs_input_grad[0]:
+            # direct e/r terms, the encode path, and the total variance
+            dx2 = -g_main + _mm(d_acts, enc_w, bf16)
+            k_tv = -(c1 * torch.sum(e * e) + c2 * torch.sum(r * r)) / (2.0 * tv)
+            dx = dx2.reshape(x.shape) + k_tv * 2.0 * (x - x.mean(dim=0))
+        return (dx, dW_enc, db_enc, dW_dec, db_dec, None, None, None, None, None)
+
+
+def _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype=None):
+    """Autograd formulation over kernel #3 (multi_topk; n_dict ≥ 2¹⁵):
+    every threshold and the fired mask from one pass over the latent."""
+    acts = pre_acts(params, x, matmul_dtype=matmul_dtype)
+    n_dict = acts.shape[-1]
+    k_aux = x.shape[-1] // 2
+    flat = acts.detach().reshape(-1, n_dict)
+    t_main, t_aux, t4, fired = topk_thresholds_fired(
+        flat, dead_mask, cfg.k, k_aux, k_multi=4 * cfg.k if cfg.multi_topk else 0)
+    lead = acts.shape[:-1]
+    t_main = t_main.reshape(*lead, 1).to(acts.dtype)
+    t_aux = t_aux.reshape(*lead, 1).to(acts.dtype)
+
+    sae_out = _masked_dense_decode(params, acts, t_main, matmul_dtype).to(x.dtype)
+    e = sae_out - x
+    tv = _total_variance(x)
+    fvu = torch.sum(e * e) / tv
+
+    scale = torch.clamp(dead_mask.sum() / k_aux, max=1.0)
+    dead = dead_mask.expand(acts.shape)
+    e_hat = _masked_dense_decode(params, acts, t_aux, matmul_dtype, select_mask=dead)
+    auxk_loss = cfg.auxk_alpha * scale * torch.sum((e_hat - e) ** 2) / tv
+
+    if cfg.multi_topk:
+        thresh4 = t4.reshape(*lead, 1).to(acts.dtype)
+        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype)
+        multi_topk_fvu = torch.sum((multi_out - x) ** 2) / tv
+    else:
+        multi_topk_fvu = torch.zeros((), dtype=x.dtype, device=x.device)
+    return {"fvu": fvu, "auxk_loss": auxk_loss, "multi_topk_fvu": multi_topk_fvu}, fired
+
+
+def age_counters(num_frames_since_fired: torch.Tensor, fired: torch.Tensor,
+                 frames_in_batch) -> torch.Tensor:
+    """Dead-feature bookkeeping from a fired mask: every latent ages by the
+    batch's frame count (saturating at 2³⁰); fired ones reset."""
+    aged = torch.clamp(num_frames_since_fired + frames_in_batch, max=2 ** 30)
+    return torch.where(fired, torch.zeros_like(aged), aged)
+
+
+def update_fired_counters(num_frames_since_fired: torch.Tensor,
+                          top_indices: torch.Tensor, frames_in_batch) -> torch.Tensor:
+    """Dead-feature bookkeeping from selected indices (reference
+    train_sae.py:412-446)."""
+    did_fire = torch.zeros_like(num_frames_since_fired, dtype=torch.bool)
+    did_fire[top_indices.reshape(-1).long()] = True
+    return age_counters(num_frames_since_fired, did_fire, frames_in_batch)
+
+
+def param_count(params) -> int:
+    return int(sum(p.numel() for p in params.parameters()))

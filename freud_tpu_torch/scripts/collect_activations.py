@@ -9,11 +9,15 @@ encoder forward up to the captured layer (fused q/k/v attention kernel) →
 asynchronous device→host copy → streamed append to the memory-mappable
 store on a write-behind thread.
 
+With ``sae_model`` (a trainer checkpoint) the SAE encodes each batch on
+the device: an L1 SAE stores its dense latents, a TopK SAE an indexed store
+of ``(top_acts, top_indices)`` (``{layer}_activation_values.npy`` and
+``{layer}_feature_indices.npy``).
+
 ``device`` is honoured when it is ``cpu`` or ``cuda[:N]``; any other value
 (the repo's configs say ``"tpu"``) means ``cuda``. A CUDA device without a
 card raises — the run never carries on on the CPU. Not in this port yet (each
-raises): ``data_parallel``, a list of layers, ``sae_model``, and
-``build_index``.
+raises): ``data_parallel``, a list of layers, and ``build_index``.
 
 Usage: python -m freud_tpu_torch.scripts.collect_activations --config cfg.json
 """
@@ -35,21 +39,7 @@ from .. import profiling
 from ..constants import CHUNK_LENGTH
 from ..data.loaders import FlyActivationLoader
 from ..data.store import ActivationStoreWriter
-
-
-def resolve_device(device: Optional[str]) -> torch.device:
-    """``cpu`` / ``cuda[:N]`` as given; anything else (``tpu``, None) → cuda.
-    A CUDA device must exist."""
-    name = (device or "cuda").lower()
-    if name != "cpu" and not name.startswith("cuda"):
-        name = "cuda"
-    dev = torch.device(name)
-    if dev.type == "cuda" and not torch.cuda.is_available():
-        raise RuntimeError(
-            f"collection device {device!r} needs CUDA, but "
-            "torch.cuda.is_available() is False; set \"device\": \"cpu\" to "
-            "collect on the CPU")
-    return dev
+from ..device import resolve_device
 
 
 def get_activations(
@@ -167,7 +157,7 @@ def get_activations(
                     layer_name,
                     tensor_shape=arrays[0].shape[1:],
                     activation_shape=loader.activation_shape,
-                    indexed=False,
+                    indexed=loader.activation_type == "indexed",
                     overwrite=not resume,
                     store_dtype=np.dtype(store_dtype),
                 )

@@ -1,0 +1,548 @@
+"""SAE trainer on one device (PyTorch).
+
+The per-step path of ``freud_tpu/train/trainer.py``: the same config surface
+(``train(**config)``), loss arithmetic, optimizer/scheduler recipes,
+dead-feature bookkeeping, TensorBoard tags and checkpoint cadence
+(``step{N}.pth`` every ``save_every``, ``bestval.pth`` on an improved
+validation, the final step). One step: (L1) renormalise the decoder columns
+in place, so the optimizer updates the normalised weight; forward, losses
+and backward (TopK: ``models/sae/topk.training_losses``, kernel #4 under
+bf16); clip; update; (TopK) age the dead-feature counters.
+
+Not in this port yet: ``train_chunk`` and the device-resident shuffle cache,
+``DeviceValSet``, pod/mesh training and ``shard_dict``, and validation
+transcripts (``enable_transcripts`` prints that they are off and goes on).
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import random
+import time
+from pathlib import Path
+from types import SimpleNamespace
+from typing import Optional
+
+import numpy as np
+import torch
+
+from .. import profiling
+from ..data.loaders import init_dataloader
+from ..data.prefetch import prefetch_iter
+from ..device import resolve_device
+from ..models.sae import config as sae_config
+from ..models.sae import l1 as l1_mod
+from ..models.sae import topk as topk_mod
+from ..models.sae.serialize import params_from_state_dict
+from ..models.whisper.runtime import pin_full_f32
+from .checkpoint import (
+    AsyncCheckpointWriter,
+    load_trainer_checkpoint,
+    save_trainer_checkpoint,
+)
+from .optim import make_optimizer
+
+
+def set_seeds(seed: int = 42) -> None:
+    np.random.seed(seed)
+    random.seed(seed)
+    torch.manual_seed(seed)
+    os.environ["PYTHONHASHSEED"] = str(seed)
+
+
+def _param_list(variant: str, params) -> list:
+    """Parameters in the JAX package's leaf order (the optimizer's)."""
+    if variant == "l1":
+        return [params.W, params.encoder_bias]
+    return [params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec]
+
+
+class SAETrainer:
+    """Owns the SAE, its optimizer and the dead-feature counters on one
+    device."""
+
+    def __init__(
+        self,
+        variant: str,
+        autoencoder_config: dict,
+        activation_size: int,
+        optimizer: str = "radam",
+        scheduler: str = "cosine",
+        scheduler_params: Optional[dict] = None,
+        lr: float = 1e-4,
+        weight_decay: float = 0.0,
+        steps: int = 1000,
+        clip_thresh: float = 1.0,
+        seed: int = 0,
+        amp: bool = True,
+        device: torch.device | str = "cpu",
+    ):
+        assert variant in ("l1", "topk"), (
+            f"Invalid autoencoder variant: {variant}, must be 'l1' or 'topk'"
+        )
+        self.variant = variant
+        self.raw_config = dict(autoencoder_config)
+        self.cfg = sae_config.config_for_variant(variant, autoencoder_config)
+        self.activation_size = activation_size
+        self.dead_feature_threshold = float(
+            autoencoder_config.get("dead_feature_threshold", 1e6))
+        # bf16 matmuls in the step (the reference's CUDA autocast); losses
+        # and updates stay f32
+        self.amp = amp
+        self.device = torch.device(device)
+        pin_full_f32(self.device)  # f32 products mean f32, not TF32
+        init = l1_mod.init_l1 if variant == "l1" else topk_mod.init_topk
+        self.params = init(activation_size, self.cfg, seed=seed, device=self.device)
+        self.n_dict_components = sae_config.get_n_dict_components(
+            activation_size, self.cfg.expansion_factor, self.cfg.n_dict_components)
+        self.opt, self.schedule = make_optimizer(
+            optimizer, scheduler, lr, steps, _param_list(variant, self.params),
+            weight_decay=weight_decay, clip_thresh=clip_thresh,
+            scheduler_params=scheduler_params)
+        self.num_frames_since_fired = torch.zeros(
+            (self.n_dict_components,), dtype=torch.int32, device=self.device)
+        self.step = 0
+        self.best_val_loss = float("inf")
+
+    # ------------------------------------------------------------- steps
+
+    def train_step(self, batch) -> dict:
+        """One update on a (B, T, d) batch; → metrics as 0-dim device
+        tensors (no host sync)."""
+        x = torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
+        mm = torch.bfloat16 if self.amp else None
+        p = self.params
+        if self.variant == "l1":
+            with torch.no_grad():
+                p.W.copy_(l1_mod.normalize_columns(p).W)
+            out = l1_mod.forward(p, x, self.cfg, pre_normalized=True, matmul_dtype=mm)
+            loss = out.reconstruction_loss + out.l1_loss
+            metrics = {"loss": loss, "loss_recon": out.reconstruction_loss,
+                       "loss_l1": out.l1_loss}
+        else:
+            dead_mask = self.num_frames_since_fired > self.dead_feature_threshold
+            terms, fired = topk_mod.training_losses(p, x, self.cfg, dead_mask,
+                                                    matmul_dtype=mm)
+            loss = terms["fvu"] + terms["auxk_loss"] + terms["multi_topk_fvu"] / 8
+            metrics = {"loss": loss, "fvu": terms["fvu"],
+                       "auxk_loss": terms["auxk_loss"],
+                       "multi_topk_fvu": terms["multi_topk_fvu"],
+                       "dead_pct": dead_mask.float().mean()}
+        self.opt.zero_grad()
+        loss.backward()
+        self.opt.step()
+        if self.variant == "topk":
+            self.num_frames_since_fired = topk_mod.age_counters(
+                self.num_frames_since_fired, fired, x.shape[0] * x.shape[1])
+        self.step += 1
+        return {k: v.detach() for k, v in metrics.items()}
+
+    def current_lr(self, step: Optional[int] = None) -> float:
+        """The lr of update ``step`` (1-based; default the last one)."""
+        count = max((self.step if step is None else step) - 1, 0)
+        return float(self.schedule.host(count))
+
+    @torch.no_grad()
+    def validate_files(self, batch) -> dict:
+        """Per-file statistics with batch-size-1 semantics (each file is
+        its own batch, so the total variance is 0 → 1 and a val fvu is the
+        file's squared error): → numpy arrays, one row per file."""
+        x = torch.as_tensor(batch).to(self.device, torch.float32)
+        rows = []
+        p = self.params
+        if self.variant == "l1":
+            p = l1_mod.normalize_columns(p)
+        for xi in x:
+            if self.variant == "l1":
+                out = l1_mod.forward(p, xi[None], self.cfg, pre_normalized=True)
+                rows.append({
+                    "recon": out.reconstruction_loss, "l1": out.l1_loss,
+                    "mse": torch.mean((out.sae_out[0] - xi) ** 2),
+                    "mag": out.encoded.latent[0].abs().amax(dim=0),
+                })
+            else:
+                out = topk_mod.forward(p, xi[None], self.cfg)
+                # per-feature max |top activation| over the file's frames
+                mag = torch.zeros((self.n_dict_components,), device=x.device)
+                mag = mag.scatter_reduce(
+                    0, out.encoded.top_indices[0].reshape(-1),
+                    out.encoded.top_acts[0].abs().reshape(-1), reduce="amax")
+                rows.append({
+                    "fvu": out.fvu, "auxk_loss": out.auxk_loss,
+                    "multi_topk_fvu": out.multi_topk_fvu,
+                    "mse": torch.mean((out.sae_out[0] - xi) ** 2), "mag": mag,
+                })
+        return {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in rows[0]}
+
+    # ------------------------------------------------------- checkpoints
+
+    def hparams(self, **extra) -> dict:
+        hp = {
+            "autoencoder_variant": self.variant,
+            "autoencoder_config": self.raw_config,
+            "activation_size": self.activation_size,
+        }
+        hp.update(extra)
+        return hp
+
+    def _extra(self, counter: torch.Tensor) -> dict:
+        return {"num_frames_since_fired": counter.detach().cpu().to(torch.int32)}
+
+    def save(self, path: str, hparams: dict) -> None:
+        save_trainer_checkpoint(
+            path, self.variant, self.params, self.opt.state_leaves(), self.step,
+            self.best_val_loss, hparams, extra=self._extra(self.num_frames_since_fired))
+
+    def save_async(self, paths: list[str], hparams: dict,
+                   writer: AsyncCheckpointWriter) -> None:
+        """Queue a write-behind checkpoint of the CURRENT state to every path
+        in ``paths`` (one snapshot, N disk writes). The snapshot is an
+        on-device copy taken now: the next step updates the live tensors in
+        place. Host RNG states are captured here, on the training thread."""
+        with torch.no_grad():
+            snap_params = {k: t.detach().clone() for k, t in self.params.named_parameters()}
+            snap_leaves = [t.detach().clone() for t in self.opt.state_leaves()]
+            snap_fired = self.num_frames_since_fired.clone()
+        step, best, variant = self.step, self.best_val_loss, self.variant
+        rng_states = (np.random.get_state(), random.getstate())
+
+        def work():
+            # checkpoint_d2h splits the device→host copy from the disk write
+            with profiling.span("checkpoint_write"):
+                with profiling.span("checkpoint_d2h"):
+                    host_params = SimpleNamespace(
+                        **{k: t.cpu() for k, t in snap_params.items()})
+                    host_leaves = [t.cpu() for t in snap_leaves]
+                    extra = self._extra(snap_fired)
+                with profiling.span("checkpoint_disk"):
+                    for path in paths:
+                        save_trainer_checkpoint(
+                            path, variant, host_params, host_leaves, step, best,
+                            hparams, extra=extra, rng_states=rng_states)
+
+        # pure-bestval writes coalesce: a queued superseded snapshot is
+        # replaced by the newer one (same path, strictly better loss)
+        coalesce = ("bestval" if all(p.endswith("bestval.pth") for p in paths)
+                    else None)
+        writer.submit(work, coalesce=coalesce)
+
+    def load(self, path: str) -> None:
+        ckpt, step, best = load_trainer_checkpoint(path)
+        loaded = params_from_state_dict(self.variant, ckpt["model"], self.device)
+        with torch.no_grad():
+            for dst, src in zip(_param_list(self.variant, self.params),
+                                _param_list(self.variant, loaded)):
+                dst.copy_(src)
+        optimizer = ckpt.get("optimizer")
+        if isinstance(optimizer, dict) and "leaves" in optimizer:
+            self.opt.load_state_leaves(optimizer["leaves"])
+        self.step = step
+        self.best_val_loss = best
+        if "num_frames_since_fired" in ckpt:
+            self.num_frames_since_fired = torch.as_tensor(
+                np.asarray(ckpt["num_frames_since_fired"]), dtype=torch.int32
+            ).to(self.device)
+
+    def param_count(self) -> int:
+        mod = l1_mod if self.variant == "l1" else topk_mod
+        return mod.param_count(self.params)
+
+
+class _NullTB:
+    """TensorBoard stand-in when the ``tensorboard`` package is missing."""
+
+    def _noop(self, *a, **k):
+        return None
+
+    add_scalar = add_text = add_histogram = add_audio = close = _noop
+
+
+def _summary_writer(run_dir: str, verbose: bool):
+    try:
+        from torch.utils.tensorboard import SummaryWriter
+    except ImportError as e:  # tensorboard is an optional package
+        if verbose:
+            print(f"TensorBoard logging is off: the tensorboard package is "
+                  f"missing ({e})")
+        return _NullTB()
+    return SummaryWriter(run_dir, flush_secs=10)
+
+
+# ---------------------------------------------------------------------------
+# Full training entry point (reference train(**config) surface)
+
+
+def _val_batches(loader):
+    """Yield ``(x, n_valid, filenames)`` per loader batch."""
+    for batch in loader:
+        *arrays, filenames = batch
+        if loader.activation_type == "indexed":
+            # stores built from a TopK SAE hold (acts, indices); validation
+            # operates on dense activations only, as in the reference
+            raise ValueError("validation expects dense activation stores")
+        x = np.asarray(arrays[0], np.float32)
+        yield x, x.shape[0], list(filenames)
+
+
+def validate(
+    trainer: SAETrainer,
+    val_folder: str,
+    layer_name: str,
+    whisper_model: str,
+    from_disk: bool,
+    val_batch: int = 8,
+    loader=None,
+):
+    """Reference ``validate`` statistics: per-file losses and MSE
+    (batch-size-1 math), per-feature magnitude maxes and stds. Transcripts
+    are not ported: the transcript lists come back empty. Pass a ``loader``
+    to reuse one across calls.
+
+    → (losses, subbed_transcripts, base_transcripts, base_filenames,
+       magnitude maxes, magnitude stds)."""
+    if loader is None:
+        loader, _, _ = init_dataloader(
+            from_disk, val_folder, whisper_model, None, layer_name,
+            batch_size=val_batch, shuffle=False,
+            resample_padding=layer_name.startswith("decoder."),
+            device=trainer.device,
+        )
+    if hasattr(loader, "set_position"):
+        loader.set_position(0)  # a reused loader must scan from the start
+    sums: dict[str, float] = {}
+    counts = 0
+    mags = []
+    for x, n_valid, _ in _val_batches(loader):
+        out = trainer.validate_files(x)
+        for key in ("recon", "l1", "fvu", "auxk_loss", "multi_topk_fvu", "mse"):
+            if key in out:
+                sums[key] = sums.get(key, 0.0) + float(np.sum(out[key]))
+        counts += n_valid
+        mags.append(out["mag"])
+    mag_matrix = np.concatenate(mags, axis=0) if mags else np.zeros((0, 1))
+    means = {k: v / max(counts, 1) for k, v in sums.items()}
+    losses = {k: means.get(k) for k in ("l1", "recon", "fvu", "auxk_loss",
+                                        "multi_topk_fvu")}
+    losses["mse"] = means.get("mse", 0.0)
+    return (
+        losses, [], [], [],
+        mag_matrix.max(axis=0) if len(mag_matrix) else np.zeros(1),
+        mag_matrix.std(axis=0) if len(mag_matrix) else np.zeros(1),
+    )
+
+
+def train(
+    seed: int,
+    train_folder: str,
+    val_folder: str,
+    run_dir: str,
+    lr: float,
+    weight_decay: float,
+    steps: int,
+    clip_thresh: float,
+    batch_size: int,
+    log_tb_every: int,
+    save_every: int,
+    val_every: int,
+    whisper_config: dict,
+    optimizer: str,
+    scheduler: str,
+    scheduler_params: dict,
+    autoencoder_variant: str,
+    autoencoder_config: dict,
+    from_disk: bool = True,
+    start_checkpoint: Optional[str] = None,
+    device: Optional[str] = None,
+    dl_max_workers: int = 0,  # accepted for config parity
+    mesh=None,
+    enable_transcripts: bool = True,
+    max_transcript_tokens: int = 224,  # accepted for config parity
+    verbose: bool = True,
+    device_cache_files: int = 0,
+    fused_steps: Optional[int] = None,
+    device_cache_dtype: str = "float32",  # accepted for config parity
+    val_device_cache: Optional[bool] = None,  # validation always streams here
+) -> dict:
+    """``device``: ``cpu`` / ``cuda[:N]``; anything else (the configs'
+    ``"tpu"``) means cuda, and a CUDA device without a card raises."""
+    if mesh is not None:
+        raise NotImplementedError("mesh (pod) training is not ported to "
+                                  "freud_tpu_torch yet (one device per run)")
+    if device_cache_files or (fused_steps is not None and fused_steps > 1):
+        raise NotImplementedError(
+            "the device-resident shuffle cache and fused multi-step chunks "
+            "are not ported to freud_tpu_torch yet; train per step "
+            "(device_cache_files: 0)")
+    dev = resolve_device(device, what="training")
+    set_seeds(seed)
+    layer_name = whisper_config["layer_name"]
+    whisper_model = whisper_config["model"]
+    decoder_store = layer_name.startswith("decoder.")
+
+    loader, feat_dim, _ = init_dataloader(
+        from_disk, train_folder, whisper_model, None, layer_name,
+        batch_size=batch_size, shuffle=True, drop_last=True, seed=seed,
+        resample_padding=decoder_store, device=dev,
+    )
+    if from_disk and len(loader) == 0:
+        raise ValueError(
+            f"{train_folder!r} holds {loader.dataset_length} files, fewer than "
+            f"one batch of {batch_size}: there is nothing to train on")
+    if getattr(loader, "activation_type", "tensor") == "indexed":
+        raise SystemExit(
+            f"{train_folder!r} holds an SAE-indexed store (TopK pairs), not "
+            "raw activations — training needs a store collected WITHOUT "
+            "sae_model")
+    if (from_disk and val_folder
+            and not (Path(val_folder) / f"{layer_name}_tensors.npy").exists()
+            and (Path(val_folder)
+                 / f"{layer_name}_activation_values.npy").exists()):
+        raise SystemExit(
+            f"{val_folder!r} holds an SAE-indexed store (TopK pairs) — "
+            "validation needs a store collected WITHOUT sae_model")
+
+    trainer = SAETrainer(
+        autoencoder_variant, autoencoder_config, feat_dim,
+        optimizer=optimizer, scheduler=scheduler, scheduler_params=scheduler_params,
+        lr=lr, weight_decay=weight_decay, steps=steps, clip_thresh=clip_thresh,
+        seed=seed, device=dev,
+    )
+
+    hparam_dict = {
+        "autoencoder_variant": autoencoder_variant,
+        "autoencoder_config": autoencoder_config,
+        "lr": lr,
+        "weight_decay": weight_decay,
+        "steps": steps,
+        "clip_thresh": clip_thresh,
+        "batch_size": batch_size,
+        "whisper_config": whisper_config,
+        "activation_size": feat_dim,
+        "train_folder": train_folder,
+        "val_folder": val_folder,
+        "optimizer": optimizer,
+        "scheduler": scheduler,
+        "scheduler_params": scheduler_params,
+    }
+
+    os.makedirs(run_dir, exist_ok=True)
+    ckpt_dir = Path(run_dir) / "checkpoints"
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    tb = _summary_writer(run_dir, verbose)
+    tb.add_text("hparams", json.dumps(hparam_dict, indent=4))
+    if verbose:
+        print("Model: %.2fM" % (trainer.param_count() / 1e6))
+
+    if start_checkpoint:
+        if verbose:
+            print(f"Checkpoint: {start_checkpoint}")
+        trainer.load(start_checkpoint)
+        # deterministic resume: the shuffle order is a pure function of
+        # (seed, epoch), so the step count positions the loader exactly
+        if hasattr(loader, "set_position"):
+            loader.set_position(trainer.step)
+
+    if enable_transcripts and verbose:
+        print("transcript logging disabled: decode and transcription are not "
+              "ported to freud_tpu_torch yet")
+
+    val_loader = None
+    t_start = time.perf_counter()
+    steps_done_at_start = trainer.step
+    cuda = dev.type == "cuda"
+
+    def batch_stream():
+        while True:
+            for b in loader:
+                x = torch.from_numpy(np.asarray(b[0], np.float32))
+                # on the card, stage the batch in pinned memory here, on the
+                # prefetch thread, so the step's host→device copy is async
+                yield x.pin_memory() if cuda else x
+
+    def log_train(m: dict, step: int) -> None:
+        tb.add_scalar("train/loss", m["loss"], step)
+        if autoencoder_variant == "l1":
+            tb.add_scalar("train/loss_recon", m["loss_recon"], step)
+            tb.add_scalar("train/loss_l1", m["loss_l1"], step)
+        else:
+            tb.add_scalar("train/fvu", m["fvu"], step)
+            tb.add_scalar("train/auxk_loss", m["auxk_loss"], step)
+            tb.add_scalar("train/multi_topk_fvu", m["multi_topk_fvu"], step)
+            tb.add_scalar("train/dead_pct", m["dead_pct"], step)
+        tb.add_scalar("train/lr", trainer.current_lr(step), step)
+        if verbose:
+            print(f"step {step}: loss {m['loss']:.4f}")
+
+    stream = prefetch_iter(batch_stream(), 2)
+    ckpt_writer = AsyncCheckpointWriter()
+    try:
+        while trainer.step < steps:
+            x = next(stream)
+            with profiling.span("train_step"):
+                metrics = trainer.train_step(x)
+                if cuda:
+                    # the span covers the step's device work, not its enqueue
+                    torch.cuda.synchronize(dev)
+            if trainer.step % log_tb_every == 0:
+                log_train({k: float(v) for k, v in metrics.items()}, trainer.step)
+
+            ckpt_paths: list[str] = []
+            if trainer.step % save_every == 0:
+                ckpt_paths.append(str(ckpt_dir / f"step{trainer.step}.pth"))
+
+            if trainer.step % val_every == 0:
+                if val_loader is None:
+                    val_loader, _, _ = init_dataloader(
+                        from_disk, val_folder, whisper_model, None,
+                        layer_name, batch_size=8, shuffle=False,
+                        resample_padding=decoder_store, device=dev,
+                    )
+                with profiling.span("validate"):
+                    losses_dict, _, _, _, mag_maxes, mag_stds = validate(
+                        trainer, val_folder, layer_name, whisper_model,
+                        from_disk, loader=val_loader)
+                val_keys = (("recon", "l1") if autoencoder_variant == "l1"
+                            else ("fvu", "auxk_loss", "multi_topk_fvu"))
+                if any(losses_dict.get(k) is None for k in val_keys):
+                    print(f"{trainer.step}: validation set empty — skipping "
+                          "val logging")
+                else:
+                    if autoencoder_variant == "l1":
+                        tb.add_scalar("val/loss_recon", losses_dict["recon"], trainer.step)
+                        tb.add_scalar("val/loss_l1", losses_dict["l1"], trainer.step)
+                    else:
+                        tb.add_scalar("val/fvu", losses_dict["fvu"], trainer.step)
+                        tb.add_scalar("val/auxk_loss", losses_dict["auxk_loss"], trainer.step)
+                        tb.add_scalar("val/multi_topk_fvu", losses_dict["multi_topk_fvu"], trainer.step)
+                    tb.add_scalar("val/mse", losses_dict["mse"], trainer.step)
+                tb.add_histogram("val/encoded/magnitude_maxes", mag_maxes, trainer.step)
+                tb.add_histogram("val/encoded/magnitude_stds", mag_stds, trainer.step)
+                num_dead = int(np.count_nonzero(mag_maxes <= 0))
+                tb.add_scalar("val/encoded/num_dead", num_dead, trainer.step)
+                tb.add_scalar("val/encoded/percent_dead",
+                              num_dead / mag_maxes.shape[-1], trainer.step)
+                save_loss = (losses_dict["recon"] if autoencoder_variant == "l1"
+                             else losses_dict["fvu"])
+                if verbose:
+                    print(f"{trainer.step} validation: {losses_dict}")
+                if save_loss is not None and save_loss < trainer.best_val_loss:
+                    trainer.best_val_loss = float(save_loss)
+                    ckpt_paths.append(str(ckpt_dir / "bestval.pth"))
+
+            if ckpt_paths:
+                trainer.save_async(ckpt_paths, hparam_dict, ckpt_writer)
+    finally:
+        # close() flushes queued checkpoints, so an interrupted run's resume
+        # point is whatever was last submitted, never a torn file
+        ckpt_writer.close()
+    trainer.save(str(ckpt_dir / f"step{trainer.step}.pth"), hparam_dict)
+    elapsed = time.perf_counter() - t_start
+    done = trainer.step - steps_done_at_start
+    tb.close()
+    return {
+        "steps": trainer.step,
+        "steps_per_sec": done / max(elapsed, 1e-9),
+        "best_val_loss": trainer.best_val_loss,
+        "run_dir": run_dir,
+    }

@@ -3,7 +3,9 @@ the same WAV folder with the same Whisper weights (an OpenAI-layout ``.pt``
 of narrow dims, written through ``state_dict_from_jax``), and must write
 identical metadata JSON and stores that agree within 1e-4 of the stored
 activations' max |value| (both run f32 on the CPU; only summation order
-differs)."""
+differs). With an SAE attached (one checkpoint both read), the L1 latents
+agree within 1e-4 of max and the TopK indexed stores hold the same indices
+wherever the selection is not a near-tie, values within 1e-4 of max."""
 
 import json
 import wave
@@ -133,9 +135,50 @@ def test_undecodable_file_is_skipped(setup, tmp_path, monkeypatch):
     assert rows.shape == (1, 1500 * 64)
 
 
+@pytest.mark.parametrize("variant", ["l1", "topk"])
+def test_sae_attached_stores_match_jax(setup, monkeypatch, variant):
+    from freud_tpu.models.sae import init_l1, init_topk, state_dict_from_params
+    from freud_tpu.models.sae.config import config_for_variant
+
+    root, wdir, audio = setup
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
+    raw = ({"n_dict_components": 96, "recon_alpha": 10.0} if variant == "l1"
+           else {"expansion_factor": 2, "k": 8})
+    cfg = config_for_variant(variant, raw)
+    init = init_l1 if variant == "l1" else init_topk
+    sd = state_dict_from_params(variant, init(64, cfg, seed=4))
+    ckpt = root / f"{variant}.pth"
+    torch.save({"model": sd, "hparams": {"autoencoder_variant": variant,
+                                         "autoencoder_config": raw,
+                                         "activation_size": 64}}, ckpt)
+    common = dict(data_path=str(audio), layer_name=LAYER, whisper_model="tiny",
+                  sae_model=str(ckpt), batch_size=2, verbose=False)
+    jax_collect(out_folder=str(root / f"jax_{variant}"), **common)
+    tcollect.get_activations(out_folder=str(root / f"torch_{variant}"),
+                             device="cpu", **common)
+    meta = {}
+    for pkg in ("jax", "torch"):
+        meta[pkg] = (root / f"{pkg}_{variant}" / f"{LAYER}_metadata.json").read_text()
+    assert meta["torch"] == meta["jax"]
+    assert json.loads(meta["torch"])["activation_shape"] == [1500, 96 if variant == "l1" else 128]
+    if variant == "l1":
+        jt, tt = (np.load(root / f"{p}_l1" / f"{LAYER}_tensors.npy") for p in ("jax", "torch"))
+        assert tt.shape == jt.shape == (3, 1500 * 96)
+        assert np.abs(tt - jt).max() / np.abs(jt).max() < 1e-4
+        return
+    name = f"{LAYER}_activation_values.npy"
+    jv, tv = (np.load(root / f"{p}_topk" / name) for p in ("jax", "torch"))
+    name = f"{LAYER}_feature_indices.npy"
+    ji, ti = (np.load(root / f"{p}_topk" / name) for p in ("jax", "torch"))
+    assert tv.shape == jv.shape == ti.shape == (3, 1500 * 8) and ti.dtype == np.int64
+    assert np.abs(tv - jv).max() / np.abs(jv).max() < 1e-4
+    # indices agree except where two latents' values are within rounding
+    assert (ti == ji).mean() > 0.999
+
+
 @pytest.mark.parametrize("change", [
     {"layer_name": [LAYER, "encoder.blocks.0"]},
-    {"sae_model": "some.pth"},
+    {"layer_name": "decoder.blocks.0"},
     {"data_parallel": True},
     {"build_index": True},
 ])

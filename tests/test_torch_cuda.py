@@ -8,7 +8,13 @@ card machine without it:
 
 Tolerances: log-mel — the bounds of tests/test_mel_pallas.py (max |Δ| <
 2e-3, share of |Δ| > 3e-4 below 1e-5); attention — max |Δ| / max |ref| <
-2e-2, the bf16-product bound of tests/test_attention_kernel.py."""
+2e-2, the bf16-product bound of tests/test_attention_kernel.py; TopK
+thresholds and fired — bit for bit against the plain version on the same
+input; the fused forward — acts differ on fewer than 1e-3 of entries, by at
+most one bf16 ulp of the pre-activation (the card's f32 sums round it
+either way), selection bit-equal to the plain selection on the kernel's own
+acts, decodes within 1e-3 of max; one TopK training backward on the card
+within 3e-2 of max of the CPU's gradients."""
 
 import numpy as np
 import pytest
@@ -21,6 +27,11 @@ from freud_tpu_torch.ops.attention import (
     fused_qkv_attention_plain,
 )
 from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
+from freud_tpu_torch.ops.topk_threshold import (
+    topk_thresholds_fired,
+    topk_thresholds_fired_plain,
+)
 
 pytestmark = pytest.mark.cuda
 
@@ -99,3 +110,93 @@ def test_runtime_on_card_matches_cpu(cuda):
     want = cpu.activations(mels)
     assert got.shape == want.shape == (2, 1500, 384)
     assert ((got - want).abs().max() / want.abs().max()).item() < 5e-2
+
+
+def _topk_rows(cuda, m=3000, n=1024, seed=8):
+    rng = np.random.default_rng(seed)
+    a = np.maximum(rng.standard_normal((m, n)), 0).astype(np.float32)
+    a[1] = 0.0  # silent row
+    a[2] = 0.25  # one tie across the row
+    a[3] = 0.0
+    a[3, :5] = 1.0  # fewer positives than k
+    return torch.from_numpy(a).to(cuda)
+
+
+@pytest.mark.parametrize("dead_share", [0.0, 0.01, 0.4])
+@pytest.mark.parametrize("dtype,signed", [(torch.bfloat16, False), (torch.float32, False),
+                                          (torch.bfloat16, True)])
+def test_topk_thresholds_kernel_bit_equal(cuda, dtype, signed, dead_share):
+    a = _topk_rows(cuda)
+    acts = (a - 0.5 if signed else a).to(dtype)
+    dead = torch.from_numpy(np.random.default_rng(9).random(a.shape[1]) < dead_share).to(cuda)
+    before = topk_thresholds_fired.launches
+    got = topk_thresholds_fired(acts, dead, 32, 192, k_multi=128, signed=signed)
+    want = topk_thresholds_fired_plain(acts, dead, 32, 192, k_multi=128, signed=signed)
+    torch.cuda.synchronize()
+    assert topk_thresholds_fired.launches == before + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if dead_share == 0.0:
+        assert torch.isinf(got[1]).all()
+
+
+@pytest.mark.parametrize("m,dead_share", [(3000, 0.3), (77, 0.01), (77, 0.0)])
+def test_topk_fused_kernel_matches_plain(cuda, m, dead_share):
+    rng = np.random.default_rng(10)
+    d, n = 384, 1024
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    w_enc = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda)
+    b_enc = -torch.from_numpy((rng.random(n) * 0.1).astype(np.float32)).to(cuda)
+    b_dec = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda)
+    w_dec = torch.nn.functional.normalize(w_enc, dim=1)
+    x[5] = b_dec  # a silent row
+    dead = torch.from_numpy(rng.random(n) < dead_share).to(cuda)
+    before = topk_sae_forward.launches
+    got = topk_sae_forward(x, w_enc.T, b_enc, b_dec, w_dec, dead.float(), 32, 192)
+    want = topk_sae_forward_plain(x, w_enc.T, b_enc, b_dec, w_dec, dead.float(), 32, 192)
+    torch.cuda.synchronize()
+    assert topk_sae_forward.launches == before + 1
+    acts = got[0]
+    z = (x - b_dec).to(torch.bfloat16).float() @ w_enc.to(torch.bfloat16).float().T
+    _, e = torch.frexp(z.to(torch.bfloat16).float())
+    ulp = torch.ldexp(torch.ones_like(z), e - 8) + want[0].float().abs() * 2.0 ** -7
+    diff = (acts.float() - want[0].float()).abs()
+    assert (diff > 0).float().mean().item() < 1e-3
+    assert (diff <= ulp).all()
+    tm, ta, _, fired = topk_thresholds_fired_plain(acts, dead, 32, 192)
+    assert torch.equal(got[3], tm) and torch.equal(got[4], ta) and torch.equal(got[5], fired)
+    assert got[3][5].item() == 0.0 and not got[1][5].any()
+    af = acts.float()
+    w = w_dec.to(torch.bfloat16).float()
+    y_main = torch.where(af >= tm, af, 0.0) @ w
+    y_aux = torch.where((af >= ta) & dead, af, 0.0) @ w
+    assert ((got[1] - y_main).abs().max() / y_main.abs().max()).item() < 1e-3
+    assert ((got[2] - y_aux).abs().max()).item() <= 1e-3 * max(y_aux.abs().max().item(), 1e-30)
+    with pytest.raises(ValueError):  # d_in % 32 != 0 is not a kernel shape
+        topk_sae_forward(x[:, :100].contiguous(), w_enc[:, :100].T, b_enc, b_dec[:100],
+                         w_dec[:, :100], dead.float(), 32, 192)
+
+
+def test_topk_training_backward_on_card_matches_cpu(cuda):
+    from freud_tpu_torch.models.sae import params_from_jax
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
+
+    rng = np.random.default_rng(11)
+    d, n = 384, 2048
+    w = rng.uniform(-1, 1, (n, d)).astype(np.float32) / np.sqrt(d)
+    np_params = {"encoder_weight": w, "W_dec": w / np.linalg.norm(w, axis=1, keepdims=True),
+                 "encoder_bias": np.zeros(n, np.float32),
+                 "b_dec": (rng.standard_normal(d) * 0.01).astype(np.float32)}
+    x = torch.from_numpy(rng.standard_normal((2, 300, d)).astype(np.float32))
+    dead = torch.from_numpy(rng.random(n) < 0.3)
+    cfg = TopKAutoEncoderConfig(n_dict_components=n, k=32, auxk_alpha=1 / 32)
+    grads = {}
+    for dev in (cuda, torch.device("cpu")):
+        params = params_from_jax("topk", np_params, dev)
+        terms, _ = topk_mod.training_losses(params, x.to(dev), cfg, dead.to(dev),
+                                            matmul_dtype=torch.bfloat16)
+        (terms["fvu"] + terms["auxk_loss"]).backward()
+        grads[dev.type] = {k: p.grad.cpu() for k, p in params.named_parameters()}
+    for k, g in grads["cpu"].items():
+        assert ((grads["cuda"][k] - g).abs().max() / g.abs().max()).item() < 3e-2, k
