@@ -1,19 +1,25 @@
 #!/usr/bin/env python3
-"""Drive freud_tpu_torch's main path once on one CUDA card, and check it.
+"""Drive freud_tpu_torch's main paths once on one CUDA card, and check them.
 
-The main path is activation collection at Whisper-tiny width (d 384, 6
+The first path is activation collection at Whisper-tiny width (d 384, 6
 heads, 4 layers, random weights from a seed): WAV → decode → CUDA log-mel
 kernel → encoder up to block 2 (fused q/k/v attention kernel) → store; then
 SAE training on that store at tiny_topk / tiny_l1 width (d_in 384, n_dict
 6144, k 32; 50 files × 1500 frames = 75,000 rows a step): store → train
 step (TopK: fused forward kernel; multi_topk: thresholds kernel) →
-checkpoint; then collection with the trained SAE attached.
+checkpoint; then collection with the trained SAE attached. The second path
+is the same at Whisper-large width (d 1280, 20 heads, 32 layers, random
+weights): collection to block 16 with the blocked attention kernel, for
+large-v1 (80 mel bands, batch 32) and large-v3 (128 bands, batch 16), then
+the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
+640; 48,000 rows a step) and the large_v3_l1 recipe on those stores.
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions,
      whether TensorBoard imports;
-  1. build all four kernels from csrc/ with nvcc for sm_90a, in parallel;
+  1. build all four kernel sources (five kernels) from csrc/ with nvcc for
+     sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the card, at the
-     main path's shapes (and edge rows for the TopK kernels), with its
+     main paths' shapes (and edge rows for the TopK kernels), with its
      stated tolerance, and both timed (median CUDA-event time after
      warm-up);
   3. the collection CLI (``python -m freud_tpu_torch.scripts.collect_activations
@@ -29,7 +35,20 @@ checkpoint; then collection with the trained SAE attached.
   6. one TopK batch (2 files) at full width on the card and on the CPU from
      the same weights: losses and parameter gradients;
   7. collection with the trained TopK checkpoint as sae_model: the indexed
-     store.
+     store;
+  8. the collection CLI at large width from the repo's large feature
+     configs (only the model, data and output folders replaced):
+     random:large-v1 at batch 32 over 34 30-s WAVs and a shorter one,
+     random:large-v3 at batch 16 over 17 30-s WAVs; stores (n, 1500, 1280),
+     the blocked attention kernel launched 17 times a batch and the fused
+     one never; RTFx;
+  9. test:large-v3 (2 layers at full width, 128 bands) on the card against
+     the CPU plain path, 2 files at block 1;
+ 10. the train CLI from configs/train/large_v1_audioset.json on the
+     large-v1 store, 10 steps with AuxK active (kernel #4 at d_in 1280,
+     n_dict 20480), and from large_v3_l1.json on the large-v3 store, 4
+     steps; steps/s, median step and peak device memory;
+ 11. one TopK batch (1 file) at large width on the card and on the CPU.
 
 Every phase asserts; any failure exits nonzero. The last two lines of
 standard output are the kernels' JSON record and the device JSON.
@@ -40,6 +59,7 @@ Usage: python3 chip_smoke.py   (needs one CUDA card; no arguments)
 from __future__ import annotations
 
 import contextlib
+import gc
 import io
 import json
 import runpy
@@ -65,6 +85,11 @@ CARD_VS_CPU_TOL = 5e-2
 D_IN, N_DICT, K, K_AUX = 384, 6144, 32, 192
 M_ROWS = 50 * 1500  # one step's rows
 TRAIN_STEPS = 30
+# the large path: Whisper large (d 1280, 20 heads) to block 16
+LARGE_LAYER = "encoder.blocks.16"
+LARGE_D, LARGE_N_DICT, LARGE_K_AUX = 1280, 20480, 640
+LARGE_M_ROWS = 32 * 1500  # one large_v1_audioset step's rows
+LARGE_TRAIN_STEPS = 10
 
 
 def card_line() -> str:
@@ -150,6 +175,48 @@ def check_attention(torch, device, card):
             print(f"attention b={b} s={s}: kernel {ms:.4f} ms, plain "
                   f"{plain_ms:.4f} ms on {card}")
             record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+    return record
+
+
+def check_whisper_attention(torch, device, card):
+    """Kernel #5 against its plain version on (b, h, s, 64) head views of
+    (b, s, h·64) projections, as the encoder passes them."""
+    from freud_tpu_torch.ops.attention import whisper_attention, whisper_attention_plain
+
+    gen = torch.Generator().manual_seed(SEED + 5)
+    heads = 20
+    record = None
+    # (b, s, dtype, stable): the large-v3 batch; a ragged s; s = 65 (one
+    # row past a 64-row tile); stable=False on bounded scores (|q|, |k| ~ 0.3)
+    cases = [(16, 1500, torch.float32, True), (16, 1500, torch.bfloat16, True),
+             (4, 777, torch.float32, True), (4, 65, torch.bfloat16, True),
+             (4, 777, torch.float32, False)]
+    for b, s, dtype, stable in cases:
+        scale = 1.0 if stable else 0.3
+        q, k, v = ((torch.randn((b, s, heads * 64), generator=gen) * scale)
+                   .to(device, dtype).view(b, s, heads, 64).transpose(1, 2)
+                   for _ in range(3))
+        got = whisper_attention(q, k, v, stable=stable)
+        want = whisper_attention_plain(q.float(), k.float(), v.float())
+        torch.cuda.synchronize()
+        max_err = (got.float() - want).abs().max().item()
+        rel = max_err / want.abs().max().item()
+        print(f"whisper_attention b={b} h={heads} s={s} {str(dtype)[6:]} "
+              f"stable={stable}: max|Δ| {max_err:.3e}, max|Δ|/max|ref| {rel:.3e} "
+              "(bound 2e-2)")
+        assert got.shape == (b, heads, s, 64) and got.dtype == dtype
+        assert torch.isfinite(got).all()
+        assert rel < 2e-2, rel
+        if b == 16:
+            ms = cuda_ms(lambda: whisper_attention(q, k, v))
+            plain_ms = cuda_ms(lambda: whisper_attention_plain(q, k, v),
+                               warmup=1, reps=5)
+            print(f"whisper_attention b={b} h={heads} s={s} {str(dtype)[6:]}: "
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+            if dtype == torch.float32:  # the large collection's dtype
+                record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+        del q, k, v, got, want
+    torch.cuda.empty_cache()
     return record
 
 
@@ -298,12 +365,13 @@ def check_topk_threshold(torch, device, card):
     return record
 
 
-def write_wavs(folder: Path) -> list[tuple[str, int]]:
-    """Seeded noise clips as 16-bit PCM WAV, plus one broken file;
-    → [(path, n_samples)] of the decodable ones."""
-    rng = np.random.default_rng(SEED)
+def write_wavs(folder: Path, lengths: list[int], broken: bool = False,
+               seed: int = SEED) -> list[tuple[str, int]]:
+    """Seeded noise clips of ``lengths`` samples as 16-bit PCM WAV, plus
+    one undecodable file when ``broken``; → [(path, n_samples)] of the
+    decodable ones."""
+    rng = np.random.default_rng(seed)
     out = []
-    lengths = [480000] * N_LONG + [int(16000 * s) for s in N_SHORT_S]
     for i, n in enumerate(lengths):
         audio = np.clip(rng.standard_normal(n) * 0.1, -1, 1)
         path = folder / f"clip{i:03d}.wav"
@@ -313,8 +381,9 @@ def write_wavs(folder: Path) -> list[tuple[str, int]]:
             f.setframerate(16000)
             f.writeframes((audio * 32767).astype(np.int16).tobytes())
         out.append((str(path), n))
-    # one undecodable file: collection skips it (decode-degrade policy)
-    (folder / "clip_broken.wav").write_bytes(b"RIFF, but not a wav file")
+    if broken:
+        # one undecodable file: collection skips it (decode-degrade policy)
+        (folder / "clip_broken.wav").write_bytes(b"RIFF, but not a wav file")
     return out
 
 
@@ -363,6 +432,12 @@ def train(config: dict, cfg_path: Path) -> tuple[dict, list[dict]]:
     return stats, seen
 
 
+def free_device_memory(torch) -> None:
+    """Drop what the last run left (its model, its SAE) from the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def check_checkpoints(torch, ckpt_dir: Path, names: list[str]) -> None:
     for name in names:
         ck = torch.load(ckpt_dir / name, map_location="cpu", weights_only=True)
@@ -371,22 +446,24 @@ def check_checkpoints(torch, ckpt_dir: Path, names: list[str]) -> None:
         assert all(torch.isfinite(v).all() for v in ck["model"].values()), name
 
 
-def card_vs_cpu_batch(torch, device, store) -> float:
-    """One TopK step's losses and parameter gradients at full width (2
-    files), on the card (kernel #4) and on the CPU (plain), from the same
-    numpy weights. → the largest gradient error relative to its max."""
+def card_vs_cpu_batch(torch, device, store, d_in: int = D_IN, n_dict: int = N_DICT,
+                      n_files: int = 2) -> float:
+    """One TopK step's losses and parameter gradients at full width
+    (``n_files`` files), on the card (kernel #4) and on the CPU (plain),
+    from the same numpy weights. → the largest gradient error relative to
+    its max."""
     from freud_tpu_torch.models.sae import params_from_jax
     from freud_tpu_torch.models.sae import topk as topk_mod
     from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
 
     rng = np.random.default_rng(SEED + 4)
-    bound = D_IN ** -0.5
-    w = rng.uniform(-bound, bound, (N_DICT, D_IN)).astype(np.float32)
+    bound = d_in ** -0.5
+    w = rng.uniform(-bound, bound, (n_dict, d_in)).astype(np.float32)
     np_params = {"encoder_weight": w, "W_dec": w / np.linalg.norm(w, axis=1, keepdims=True),
-                 "encoder_bias": (rng.standard_normal(N_DICT) * 0.01).astype(np.float32),
-                 "b_dec": (rng.standard_normal(D_IN) * 0.01).astype(np.float32)}
-    x = torch.from_numpy(np.array(store[:2], np.float32))
-    dead = torch.from_numpy(rng.random(N_DICT) < 1 / 3)
+                 "encoder_bias": (rng.standard_normal(n_dict) * 0.01).astype(np.float32),
+                 "b_dec": (rng.standard_normal(d_in) * 0.01).astype(np.float32)}
+    x = torch.from_numpy(np.array(store[:n_files], np.float32))
+    dead = torch.from_numpy(rng.random(n_dict) < 1 / 3)
     cfg = TopKAutoEncoderConfig(expansion_factor=16, k=K, auxk_alpha=1 / 32)
     out = {}
     for dev in (device, torch.device("cpu")):
@@ -400,21 +477,23 @@ def card_vs_cpu_batch(torch, device, store) -> float:
     (card_terms, card_g), (cpu_terms, cpu_g) = out["cuda"], out["cpu"]
     for k in ("fvu", "auxk_loss"):
         rel = abs(card_terms[k] - cpu_terms[k]) / abs(cpu_terms[k])
-        print(f"card vs CPU, one batch: {k} {card_terms[k]:.6f} vs {cpu_terms[k]:.6f} "
+        print(f"card vs CPU, one batch (d_in {d_in}, n_dict {n_dict}): {k} "
+              f"{card_terms[k]:.6f} vs {cpu_terms[k]:.6f} "
               f"(rel {rel:.2e}, bound 1e-2)")
         assert rel < 1e-2, (k, rel)
     worst = 0.0
     for n, g in cpu_g.items():
         err = ((card_g[n] - g).abs().max() / g.abs().max()).item()
-        print(f"card vs CPU, one batch: grad {n} max|Δ|/max|cpu| {err:.3e} (bound 3e-2)")
+        print(f"card vs CPU, one batch (d_in {d_in}): grad {n} max|Δ|/max|cpu| "
+              f"{err:.3e} (bound 3e-2)")
         assert err < 3e-2, (n, err)
         worst = max(worst, err)
     return worst
 
 
-def read_store(folder: Path):
-    meta = json.loads((folder / f"{LAYER}_metadata.json").read_text())
-    rows = np.load(folder / f"{LAYER}_tensors.npy", mmap_mode="r")
+def read_store(folder: Path, layer: str = LAYER):
+    meta = json.loads((folder / f"{layer}_metadata.json").read_text())
+    rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
     return meta, rows.reshape(rows.shape[0], *meta["tensor_shape"])
 
 
@@ -427,7 +506,7 @@ def main() -> int:
         return 1
     from freud_tpu_torch import _native, profiling
     from freud_tpu_torch.analysis.features import activation_length_from_samples
-    from freud_tpu_torch.ops.attention import fused_qkv_attention
+    from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
@@ -459,6 +538,7 @@ def main() -> int:
     # phase 2 — kernels against their plain versions
     mel_rec = check_mel(torch, device, card)
     attn_rec = check_attention(torch, device, card)
+    wattn_rec = check_whisper_attention(torch, device, card)
     fused_rec = check_topk_fused(torch, device, card)
     thresh_rec = check_topk_threshold(torch, device, card)
 
@@ -466,7 +546,9 @@ def main() -> int:
         tmp = Path(tmp)
         audio_dir = tmp / "audio"
         audio_dir.mkdir()
-        clips = write_wavs(audio_dir)
+        clips = write_wavs(
+            audio_dir, [480000] * N_LONG + [int(16000 * t) for t in N_SHORT_S],
+            broken=True)
         n_files = len(clips)
         n_batches = -(-n_files // BATCH)
         base = json.loads(
@@ -594,6 +676,125 @@ def main() -> int:
         assert np.isfinite(vals).all() and (vals >= 0).all()
         assert idx.min() >= 0 and idx.max() < N_DICT
 
+        # phase 8 — collection at large width, from the repo's large configs
+        large_launches = {"log_mel": 0, "whisper_attention": 0}
+        large_stores = {}
+        for name, cfg_file, batch, n_long, short in (
+                ("large-v1", "large_v1_block_16_audioset_train.json", 32, 34, (9.1,)),
+                ("large-v3", "large_v3_block_16_dev.json", 16, 17, ())):
+            lbase = json.loads((REPO / "configs/features" / cfg_file).read_text())
+            assert (lbase["whisper_model"], lbase["layer_name"], lbase["batch_size"]) == (
+                name, LARGE_LAYER, batch)
+            ldir = tmp / f"audio_{name}"
+            ldir.mkdir()
+            lclips = write_wavs(ldir, [480000] * n_long + [int(16000 * t) for t in short],
+                                seed=SEED + 6)
+            n_lfiles = len(lclips)
+            n_lbatches = -(-n_lfiles // batch)
+            lcfg = {**lbase, "whisper_model": f"random:{name}", "data_path": str(ldir),
+                    "out_folder": str(tmp / f"store_{name}")}
+            log_mel_spectrogram_cuda.launches = 0
+            whisper_attention.launches = 0
+            fused_qkv_attention.launches = 0
+            lstats = collect(lcfg, tmp / f"collect_{name}.json")
+            torch.cuda.synchronize()
+            got = {"log_mel": log_mel_spectrogram_cuda.launches,
+                   "whisper_attention": whisper_attention.launches,
+                   "fused_qkv_attention": fused_qkv_attention.launches}
+            print(f"launches in the random:{name} collection: {got} "
+                  f"({n_lbatches} batches of {batch})")
+            assert got["log_mel"] >= n_lbatches, got
+            assert got["whisper_attention"] >= 17 * n_lbatches, got
+            assert got["fused_qkv_attention"] == 0, got
+            for k in large_launches:
+                large_launches[k] += got[k]
+            lmeta, lstore = read_store(tmp / f"store_{name}", LARGE_LAYER)
+            assert lstore.shape == (n_lfiles, 1500, LARGE_D), lstore.shape
+            assert np.isfinite(lstore).all()
+            assert lmeta["filenames"] == [p for p, _ in lclips]
+            assert lmeta["tensor_shape"] == lmeta["activation_shape"] == [1500, LARGE_D]
+            assert lmeta["n_frames"] == [activation_length_from_samples(n)
+                                         for _, n in lclips]
+            assert sorted(lmeta) == sorted(meta), (sorted(lmeta), sorted(meta))
+            assert lstats["n_files"] == n_lfiles
+            print(f"random:{name} collection to {LARGE_LAYER}, batch {batch}: "
+                  f"{n_lfiles} files in {lstats['elapsed_s']:.3f} s (the CLI's clock, "
+                  f"after model init), RTFx {lstats['rtfx']:.1f} on {card}")
+            large_stores[name] = (tmp / f"store_{name}", lstore, ldir)
+            free_device_memory(torch)
+
+        # phase 9 — test:large-v3 (2 layers at full width) card against CPU
+        gcfg = {**json.loads((REPO / "configs/features/large_v3_block_16_dev.json").read_text()),
+                "whisper_model": "test:large-v3", "layer_name": "encoder.blocks.1",
+                "data_path": str(large_stores["large-v3"][2]), "collect_max": 2}
+        collect({**gcfg, "out_folder": str(tmp / "g_card")}, tmp / "g_card.json")
+        collect({**gcfg, "device": "cpu", "out_folder": str(tmp / "g_cpu")},
+                tmp / "g_cpu.json")
+        _, gcard = read_store(tmp / "g_card", "encoder.blocks.1")
+        _, gcpu = read_store(tmp / "g_cpu", "encoder.blocks.1")
+        assert gcard.shape == gcpu.shape == (2, 1500, LARGE_D)
+        rel = float(np.abs(gcard - gcpu).max() / np.abs(gcpu).max())
+        print(f"card vs CPU plain path, test:large-v3 block 1, 2 files: "
+              f"max|Δ|/max|cpu| {rel:.3e} (bound {CARD_VS_CPU_TOL})")
+        assert rel < CARD_VS_CPU_TOL, rel
+
+        # phase 10 — the large recipes on the large stores
+        v1_dir = str(large_stores["large-v1"][0])
+        tlarge = json.loads((REPO / "configs/train/large_v1_audioset.json").read_text())
+        assert tlarge["batch_size"] == 32 and tlarge["autoencoder_variant"] == "topk"
+        assert tlarge["whisper_config"]["layer_name"] == LARGE_LAYER
+        tlcfg = {**tlarge, "train_folder": v1_dir, "val_folder": v1_dir,
+                 "run_dir": str(tmp / "run_large_topk"), "steps": LARGE_TRAIN_STEPS,
+                 "save_every": 5, "val_every": 5, "log_tb_every": 5,
+                 # below one step's 48,000 frames: AuxK runs from step 2
+                 "autoencoder_config": {**tlarge["autoencoder_config"],
+                                        "dead_feature_threshold": LARGE_M_ROWS // 2}}
+        topk_sae_forward.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        ltstats, ltsteps = train(tlcfg, tmp / "large_topk.json")
+        large_topk_launches = topk_sae_forward.launches
+        peak = torch.cuda.max_memory_allocated()
+        span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
+        # train (32-file) and validation (8-file) gathers share the span
+        mmap_ms = sorted(round(1e3 * t, 1) for t in profiling.calls("mmap_batch"))
+        dead = [m["dead_pct"] for m in ltsteps]
+        aux = [m["auxk_loss"] for m in ltsteps]
+        print(f"large_v1_audioset: {ltstats['steps']} steps, steps_per_sec "
+              f"{ltstats['steps_per_sec']:.3f} (incl. 2 validations and checkpoint "
+              f"writes), median train_step {span_ms:.3f} ms, mmap_batch ms "
+              f"{mmap_ms}, peak device memory {peak / 2**30:.3f} GiB on "
+              f"{card}; dead_pct step 2 {dead[1]:.4f}; auxk_loss step 2 {aux[1]:.4e}; "
+              f"loss {ltsteps[0]['loss']:.4f} → {ltsteps[-1]['loss']:.4f}; kernel #4 "
+              f"launches {large_topk_launches}")
+        assert len(ltsteps) == LARGE_TRAIN_STEPS == ltstats["steps"]
+        assert all(np.isfinite(list(m.values())).all() for m in ltsteps)
+        assert max(dead[1:]) > 0 and max(aux[1:]) > 0, (dead, aux)
+        assert large_topk_launches >= LARGE_TRAIN_STEPS, large_topk_launches
+        check_checkpoints(torch, tmp / "run_large_topk" / "checkpoints",
+                          ["step5.pth", "step10.pth", "bestval.pth"])
+        free_device_memory(torch)
+
+        v3_dir = str(large_stores["large-v3"][0])
+        l1large = json.loads((REPO / "configs/train/large_v3_l1.json").read_text())
+        assert l1large["batch_size"] == 16 and l1large["autoencoder_variant"] == "l1"
+        torch.cuda.reset_peak_memory_stats()
+        l1stats, l1steps = train(
+            {**l1large, "train_folder": v3_dir, "val_folder": v3_dir,
+             "run_dir": str(tmp / "run_large_l1"), "steps": 4, "save_every": 4,
+             "val_every": 4, "log_tb_every": 2}, tmp / "large_l1.json")
+        span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
+        print(f"large_v3_l1 (batch 16): steps_per_sec {l1stats['steps_per_sec']:.3f}, "
+              f"median train_step {span_ms:.3f} ms, peak device memory "
+              f"{torch.cuda.max_memory_allocated() / 2**30:.3f} GiB on {card}; loss "
+              f"{l1steps[0]['loss']:.4f} → {l1steps[-1]['loss']:.4f}")
+        assert len(l1steps) == 4 and all(np.isfinite(list(m.values())).all() for m in l1steps)
+        check_checkpoints(torch, tmp / "run_large_l1" / "checkpoints", ["step4.pth"])
+        free_device_memory(torch)
+
+        # phase 11 — one TopK batch (1 file) at large width, card against CPU
+        card_vs_cpu_batch(torch, device, large_stores["large-v1"][1],
+                          d_in=LARGE_D, n_dict=LARGE_N_DICT, n_files=1)
+
     kernels = [
         {"name": "log_mel", "route": "cuda",
          "source": "freud_tpu_torch/csrc/mel.cu",
@@ -603,6 +804,10 @@ def main() -> int:
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
          "launches": launches["fused_qkv_attention"], **attn_rec},
+        {"name": "whisper_attention", "route": "cuda",
+         "source": "freud_tpu_torch/csrc/attention.cu",
+         "replaces": "freud_tpu/ops/attention.py:144",
+         "launches": large_launches["whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",

@@ -21,7 +21,6 @@ import torch
 
 from .. import profiling
 from ..analysis.features import activation_length_from_samples
-from ..constants import get_n_mels
 from ..models.sae import config as sae_config
 from ..models.sae import l1 as l1_mod
 from ..models.sae import serialize as sae_serialize
@@ -137,7 +136,7 @@ class FlyActivationLoader:
         self.pipeline = AudioBatchPipeline(
             data_path,
             batch_size,
-            get_n_mels(whisper_model),
+            self.runtime.dims.n_mels,
             subset_size=subset_size,
             decode_threads=decode_threads,
             exclude=exclude,

@@ -1,5 +1,5 @@
 from .config import MODEL_DIMS, WhisperDims, dims_for
-from .load import load_model, state_dict_from_jax
+from .load import load_hf_dir, load_model, state_dict_from_hf, state_dict_from_jax
 from .model import AudioEncoder, encoder_forward, init_encoder
 from .runtime import WhisperRuntime
 
@@ -7,7 +7,9 @@ __all__ = [
     "MODEL_DIMS",
     "WhisperDims",
     "dims_for",
+    "load_hf_dir",
     "load_model",
+    "state_dict_from_hf",
     "state_dict_from_jax",
     "AudioEncoder",
     "encoder_forward",

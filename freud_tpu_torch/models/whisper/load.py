@@ -8,13 +8,16 @@
   ``state_dict_from_jax`` when both must hold the same model.
 * a bare name → the OpenAI ``.pt`` checkpoint from ``$FREUD_WHISPER_DIR`` or
   ``~/.cache/whisper`` (the search of ``freud_tpu/models/whisper/load.py``),
-  read with ``torch.load(weights_only=True)``.
-
-HuggingFace checkpoint directories are not loaded by this package yet.
+  read with ``torch.load(weights_only=True)``;
+* a HuggingFace checkpoint directory (``config.json`` + ``model.safetensors``
+  or ``pytorch_model.bin``) → ``load_hf_dir``. ``model.safetensors`` is read
+  by ``read_safetensors``, a numpy reader of the format, so the
+  ``safetensors`` package is not needed.
 """
 
 from __future__ import annotations
 
+import json
 import os
 from pathlib import Path
 from typing import Mapping
@@ -120,6 +123,112 @@ def encoder_from_state_dict(sd: Mapping[str, torch.Tensor], dims: WhisperDims,
     return enc.to(device)
 
 
+# ------------------------------------------------------ HuggingFace layout
+
+# safetensors dtype names → numpy; BF16 (numpy has none) is widened below
+_ST_DTYPES = {"F64": np.float64, "F32": np.float32, "F16": np.float16,
+              "I64": np.int64, "I32": np.int32, "I16": np.int16, "I8": np.int8,
+              "U8": np.uint8, "BOOL": np.bool_}
+
+
+def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
+    """A ``.safetensors`` file as numpy arrays: an 8-byte little-endian
+    header length, a JSON header ``{name: {dtype, shape, data_offsets}}``
+    (plus an optional ``__metadata__``), then the raw little-endian buffers.
+    Arrays are read-only views of a memory map, so tensors never used are
+    never read; BF16 tensors are widened to float32 (exactly)."""
+    with open(path, "rb") as f:
+        (n,) = np.frombuffer(f.read(8), dtype="<u8")
+        header = json.loads(f.read(int(n)))
+    data = np.memmap(path, dtype=np.uint8, mode="r", offset=8 + int(n))
+    out = {}
+    for name, info in header.items():
+        if name == "__metadata__":
+            continue
+        begin, end = info["data_offsets"]
+        raw = data[begin:end]
+        if info["dtype"] == "BF16":
+            bits = raw.view("<u2").astype(np.uint32) << 16
+            arr = bits.view(np.float32)
+        elif info["dtype"] in _ST_DTYPES:
+            arr = raw.view(np.dtype(_ST_DTYPES[info["dtype"]]).newbyteorder("<"))
+        else:
+            raise ValueError(f"{path}: tensor {name!r} has unsupported dtype "
+                             f"{info['dtype']}")
+        out[name] = arr.reshape(info["shape"])
+    return out
+
+
+# HF encoder-layer modules → the OpenAI (and this package's) module names
+_HF_BLOCK = (("self_attn_layer_norm", "attn_ln"), ("self_attn.q_proj", "attn.query"),
+             ("self_attn.k_proj", "attn.key"), ("self_attn.v_proj", "attn.value"),
+             ("self_attn.out_proj", "attn.out"), ("final_layer_norm", "mlp_ln"),
+             ("fc1", "mlp.0"), ("fc2", "mlp.2"))
+
+
+def state_dict_from_hf(sd: Mapping, dims: WhisperDims) -> dict[str, torch.Tensor]:
+    """OpenAI-layout encoder state dict (``encoder.*``, f32) from a
+    HuggingFace-transformers Whisper state dict (``model.encoder.*`` or
+    ``encoder.*`` keys; numpy arrays or tensors) — the encoder half of
+    ``freud_tpu.models.whisper.load.params_from_hf_state_dict``. HF linears,
+    LayerNorms and convs share torch's layout, so tensors move across
+    unchanged; the decoder's entries are not read."""
+    enc = "model.encoder"
+    if f"{enc}.conv1.weight" not in sd and "encoder.conv1.weight" in sd:
+        enc = "encoder"
+    out: dict[str, torch.Tensor] = {}
+
+    def f32(x) -> torch.Tensor:  # a tensor (maybe bf16) or a numpy array
+        if isinstance(x, torch.Tensor):
+            return x.detach().to(torch.float32)
+        return torch.from_numpy(np.array(x, dtype=np.float32))
+
+    def move(src: str, dst: str) -> None:
+        for suffix in ("weight", "bias"):
+            if f"{src}.{suffix}" in sd:
+                out[f"encoder.{dst}.{suffix}"] = f32(sd[f"{src}.{suffix}"])
+
+    move(f"{enc}.conv1", "conv1")
+    move(f"{enc}.conv2", "conv2")
+    out["encoder.positional_embedding"] = f32(sd[f"{enc}.embed_positions.weight"])
+    for i in range(dims.n_audio_layer):
+        for theirs, ours in _HF_BLOCK:
+            move(f"{enc}.layers.{i}.{theirs}", f"blocks.{i}.{ours}")
+    move(f"{enc}.layer_norm", "ln_post")
+    return out
+
+
+def load_hf_dir(path: str | Path, device: torch.device | str = "cpu"
+                ) -> tuple[AudioEncoder, WhisperDims]:
+    """(encoder, dims) from a local HuggingFace Whisper checkpoint directory:
+    ``config.json`` gives the dims, ``model.safetensors`` (preferred) or
+    ``pytorch_model.bin`` the weights."""
+    path = Path(path)
+    hf_cfg = json.loads((path / "config.json").read_text())
+    dims = WhisperDims(
+        n_mels=hf_cfg["num_mel_bins"],
+        n_audio_ctx=hf_cfg.get("max_source_positions", 1500),
+        n_audio_state=hf_cfg["d_model"],
+        n_audio_head=hf_cfg["encoder_attention_heads"],
+        n_audio_layer=hf_cfg["encoder_layers"],
+        n_vocab=hf_cfg["vocab_size"],
+        n_text_ctx=hf_cfg.get("max_target_positions", 448),
+        n_text_state=hf_cfg["d_model"],
+        n_text_head=hf_cfg["decoder_attention_heads"],
+        n_text_layer=hf_cfg["decoder_layers"],
+    )
+    if (path / "model.safetensors").exists():
+        sd = read_safetensors(path / "model.safetensors")
+    elif (path / "pytorch_model.bin").exists():
+        sd = torch.load(path / "pytorch_model.bin", map_location="cpu",
+                        weights_only=True)
+    else:
+        raise FileNotFoundError(
+            f"{path} holds config.json but neither model.safetensors nor "
+            "pytorch_model.bin")
+    return encoder_from_state_dict(state_dict_from_hf(sd, dims), dims, device), dims
+
+
 def load_model(name: str, device: torch.device | str = "cpu") -> tuple[AudioEncoder, WhisperDims]:
     """Resolve a model name to (encoder, dims) on ``device``."""
     if name.startswith(("random:", "test:")):
@@ -128,9 +237,7 @@ def load_model(name: str, device: torch.device | str = "cpu") -> tuple[AudioEnco
 
     as_path = Path(name).expanduser()
     if as_path.is_dir() and (as_path / "config.json").exists():
-        raise NotImplementedError(
-            "HuggingFace checkpoint directories are not loaded by "
-            "freud_tpu_torch yet; convert to the OpenAI .pt layout")
+        return load_hf_dir(as_path, device)
     if name not in MODEL_DIMS:
         raise ValueError(f"Unknown whisper model: {name!r}")
     path = find_checkpoint(name)

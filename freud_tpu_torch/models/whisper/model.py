@@ -19,14 +19,17 @@ with the same tap points (and the same (b, T, d) layout at the conv taps):
   encoder.blocks.N.mlp.2 / .mlp      MLP output projection
   encoder.ln_post                    final LayerNorm
 
-Self-attention goes through ``freud_tpu_torch.ops.attention.fused_qkv_attention``
-in place of the JAX ``_attention_impl`` switch: a CUDA tensor with
-d ≤ 768 launches the CUDA kernel (bf16 products, f32 statistics); a CUDA
-tensor with d > 768 raises, because the kernel that serves medium and large
-(``whisper_attention``) is not ported yet; a CPU tensor takes the plain f32
-path. The MLP, the out-projection and the convs stay ``torch.matmul`` and
-``F.conv1d`` — the JAX package left them to XLA. For f32 on CUDA the caller
-pins TF32 off (``WhisperRuntime`` does), or cuDNN would run the convs in TF32.
+Self-attention is routed as the JAX ``_attention_impl`` routes it
+(``attention_route``, set by the module-level ``ATTENTION_IMPL``): under
+``"auto"`` a CUDA tensor with d ≤ 768 launches the fused q/k/v attention
+kernel (``ops.attention.fused_qkv_attention``), a CUDA tensor with d > 768
+(medium, large) projects q/k/v with the ``nn.Linear``s and launches the
+blocked kernel (``ops.attention.whisper_attention``) — both bf16 products
+with f32 statistics — and a CPU tensor takes the plain f32 path. The MLP,
+the q/k/v projections at d > 768, the out-projection and the convs stay
+``torch.matmul`` and ``F.conv1d`` — the JAX package left them to XLA. For
+f32 on CUDA the caller pins TF32 off (``WhisperRuntime`` does), or cuDNN
+would run the convs in TF32.
 """
 
 from __future__ import annotations
@@ -38,12 +41,43 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ...ops.attention import fused_qkv_attention
+from ...ops.attention import (
+    fused_qkv_attention,
+    whisper_attention,
+    whisper_attention_plain,
+)
 from .config import WhisperDims
 
 Captures = dict[str, torch.Tensor]
 
 FUSED_ATTENTION_MAX_D = 768  # the fused kernel's gate (model.py:205 of the JAX package)
+
+# Full-sequence self-attention implementation (the JAX package's values):
+#   "auto"   → on CUDA the fused q/k/v kernel for d ≤ 768, the blocked
+#              whisper_attention kernel for d > 768; the plain path on the CPU
+#   "einsum" → the plain f32 attention, on any device
+#   "kernel" → force the whisper_attention kernel (q/k/v by the Linears)
+#   "fused"  → force the fused q/k/v kernel
+#   "flash"  → JAX's opt-in stock flash kernel computes the same function;
+#              here it is served by the whisper_attention kernel
+ATTENTION_IMPL: str = "auto"
+ATTENTION_IMPLS = ("auto", "einsum", "kernel", "fused", "flash")
+
+
+def attention_route(d: int, device_type: str, impl: str | None = None) -> str:
+    """Which attention a (…, d) input on ``device_type`` takes under
+    ``impl`` (default ``ATTENTION_IMPL``): ``"fused"`` (fused_qkv_attention),
+    ``"kernel"`` (whisper_attention) or ``"plain"`` (f32 attention). A
+    kernel route given a CPU tensor runs that wrapper's plain version."""
+    impl = ATTENTION_IMPL if impl is None else impl
+    if impl not in ATTENTION_IMPLS:
+        raise ValueError(f"unknown attention implementation {impl!r}; "
+                         f"expected one of {ATTENTION_IMPLS}")
+    if impl == "auto":
+        if device_type != "cuda":
+            return "plain"
+        return "fused" if d <= FUSED_ATTENTION_MAX_D else "kernel"
+    return {"einsum": "plain", "flash": "kernel"}.get(impl, impl)
 
 
 def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.ndarray:
@@ -65,18 +99,26 @@ class MultiHeadAttention(nn.Module):
         self.out = nn.Linear(n_state, n_state)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        d = x.shape[-1]
-        if x.is_cuda and d > FUSED_ATTENTION_MAX_D:
-            raise NotImplementedError(
-                f"d_model {d} > {FUSED_ATTENTION_MAX_D} needs the blocked "
-                "attention kernel (freud_tpu/ops/attention.py "
-                "whisper_attention), which is not ported to CUDA yet")
-        # nn.Linear weights are (out, in); the kernel takes (in, out)
-        out = fused_qkv_attention(
-            x, self.query.weight.t(), self.query.bias, self.key.weight.t(),
-            self.value.weight.t(), self.value.bias, self.n_head,
-        )
-        return self.out(out)
+        b, s, d = x.shape
+        route = attention_route(d, x.device.type)
+        if route == "fused":
+            # nn.Linear weights are (out, in); the kernel takes (in, out)
+            out = fused_qkv_attention(
+                x, self.query.weight.t(), self.query.bias, self.key.weight.t(),
+                self.value.weight.t(), self.value.bias, self.n_head,
+            )
+            return self.out(out)
+
+        def heads(t):  # (b, s, d) → a (b, h, s, dh) view, no copy
+            return t.view(b, s, self.n_head, d // self.n_head).transpose(1, 2)
+
+        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        if route == "kernel":
+            out = whisper_attention(q, k, v)
+        else:
+            out = whisper_attention_plain(q, k, v)
+        # the kernel writes (b, s, h, dh) memory: merging the heads is free
+        return self.out(out.transpose(1, 2).reshape(b, s, d))
 
 
 class ResidualAttentionBlock(nn.Module):

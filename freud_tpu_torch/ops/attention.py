@@ -1,28 +1,35 @@
-"""Whisper encoder self-attention with the q/k/v projections fused in, as a
-hand-written CUDA kernel (``csrc/attention.cu``).
+"""Whisper encoder self-attention as hand-written CUDA kernels
+(``csrc/attention.cu``), in two entry points that share one attention phase:
 
-Replaces the Pallas TPU kernel ``freud_tpu/ops/attention.py``
-(``fused_qkv_attention`` / ``_qkv_attn_kernel``). The JAX signature is kept:
-``fused_qkv_attention(x, wq, bq, wk, wv, bv, heads)`` with weights in the
-JAX (d_in, d_out) layout; the caller applies the output projection.
+* ``fused_qkv_attention(x, wq, bq, wk, wv, bv, heads)`` replaces the Pallas
+  TPU kernel ``fused_qkv_attention`` / ``_qkv_attn_kernel`` of
+  ``freud_tpu/ops/attention.py``: the q/k/v projections fused in, weights in
+  the JAX (d_in, d_out) layout; the caller applies the output projection.
+  The encoders with d ≤ 768 take it.
+* ``whisper_attention(q, k, v, matmul_dtype=None, block_q=512, stable=True)``
+  replaces the Pallas TPU kernel ``whisper_attention`` / ``_kernel``:
+  softmax(q·kᵀ·dh^-½)·v over (b, h, s, dh) q/k/v that were projected
+  outside. The medium and large encoders (d > 768) take it.
 
 On an H100 the work is bf16 tensor-core products (``mma.sync``) with f32
 accumulation and f32 softmax statistics; what bounds it is the softmax on
 f32 scores and the operand feed, and the design keeps the (s × s) scores
-out of device memory (header of ``csrc/attention.cu``). It runs in two
-phases: a q/k/v projection GEMM into bf16 scratch, then attention per
-(query tile, head, clip) with an online max and sum.
+out of device memory (header of ``csrc/attention.cu``): query tiles of 64
+rows per block, K/V streamed in 64-key tiles with an online max and sum, one
+normalisation of the output at the end. The fused entry first runs a q/k/v
+projection GEMM into bf16 scratch.
 
-Precision: the kernel's matmuls take bf16 operands for BOTH input dtypes,
-as the TPU kernel did (``freud_tpu/models/whisper/model.py:194-205``), so
-on CUDA the f32 collection path runs attention at bf16 precision (~0.4%
-relative, bounded by 2e-2 of the output's max in the tests). The plain
-version, ``fused_qkv_attention_plain``, is f32 math throughout, like the
-JAX CPU einsum path; the CPU path runs it.
+Precision: the kernels' matmuls take bf16 operands for BOTH input dtypes,
+as the TPU kernels did on the TPU (``freud_tpu/models/whisper/model.py:194-205``,
+``freud_tpu/ops/attention.py:87-88``), so on CUDA the f32 collection path
+runs attention at bf16 precision (~0.4% relative, bounded by 2e-2 of the
+output's max in the tests). The plain versions are f32 math throughout, like
+the JAX CPU paths; the CPU path runs them.
 
-``fused_qkv_attention`` dispatches on the device: a CUDA tensor launches the
-kernel (head_dim 64 — every Whisper size), a CPU tensor takes the plain
-version. ``fused_qkv_attention.launches`` counts kernel launches.
+Each wrapper dispatches on the device: a CUDA tensor launches the kernel
+(head_dim 64 — every Whisper size), a CPU tensor takes the plain version.
+``fused_qkv_attention.launches`` and ``whisper_attention.launches`` count
+kernel launches.
 """
 
 from __future__ import annotations
@@ -34,7 +41,7 @@ import torch
 from .._native import check_cuda_status, cuda_library
 
 HEAD_DIM = 64  # the kernel's head_dim (csrc/attention.cu kHeadDim)
-_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y (row tiles, clips)
+_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y and .z (row tiles; heads, clips)
 
 
 def fused_qkv_attention_plain(x, wq, bq, wk, wv, bv, heads: int) -> torch.Tensor:
@@ -63,6 +70,12 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
+    ]
+    lib.freud_whisper_attention.restype = ctypes.c_int
+    lib.freud_whisper_attention.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
     ]
     lib.freud_cuda_error_string.restype = ctypes.c_char_p
     lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
@@ -124,3 +137,104 @@ def fused_qkv_attention(
 
 
 fused_qkv_attention.launches = 0
+
+
+def whisper_attention_plain(q, k, v, matmul_dtype=None, stable: bool = True) -> torch.Tensor:
+    """softmax(q·kᵀ·dh^-½)·v over (b, h, s, dh), in f32, output in q's dtype.
+
+    ``matmul_dtype`` (e.g. bf16) rounds the operands of the two products as
+    the TPU kernel does — q·dh^-½ after the scale in f32, k, v, and the
+    probabilities before p·v — with f32 sums; ``None`` is f32 throughout.
+    ``stable=False`` drops the max-subtraction (valid when |scores| is
+    known bounded)."""
+    f32 = torch.float32
+    scale = q.shape[-1] ** -0.5
+
+    def rounded(t):
+        return t if matmul_dtype is None else t.to(matmul_dtype).to(f32)
+
+    qs = rounded(q.to(f32) * scale)
+    scores = qs @ rounded(k.to(f32)).transpose(-1, -2)
+    if stable:
+        scores = scores - scores.amax(dim=-1, keepdim=True)
+    p = torch.exp(scores)
+    out = (rounded(p) @ rounded(v.to(f32))) / p.sum(dim=-1, keepdim=True)
+    return out.to(q.dtype)
+
+
+def _check_head_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
+    if t.shape != shape or t.dtype != dtype or t.device != device:
+        raise ValueError(f"{name} must be {tuple(shape)} {dtype} on {device}, "
+                         f"got {tuple(t.shape)} {t.dtype} on {t.device}")
+    # the kernel stages 16-byte chunks of 8 elements: head_dim contiguous,
+    # strides in multiples of 8, a 16-byte aligned base; offsets inside one
+    # (clip, head) are 32-bit
+    if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]):
+        raise ValueError(f"{name} needs head_dim contiguous and strides in "
+                         f"multiples of 8, got strides {t.stride()}")
+    if t.data_ptr() % 16:
+        raise ValueError(f"{name} is not 16-byte aligned")
+    if t.shape[2] * t.stride(2) >= 2 ** 31:
+        raise ValueError(f"{name}: s {t.shape[2]} × row stride {t.stride(2)} "
+                         "exceeds the kernel's 32-bit offsets")
+
+
+def whisper_attention(
+    q: torch.Tensor,   # (b, h, s, dh) — any strides with dh contiguous
+    k: torch.Tensor,
+    v: torch.Tensor,
+    matmul_dtype=None,
+    block_q: int = 512,
+    stable: bool = True,
+) -> torch.Tensor:
+    """(b, h, s, dh) q/k/v → (b, h, s, dh) in q's dtype:
+    softmax((q·kᵀ)·dh^-½)·v, with JAX's signature.
+
+    A CUDA tensor launches the kernel, whose products are bf16 with f32 sums
+    (``matmul_dtype`` None or bfloat16; any other raises ``ValueError``, the
+    kernel being bf16-only). Its output is a (b, h, s, dh) view of a
+    (b, s, h, dh) buffer, so merging the heads back to (b, s, h·dh) is free.
+    A CPU tensor takes the plain version, with the products in
+    ``matmul_dtype`` or, when it is None, in the input dtype — JAX's default
+    off the TPU. ``block_q`` is accepted for the signature: the CUDA kernel's
+    tiles are its own (64 query rows, 64-key K/V tiles). ``stable=False``
+    drops the softmax max-subtraction (valid when |scores| is known
+    bounded)."""
+    if not q.is_cuda:
+        mm = q.dtype if matmul_dtype is None else matmul_dtype
+        return whisper_attention_plain(q, k, v, None if mm == torch.float32 else mm,
+                                       stable)
+    if matmul_dtype not in (None, torch.bfloat16):
+        raise ValueError(f"the CUDA kernel computes its products in bfloat16, "
+                         f"not {matmul_dtype}")
+    if q.ndim != 4:
+        raise ValueError(f"expected q (b, h, s, dh), got {tuple(q.shape)}")
+    b, h, s, dh = q.shape
+    if dh != HEAD_DIM:
+        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM}, got {dh}")
+    if q.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"q must be float32 or bfloat16, got {q.dtype}")
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_head_view(name, t, q.shape, q.dtype, q.device)
+    if b > _MAX_GRID_Y or h > _MAX_GRID_Y:
+        raise ValueError(f"b {b}, heads {h} exceed the kernel's grid "
+                         f"({_MAX_GRID_Y} clips, {_MAX_GRID_Y} heads); split "
+                         "the batch")
+    out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
+    if b * h * s == 0:
+        return out
+    strides = (ctypes.c_longlong * 12)(
+        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    lib = _library()
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        status = lib.freud_whisper_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            int(q.dtype == torch.bfloat16), b, h, s, strides,
+            float(dh ** -0.5), int(stable), stream)
+    check_cuda_status(status, "whisper attention kernel", lib)
+    whisper_attention.launches += 1
+    return out
+
+
+whisper_attention.launches = 0

@@ -5,7 +5,8 @@ The config schema and output artifacts of ``freud_tpu.scripts.collect_activation
 device / out_folder / dl_max_workers / collect_max / precision / store_dtype /
 resume; outputs ``{layer}_metadata.json`` + ``{layer}_tensors.npy``). The
 pipeline: native batched decode → pinned host buffer → CUDA log-mel kernel →
-encoder forward up to the captured layer (fused q/k/v attention kernel) →
+encoder forward up to the captured layer (the fused q/k/v attention kernel
+for d ≤ 768, the blocked attention kernel for medium and large) →
 asynchronous device→host copy → streamed append to the memory-mappable
 store on a write-behind thread.
 

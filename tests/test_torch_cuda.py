@@ -7,8 +7,9 @@ card machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: log-mel — the bounds of tests/test_mel_pallas.py (max |Δ| <
-2e-3, share of |Δ| > 3e-4 below 1e-5); attention — max |Δ| / max |ref| <
-2e-2, the bf16-product bound of tests/test_attention_kernel.py; TopK
+2e-3, share of |Δ| > 3e-4 below 1e-5); both attention kernels — max |Δ| /
+max |ref| < 2e-2, the bf16-product bound of tests/test_attention_kernel.py,
+and an encoder block on the card within 5e-2 of max of the CPU; TopK
 thresholds and fired — bit for bit against the plain version on the same
 input; the fused forward — acts differ on fewer than 1e-3 of entries, by at
 most one bf16 ulp of the pre-activation (the card's f32 sums round it
@@ -21,10 +22,12 @@ import pytest
 import torch
 
 from freud_tpu_torch.audio.mel import log_mel_spectrogram
-from freud_tpu_torch.models.whisper import AudioEncoder, WhisperDims, WhisperRuntime
+from freud_tpu_torch.models.whisper import WhisperDims, WhisperRuntime
 from freud_tpu_torch.ops.attention import (
     fused_qkv_attention,
     fused_qkv_attention_plain,
+    whisper_attention,
+    whisper_attention_plain,
 )
 from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
 from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
@@ -88,15 +91,56 @@ def test_attention_kernel_matches_plain(cuda, s, x_dtype):
         fused_qkv_attention(x, wq, bq, wk, wv, bv, 12)
 
 
-def test_wide_encoder_raises_on_cuda(cuda):
-    """d > 768 needs the unported blocked kernel: raise, never fall back."""
+@pytest.mark.parametrize("s,dtype,stable", [
+    (1500, torch.float32, True), (1500, torch.bfloat16, True),
+    (777, torch.float32, True), (65, torch.float32, True),
+    (777, torch.float32, False),
+])
+def test_whisper_attention_kernel_matches_plain(cuda, s, dtype, stable):
+    """(b, h, s, 64) head views of (b, s, d) projections, as the encoder
+    passes them; s 65 and 777 are no multiple of the 64-row tiles."""
+    rng = np.random.default_rng(12)
+    b, h = 2, 20
+    q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * 64)).astype(np.float32))
+               .to(cuda, dtype).view(b, s, h, 64).transpose(1, 2) for _ in range(3))
+    before = whisper_attention.launches
+    got = whisper_attention(q, k, v, stable=stable)
+    torch.cuda.synchronize()
+    assert whisper_attention.launches == before + 1
+    assert got.dtype == dtype and got.shape == (b, h, s, 64)
+    want = whisper_attention_plain(q, k, v)
+    err = (got.float() - want.float()).abs().max() / want.float().abs().max()
+    assert err.item() < 2e-2
+    with pytest.raises(ValueError):  # the kernel computes in bf16 only
+        whisper_attention(q, k, v, matmul_dtype=torch.float32)
+    with pytest.raises(ValueError):  # head_dim 32 is not a kernel shape
+        whisper_attention(*(t[..., :32] for t in (q, k, v)))
+
+
+def test_wide_encoder_on_card_matches_cpu(cuda):
+    """A medium-width block (d 1024, 16 heads) takes the whisper_attention
+    kernel on the card, never the fused one, and matches the CPU's plain
+    f32 path within 5e-2 of max (bf16 attention products)."""
+    from freud_tpu_torch.models.whisper import init_encoder
+
     dims = WhisperDims(n_mels=80, n_audio_ctx=1500, n_audio_state=1024,
                        n_audio_head=16, n_audio_layer=1, n_vocab=51865,
                        n_text_ctx=448, n_text_state=1024, n_text_head=16,
                        n_text_layer=1)
-    enc = AudioEncoder(dims).to(cuda)
-    with pytest.raises(NotImplementedError, match="whisper_attention"):
-        enc(torch.zeros((1, 80, 3000), device=cuda))
+    enc = init_encoder(dims, seed=3)
+    mels = torch.from_numpy(
+        np.random.default_rng(13).standard_normal((2, 80, 3000)).astype(np.float32) * 0.5)
+    with torch.inference_mode():
+        want = enc(mels, capture=("encoder.blocks.0",))[1]["encoder.blocks.0"]
+        enc = enc.to(cuda)
+        before = (whisper_attention.launches, fused_qkv_attention.launches)
+        got = enc(mels.to(cuda), capture=("encoder.blocks.0",))[1]["encoder.blocks.0"]
+        torch.cuda.synchronize()
+    assert (whisper_attention.launches, fused_qkv_attention.launches) == (
+        before[0] + 1, before[1])
+    got = got.cpu()
+    assert got.shape == want.shape == (2, 1500, 1024)
+    assert ((got - want).abs().max() / want.abs().max()).item() < 5e-2
 
 
 def test_runtime_on_card_matches_cpu(cuda):

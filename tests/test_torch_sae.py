@@ -100,6 +100,44 @@ def test_training_losses_and_grads_match_jax(multi, jmm, tmm, tol):
         assert _rel(getattr(tp, name).grad, getattr(jgrads, name)) < tol, name
 
 
+def test_training_losses_match_jax_large_recipe_route():
+    """JAX sends recipes whose bf16 W_enc + W_dec exceed its kernel's VMEM
+    budget (the large recipes: d_in 1280 × n_dict 20480) to "XLA encode +
+    thresholds kernel" (``prefer_kernel=False`` forces that route at any
+    width); the port sends every width to kernel #4. Both compute
+    relu(bf16(bf16(z) + bf16(b_enc))) with the exact bf16 selection and
+    bf16 × bf16 → f32 decodes: the same losses, fired mask and gradients,
+    at the bf16 tolerances of ``test_training_losses_and_grads_match_jax``."""
+    d, n = 32, 256
+    cfg = JTopKConfig(n_dict_components=n, k=4, auxk_alpha=1 / 32)
+    rng = np.random.default_rng(6)
+    jp = jtopk.init_topk(d, cfg, seed=6)._replace(
+        encoder_bias=jnp.asarray(rng.standard_normal(n) * 0.1, jnp.float32),
+        b_dec=jnp.asarray(rng.standard_normal(d) * 0.1, jnp.float32))
+    x = rng.standard_normal((3, 10, d)).astype(np.float32)
+    dead = rng.random(n) < 1 / 3
+
+    def loss_fn(p):
+        terms, fired = jtopk.training_losses(p, jnp.asarray(x), cfg, jnp.asarray(dead),
+                                             matmul_dtype=jnp.bfloat16,
+                                             prefer_kernel=False)
+        return terms["fvu"] + terms["auxk_loss"], (terms, fired)
+
+    (_, (jterms, jfired)), jgrads = jax.value_and_grad(loss_fn, has_aux=True)(jp)
+    tp = params_from_jax("topk", _np(jp))
+    terms, fired = ttopk.training_losses(
+        tp, torch.from_numpy(x), TopKAutoEncoderConfig(**cfg.to_dict()),
+        torch.from_numpy(dead), matmul_dtype=torch.bfloat16)
+    (terms["fvu"] + terms["auxk_loss"]).backward()
+    for k in ("fvu", "auxk_loss"):
+        got, want = terms[k].item(), float(jterms[k])
+        assert abs(got - want) <= 2e-2 * abs(want), k
+    assert terms["auxk_loss"].item() > 0
+    np.testing.assert_array_equal(fired.numpy(), np.asarray(jfired))
+    for name in ("encoder_weight", "encoder_bias", "W_dec", "b_dec"):
+        assert _rel(getattr(tp, name).grad, getattr(jgrads, name)) < 3e-2, name
+
+
 @pytest.mark.parametrize("bf16", [False, True])
 def test_fused_input_gradient_matches_jax(bf16):
     """∂L/∂x through the hand-written backward (only computed when asked)."""
