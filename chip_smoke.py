@@ -19,9 +19,13 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
   1. build all four kernel sources (five kernels) from csrc/ with nvcc for
      sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the card, at the
-     main paths' shapes (and edge rows for the TopK kernels), with its
-     stated tolerance, and both timed (median CUDA-event time after
-     warm-up);
+     main paths' shapes (and edge rows for the TopK kernels, kernel #4 also
+     at large_v1_audioset's geometry), with its stated tolerance, and both
+     timed (median CUDA-event time after warm-up), beside the kernel's
+     bound (freud_tpu_torch.flops, from this run's inputs) and the one
+     PyTorch call that computes the same function where there is one
+     (scaled_dot_product_attention for #5, F.linear + SDPA for #2; a
+     yardstick only, the port never calls it);
   3. the collection CLI (``python -m freud_tpu_torch.scripts.collect_activations
      --config ...``, run in-process) over 48 30-s WAVs, 3 shorter ones and
      an undecodable one at batch 32 (a ragged tail batch): store shape, finiteness, metadata and
@@ -50,14 +54,29 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      steps; steps/s, median step and peak device memory;
  11. one TopK batch (1 file) at large width on the card and on the CPU.
 
-Every phase asserts; any failure exits nonzero. The last two lines of
-standard output are the kernels' JSON record and the device JSON.
+Every phase asserts; any failure exits nonzero. The last three lines of
+standard output are the card's name and power limit, the kernels' JSON
+record (per kernel: ms, plain_ms, bound_ms and what bounds it,
+library_ms or null with the reason, launches in the main path's run and
+per collection batch or train step) and the device JSON.
 
-Usage: python3 chip_smoke.py   (needs one CUDA card; no arguments)
+``--bench`` measures instead of checking: after the build it times the
+five kernels through their wrappers at the main paths' shapes (kernel #4
+also by launch, from torch.profiler kernel names), then collects 256 30-s
+WAVs with random:large-v1 to block 16 (the steady rate a batch, from the
+time between a 256-file and a 64-file run after an untimed one) and runs 8
+large_v1_audioset steps on that store (the last 4 profiled), and prints one
+JSON line. It reaches the package only through the wrappers, the CLIs and
+the trainer, whose interfaces are those of every checkout that holds all
+five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
+code: run parent, change, change, parent in one call to compare two trees.
+
+Usage: python3 chip_smoke.py [--bench]   (needs one CUDA card)
 """
 
 from __future__ import annotations
 
+import argparse
 import contextlib
 import gc
 import io
@@ -90,6 +109,8 @@ LARGE_LAYER = "encoder.blocks.16"
 LARGE_D, LARGE_N_DICT, LARGE_K_AUX = 1280, 20480, 640
 LARGE_M_ROWS = 32 * 1500  # one large_v1_audioset step's rows
 LARGE_TRAIN_STEPS = 10
+# --bench: 30-s files of large-v1 collection, large_v1_audioset steps
+BENCH_FILES, BENCH_STEPS = 256, 8
 
 
 def card_line() -> str:
@@ -118,7 +139,14 @@ def cuda_ms(fn, warmup: int = 3, reps: int = 20) -> float:
     return statistics.median(times)
 
 
+def yardsticks(bound, library_ms=None, library: str | None = None) -> dict:
+    """A kernel record's bound (and what bounds it) and library call."""
+    return dict(bound_ms=bound.bound_ms, bound_by=bound.bound_by,
+                library_ms=library_ms, library=library)
+
+
 def check_mel(torch, device, card):
+    from freud_tpu_torch import flops
     from freud_tpu_torch.audio.mel import log_mel_spectrogram
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
 
@@ -141,11 +169,17 @@ def check_mel(torch, device, card):
         print(f"mel n_mels={n_mels} B={BATCH}: kernel {ms:.4f} ms, plain "
               f"{plain_ms:.4f} ms on {card}")
         if n_mels == 80:  # Whisper tiny's bank: the main path's shape
-            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **yardsticks(
+                flops.log_mel_bound(BATCH, n_mels), None,
+                "none: torch.stft gives the spectrum only; the mel projection, "
+                "log and clamp are further calls"))
     return record
 
 
 def check_attention(torch, device, card):
+    import torch.nn.functional as F
+
+    from freud_tpu_torch import flops
     from freud_tpu_torch.ops.attention import (
         fused_qkv_attention,
         fused_qkv_attention_plain,
@@ -172,28 +206,45 @@ def check_attention(torch, device, card):
             ms = cuda_ms(lambda: fused_qkv_attention(x, w[0], bq, w[1], w[2], bv, heads))
             plain_ms = cuda_ms(
                 lambda: fused_qkv_attention_plain(x, w[0], bq, w[1], w[2], bv, heads))
+            # the library yardstick: the projection and SDPA, two calls in bf16
+            xb = x.to(torch.bfloat16)
+            w_qkv = torch.cat(w, dim=1).T.contiguous().to(torch.bfloat16)
+
+            def linear_sdpa():
+                qkv = F.linear(xb, w_qkv).view(b, s, 3, heads, 64).permute(2, 0, 3, 1, 4)
+                return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
+                                                      scale=64 ** -0.5)
+
+            lib_ms = cuda_ms(linear_sdpa)
+            bound = flops.fused_qkv_attention_bound(b, s, d, heads)
             print(f"attention b={b} s={s}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms on {card}")
-            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                  f"{plain_ms:.4f} ms, F.linear + SDPA {lib_ms:.4f} ms, bound "
+                  f"{bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                          **yardsticks(bound, lib_ms, "two calls: F.linear + "
+                                       "scaled_dot_product_attention, bf16"))
     return record
 
 
 def check_whisper_attention(torch, device, card):
     """Kernel #5 against its plain version on (b, h, s, 64) head views of
     (b, s, h·64) projections, as the encoder passes them."""
+    import torch.nn.functional as F
+
+    from freud_tpu_torch import flops
     from freud_tpu_torch.ops.attention import whisper_attention, whisper_attention_plain
 
     gen = torch.Generator().manual_seed(SEED + 5)
     heads = 20
     record = None
-    # (b, s, dtype, stable): the large-v3 batch; a ragged s; s = 65 (one
-    # row past a 64-row tile); stable=False on bounded scores (|q|, |k| ~ 0.3)
-    cases = [(16, 1500, torch.float32, True), (16, 1500, torch.bfloat16, True),
-             (4, 777, torch.float32, True), (4, 65, torch.bfloat16, True),
-             (4, 777, torch.float32, False)]
+    # (b, s, dtype, stable): the large-v1 batch (the record) and the large-v3
+    # one; a ragged s; s = 129 (one row past a 128-row tile); stable=False
+    # on the same unit-normal inputs (scores of std 1)
+    cases = [(32, 1500, torch.float32, True), (16, 1500, torch.float32, True),
+             (16, 1500, torch.bfloat16, True), (4, 777, torch.float32, True),
+             (4, 129, torch.bfloat16, True), (4, 777, torch.float32, False)]
     for b, s, dtype, stable in cases:
-        scale = 1.0 if stable else 0.3
-        q, k, v = ((torch.randn((b, s, heads * 64), generator=gen) * scale)
+        q, k, v = (torch.randn((b, s, heads * 64), generator=gen)
                    .to(device, dtype).view(b, s, heads, 64).transpose(1, 2)
                    for _ in range(3))
         got = whisper_attention(q, k, v, stable=stable)
@@ -207,14 +258,29 @@ def check_whisper_attention(torch, device, card):
         assert got.shape == (b, heads, s, 64) and got.dtype == dtype
         assert torch.isfinite(got).all()
         assert rel < 2e-2, rel
-        if b == 16:
+        if s == 1500:
             ms = cuda_ms(lambda: whisper_attention(q, k, v))
             plain_ms = cuda_ms(lambda: whisper_attention_plain(q, k, v),
                                warmup=1, reps=5)
+            # the library yardstick on contiguous (b, h, s, 64), bf16 and f32
+            lib = {}
+            for lib_dtype in (torch.bfloat16, torch.float32):
+                qc, kc, vc = (t.to(lib_dtype).contiguous() for t in (q, k, v))
+                lib[lib_dtype] = cuda_ms(lambda: F.scaled_dot_product_attention(
+                    qc, kc, vc, scale=64 ** -0.5))
+                del qc, kc, vc
+            bound = flops.whisper_attention_bound(b, heads, s, in_bytes=q.element_size())
             print(f"whisper_attention b={b} h={heads} s={s} {str(dtype)[6:]}: "
-                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
-            if dtype == torch.float32:  # the large collection's dtype
-                record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms)
+                  f"kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, SDPA bf16 "
+                  f"{lib[torch.bfloat16]:.4f} / f32 {lib[torch.float32]:.4f} ms, bound "
+                  f"{bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+            if b == 32:  # the large-v1 collection's batch and dtype
+                record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                              **yardsticks(bound, lib[torch.bfloat16],
+                                           "scaled_dot_product_attention on "
+                                           "contiguous bf16 (b, h, s, 64), default "
+                                           "dispatch"),
+                              library_f32_ms=lib[torch.float32])
         del q, k, v, got, want
     torch.cuda.empty_cache()
     return record
@@ -240,41 +306,59 @@ def _acts_agreement(got, want, x, w_enc, b_dec):
     return (diff > 0).float().mean().item(), units.max().item()
 
 
-def _topk_inputs(torch, device, m, gen):
-    x = torch.randn((m, D_IN), generator=gen)
-    w_enc = (torch.rand((N_DICT, D_IN), generator=gen) * 2 - 1) * D_IN ** -0.5
-    b_enc = -(torch.rand((N_DICT,), generator=gen) * 0.1)  # <= 0: silent rows exist
-    b_dec = torch.randn((D_IN,), generator=gen) * 0.1
+def _topk_inputs(torch, device, m, gen, d_in=D_IN, n_dict=N_DICT):
+    x = torch.randn((m, d_in), generator=gen)
+    w_enc = (torch.rand((n_dict, d_in), generator=gen) * 2 - 1) * d_in ** -0.5
+    b_enc = -(torch.rand((n_dict,), generator=gen) * 0.1)  # <= 0: silent rows exist
+    b_dec = torch.randn((d_in,), generator=gen) * 0.1
     w_dec = w_enc / w_enc.norm(dim=1, keepdim=True)
     x[7] = b_dec  # silent rows: x − b_dec = 0, so every act is relu(b_enc) = 0
     x[m - 1] = b_dec
     return [t.to(device) for t in (x, w_enc, b_enc, b_dec, w_dec)]
 
 
+def _selected(acts, t_main, t_aux, dead) -> int:
+    """Positive entries the two decodes take: the work the data needs."""
+    pos = acts > 0
+    return int(((acts >= t_main) & pos).sum() + ((acts >= t_aux) & pos & dead).sum())
+
+
 def check_topk_fused(torch, device, card):
     """Kernel #4 against its plain version; selection and decodes are held
-    against the plain selection run on the kernel's own acts."""
+    against the plain selection run on the kernel's own acts, at tiny_topk's
+    geometry and at large_v1_audioset's (d_in 1280, n_dict 20480, k_aux 640,
+    94% of latents dead); two launches must agree bit for bit."""
+    from freud_tpu_torch import flops
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired_plain
 
     gen = torch.Generator().manual_seed(SEED + 2)
     record = None
-    for m in (M_ROWS, 77):
-        x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen)
-        third = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
-        few = torch.zeros((N_DICT,), dtype=torch.bool, device=device)
+    for m, d_in, n_dict, k_aux in ((M_ROWS, D_IN, N_DICT, K_AUX), (77, D_IN, N_DICT, K_AUX),
+                                   (3000, LARGE_D, LARGE_N_DICT, LARGE_K_AUX)):
+        x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen, d_in, n_dict)
+        third = (torch.rand((n_dict,), generator=gen) < 1 / 3).to(device)
+        few = torch.zeros((n_dict,), dtype=torch.bool, device=device)
         few[:100] = True  # fewer dead than k_aux: select all dead
-        cases = {"a third dead": third, "none dead": torch.zeros_like(third),
-                 "100 dead": few} if m == M_ROWS else {"a third dead": third}
+        if m == M_ROWS:
+            cases = {"a third dead": third, "none dead": torch.zeros_like(third),
+                     "100 dead": few}
+        elif d_in == LARGE_D:
+            cases = {"94% dead": (torch.rand((n_dict,), generator=gen) < 0.94).to(device)}
+        else:
+            cases = {"a third dead": third}
         for name, dead in cases.items():
             dead_f = dead.float()
-            got = topk_sae_forward(x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, K_AUX)
-            want = topk_sae_forward_plain(x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, K_AUX)
+            args = (x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, k_aux)
+            got = topk_sae_forward(*args)
+            again = topk_sae_forward(*args)
+            want = topk_sae_forward_plain(*args)
             torch.cuda.synchronize()
+            assert all(torch.equal(a, b) for a, b in zip(got, again)), name  # bit for bit
             acts = got[0]
             share, max_ulp = _acts_agreement(acts, want[0], x, w_enc, b_dec)
             # selection on the kernel's own acts: bit-equal
-            tm, ta, _, fired = topk_thresholds_fired_plain(acts, dead, K, K_AUX)
+            tm, ta, _, fired = topk_thresholds_fired_plain(acts, dead, K, k_aux)
             assert torch.equal(got[3], tm) and torch.equal(got[4], ta), name
             assert torch.equal(got[5], fired), name
             af = acts.float()
@@ -284,9 +368,9 @@ def check_topk_fused(torch, device, card):
             abs_err = max((got[1] - y_main).abs().max().item(),
                           (got[2] - y_aux).abs().max().item())
             err = abs_err / max(y_main.abs().max().item(), y_aux.abs().max().item())
-            print(f"topk_sae_forward m={m} ({name}): acts differ on {share:.2e} "
-                  f"(bound 1e-3), by at most {max_ulp:.3f} ulp (bound 1), "
-                  "thresholds/fired bit-equal, "
+            print(f"topk_sae_forward m={m} d_in={d_in} n_dict={n_dict} ({name}): acts "
+                  f"differ on {share:.2e} (bound 1e-3), by at most {max_ulp:.3f} ulp "
+                  "(bound 1), thresholds/fired bit-equal, two launches bit-equal, "
                   f"decode max|Δ|/max|plain| {err:.3e} (bound 1e-3)")
             assert max_ulp <= 1 and share < 1e-3, (share, max_ulp)
             assert err < 1e-3, err
@@ -296,14 +380,33 @@ def check_topk_fused(torch, device, card):
             # a positive threshold that select more than k latents
             ties = (((af >= tm).sum(dim=1) > K) & (tm[:, 0] > 0)).sum().item()
             print(f"  rows with a tie at t_main: {ties} of {m}")
-            assert m < M_ROWS or ties > 0
+            assert m < 3000 or ties > 0
+            if name in ("a third dead", "94% dead") and m >= 3000:
+                selected = _selected(af, tm, ta, dead)
         if m == M_ROWS:
             args = (x, w_enc.T, b_enc, b_dec, w_dec, third.float(), K, K_AUX)
             ms = cuda_ms(lambda: topk_sae_forward(*args), reps=10)
             plain_ms = cuda_ms(lambda: topk_sae_forward_plain(*args), warmup=1, reps=5)
-            print(f"topk_sae_forward m={m} d_in={D_IN} n_dict={N_DICT}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
-            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms)
+            bound = flops.topk_sae_forward_bound(m, d_in, n_dict, K, K_AUX, selected)
+            print(f"topk_sae_forward m={m} d_in={d_in} n_dict={n_dict}: kernel "
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
+                  f"({bound.bound_by}; {selected} selected entries) on {card}")
+            record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yardsticks(
+                bound, None, "none: no one PyTorch call encodes, selects per row "
+                "and decodes both masks"))
+        if d_in == LARGE_D:  # time large_v1_audioset's step shape, 48,000 rows
+            x = torch.cat([x] * (LARGE_M_ROWS // m))
+            largs = (x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, k_aux)
+            large_ms = cuda_ms(lambda: topk_sae_forward(*largs), warmup=2, reps=5)
+            bound = flops.topk_sae_forward_bound(LARGE_M_ROWS, d_in, n_dict, K, k_aux,
+                                                 selected * (LARGE_M_ROWS // m))
+            print(f"topk_sae_forward m={LARGE_M_ROWS} d_in={d_in} n_dict={n_dict}: "
+                  f"kernel {large_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
+                  f"({bound.bound_by}) on {card}")
+            record.update(large_ms=large_ms, large_bound_ms=bound.bound_ms)
+            del x, largs
+        del got, again, want, acts, af
+    torch.cuda.empty_cache()
     return record
 
 
@@ -323,6 +426,7 @@ def _threshold_err(got, want) -> float:
 def check_topk_threshold(torch, device, card):
     """Kernel #3 against its plain version: thresholds and fired bit-equal,
     bf16 (exact path, k_multi 128) and f32 / signed (float bisection)."""
+    from freud_tpu_torch import flops
     from freud_tpu_torch.ops.topk_threshold import (
         topk_thresholds_fired,
         topk_thresholds_fired_plain,
@@ -352,9 +456,13 @@ def check_topk_threshold(torch, device, card):
             plain_ms = cuda_ms(
                 lambda: topk_thresholds_fired_plain(acts, dead, K, K_AUX, **kw),
                 warmup=1, reps=5)
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms)
+            bound = flops.topk_thresholds_bound(M_ROWS, N_DICT)
+            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **yardsticks(
+                bound, None, "none: torch.topk gives t_main only; t_aux and fired "
+                "are further calls"))
             print(f"topk_thresholds_fired bf16 m={M_ROWS} n_dict={N_DICT}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
+                  f"({bound.bound_by}) on {card}")
         if name == "f32":
             ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, K_AUX, **kw), reps=5)
             plain_ms = cuda_ms(
@@ -411,17 +519,32 @@ def collect(config: dict, cfg_path: Path) -> dict:
     return run_cli("freud_tpu_torch.scripts.collect_activations", config, cfg_path)
 
 
-def train(config: dict, cfg_path: Path) -> tuple[dict, list[dict]]:
+def train(config: dict, cfg_path: Path, prof=None, warm: int = 0) -> tuple[dict, list[dict]]:
     """The train CLI in this process; → (its stats, every step's metrics as
-    floats)."""
+    floats, with the TopK kernels' launches in that step). A torch.profiler
+    ``prof`` traces the steps after the first ``warm``."""
+    import torch
+
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
     from freud_tpu_torch.train.trainer import SAETrainer
 
     seen = []
     step = SAETrainer.train_step
 
     def spy(self, batch):
+        if prof is not None and len(seen) == warm:
+            torch.cuda.synchronize()
+            prof.start()
+        before = (topk_sae_forward.launches, topk_thresholds_fired.launches)
         metrics = step(self, batch)
-        seen.append({k: float(v) for k, v in metrics.items()})
+        seen.append({**{k: float(v) for k, v in metrics.items()},
+                     "launches_topk_sae_forward": topk_sae_forward.launches - before[0],
+                     "launches_topk_thresholds_fired":
+                         topk_thresholds_fired.launches - before[1]})
+        if prof is not None and len(seen) == config["steps"]:
+            torch.cuda.synchronize()
+            prof.stop()
         return metrics
 
     SAETrainer.train_step = spy
@@ -430,6 +553,143 @@ def train(config: dict, cfg_path: Path) -> tuple[dict, list[dict]]:
     finally:
         SAETrainer.train_step = step
     return stats, seen
+
+
+def device_ms_by_kernel(prof, units: int, top: int = 14) -> tuple[dict, float, float]:
+    """A torch.profiler trace's device ms a unit (call, batch or step) by
+    kernel name, largest first; and the kernels' and the copies' totals a
+    unit."""
+    times: dict[str, float] = {}
+    copies = 0.0
+    for e in prof.key_averages():
+        if e.device_time_total <= 0:
+            continue
+        ms = e.device_time_total / 1e3 / units
+        if e.key.startswith(("Memcpy", "Memset")):
+            copies += ms
+            continue
+        # "void ns::(anonymous namespace)::name<T>(args)" → "name"
+        name = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+        name = name.split("<")[0].split("::")[-1].removeprefix("void ")[:60]
+        times[name] = times.get(name, 0.0) + ms
+    ranked = dict(sorted(times.items(), key=lambda kv: -kv[1])[:top])
+    return ranked, sum(times.values()), copies
+
+
+def bench(torch, device, card) -> dict:
+    """``--bench``: the five kernels timed through their wrappers at the main
+    paths' shapes (kernel #4 also split by launch), then the large-v1
+    collection's steady rate and the large_v1_audioset recipe's step, with
+    the device time by kernel. It uses nothing but the wrappers, the CLIs and
+    the trainer, so a copy of this script beside an older freud_tpu_torch
+    times that package with the same code."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freud_tpu_torch import profiling
+    from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
+    from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+
+    gen = torch.Generator().manual_seed(SEED)
+    kernels: dict[str, float] = {}
+    rec = {"card": card, "package": str(REPO / "freud_tpu_torch"), "kernels_ms": kernels}
+    audio = (torch.randn((BATCH, 480000), generator=gen) * 0.1).to(device)
+    kernels["log_mel (32, 480000) 80 bands"] = cuda_ms(
+        lambda: log_mel_spectrogram_cuda(audio, 80))
+    d, heads = 384, 6
+    x = torch.randn((BATCH, 1500, d), generator=gen).to(device)
+    w = [(torch.randn((d, d), generator=gen) * d ** -0.5).to(device) for _ in range(3)]
+    bq, bv = ((torch.randn((d,), generator=gen) * 0.1).to(device) for _ in range(2))
+    kernels["fused_qkv_attention (32, 1500, 384) f32"] = cuda_ms(
+        lambda: fused_qkv_attention(x, w[0], bq, w[1], w[2], bv, heads))
+    del audio, x
+    for b, dtype in ((16, torch.float32), (16, torch.bfloat16), (32, torch.float32),
+                     (32, torch.bfloat16)):
+        q, k, v = (torch.randn((b, 1500, 20 * 64), generator=gen).to(device, dtype)
+                   .view(b, 1500, 20, 64).transpose(1, 2) for _ in range(3))
+        kernels[f"whisper_attention ({b}, 20, 1500, 64) {str(dtype)[6:]}"] = cuda_ms(
+            lambda: whisper_attention(q, k, v))
+        del q, k, v
+    torch.cuda.empty_cache()
+
+    rec["topk_sae_forward_by_kernel_ms"] = split = {}
+    for name, m, d_in, n_dict, k_aux, dead_share in (
+            ("large_v1_audioset", LARGE_M_ROWS, LARGE_D, LARGE_N_DICT, LARGE_K_AUX, 0.94),
+            ("tiny_topk", M_ROWS, D_IN, N_DICT, K_AUX, 1 / 3)):
+        x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen, d_in, n_dict)
+        dead = (torch.rand((n_dict,), generator=gen) < dead_share).float().to(device)
+        args = (x, w_enc.T, b_enc, b_dec, w_dec, dead, K, k_aux)
+        kernels[f"topk_sae_forward {name} ({m}, {d_in}) -> {n_dict}"] = cuda_ms(
+            lambda: topk_sae_forward(*args), reps=10)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(3):
+                topk_sae_forward(*args)
+            torch.cuda.synchronize()
+        split[name] = device_ms_by_kernel(prof, 3)[0]
+        del x, w_enc, b_enc, b_dec, w_dec, dead, args, prof
+        torch.cuda.empty_cache()
+    acts = torch.relu(torch.randn((M_ROWS, N_DICT), generator=gen)).to(device, torch.bfloat16)
+    dead = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
+    kernels["topk_thresholds_fired bf16 (75000, 6144) k_multi 128"] = cuda_ms(
+        lambda: topk_thresholds_fired(acts, dead, K, K_AUX, k_multi=4 * K), reps=10)
+    del acts
+    torch.cuda.empty_cache()
+
+    with tempfile.TemporaryDirectory(prefix="chip_bench_") as tmp:
+        tmp = Path(tmp)
+        # large-v1 collection: an untimed run (kernel build, warm-up), runs
+        # over BENCH_FILES and over 64 files (the steady time a batch is the
+        # difference over the batches between them), one over 64 profiled
+        base = json.loads(
+            (REPO / "configs/features/large_v1_block_16_audioset_train.json").read_text())
+        batch = base["batch_size"]
+        runs = []
+        for n_files in (2 * batch, BENCH_FILES, 2 * batch, 2 * batch):
+            folder = tmp / f"audio{n_files}"
+            if not folder.exists():
+                folder.mkdir()
+                write_wavs(folder, [480000] * n_files)
+            cfg = {**base, "whisper_model": "random:large-v1", "data_path": str(folder),
+                   "out_folder": str(tmp / f"store{len(runs)}")}
+            prof = profile(activities=[ProfilerActivity.CUDA])
+            with prof if len(runs) == 3 else contextlib.nullcontext():
+                runs.append(collect(cfg, tmp / "collect.json"))
+                torch.cuda.synchronize()
+            free_device_memory(torch)
+        steady_s = (runs[1]["elapsed_s"] - runs[2]["elapsed_s"]) / (
+            (BENCH_FILES - 2 * batch) / batch)
+        by_kernel, total, copies = device_ms_by_kernel(prof, 2)
+        rec["large_v1_collection"] = {
+            "files": BENCH_FILES, "batch": batch, "rtfx": runs[1]["rtfx"],
+            "steady_batch_ms": 1e3 * steady_s, "steady_rtfx": batch * 30.0 / steady_s,
+            "device_busy_steady": total / (1e3 * steady_s), "kernels_ms_per_batch": total,
+            "copies_ms_per_batch": copies, "by_kernel_ms_per_batch": by_kernel}
+        del prof
+
+        # large_v1_audioset on the BENCH_FILES store, the last half profiled
+        tbase = json.loads((REPO / "configs/train/large_v1_audioset.json").read_text())
+        store = str(tmp / "store1")
+        tcfg = {**tbase, "train_folder": store, "val_folder": store,
+                "run_dir": str(tmp / "run"), "steps": BENCH_STEPS, "save_every": 10 ** 6,
+                "val_every": 10 ** 6, "log_tb_every": 10 ** 6,
+                # below one step's 48,000 frames: AuxK runs from step 2
+                "autoencoder_config": {**tbase["autoencoder_config"],
+                                       "dead_feature_threshold": LARGE_M_ROWS // 2}}
+        warm = BENCH_STEPS // 2
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        torch.cuda.reset_peak_memory_stats()
+        tstats, steps = train(tcfg, tmp / "train.json", prof, warm)
+        spans = profiling.calls("train_step")
+        by_kernel, total, copies = device_ms_by_kernel(prof, BENCH_STEPS - warm)
+        rec["large_v1_audioset"] = {
+            "steps": BENCH_STEPS, "profiled_steps": BENCH_STEPS - warm,
+            "steps_per_sec": tstats["steps_per_sec"],
+            "median_train_step_ms": 1e3 * statistics.median(spans),
+            "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "dead_pct_last": steps[-1]["dead_pct"], "kernels_ms_per_step": total,
+            "copies_ms_per_step": copies, "by_kernel_ms_per_step": by_kernel}
+    return rec
 
 
 def free_device_memory(torch) -> None:
@@ -498,6 +758,10 @@ def read_store(folder: Path, layer: str = LAYER):
 
 
 def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--bench", action="store_true",
+                    help="time the kernels and the large paths instead of the smoke")
+    args = ap.parse_args()
     import torch
 
     if not torch.cuda.is_available():
@@ -534,6 +798,12 @@ def main() -> int:
         for ln in log.splitlines():
             if "registers" in ln or "spill" in ln:
                 print(f"  ptxas[{name}] {ln.strip()}")
+    if args.bench:
+        print(json.dumps(bench(torch, device, card)))
+        return 0
+    from freud_tpu_torch import flops
+
+    assert flops.device_peaks() is not None, "the card is not in flops' peak table"
 
     # phase 2 — kernels against their plain versions
     mel_rec = check_mel(torch, device, card)
@@ -570,6 +840,7 @@ def main() -> int:
               f"({n_batches} batches)")
         assert launches["log_mel"] >= n_batches, launches
         assert launches["fused_qkv_attention"] >= 3 * n_batches, launches
+        per_unit = {k: (v / n_batches, "collection batch") for k, v in launches.items()}
 
         meta, store = read_store(tmp / "card")
         assert store.shape == (n_files, 1500, 384), store.shape
@@ -615,6 +886,8 @@ def main() -> int:
         topk_thresholds_fired.launches = 0
         tstats, steps = train(tcfg, tmp / "topk.json")
         launches["topk_sae_forward"] = topk_sae_forward.launches
+        per_unit["topk_sae_forward"] = (statistics.median(
+            m["launches_topk_sae_forward"] for m in steps), "train step")
         span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
         dead = [m["dead_pct"] for m in steps]
         aux = [m["auxk_loss"] for m in steps]
@@ -640,6 +913,8 @@ def main() -> int:
              "autoencoder_config": {**tcfg["autoencoder_config"], "multi_topk": True}},
             tmp / "multi.json")
         launches["topk_thresholds_fired"] = topk_thresholds_fired.launches
+        per_unit["topk_thresholds_fired"] = (statistics.median(
+            m["launches_topk_thresholds_fired"] for m in msteps), "multi_topk train step")
         print(f"tiny_topk multi_topk: steps_per_sec {mstats['steps_per_sec']:.3f}, "
               f"multi_topk_fvu {msteps[-1]['multi_topk_fvu']:.4f}; kernel #3 "
               f"launches {launches['topk_thresholds_fired']}")
@@ -678,6 +953,7 @@ def main() -> int:
 
         # phase 8 — collection at large width, from the repo's large configs
         large_launches = {"log_mel": 0, "whisper_attention": 0}
+        large_batches = 0
         large_stores = {}
         for name, cfg_file, batch, n_long, short in (
                 ("large-v1", "large_v1_block_16_audioset_train.json", 32, 34, (9.1,)),
@@ -708,6 +984,7 @@ def main() -> int:
             assert got["fused_qkv_attention"] == 0, got
             for k in large_launches:
                 large_launches[k] += got[k]
+            large_batches += n_lbatches
             lmeta, lstore = read_store(tmp / f"store_{name}", LARGE_LAYER)
             assert lstore.shape == (n_lfiles, 1500, LARGE_D), lstore.shape
             assert np.isfinite(lstore).all()
@@ -722,6 +999,9 @@ def main() -> int:
                   f"after model init), RTFx {lstats['rtfx']:.1f} on {card}")
             large_stores[name] = (tmp / f"store_{name}", lstore, ldir)
             free_device_memory(torch)
+
+        per_unit["whisper_attention"] = (
+            large_launches["whisper_attention"] / large_batches, "large collection batch")
 
         # phase 9 — test:large-v3 (2 layers at full width) card against CPU
         gcfg = {**json.loads((REPO / "configs/features/large_v3_block_16_dev.json").read_text()),
@@ -770,6 +1050,7 @@ def main() -> int:
         assert all(np.isfinite(list(m.values())).all() for m in ltsteps)
         assert max(dead[1:]) > 0 and max(aux[1:]) > 0, (dead, aux)
         assert large_topk_launches >= LARGE_TRAIN_STEPS, large_topk_launches
+        assert statistics.median(m["launches_topk_sae_forward"] for m in ltsteps) == 1
         check_checkpoints(torch, tmp / "run_large_topk" / "checkpoints",
                           ["step5.pth", "step10.pth", "bestval.pth"])
         free_device_memory(torch)
@@ -795,27 +1076,31 @@ def main() -> int:
         card_vs_cpu_batch(torch, device, large_stores["large-v1"][1],
                           d_in=LARGE_D, n_dict=LARGE_N_DICT, n_files=1)
 
+    def unit(name: str) -> dict:
+        count, what = per_unit[name]
+        return dict(launches_per_unit=count, unit=what)
+
     kernels = [
         {"name": "log_mel", "route": "cuda",
          "source": "freud_tpu_torch/csrc/mel.cu",
          "replaces": "freud_tpu/ops/mel_pallas.py:162",
-         "launches": launches["log_mel"], **mel_rec},
+         "launches": launches["log_mel"], **unit("log_mel"), **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
-         "launches": launches["fused_qkv_attention"], **attn_rec},
+         "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"), **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
-         "launches": large_launches["whisper_attention"], **wattn_rec},
+         "launches": large_launches["whisper_attention"], **unit("whisper_attention"), **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",
-         "launches": launches["topk_sae_forward"], **fused_rec},
+         "launches": launches["topk_sae_forward"], **unit("topk_sae_forward"), **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_threshold.cu",
          "replaces": "freud_tpu/ops/topk_threshold.py:225",
-         "launches": launches["topk_thresholds_fired"], **thresh_rec},
+         "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"), **thresh_rec},
     ]
     print(card)
     print(json.dumps({"kernels": kernels}))

@@ -3,9 +3,9 @@
 Everything the package compiles lands in ``freud_tpu_torch/_build/`` (listed
 in ``.gitignore``), at first use, from sources in the checkout:
 
-* ``libfreud_audio.so`` from the JAX package's decoder sources
-  (``freud_tpu/audio/native/{Makefile,decoder.cpp}``, read in place — the
-  source is not duplicated);
+* ``libfreud_audio.so`` from the port's own copy of the decoder sources
+  (``audio/native/{Makefile,decoder.cpp}``, byte-identical to the JAX
+  package's; the port reads nothing of that package);
 * one ``lib<name>-<hash>.so`` per ``csrc/<name>.cu`` (which may include the
   shared ``csrc/*.cuh``), compiled by ``nvcc`` for ``sm_90a`` into a shared
   library with a plain C interface and loaded with ``ctypes``. The file name
@@ -32,7 +32,7 @@ from pathlib import Path
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
 CSRC_DIR = PACKAGE_DIR / "csrc"
-AUDIO_NATIVE_DIR = PACKAGE_DIR.parent / "freud_tpu" / "audio" / "native"
+AUDIO_NATIVE_DIR = PACKAGE_DIR / "audio" / "native"
 
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",

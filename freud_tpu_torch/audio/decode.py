@@ -6,8 +6,8 @@ libavcodec decode + libswresample mono/16 kHz resample, with a threaded batch
 API that fills one contiguous float32 buffer per batch), then stdlib ``wave``
 for PCM WAV files, then the ffmpeg CLI if present.
 
-The native library is built from the JAX package's sources
-(``freud_tpu/audio/native/``) into ``freud_tpu_torch/_build/`` — see
+The native library is built from the port's copy of the decoder sources
+(``freud_tpu_torch/audio/native/``) into ``freud_tpu_torch/_build/`` — see
 ``freud_tpu_torch/_native.py``. Its Makefile links the ffmpeg libraries;
 where they are missing the build fails and WAV files decode through
 ``wave``.

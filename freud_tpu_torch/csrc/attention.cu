@@ -1,6 +1,6 @@
 // Whisper encoder self-attention for Hopper (sm_90a): bf16 tensor-core
-// products (mma.sync m16n8k16), f32 accumulation and f32 softmax statistics.
-// Two entry points share one attention phase:
+// products with f32 accumulation and f32 softmax statistics. Two entry
+// points share one attention phase:
 //
 //  * freud_qkv_attention replaces the Pallas TPU kernel
 //    freud_tpu/ops/attention.py (fused_qkv_attention →
@@ -16,46 +16,63 @@
 //
 // What bounds it on an H100: per (clip, head) at s 1500 the two products are
 // 4·s²·64 = 576 MFLOP of bf16 work and the softmax 2.25 M exponentials on
-// f32 scores; the score matrix (9 MB of f32 per head) is what must not reach
-// device memory. At bf16 tensor-core rates the exp/max/sum on the f32 scores
-// and the operand feed from shared memory are the limits.
+// f32 scores; the score matrix (9 MB of f32 per head) must not reach device
+// memory. At head_dim 64 the exponentials on the f32 scores take about as
+// long on the SM's exp units as the products on the tensor cores, so the
+// bound is the tensor-core rate and the design overlaps the two.
 //
 // Why not the TPU design: the TPU kernel keeps one head's whole K and V
 // ((1536 × 64) each) resident in VMEM next to a 512-row q tile and takes the
-// softmax over full score rows. A Hopper block has 227 KB of shared memory;
-// K and V of one head in bf16 alone take 384 KB. So the attention phase is
-// flash-style: K/V stream through shared memory in 64-key tiles and the
+// softmax over full score rows. K and V of one head in bf16 alone take 384 KB
+// against a Hopper block's 227 KB of shared memory, so the attention phase
+// is flash-style: K/V stream through shared memory in 128-key tiles and the
 // softmax statistics are kept online.
 //
-// Design (the simple form; keeping q/k/v out of device memory in the fused
-// path, and wgmma/TMA pipelines, are later work):
+// Design:
 //   (a) qkv_projection_kernel (fused path only): one GEMM x(b·s, d) ·
-//       [Wq | Wk | Wv](d, 3d) on 64 × 64 tiles, x rounded to bf16 on load;
-//       the epilogue adds bq, folds dh^-½ into q after the bias, adds bv, and
-//       writes bf16 q, k, v scratch.
-//   (b) attention_kernel: one block of 4 warps per (query tile of 64, head,
-//       clip), reading q/k/v through (b, h, s) element strides with head_dim
-//       contiguous, so a (b, s, d) projection's head view needs no copy. q is
-//       scaled in f32 and rounded to bf16 as it is staged (scale 1 for the
-//       fused path's pre-scaled q), k and v are rounded to bf16; every tile
-//       is staged row-major with 16-byte copies, and P·V reads V's fragments
-//       transposed with ldmatrix. Each warp
-//       owns 16 query rows whose Q fragments stay in registers. The loop over
-//       64-key K/V tiles keeps an online f32 row max (with `stable`) and row
-//       sum; scores stay in mma accumulator registers, are exponentiated in
-//       f32 and re-packed to bf16 as the A operand of P·V without a trip
-//       through shared memory. The (16, 64) output of each warp is divided by
-//       its row sums once, at the end, and written through the output's
-//       strides.
-// s = 1500 is no multiple of the tiles: rows and keys past s are masked by
-// bounds (zero-filled loads, −∞ scores), not by padding.
+//       [Wq | Wk | Wv](d, 3d) on 64 × 64 tiles with mma.sync, x rounded to
+//       bf16 on load; the epilogue adds bq, folds dh^-½ into q after the
+//       bias, adds bv, and writes bf16 q, k, v scratch (b, s, d).
+//   (b) to_bf16_kernel (whisper path, f32 input only): TMA copies bytes as
+//       they are, so f32 head views are first rounded to bf16 scratch
+//       (b, h, s, 64) in one elementwise pass (the conversion is part of the
+//       kernel's time). bf16 head views are read in place.
+//   (c) attention_kernel: persistent blocks, one an SM, each walking work
+//       items of (128 query rows, head, clip) with three roles, so one
+//       item's loads overlap the last one's epilogue. A producer warp
+//       issues TMA loads through 4-D tensor maps over (64, s, h, b) — the
+//       head views' own strides, so no copy splits the heads — first the
+//       Q tile, then 128-key K and V tiles into a ring of kStages stages,
+//       each stage handed over by a "full" mbarrier (TMA transaction bytes)
+//       and returned by an "empty" one.
+//       Two consumer warpgroups own 64 query rows each: S = Q·Kᵀ by wgmma
+//       from shared memory (m64n128k16), the online softmax on the f32
+//       accumulators (one FFMA and one exp2 a score: scores and max are
+//       scaled by dh^-½·log2 e inside the exponent), P re-packed to
+//       bf16 in registers as the A operand of O += P·V (m64n64k16, V read
+//       MN-major with the transpose bit). A warpgroup's softmax of key
+//       tile j overlaps its own P·V of tile j − 1, and the other
+//       warpgroup's products keep the tensor cores busy too. O is
+//       divided by the row sums once and written through the output's
+//       strides, (b, s, h, 64) memory for a (b, h, s, 64) view.
+// The q scale: bf16(q·scale) with the scale applied in f32 before the cast,
+// as the contract asks; for a power-of-two scale (dh^-½ = 1/8, or 1 for the
+// fused path's pre-scaled q) that equals bf16(q)·scale exactly, so the scale
+// is applied to the f32 scores together with log2 e and q is never rescaled.
+// The launcher refuses any other scale.
+// s = 1500 is no multiple of the tiles: TMA fills rows past s with zeros,
+// keys past s get −∞ scores, rows past s are not stored.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include <algorithm>
+#include <cmath>
+
 #include "common.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -67,11 +84,6 @@ constexpr int kBM = 64;
 constexpr int kBN = 64;
 constexpr int kBK = 32;
 constexpr int kBKPad = kBK + 8;
-
-// attention tiles
-constexpr int kBQ = 64;  // query rows per block (16 per warp)
-constexpr int kBKV = 64;  // keys per K/V tile
-constexpr int kRowPad = 8;  // bf16 padding per smem row (bank spread)
 
 __device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
                                           const uint32_t (&b)[2]) {
@@ -92,42 +104,12 @@ __device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// eight neighbouring elements (16-byte aligned) as eight bf16 in 16 bytes
-__device__ __forceinline__ uint4 load8(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint4*>(p);
-}
+// eight neighbouring f32 (16-byte aligned) as eight bf16 in 16 bytes
 __device__ __forceinline__ uint4 load8(const float* p) {
   const float4 a = *reinterpret_cast<const float4*>(p);
   const float4 b = *reinterpret_cast<const float4*>(p + 4);
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
                     pack_bf16(b.z, b.w));
-}
-
-// the same, each element multiplied by `scale` in f32 before the bf16 cast
-__device__ __forceinline__ uint4 load8_scaled(const float* p, float scale) {
-  const float4 a = *reinterpret_cast<const float4*>(p);
-  const float4 b = *reinterpret_cast<const float4*>(p + 4);
-  return make_uint4(pack_bf16(a.x * scale, a.y * scale), pack_bf16(a.z * scale, a.w * scale),
-                    pack_bf16(b.x * scale, b.y * scale), pack_bf16(b.z * scale, b.w * scale));
-}
-__device__ __forceinline__ uint4 load8_scaled(const __nv_bfloat16* p, float scale) {
-  uint4 v = load8(p);
-  uint32_t* w = reinterpret_cast<uint32_t*>(&v);
-#pragma unroll
-  for (int e = 0; e < 4; ++e) {
-    const float2 f = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&w[e]));
-    w[e] = pack_bf16(f.x * scale, f.y * scale);
-  }
-  return v;
-}
-
-// four 8 × 8 bf16 matrices from shared memory, transposed: lanes 8m..8m+7
-// give the row addresses of matrix m, register m receives its fragment
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
-  const uint32_t addr = static_cast<uint32_t>(__cvta_generic_to_shared(p));
-  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0,%1,%2,%3}, [%4];\n"
-               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-               : "r"(addr));
 }
 
 __device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
@@ -152,7 +134,7 @@ struct HeadStrides {
 struct AttnArgs {
   HeadStrides q, k, v, out;
   int seq;
-  float q_scale;  // applied to q in f32 before the bf16 cast
+  float q_scale;  // q's scale, a power of two (see the header)
   int stable;     // 1: subtract the running row max before exp
 };
 
@@ -242,181 +224,265 @@ qkv_projection_kernel(const TIn* __restrict__ x,
 }
 
 // ---------------------------------------------------------------- phase (b)
-// q, k, v (b, h, s, 64) views in TIn → out (b, h, s, 64) view in TOut, each
-// addressed through its own strides (multiples of 8, bases 16-byte aligned).
-template <typename TIn, typename TOut>
-__global__ void __launch_bounds__(kThreads)
-attention_kernel(const TIn* __restrict__ q, const TIn* __restrict__ k,
-                 const TIn* __restrict__ v, TOut* __restrict__ out,
-                 const AttnArgs args) {
-  __shared__ __align__(16) __nv_bfloat16 Qs[kBQ][kHeadDim + kRowPad];
-  __shared__ __align__(16) __nv_bfloat16 Ks[kBKV][kHeadDim + kRowPad];
-  __shared__ __align__(16) __nv_bfloat16 Vs[kBKV][kHeadDim + kRowPad];
+// q, k, v f32 (b, h, s, 64) views → bf16 (3, b, h, s, 64), eight elements a
+// thread; blockIdx.y picks the tensor.
+__global__ void __launch_bounds__(256)
+to_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
+               const float* __restrict__ v, const AttnArgs args, int heads,
+               long long rows, __nv_bfloat16* __restrict__ out) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i >= rows * (kHeadDim / 8)) return;
+  const long long r = i / (kHeadDim / 8);
+  const int c = 8 * static_cast<int>(i % (kHeadDim / 8));
+  const int pos = static_cast<int>(r % args.seq);
+  const long long bh = r / args.seq;
+  const long long head = bh % heads;
+  const long long clip = bh / heads;
+  const float* src = blockIdx.y == 0 ? q : blockIdx.y == 1 ? k : v;
+  const HeadStrides& st = blockIdx.y == 0 ? args.q : blockIdx.y == 1 ? args.k : args.v;
+  const uint4 val = load8(src + clip * st.b + head * st.h + (long long)pos * st.s + c);
+  *reinterpret_cast<uint4*>(out + blockIdx.y * rows * kHeadDim + r * kHeadDim + c) = val;
+}
 
+// ---------------------------------------------------------------- phase (c)
+constexpr int kBQ = 128;   // query rows per block: 64 per consumer warpgroup
+constexpr int kBKV = 128;  // keys per K/V tile
+constexpr int kStages = 3;
+constexpr int kConsumers = 256;                 // two warpgroups
+constexpr int kAttnThreads = kConsumers + 32;   // and one producer warp
+constexpr uint32_t kTileBytes = kBKV * kHeadDim * 2;
+
+struct AttnSmem {  // every tile 1024-byte aligned (the swizzle atom)
+  __nv_bfloat16 q[kBQ * kHeadDim];
+  __nv_bfloat16 k[kStages][kBKV * kHeadDim];
+  __nv_bfloat16 v[kStages][kBKV * kHeadDim];
+  uint64_t q_full;
+  uint64_t q_empty;
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr size_t kAttnSmem = sizeof(AttnSmem) + 1024;  // + alignment slack
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// O += P · V as one commit group: eight key steps of 16, P from registers,
+// V read MN-major.
+__device__ __forceinline__ void issue_pv(float (&o)[kHeadDim / 2], uint32_t (&p)[kBKV / 16][4],
+                                         uint64_t v_desc) {
+  hopper::fence_regs(o);
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk) hopper::fence_regs(p[kk]);
+  hopper::wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBKV / 16; ++kk)
+    hopper::wgmma_m64n64k16_rs_mn(o, p[kk], v_desc + hopper::k_step_mnmajor(kk), 1);
+  hopper::wgmma_commit();
+}
+
+// q, k, v: bf16 tensor maps over (64, s, h, b) → out (b, h, s, 64) view in
+// TOut through its strides. score_scale = q scale · log2 e. Persistent:
+// block b takes work items b, b + gridDim.x, ... of (query tile, head,
+// clip), query tiles fastest; the K/V ring runs on across items (slice
+// counter `it`), and Q has its own full / empty pair.
+template <typename TOut>
+__global__ void __launch_bounds__(kAttnThreads, 1)
+attention_kernel(const __grid_constant__ CUtensorMap qmap,
+                 const __grid_constant__ CUtensorMap kmap,
+                 const __grid_constant__ CUtensorMap vmap, TOut* __restrict__ out,
+                 const HeadStrides out_st, int seq, int heads, int items, float score_scale,
+                 int stable) {
+  extern __shared__ unsigned char smem_raw[];
+  AttnSmem& sm = *reinterpret_cast<AttnSmem*>(hopper::align1024(smem_raw));
   const int tid = threadIdx.x;
   const int warp = tid / 32;
   const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int seq = args.seq;
-  const int q0 = blockIdx.x * kBQ;
-  const long long head = blockIdx.y;
-  const long long clip = blockIdx.z;
-  const TIn* qh = q + clip * args.q.b + head * args.q.h;
-  const TIn* kh = k + clip * args.k.b + head * args.k.h;
-  const TIn* vh = v + clip * args.v.b + head * args.v.h;
-  constexpr int kChunks = kHeadDim / 8;  // 16-byte bf16 chunks per row
+  const int n_qt = (seq + kBQ - 1) / kBQ;
+  const int n_tiles = (seq + kBKV - 1) / kBKV;
 
-  // Q tile, scaled in f32 then rounded to bf16; rows past s are zero
-  for (int i = tid; i < kBQ * kChunks; i += kThreads) {
-    const int r = i / kChunks;
-    const int c = 8 * (i % kChunks);
-    uint4 val = make_uint4(0u, 0u, 0u, 0u);
-    if (q0 + r < seq) val = load8_scaled(qh + (q0 + r) * args.q.s + c, args.q_scale);
-    *reinterpret_cast<uint4*>(&Qs[r][c]) = val;
+  if (tid == 0) {
+    hopper::mbar_init(&sm.q_full, 1);
+    hopper::mbar_init(&sm.q_empty, kConsumers / 32);
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], kConsumers / 32);  // one arrival a warp
+    }
+    hopper::fence_barrier_init();
   }
   __syncthreads();
-  uint32_t qa[kHeadDim / 16][4];
-  {
-    const int r = warp * 16 + g;
-#pragma unroll
-    for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-      qa[ks][0] = load_pair(&Qs[r][16 * ks + 2 * t]);
-      qa[ks][1] = load_pair(&Qs[r + 8][16 * ks + 2 * t]);
-      qa[ks][2] = load_pair(&Qs[r][16 * ks + 2 * t + 8]);
-      qa[ks][3] = load_pair(&Qs[r + 8][16 * ks + 2 * t + 8]);
+
+  if (warp == kConsumers / 32) {  // ------------------------------ producer
+    if (lane == 0) {
+      int it = 0;
+      int i = 0;
+      for (int item = blockIdx.x; item < items; item += gridDim.x, ++i) {
+        const int q0 = (item % n_qt) * kBQ;
+        const int head = (item / n_qt) % heads;
+        const int clip = item / n_qt / heads;
+        if (i > 0) hopper::mbar_wait(&sm.q_empty, (i - 1) & 1);
+        hopper::mbar_expect_tx(&sm.q_full, kBQ * kHeadDim * 2);
+        hopper::tma_load_4d(sm.q, &qmap, &sm.q_full, 0, q0, head, clip);
+        for (int j = 0; j < n_tiles; ++j, ++it) {
+          const int st = it % kStages;
+          if (it >= kStages) hopper::mbar_wait(&sm.empty[st], ((it / kStages) & 1) ^ 1);
+          hopper::mbar_expect_tx(&sm.full[st], 2 * kTileBytes);
+          hopper::tma_load_4d(sm.k[st], &kmap, &sm.full[st], 0, j * kBKV, head, clip);
+          hopper::tma_load_4d(sm.v[st], &vmap, &sm.full[st], 0, j * kBKV, head, clip);
+        }
+      }
     }
+    return;
   }
 
-  // rows g (index 0) and g + 8 (index 1) of this warp's 16; without
-  // `stable` the max stays 0 and exp takes the raw scores
-  const float max0 = args.stable ? -INFINITY : 0.f;
-  float row_max[2] = {max0, max0};
-  float row_sum[2] = {0.f, 0.f};
-  float o[kHeadDim / 8][4];
+  // ------------------------------------------------------------ consumers
+  const int wg = warp / 4;  // 64-row half of the query tile
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const uint64_t q_desc = hopper::desc_sw128(sm.q + wg * 64 * kHeadDim);
+  int it = 0;
+  int i = 0;
+  for (int item = blockIdx.x; item < items; item += gridDim.x, ++i) {
+    const int q0 = (item % n_qt) * kBQ;
+    const int head = (item / n_qt) % heads;
+    const int clip = item / n_qt / heads;
+    // rows g (index 0) and g + 8 (index 1) of this warp's 16, in raw score
+    // units; without `stable` the max stays 0 and exp2 takes the raw scores
+    const float max0 = stable ? -INFINITY : 0.f;
+    float row_max[2] = {max0, max0};
+    float row_sum[2] = {0.f, 0.f};
+    float o[kHeadDim / 2];
 #pragma unroll
-  for (int j = 0; j < kHeadDim / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) o[j][e] = 0.f;
+    for (int e = 0; e < kHeadDim / 2; ++e) o[e] = 0.f;
 
-  for (int j0 = 0; j0 < seq; j0 += kBKV) {
-    __syncthreads();  // the previous tile's K/V are consumed
-    for (int i = tid; i < kBKV * kChunks; i += kThreads) {
-      const int r = i / kChunks;
-      const int c = 8 * (i % kChunks);
-      uint4 kval = make_uint4(0u, 0u, 0u, 0u);
-      uint4 vval = kval;
-      if (j0 + r < seq) {
-        kval = load8(kh + (j0 + r) * args.k.s + c);
-        vval = load8(vh + (j0 + r) * args.v.s + c);
-      }
-      *reinterpret_cast<uint4*>(&Ks[r][c]) = kval;
-      *reinterpret_cast<uint4*>(&Vs[r][c]) = vval;
-    }
-    __syncthreads();
+    hopper::mbar_wait(&sm.q_full, i & 1);
+    // Tile j's scores are computed while tile j − 1's P·V runs: issue
+    // S_j, issue O += P_{j−1}·V_{j−1}, wait for S_j alone, take the
+    // exponentials in place, then wait for the P·V, rescale O and pack P_j.
+    float s[kBKV / 2];
+    uint32_t p[kBKV / 16][4];
+    int prev_st = 0;
+    for (int j = 0; j < n_tiles; ++j, ++it) {
+      const int st = it % kStages;
+      hopper::mbar_wait(&sm.full[st], (it / kStages) & 1);
 
-    // scores S = Q · Kᵀ for 16 rows × 64 keys (8 n-tiles of 8 keys)
-    float sc[kBKV / 8][4];
+      // S = Q · Kᵀ: 64 rows × 128 keys, four k-steps over head_dim
+      const uint64_t k_desc = hopper::desc_sw128(sm.k[st]);
+      hopper::fence_regs(s);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) sc[nt][e] = 0.f;
-#pragma unroll
-      for (int ks = 0; ks < kHeadDim / 16; ++ks) {
-        uint32_t b[2];
-        b[0] = load_pair(&Ks[nt * 8 + g][16 * ks + 2 * t]);
-        b[1] = load_pair(&Ks[nt * 8 + g][16 * ks + 2 * t + 8]);
-        mma_16816(sc[nt], qa[ks], b);
+      for (int kk = 0; kk < kHeadDim / 16; ++kk)
+        hopper::wgmma_m64n128k16_ss(s, q_desc + hopper::k_step_kmajor(kk),
+                                    k_desc + hopper::k_step_kmajor(kk), kk > 0);
+      hopper::wgmma_commit();
+      if (j > 0) {
+        issue_pv(o, p, hopper::desc_sw128(sm.v[prev_st]));
+        hopper::wgmma_wait<1>();  // S_j is done; P_{j−1}·V_{j−1} may run on
+      } else {
+        hopper::wgmma_wait<0>();
       }
-    }
+      hopper::fence_regs(s);
+      if (j == n_tiles - 1 && lane == 0) hopper::mbar_arrive(&sm.q_empty);  // Q read
 
-    // mask keys past s; online max (the tile holds at least one valid key)
-    float tile_max[2] = {-INFINITY, -INFINITY};
+      // mask keys past s, online max
+      const int key0 = j * kBKV + 2 * t;
+      const bool tail = (j + 1) * kBKV > seq;
+      float tile_max[2] = {-INFINITY, -INFINITY};
 #pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int key = j0 + nt * 8 + 2 * t + (e & 1);
-        if (key >= seq) sc[nt][e] = -INFINITY;
-        tile_max[e >> 1] = fmaxf(tile_max[e >> 1], sc[nt][e]);
+      for (int e = 0; e < kBKV / 2; ++e) {
+        if (tail && key0 + 8 * (e / 4) + (e % 2) >= seq) s[e] = -INFINITY;
+        tile_max[(e / 2) % 2] = fmaxf(tile_max[(e / 2) % 2], s[e]);
       }
+      float alpha[2], shift[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 1));
+        tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 2));
+        const float m_new = stable ? fmaxf(row_max[h], tile_max[h]) : 0.f;
+        alpha[h] = fast_exp2((row_max[h] - m_new) * score_scale);  // 0 on the first tile
+        row_max[h] = m_new;
+        shift[h] = -m_new * score_scale;
+      }
+      // P = exp2(S·scale − max·scale): one FFMA and one exp2 a score
+      float tile_sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int e = 0; e < kBKV / 2; ++e) {
+        s[e] = fast_exp2(fmaf(s[e], score_scale, shift[(e / 2) % 2]));
+        tile_sum[(e / 2) % 2] += s[e];
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        tile_sum[h] += __shfl_xor_sync(0xffffffffu, tile_sum[h], 1);
+        tile_sum[h] += __shfl_xor_sync(0xffffffffu, tile_sum[h], 2);
+        row_sum[h] = row_sum[h] * alpha[h] + tile_sum[h];
+      }
+
+      hopper::wgmma_wait<0>();  // P_{j−1}·V_{j−1} is done: O, P and its stage are free
+      hopper::fence_regs(o);
+      if (j > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[prev_st]);
+#pragma unroll
+      for (int e = 0; e < kHeadDim / 2; ++e) o[e] *= alpha[(e / 2) % 2];
+      // bf16 A fragments: key step kk holds n-tiles 2kk and 2kk + 1 of S
+#pragma unroll
+      for (int kk = 0; kk < kBKV / 16; ++kk)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) p[kk][r] = pack_bf16(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+      prev_st = st;
     }
-    float alpha[2];
+    issue_pv(o, p, hopper::desc_sw128(sm.v[prev_st]));
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(o);
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[prev_st]);
+
+    // one normalisation of the (64, 64) output per warpgroup
+    const float inv[2] = {1.f / row_sum[0], 1.f / row_sum[1]};
+    TOut* oh = out + clip * out_st.b + head * out_st.h;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
-      tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 1));
-      tile_max[h] = fmaxf(tile_max[h], __shfl_xor_sync(0xffffffffu, tile_max[h], 2));
-      const float m_new = args.stable ? fmaxf(row_max[h], tile_max[h]) : 0.f;
-      alpha[h] = expf(row_max[h] - m_new);  // 0 on the first tile if stable
-      row_max[h] = m_new;
+      const int row = q0 + wg * 64 + (warp % 4) * 16 + g + 8 * h;
+      if (row >= seq) continue;
+      TOut* dst = oh + (long long)row * out_st.s;
+#pragma unroll
+      for (int jn = 0; jn < kHeadDim / 8; ++jn)
+        store_pair(dst + 8 * jn + 2 * t, o[4 * jn + 2 * h] * inv[h],
+                   o[4 * jn + 2 * h + 1] * inv[h]);
     }
-    float tile_sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int nt = 0; nt < kBKV / 8; ++nt) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        sc[nt][e] = expf(sc[nt][e] - row_max[e >> 1]);
-        tile_sum[e >> 1] += sc[nt][e];
-      }
-    }
-#pragma unroll
-    for (int h = 0; h < 2; ++h) {
-      tile_sum[h] += __shfl_xor_sync(0xffffffffu, tile_sum[h], 1);
-      tile_sum[h] += __shfl_xor_sync(0xffffffffu, tile_sum[h], 2);
-      row_sum[h] = row_sum[h] * alpha[h] + tile_sum[h];
-    }
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j) {
-      o[j][0] *= alpha[0];
-      o[j][1] *= alpha[0];
-      o[j][2] *= alpha[1];
-      o[j][3] *= alpha[1];
-    }
-
-    // O += P · V: the score accumulators of key n-tiles 2kk, 2kk+1 are the
-    // A fragment of key step kk; the B fragments (V[key][dh] taken as
-    // key × dh, col-major) come transposed from the row-major V tile, two
-    // 8-column dh tiles per ldmatrix.x4 (matrix m: keys +8·(m & 1), dh
-    // tile j + (m >> 1))
-#pragma unroll
-    for (int kk = 0; kk < kBKV / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(sc[2 * kk][0], sc[2 * kk][1]);
-      pa[1] = pack_bf16(sc[2 * kk][2], sc[2 * kk][3]);
-      pa[2] = pack_bf16(sc[2 * kk + 1][0], sc[2 * kk + 1][1]);
-      pa[3] = pack_bf16(sc[2 * kk + 1][2], sc[2 * kk + 1][3]);
-      const int m = lane / 8;
-#pragma unroll
-      for (int j = 0; j < kHeadDim / 8; j += 2) {
-        uint32_t b[4];
-        ldmatrix_x4_trans(b, &Vs[16 * kk + 8 * (m & 1) + (lane & 7)][8 * (j + (m >> 1))]);
-        const uint32_t b0[2] = {b[0], b[1]};
-        const uint32_t b1[2] = {b[2], b[3]};
-        mma_16816(o[j], pa, b0);
-        mma_16816(o[j + 1], pa, b1);
-      }
-    }
-  }
-
-  // one normalisation of the (16, 64) output per warp
-  const float inv[2] = {1.f / row_sum[0], 1.f / row_sum[1]};
-  TOut* oh = out + clip * args.out.b + head * args.out.h;
-#pragma unroll
-  for (int h = 0; h < 2; ++h) {
-    const int row = q0 + warp * 16 + g + 8 * h;
-    if (row >= seq) continue;
-    TOut* dst = oh + row * args.out.s;
-#pragma unroll
-    for (int j = 0; j < kHeadDim / 8; ++j)
-      store_pair(dst + j * 8 + 2 * t, o[j][2 * h] * inv[h], o[j][2 * h + 1] * inv[h]);
   }
 }
 
-template <typename TIn, typename TOut>
-int launch_attention(const TIn* q, const TIn* k, const TIn* v, TOut* out,
-                     const AttnArgs& args, int batch, int heads, cudaStream_t s) {
-  const dim3 grid((args.seq + kBQ - 1) / kBQ, heads, batch);
-  attention_kernel<TIn, TOut><<<grid, kThreads, 0, s>>>(q, k, v, out, args);
+// A bf16 tensor map over one of q, k, v: (64, s, h, b) elements with the
+// given element strides of s, h and b.
+int head_map(CUtensorMap* map, const void* base, int batch, int heads, int seq,
+             const HeadStrides& st, int box_rows) {
+  const uint64_t dims[4] = {kHeadDim, (uint64_t)seq, (uint64_t)heads, (uint64_t)batch};
+  const uint64_t strides[3] = {2ull * st.s, 2ull * st.h, 2ull * st.b};
+  const uint32_t box[4] = {kHeadDim, (uint32_t)box_rows, 1, 1};
+  return hopper::make_map(map, base, 4, dims, strides, box);
+}
+
+// q, k, v bf16 in their head strides; q_scale a power of two.
+template <typename TOut>
+int launch_attention(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                     const __nv_bfloat16* v, TOut* out, const AttnArgs& args, int batch,
+                     int heads, cudaStream_t s) {
+  int e = 0;
+  if (std::frexp(args.q_scale, &e) != 0.5f) return static_cast<int>(cudaErrorInvalidValue);
+  CUtensorMap qmap, kmap, vmap;
+  int err = head_map(&qmap, q, batch, heads, args.seq, args.q, kBQ);
+  if (!err) err = head_map(&kmap, k, batch, heads, args.seq, args.k, kBKV);
+  if (!err) err = head_map(&vmap, v, batch, heads, args.seq, args.v, kBKV);
+  if (!err) err = hopper::allow_smem(attention_kernel<TOut>, kAttnSmem);
+  int device = 0, sms = 0;
+  if (!err) err = static_cast<int>(cudaGetDevice(&device));
+  if (!err)
+    err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  if (err) return err;
+  const int items = (args.seq + kBQ - 1) / kBQ * heads * batch;
+  attention_kernel<TOut><<<std::min(items, sms), kAttnThreads, kAttnSmem, s>>>(
+      qmap, kmap, vmap, out, args.out, args.seq, heads, items,
+      args.q_scale * 1.4426950408889634f, args.stable);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -437,8 +503,8 @@ int launch_fused(const void* x, const void* w, const float* bq, const float* bv,
   const AttnArgs args{bsd, bsd, bsd, bsd, seq, 1.f, 1};
   const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(qkv);
   const size_t plane = (size_t)m_rows * d;
-  return launch_attention(qp, qp + plane, qp + 2 * plane, static_cast<TIn*>(out),
-                          args, batch, heads, s);
+  return launch_attention(qp, qp + plane, qp + 2 * plane, static_cast<TIn*>(out), args,
+                          batch, heads, s);
 }
 
 AttnArgs whisper_args(const long long* st, int seq, float scale, int stable) {
@@ -469,24 +535,35 @@ int freud_qkv_attention(const void* x, int x_bf16, const void* w,
 // q, k, v, out: (b, h, s, 64) views, f32 (in_bf16 = 0) or bf16 (in_bf16 = 1),
 // out in the same dtype; strides: 12 element strides (b, h, s) of q, k, v
 // and out, in that order, head_dim contiguous; q, k, v strides multiples of
-// 8 and bases 16-byte aligned, out strides even; s · stride_s < 2³¹. scale
-// multiplies q in f32 before the bf16 cast; stable = 0 drops the
+// 8 and bases 16-byte aligned, out strides even. scratch: (3, b, h, s, 64)
+// bf16 for f32 input (unused for bf16). scale: q's scale, a power of two,
+// applied in f32 before the bf16 cast; stable = 0 drops the
 // max-subtraction. Returns cudaError_t.
 int freud_whisper_attention(const void* q, const void* k, const void* v, void* out,
                             int in_bf16, int batch, int heads, int seq,
                             const long long* strides, float scale, int stable,
-                            void* stream) {
+                            void* scratch, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const AttnArgs args = whisper_args(strides, seq, scale, stable);
-  if (in_bf16) {
-    using T = __nv_bfloat16;
+  AttnArgs args = whisper_args(strides, seq, scale, stable);
+  using T = __nv_bfloat16;
+  if (in_bf16)
     return launch_attention(static_cast<const T*>(q), static_cast<const T*>(k),
-                            static_cast<const T*>(v), static_cast<T*>(out), args,
-                            batch, heads, s);
-  }
-  return launch_attention(static_cast<const float*>(q), static_cast<const float*>(k),
-                          static_cast<const float*>(v), static_cast<float*>(out), args,
-                          batch, heads, s);
+                            static_cast<const T*>(v), static_cast<T*>(out), args, batch,
+                            heads, s);
+  const long long rows = (long long)batch * heads * seq;
+  const dim3 cgrid(static_cast<unsigned>((rows * (kHeadDim / 8) + 255) / 256), 3);
+  T* bf = static_cast<T*>(scratch);
+  to_bf16_kernel<<<cgrid, 256, 0, s>>>(static_cast<const float*>(q),
+                                       static_cast<const float*>(k),
+                                       static_cast<const float*>(v), args, heads, rows, bf);
+  const cudaError_t err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+  // the scratch is (b, h, s, 64) contiguous
+  const HeadStrides dense{(long long)heads * seq * kHeadDim, (long long)seq * kHeadDim,
+                          kHeadDim};
+  args.q = args.k = args.v = dense;
+  return launch_attention(bf, bf + rows * kHeadDim, bf + 2 * rows * kHeadDim,
+                          static_cast<float*>(out), args, batch, heads, s);
 }
 
 }  // extern "C"

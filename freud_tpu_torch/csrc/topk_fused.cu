@@ -1,5 +1,5 @@
-// TopK-SAE training forward for Hopper (sm_90a): encode GEMM, then per-row
-// exact thresholds, fired mask and both masked decodes.
+// TopK-SAE training forward for Hopper (sm_90a): encode GEMM, per-row exact
+// thresholds and fired mask, then both masked decodes as a second GEMM.
 //
 // Replaces the Pallas TPU kernel freud_tpu/ops/topk_fused.py
 // (topk_sae_forward → _forward_impl → _kernel):
@@ -10,29 +10,47 @@
 //            acts · W_dec   (M, d_in) f32, b_dec excluded
 //   fired  = any valid row with acts ≥ t_main and acts > 0
 //
-// What bounds it on an H100: at tiny_topk (M 75,000, d_in 384, n_dict 6144)
-// the encode is 354 GFLOP of bf16 tensor-core work and writes 0.92 GB of
-// acts; the selection reads them back once; the decode is a gather of the
-// selected W_dec rows (at most (k + k_aux) · d_in MACs per row, ~13 GFLOP)
-// from the 4.7 MB bf16 W_dec, which sits in L2. The TPU kernel decoded with
-// two dense (M, n_dict) · (n_dict, d_in) products (708 GFLOP) because its MXU
-// wants dense operands; gathering is 50× less work here.
+// What bounds it on an H100: the encode, 2·M·d_in·n_dict of bf16 products
+// (2.5 TFLOP at M 48,000, d_in 1280, n_dict 20,480: 2.5 ms at the
+// tensor-core peak), and the 2 GB of acts it writes; the selection reads the
+// acts once more. The decodes need only (k + k_aux)·d_in multiply-adds a
+// row, but a gather of up to k + k_aux W_dec rows a row reads them from L2
+// one row at a time (~80 GB a step at large width), which bound the earlier
+// design. So the decodes run dense on the tensor cores, where the masked
+// zeros cost products but no memory traffic: 2·2·M·n_dict·d_in operations.
 //
-// Design (the simple form; wgmma/TMA and a pipelined encode are later work):
-//   (a) encode_kernel: 128 × 128 output tiles, 8 warps of 64 × 32, bf16
-//       mma.sync m16n8k16 with f32 accumulation over the full d_in. The
-//       prologue rounds x − b_dec to bf16 as it stages the A tile; the
-//       epilogue rounds to bf16, adds the bf16 bias with bf16 rounding and
-//       applies ReLU — the TPU kernel's rounding order
-//       (topk_fused.py:298-302).
-//   (b) select_decode_kernel: one block per row. The row's keys and the dead
-//       mask go to shared memory; radix select finds both exact thresholds;
-//       one ordered pass (warp ballots + a block scan) sets fired and
-//       compacts the selected positive columns into one index list with two
-//       flag bits (main, aux); threads then own column pairs of the output
-//       and walk the list, accumulating both decodes in f32 in list order
-//       (deterministic). The list holds up to n_dict entries: ties, a row
-//       whose t_main is 0, or "select all dead" never overflow it.
+// Design: five launches on the caller's stream.
+//   (a) center_kernel: xs = bf16(x − b_dec), (M, d_in), because TMA copies
+//       bytes as they are and can neither subtract nor convert.
+//   (b) dead_bits_kernel (topk_select.cuh): the dead mask as bits.
+//   (c) encode_kernel: xs · W_encᵀ with wgmma on 128 × 256 output tiles.
+//       A producer warp streams 64-wide K slices of both operands (K-major,
+//       128-byte swizzle) by TMA through a ring of kStages stages; two
+//       consumer warpgroups of 64 rows each issue m64n256k16 from shared
+//       memory and keep one group of products in flight while the next
+//       slice's barrier is awaited. The epilogue keeps the TPU kernel's
+//       rounding exactly (topk_fused.py:298-302 of the JAX package):
+//       bf16(z), + bf16(b_enc) rounded to bf16, ReLU; it stages the tile in
+//       the freed stage buffers and writes acts in 16-byte pieces.
+//   (d) select_kernel: one block per row does only the selection
+//       (topk::select_row): exact t_main and t_aux and the fired OR, with
+//       the keys (40 KB at n_dict 20,480) and the dead bits in shared memory.
+//   (e) decode_kernel: acts · W_dec for both masks at once, on 128-row ×
+//       128-column output tiles over K = n_dict. The producer streams acts
+//       (K-major) and W_dec (MN-major: d_in contiguous) tiles by TMA; each
+//       consumer warpgroup masks its 64 acts rows of a slice into two
+//       shared-memory copies — by the row's threshold keys (non-negative
+//       bf16 bits order as their values, so a 16-bit unsigned compare is
+//       the selection's own) and, for aux, the column's dead bit — and
+//       issues m64n128k16 from shared memory for each mask into its own f32
+//       accumulators; both share every W_dec tile. The copies alternate
+//       between two buffers, so masking slice k + 1 overlaps the products
+//       of slice k (masking in registers instead would make ptxas
+//       serialise the products). No masked (M, n_dict) buffer, no split-K,
+//       no atomics: each output sums in a fixed order and repeats bit for
+//       bit.
+// Row tiles are walked kGroup at a time across all column tiles, so the
+// other operand's tiles are reused from L2.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -40,31 +58,25 @@
 #include <stdint.h>
 
 #include "common.cuh"
+#include "hopper.cuh"
 #include "topk_select.cuh"
 
 namespace {
 
 using topk::kSelectThreads;
-using topk::kWarps;
 using topk::Scratch;
 
-constexpr int kThreads = 256;  // 8 warps
-constexpr int kBM = 128;
-constexpr int kBN = 128;
-constexpr int kBK = 32;
-constexpr int kBKPad = kBK + 8;  // 80-byte rows: conflict-free fragment loads
+constexpr int kConsumers = 256;                // two warpgroups
+constexpr int kThreads = kConsumers + 32;      // and one producer warp
+constexpr int kBK = 64;                        // one 128-byte swizzle row of bf16
+constexpr int kStages = 4;
+constexpr int kGroup = 8;                      // row tiles walked together
+constexpr int kEncBM = 128, kEncBN = 256;      // encode output tile
+constexpr int kDecBM = 128, kDecBN = 128;      // decode output tile (2 × 64 columns)
 
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
 // relu(bf16(bf16(z) + b)), b already bf16
@@ -74,228 +86,378 @@ __device__ __forceinline__ __nv_bfloat16 act_of(float z, float b) {
   return __float2bfloat16_rn(s > 0.f ? s : 0.f);
 }
 
+// Output tile (tm, tn) of block `id`: kGroup row tiles at a time, all column
+// tiles of the group before the next.
+__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n, int& tm, int& tn) {
+  const int per_group = kGroup * tiles_n;
+  const int first = (id / per_group) * kGroup;
+  const int rows = min(tiles_m - first, kGroup);
+  const int r = id % per_group;
+  tm = first + r % rows;
+  tn = r / rows;
+}
+
 // ---------------------------------------------------------------- phase (a)
-// x (m, d) f32, b_dec (d,) f32, w (n, d) bf16 (the encoder weight, torch
-// Linear layout), b_enc (n,) bf16 → acts (m, n) bf16. d % 32 == 0, n even.
-__global__ void __launch_bounds__(kThreads)
-encode_kernel(const float* __restrict__ x, const float* __restrict__ b_dec,
-              const __nv_bfloat16* __restrict__ w,
-              const __nv_bfloat16* __restrict__ b_enc,
-              __nv_bfloat16* __restrict__ acts, int m_rows, int n, int d) {
-  __shared__ __align__(16) __nv_bfloat16 As[kBM][kBKPad];  // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBN][kBKPad];  // [col][k]
+// x (m, d) f32, b_dec (d,) f32 → xs (m, d) bf16; eight elements a thread.
+__global__ void __launch_bounds__(256)
+center_kernel(const float* __restrict__ x, const float* __restrict__ b_dec, int d,
+              long long chunks, __nv_bfloat16* __restrict__ xs) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  if (i >= chunks) return;
+  const long long e = 8 * i;
+  const int c = static_cast<int>(e % d);
+  const float4 a = *reinterpret_cast<const float4*>(x + e);
+  const float4 b = *reinterpret_cast<const float4*>(x + e + 4);
+  const float4 p = *reinterpret_cast<const float4*>(b_dec + c);
+  const float4 q = *reinterpret_cast<const float4*>(b_dec + c + 4);
+  *reinterpret_cast<uint4*>(xs + e) =
+      make_uint4(pack_bf16(a.x - p.x, a.y - p.y), pack_bf16(a.z - p.z, a.w - p.w),
+                 pack_bf16(b.x - q.x, b.y - q.y), pack_bf16(b.z - q.z, b.w - q.w));
+}
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int wm = warp / 4;  // 2 warp rows of 64
-  const int wn = warp % 4;  // 4 warp columns of 32
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
+// ---------------------------------------------------------------- phase (c)
+struct EncSmem {  // every tile 1024-byte aligned (the swizzle atom)
+  __nv_bfloat16 a[kStages][kEncBM * kBK];
+  __nv_bfloat16 b[kStages][kEncBN * kBK];
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr size_t kEncSmem = sizeof(EncSmem) + 1024;
 
-  float acc[4][4][4];
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+// xs: tensor map (d, m), box (64, 128); w_enc: tensor map (d, n), box
+// (64, 256); b_enc (n,) bf16 → acts (m, n) bf16.
+__global__ void __launch_bounds__(kThreads, 1)
+encode_kernel(const __grid_constant__ CUtensorMap xmap,
+              const __grid_constant__ CUtensorMap wmap,
+              const __nv_bfloat16* __restrict__ b_enc, __nv_bfloat16* __restrict__ acts,
+              int m, int n, int d) {
+  extern __shared__ unsigned char smem_raw[];
+  EncSmem& sm = *reinterpret_cast<EncSmem*>(hopper::align1024(smem_raw));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int tm, tn;
+  tile_of(blockIdx.x, (m + kEncBM - 1) / kEncBM, (n + kEncBN - 1) / kEncBN, tm, tn);
+  const int k_tiles = (d + kBK - 1) / kBK;
 
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    // A: 128 × 32 f32 → bf16(x − b_dec), four float4 per thread
-#pragma unroll
-    for (int it = 0; it < 4; ++it) {
-      const int idx = (tid + it * kThreads) * 4;
-      const int r = idx / kBK;
-      const int c = idx % kBK;
-      const int m = m0 + r;
-      float4 v = make_float4(0.f, 0.f, 0.f, 0.f);
-      if (m < m_rows) {
-        const float4 xv = *reinterpret_cast<const float4*>(x + (size_t)m * d + k0 + c);
-        const float4 bv = *reinterpret_cast<const float4*>(b_dec + k0 + c);
-        v = make_float4(xv.x - bv.x, xv.y - bv.y, xv.z - bv.z, xv.w - bv.w);
-      }
-      *reinterpret_cast<__nv_bfloat162*>(&As[r][c]) = __floats2bfloat162_rn(v.x, v.y);
-      *reinterpret_cast<__nv_bfloat162*>(&As[r][c + 2]) = __floats2bfloat162_rn(v.z, v.w);
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], kConsumers / 32);
     }
-    // B: 128 rows of W_enc × 32 k, two 16-byte loads per thread
-#pragma unroll
-    for (int it = 0; it < 2; ++it) {
-      const int idx = (tid + it * kThreads) * 8;
-      const int r = idx / kBK;
-      const int c = idx % kBK;
-      const int nn = n0 + r;
-      uint4 v = make_uint4(0u, 0u, 0u, 0u);
-      if (nn < n) v = *reinterpret_cast<const uint4*>(w + (size_t)nn * d + k0 + c);
-      *reinterpret_cast<uint4*>(&Bs[r][c]) = v;
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      uint32_t a[4][4];
-#pragma unroll
-      for (int mt = 0; mt < 4; ++mt) {
-        const int r = wm * 64 + mt * 16 + g;
-        a[mt][0] = load_pair(&As[r][ks + 2 * t]);
-        a[mt][1] = load_pair(&As[r + 8][ks + 2 * t]);
-        a[mt][2] = load_pair(&As[r][ks + 2 * t + 8]);
-        a[mt][3] = load_pair(&As[r + 8][ks + 2 * t + 8]);
-      }
-#pragma unroll
-      for (int nt = 0; nt < 4; ++nt) {
-        const int c = wn * 32 + nt * 8 + g;
-        uint32_t b[2];
-        b[0] = load_pair(&Bs[c][ks + 2 * t]);
-        b[1] = load_pair(&Bs[c][ks + 2 * t + 8]);
-#pragma unroll
-        for (int mt = 0; mt < 4; ++mt) mma_16816(acc[mt][nt], a[mt], b);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ------------------------------ producer
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) hopper::mbar_wait(&sm.empty[st], ((kt / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&sm.full[st], (kEncBM + kEncBN) * kBK * 2);
+        hopper::tma_load_2d(sm.a[st], &xmap, &sm.full[st], kt * kBK, tm * kEncBM);
+        hopper::tma_load_2d(sm.b[st], &wmap, &sm.full[st], kt * kBK, tn * kEncBN);
       }
     }
-    __syncthreads();
+    return;
   }
 
+  // ------------------------------------------------------------ consumers
+  const int wg = warp / 4;
+  float acc[kEncBN / 2];
 #pragma unroll
-  for (int nt = 0; nt < 4; ++nt) {
-    const int col = n0 + wn * 32 + nt * 8 + 2 * t;
-    if (col >= n) continue;
-    const float b0 = __bfloat162float(b_enc[col]);
-    const float b1 = __bfloat162float(b_enc[col + 1]);
+  for (int i = 0; i < kEncBN / 2; ++i) acc[i] = 0.f;
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int st = kt % kStages;
+    hopper::mbar_wait(&sm.full[st], (kt / kStages) & 1);
+    const uint64_t a_desc = hopper::desc_sw128(sm.a[st] + wg * 64 * kBK);
+    const uint64_t b_desc = hopper::desc_sw128(sm.b[st]);
+    hopper::fence_regs(acc);
+    hopper::wgmma_fence();
 #pragma unroll
-    for (int mt = 0; mt < 4; ++mt) {
+    for (int kk = 0; kk < kBK / 16; ++kk)
+      hopper::wgmma_m64n256k16_ss(acc, a_desc + hopper::k_step_kmajor(kk),
+                                  b_desc + hopper::k_step_kmajor(kk), 1);
+    hopper::wgmma_commit();
+    hopper::wgmma_wait<1>();  // the previous slice's products are done
+    hopper::fence_regs(acc);
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[(kt - 1) % kStages]);
+  }
+  hopper::wgmma_wait<0>();
+  hopper::fence_regs(acc);
+
+  // Epilogue: the TPU kernel's rounding order. The stage buffers are free
+  // once both warpgroups' products are done (every slice was loaded and
+  // consumed), so each warpgroup stages its 64 × 256 bf16 tile there (rows
+  // padded against bank conflicts) and writes it out in 16-byte pieces.
+  hopper::named_barrier(1, kConsumers);
+  constexpr int kPitch = kEncBN + 8;  // bf16 per staged row
+  __nv_bfloat16* stage = reinterpret_cast<__nv_bfloat16*>(&sm) + wg * 64 * kPitch;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = (warp % 4) * 16 + g;  // row in the warpgroup's 64
 #pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const int row = m0 + wm * 64 + mt * 16 + g + 8 * h;
-        if (row >= m_rows) continue;
-        __nv_bfloat162 out;
-        out.x = act_of(acc[mt][nt][2 * h], b0);
-        out.y = act_of(acc[mt][nt][2 * h + 1], b1);
-        *reinterpret_cast<__nv_bfloat162*>(acts + (size_t)row * n + col) = out;
+  for (int j = 0; j < kEncBN / 8; ++j) {
+    const int c = 8 * j + 2 * t;
+    const int col = tn * kEncBN + c;
+    const float2 b = col < n
+        ? __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(b_enc + col))
+        : make_float2(0.f, 0.f);
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      __nv_bfloat162 out;
+      out.x = act_of(acc[4 * j + 2 * h], b.x);
+      out.y = act_of(acc[4 * j + 2 * h + 1], b.y);
+      *reinterpret_cast<__nv_bfloat162*>(stage + (r0 + 8 * h) * kPitch + c) = out;
+    }
+  }
+  hopper::named_barrier(2 + wg, 128);
+  const int wt = threadIdx.x % 128;
+  constexpr int kChunks = kEncBN / 8;  // 16-byte pieces a row
+#pragma unroll 4
+  for (int i = wt; i < 64 * kChunks; i += 128) {
+    const int r = i / kChunks;
+    const int c = 8 * (i % kChunks);
+    const int row = tm * kEncBM + wg * 64 + r;
+    const int col = tn * kEncBN + c;
+    if (row < m && col < n)  // n % 8 == 0: a piece is all in or all out
+      *reinterpret_cast<uint4*>(acts + (size_t)row * n + col) =
+          *reinterpret_cast<const uint4*>(stage + r * kPitch + c);
+  }
+}
+
+// ---------------------------------------------------------------- phase (d)
+// One block per row of acts (m, n) bf16 → t_main, t_aux (m,) f32; fired
+// (n,) int32 OR-ed (zeroed by the caller).
+__global__ void __launch_bounds__(kSelectThreads)
+select_kernel(const uint16_t* __restrict__ acts, const uint32_t* __restrict__ dead_bits,
+              int n, int k, int k_aux, float* __restrict__ t_main, float* __restrict__ t_aux,
+              int* __restrict__ fired) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ Scratch s;
+  const uint32_t ks[topk::kMaxSel] = {(uint32_t)k, (uint32_t)k_aux, 0u};
+  float* const t[topk::kMaxSel] = {t_main, t_aux, nullptr};
+  topk::select_row(acts, dead_bits, n, 2, ks, t, fired, smem, s);
+}
+
+// ---------------------------------------------------------------- phase (e)
+struct DecSmem {
+  __nv_bfloat16 a[kStages][kDecBM * kBK];       // acts: 128 rows × 64 columns
+  __nv_bfloat16 b[kStages][2][kBK * 64];        // W_dec: 64 rows × (2 × 64) columns
+  // each warpgroup's 64 acts rows masked for main and aux, two slices in turn
+  __nv_bfloat16 masked[2][2][2][64 * kBK];      // [slice & 1][warpgroup][main, aux]
+  uint64_t full[kStages];
+  uint64_t empty[kStages];
+};
+constexpr size_t kDecSmem = sizeof(DecSmem) + 1024;
+
+// A threshold's bf16 bits in both 16-bit halves; +inf (selects nothing)
+// for rows past m.
+__device__ __forceinline__ uint32_t threshold_halves(const float* t, int row, int m) {
+  const uint32_t bits = row < m ? __float_as_uint(t[row]) >> 16 : 0x7F80u;
+  return bits | (bits << 16);
+}
+
+// Eight dead bits (columns c..c + 7 of a 64-column slice, c % 8 == 0) as
+// four masks of two 16-bit halves.
+__device__ __forceinline__ uint4 dead_mask8(uint2 dw, int c) {
+  const uint32_t byte = ((c < 32 ? dw.x : dw.y) >> (c & 31)) & 0xFFu;
+  uint32_t h[4];
+#pragma unroll
+  for (int q = 0; q < 4; ++q) {
+    const uint32_t bits = byte >> (2 * q);
+    h[q] = ((bits & 1u) ? 0x0000FFFFu : 0u) | ((bits & 2u) ? 0xFFFF0000u : 0u);
+  }
+  return make_uint4(h[0], h[1], h[2], h[3]);
+}
+
+// Keeps the 16-bit halves of v that are >= t (and set in mask).
+__device__ __forceinline__ uint4 keep_ge(uint4 v, uint32_t t, uint4 mask) {
+  return make_uint4(v.x & __vcmpgeu2(v.x, t) & mask.x, v.y & __vcmpgeu2(v.y, t) & mask.y,
+                    v.z & __vcmpgeu2(v.z, t) & mask.z, v.w & __vcmpgeu2(v.w, t) & mask.w);
+}
+
+// The decode's f32 accumulators: 64 rows × 128 columns per mask.
+struct DecAcc {
+  float main[64];
+  float aux[64];
+};
+
+__device__ __forceinline__ void fence_acc(DecAcc& acc) {
+  hopper::fence_regs(acc.main);
+  hopper::fence_regs(acc.aux);
+}
+
+// acts: tensor map (n, m), box (64, 128); w_dec: tensor map (d, n), box
+// (64, 64); t_main, t_aux (m,) f32; dead_bits (2·ceil(n / 64) words, zero
+// past n) → y_main, y_aux (m, d) f32.
+__global__ void __launch_bounds__(kThreads, 1)
+decode_kernel(const __grid_constant__ CUtensorMap amap,
+              const __grid_constant__ CUtensorMap wmap, const float* __restrict__ t_main,
+              const float* __restrict__ t_aux, const uint32_t* __restrict__ dead_bits,
+              float* __restrict__ y_main, float* __restrict__ y_aux, int m, int n, int d) {
+  extern __shared__ unsigned char smem_raw[];
+  DecSmem& sm = *reinterpret_cast<DecSmem*>(hopper::align1024(smem_raw));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  int tm, tn;
+  tile_of(blockIdx.x, (m + kDecBM - 1) / kDecBM, (d + kDecBN - 1) / kDecBN, tm, tn);
+  const int k_tiles = (n + kBK - 1) / kBK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], kConsumers / 32);
+    }
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ------------------------------ producer
+    if (lane == 0) {
+      for (int kt = 0; kt < k_tiles; ++kt) {
+        const int st = kt % kStages;
+        if (kt >= kStages) hopper::mbar_wait(&sm.empty[st], ((kt / kStages) & 1) ^ 1);
+        hopper::mbar_expect_tx(&sm.full[st], (kDecBM + 2 * kBK) * kBK * 2);
+        hopper::tma_load_2d(sm.a[st], &amap, &sm.full[st], kt * kBK, tm * kDecBM);
+        hopper::tma_load_2d(sm.b[st][0], &wmap, &sm.full[st], tn * kDecBN, kt * kBK);
+        hopper::tma_load_2d(sm.b[st][1], &wmap, &sm.full[st], tn * kDecBN + 64, kt * kBK);
       }
+    }
+    return;
+  }
+
+  // ------------------------------------------------------------ consumers
+  const int wg = warp / 4;
+  const int wt = threadIdx.x % 128;  // thread in the warpgroup
+  // The masking pass: this thread takes 16-byte chunk wt % 8 of rows
+  // wt / 8 + 16·i of the warpgroup's 64, in the swizzled layout TMA wrote
+  // (the chunk holds logical columns 8·(chunk ^ row % 8) onward); the masked
+  // copies keep that layout, so wgmma reads them as it reads a TMA tile.
+  const int chunk = wt % 8;
+  uint32_t tm2[4], ta2[4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const int row = tm * kDecBM + wg * 64 + wt / 8 + 16 * i;
+    tm2[i] = threshold_halves(t_main, row, m);
+    ta2[i] = threshold_halves(t_aux, row, m);
+  }
+  DecAcc acc;
+#pragma unroll
+  for (int i = 0; i < 64; ++i) acc.main[i] = acc.aux[i] = 0.f;
+
+  for (int kt = 0; kt < k_tiles; ++kt) {
+    const int st = kt % kStages;
+    const uint2 dw = *reinterpret_cast<const uint2*>(dead_bits + 2 * kt);
+    __nv_bfloat16* mm = sm.masked[kt & 1][wg][0];
+    __nv_bfloat16* ma = sm.masked[kt & 1][wg][1];
+    hopper::mbar_wait(&sm.full[st], (kt / kStages) & 1);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) {
+      const int r = wt / 8 + 16 * i;
+      const int at = r * kBK + 8 * chunk;  // bf16 offset of the physical chunk
+      const uint4 v = *reinterpret_cast<const uint4*>(sm.a[st] + wg * 64 * kBK + at);
+      const uint4 all = make_uint4(~0u, ~0u, ~0u, ~0u);
+      *reinterpret_cast<uint4*>(mm + at) = keep_ge(v, tm2[i], all);
+      *reinterpret_cast<uint4*>(ma + at) =
+          keep_ge(v, ta2[i], dead_mask8(dw, 8 * (chunk ^ (r & 7))));
+    }
+    hopper::fence_proxy_async();          // the masked tiles, for wgmma
+    hopper::named_barrier(1 + wg, 128);   // every thread of the warpgroup wrote
+    const uint64_t b = hopper::desc_sw128(sm.b[st][0], sizeof(sm.b[st][0]));
+    const uint64_t am = hopper::desc_sw128(mm);
+    const uint64_t aa = hopper::desc_sw128(ma);
+    fence_acc(acc);
+    hopper::wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint64_t step_b = hopper::k_step_mnmajor(kk);
+      const uint64_t step_a = hopper::k_step_kmajor(kk);
+      hopper::wgmma_m64n128k16_ss_mn(acc.main, am + step_a, b + step_b, 1);
+      hopper::wgmma_m64n128k16_ss_mn(acc.aux, aa + step_a, b + step_b, 1);
+    }
+    hopper::wgmma_commit();
+    // slice kt − 1's products are done: its stage and masked tiles are free
+    hopper::wgmma_wait<1>();
+    fence_acc(acc);
+    if (kt > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[(kt - 1) % kStages]);
+  }
+  hopper::wgmma_wait<0>();
+  fence_acc(acc);
+
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int row0 = tm * kDecBM + wg * 64 + (warp % 4) * 16 + g;
+#pragma unroll
+  for (int j = 0; j < kDecBN / 8; ++j) {
+    const int col = tn * kDecBN + 8 * j + 2 * t;
+    if (col >= d) continue;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= m) continue;
+      const size_t at = (size_t)row * d + col;
+      *reinterpret_cast<float2*>(y_main + at) =
+          make_float2(acc.main[4 * j + 2 * h], acc.main[4 * j + 2 * h + 1]);
+      *reinterpret_cast<float2*>(y_aux + at) =
+          make_float2(acc.aux[4 * j + 2 * h], acc.aux[4 * j + 2 * h + 1]);
     }
   }
 }
 
-// ---------------------------------------------------------------- phase (b)
-// One block per row of acts (m, n) bf16; w_dec (n, d) bf16; dead (n,) uint8.
-// → y_main, y_aux (m, d) f32; t_main, t_aux (m,) f32; fired (n,) int32
-// (zeroed by the caller). d even.
-__global__ void __launch_bounds__(kSelectThreads)
-select_decode_kernel(const uint16_t* __restrict__ acts,
-                     const __nv_bfloat16* __restrict__ w_dec,
-                     const uint8_t* __restrict__ dead_g, int n, int d, int k,
-                     int k_aux, float* __restrict__ y_main, float* __restrict__ y_aux,
-                     float* __restrict__ t_main, float* __restrict__ t_aux,
-                     int* __restrict__ fired) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  uint32_t* list = reinterpret_cast<uint32_t*>(smem);      // n entries
-  uint16_t* keys = reinterpret_cast<uint16_t*>(list + n);  // n keys
-  uint8_t* dead = reinterpret_cast<uint8_t*>(keys) + ((2 * (size_t)n + 15) & ~(size_t)15);
-  __shared__ Scratch s;
-  const size_t row = blockIdx.x;
-  const int tid = threadIdx.x;
-  const int lane = tid & 31;
-  const int warp = tid >> 5;
-
-  const uint32_t n_dead = topk::load_row(acts + row * n, dead_g, n, keys, dead, s);
-  __syncthreads();
-  const uint32_t ks[2] = {(uint32_t)k, (uint32_t)k_aux};
-  const bool only_dead[2] = {false, true};
-  uint32_t t[2];
-  topk::select_many(keys, dead, n, 2, ks, only_dead, n_dead, t, s);
-  const uint32_t km = t[0], ka = t[1];
-  if (tid == 0) {
-    t_main[row] = topk::key_to_float(km);
-    t_aux[row] = topk::key_to_float(ka);
-  }
-
-  // ordered compaction of the selected positive columns: j | flags << 30
-  // (zeros are left out: they add nothing to either decode)
-  uint32_t total = 0;
-  for (int base = 0; base < n; base += kSelectThreads) {
-    const int j = base + tid;
-    uint32_t flags = 0;
-    if (j < n) {
-      const uint32_t key = keys[j];
-      if (topk::key_positive(key)) {
-        flags = (key >= km ? 1u : 0u) | (dead[j] && key >= ka ? 2u : 0u);
-        if (flags & 1u) fired[j] = 1;  // OR into the mask: every writer stores 1
-      }
-    }
-    const uint32_t ballot = __ballot_sync(topk::kFull, flags != 0);
-    if (lane == 0) s.warp[warp] = __popc(ballot);
-    __syncthreads();
-    uint32_t before = 0, chunk = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      before += w < warp ? s.warp[w] : 0u;
-      chunk += s.warp[w];
-    }
-    if (flags)
-      list[total + before + __popc(ballot & ((1u << lane) - 1u))] = (uint32_t)j | (flags << 30);
-    total += chunk;
-    __syncthreads();
-  }
-
-  // gather decode: thread owns output columns 2p, 2p + 1
-  const __nv_bfloat162* w2 = reinterpret_cast<const __nv_bfloat162*>(w_dec);
-  const int pairs = d / 2;
-  for (int p = tid; p < pairs; p += kSelectThreads) {
-    float m0 = 0.f, m1 = 0.f, a0 = 0.f, a1 = 0.f;
-    for (uint32_t i = 0; i < total; ++i) {
-      const uint32_t e = list[i];
-      const uint32_t j = e & 0x3FFFFFFFu;
-      const float a = topk::key_to_float(keys[j]);
-      const float2 wf = __bfloat1622float2(w2[(size_t)j * pairs + p]);
-      const float am = (e >> 30) & 1u ? a : 0.f;
-      const float aa = (e >> 31) ? a : 0.f;
-      m0 = fmaf(am, wf.x, m0);
-      m1 = fmaf(am, wf.y, m1);
-      a0 = fmaf(aa, wf.x, a0);
-      a1 = fmaf(aa, wf.y, a1);
-    }
-    *reinterpret_cast<float2*>(y_main + row * d + 2 * p) = make_float2(m0, m1);
-    *reinterpret_cast<float2*>(y_aux + row * d + 2 * p) = make_float2(a0, a1);
-  }
+// A 2-D bf16 tensor map over a row-major (rows, cols) matrix.
+int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+               int box_rows) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {2ull * cols};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return hopper::make_map(map, base, 2, dims, strides, box);
 }
 
 }  // namespace
 
 extern "C" {
 
-// Bytes of dynamic shared memory the select/decode phase needs for n_dict n.
-size_t freud_topk_fused_smem(int n) {
-  return 4 * (size_t)n + ((2 * (size_t)n + 15) & ~(size_t)15) + n;
-}
+// Bytes of dynamic shared memory the selection needs for n_dict n.
+size_t freud_topk_fused_smem(int n) { return topk::row_smem_bytes(n); }
 
 // x (m, d) f32; b_dec (d,) f32; w_enc (n, d) bf16; b_enc (n,) bf16;
 // w_dec (n, d) bf16; dead (n,) uint8 → acts (m, n) bf16; y_main, y_aux (m, d)
 // f32; t_main, t_aux (m,) f32; fired (n,) int32 zeroed by the caller.
-// d % 32 == 0, n even. Returns cudaError_t.
+// Scratch: xs (m, d) bf16; dead_bits 2·ceil(n / 64) int32, zeroed by the
+// caller. d % 32 == 0, n % 8 == 0, all bases 16-byte aligned. Returns
+// cudaError_t.
 int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc,
                            const void* b_enc, const void* w_dec, const uint8_t* dead,
                            int m, int n, int d, int k, int k_aux, void* acts,
                            float* y_main, float* y_aux, float* t_main, float* t_aux,
-                           int* fired, void* stream) {
+                           int* fired, void* xs, uint32_t* dead_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
-  const dim3 grid((n + kBN - 1) / kBN, (m + kBM - 1) / kBM);
-  encode_kernel<<<grid, kThreads, 0, s>>>(
-      x, b_dec, static_cast<const __nv_bfloat16*>(w_enc),
-      static_cast<const __nv_bfloat16*>(b_enc), static_cast<__nv_bfloat16*>(acts), m, n,
-      d);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-  const size_t smem = freud_topk_fused_smem(n);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(select_decode_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  select_decode_kernel<<<m, kSelectThreads, smem, s>>>(
-      static_cast<const uint16_t*>(acts), static_cast<const __nv_bfloat16*>(w_dec), dead,
-      n, d, k, k_aux, y_main, y_aux, t_main, t_aux, fired);
+  using bf16 = __nv_bfloat16;
+  CUtensorMap xmap, wemap, amap, wdmap;
+  int err = matrix_map(&xmap, xs, m, d, kBK, kEncBM);
+  if (!err) err = matrix_map(&wemap, w_enc, n, d, kBK, kEncBN);
+  if (!err) err = matrix_map(&amap, acts, m, n, kBK, kDecBM);
+  if (!err) err = matrix_map(&wdmap, w_dec, n, d, 64, kBK);
+  if (!err) err = hopper::allow_smem(encode_kernel, kEncSmem);
+  if (!err) err = hopper::allow_smem(decode_kernel, kDecSmem);
+  const size_t sel_smem = topk::row_smem_bytes(n);
+  if (!err && sel_smem > 48 * 1024) err = hopper::allow_smem(select_kernel, sel_smem);
+  if (err) return err;
+
+  const long long chunks = (long long)m * d / 8;
+  center_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+      x, b_dec, d, chunks, static_cast<bf16*>(xs));
+  topk::dead_bits_kernel<<<(n + kSelectThreads - 1) / kSelectThreads, kSelectThreads, 0, s>>>(
+      dead, n, dead_bits);
+  const int enc_tiles = ((m + kEncBM - 1) / kEncBM) * ((n + kEncBN - 1) / kEncBN);
+  encode_kernel<<<enc_tiles, kThreads, kEncSmem, s>>>(
+      xmap, wemap, static_cast<const bf16*>(b_enc), static_cast<bf16*>(acts), m, n, d);
+  select_kernel<<<m, kSelectThreads, sel_smem, s>>>(
+      static_cast<const uint16_t*>(acts), dead_bits, n, k, k_aux, t_main, t_aux, fired);
+  const int dec_tiles = ((m + kDecBM - 1) / kDecBM) * ((d + kDecBN - 1) / kDecBN);
+  decode_kernel<<<dec_tiles, kThreads, kDecSmem, s>>>(amap, wdmap, t_main, t_aux, dead_bits,
+                                                      y_main, y_aux, m, n, d);
   return static_cast<int>(cudaGetLastError());
 }
 

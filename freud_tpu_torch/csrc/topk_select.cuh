@@ -1,6 +1,8 @@
 // Per-row selection core shared by csrc/topk_threshold.cu and
 // csrc/topk_fused.cu: one block of kSelectThreads threads owns one row of the
-// (M, n_dict) latent, staged in shared memory as 16-bit order keys.
+// (M, n_dict) latent, staged in shared memory as 16-bit order keys beside
+// the dead mask as bits (dead_bits_kernel packs it once per launch), so a
+// row at n_dict 20,480 takes 43 KB and several rows' blocks share an SM.
 //
 // For non-negative bf16 values the bit pattern orders like the value. The JAX
 // kernels (freud_tpu/ops/topk_fused.py _int_bisect_packed) bisect the bf16
@@ -17,7 +19,7 @@
 // Shared-memory atomics on a histogram are contended when many values share a
 // byte (half a ReLU row is zero), so in the high-byte pass each warp first
 // merges equal bins with __match_any_sync and one lane adds the group's
-// count.
+// count; the dead keys' histogram shares that pass (one match per key).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -50,11 +52,29 @@ __device__ __forceinline__ float key_to_float(uint32_t key) {
 // value > 0  <=>  int16(bits) > 0  <=>  key > 0x8000
 __device__ __forceinline__ bool key_positive(uint32_t key) { return key > 0x8000u; }
 
-// Stage one bf16 row as keys and its dead mask as bytes; returns the number of
-// dead columns (every thread gets it).
+// The dead mask (n,) bytes → bits (ceil(n / 32) words), bit j % 32 of word
+// j / 32 set for a dead column j.
+__global__ void __launch_bounds__(kSelectThreads)
+dead_bits_kernel(const uint8_t* __restrict__ dead_g, int n, uint32_t* __restrict__ bits) {
+  const int j = blockIdx.x * kSelectThreads + threadIdx.x;
+  const uint32_t word = __ballot_sync(kFull, j < n && dead_g[j] != 0);
+  if ((threadIdx.x & 31) == 0 && j < n) bits[j >> 5] = word;
+}
+
+__device__ __forceinline__ bool is_dead(const uint32_t* bits, int j) {
+  return (bits[j >> 5] >> (j & 31)) & 1u;
+}
+
+// Bytes of dynamic shared memory a row of n keys and its dead bits take.
+__host__ __device__ constexpr size_t row_smem_bytes(int n) {
+  return ((2 * (size_t)n + 15) & ~(size_t)15) + 4 * (((size_t)n + 31) / 32);
+}
+
+// Stage one bf16 row as keys and the dead bits; returns the number of dead
+// columns (every thread gets it).
 __device__ uint32_t load_row(const uint16_t* __restrict__ src,
-                             const uint8_t* __restrict__ dead_g, int n,
-                             uint16_t* keys, uint8_t* dead, Scratch& s) {
+                             const uint32_t* __restrict__ dead_g, int n,
+                             uint16_t* keys, uint32_t* dead, Scratch& s) {
   const int tid = threadIdx.x;
   if ((n & 7) == 0) {  // 16-byte loads: 8 bf16 per thread and step
     const uint4* s4 = reinterpret_cast<const uint4*>(src);
@@ -71,10 +91,10 @@ __device__ uint32_t load_row(const uint16_t* __restrict__ src,
     for (int j = tid; j < n; j += kSelectThreads) keys[j] = src[j] ^ 0x8000u;
   }
   uint32_t nd = 0;
-  for (int j = tid; j < n; j += kSelectThreads) {
-    const uint8_t dj = dead_g[j] != 0;
-    dead[j] = dj;
-    nd += dj;
+  for (int w = tid; w < (n + 31) / 32; w += kSelectThreads) {
+    const uint32_t word = dead_g[w];
+    dead[w] = word;
+    nd += __popc(word);
   }
   nd = __reduce_add_sync(kFull, nd);
   if ((tid & 31) == 0) s.warp[tid >> 5] = nd;
@@ -87,11 +107,11 @@ __device__ uint32_t load_row(const uint16_t* __restrict__ src,
 }
 
 // Smallest key among candidates (dead[j] when only_dead).
-__device__ uint32_t block_min_key(const uint16_t* keys, const uint8_t* dead,
+__device__ uint32_t block_min_key(const uint16_t* keys, const uint32_t* dead,
                                   bool only_dead, int n, Scratch& s) {
   uint32_t m = 0xFFFFu;
   for (int j = threadIdx.x; j < n; j += kSelectThreads)
-    if (!only_dead || dead[j]) m = min(m, (uint32_t)keys[j]);
+    if (!only_dead || is_dead(dead, j)) m = min(m, (uint32_t)keys[j]);
   m = __reduce_min_sync(kFull, m);
   if ((threadIdx.x & 31) == 0) s.warp[threadIdx.x >> 5] = m;
   __syncthreads();
@@ -102,12 +122,12 @@ __device__ uint32_t block_min_key(const uint16_t* keys, const uint8_t* dead,
   return out;
 }
 
-// Adds one to hist[bin] for every lane whose bin < 256; lanes with equal
+// Adds one to hist[bin] for every lane whose bin < bins; lanes with equal
 // bins are merged first (one atomic per group). All 32 lanes must call it.
-__device__ __forceinline__ void warp_count(uint32_t bin, uint32_t* hist) {
+__device__ __forceinline__ void warp_count(uint32_t bin, uint32_t* hist, uint32_t bins) {
   const int lane = threadIdx.x & 31;
   const uint32_t peers = __match_any_sync(kFull, bin);
-  if (bin < 256u && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
+  if (bin < bins && lane == __ffs(peers) - 1) atomicAdd(&hist[bin], __popc(peers));
 }
 
 // Run by one warp: the largest bin b of hist with (count of bins >= b) >= k,
@@ -144,7 +164,7 @@ __device__ void find_bin(const uint32_t* hist, uint32_t k, uint32_t* out) {
 // bytes inside its bucket, warp i finds the key. k[i] is selection i's rank,
 // only_dead[i] whether its candidates are the dead columns; n_dead counts
 // those. out[i] follows the edge rules in the header.
-__device__ void select_many(const uint16_t* keys, const uint8_t* dead, int n,
+__device__ void select_many(const uint16_t* keys, const uint32_t* dead, int n,
                             int nsel, const uint32_t* k, const bool* only_dead,
                             uint32_t n_dead, uint32_t* out, Scratch& s) {
   const int tid = threadIdx.x;
@@ -161,17 +181,22 @@ __device__ void select_many(const uint16_t* keys, const uint8_t* dead, int n,
       out[i] = block_min_key(keys, dead, only_dead[i], n, s);
     any_dead |= radix[i] && only_dead[i];
   }
-  // high bytes: hist[0] over all keys, hist[1] over the dead keys
+  // high bytes in one pass of one 512-bin histogram: a live key counts in
+  // bin hi of hist[0], a dead one in bin hi of hist[1]; then hist[0] +=
+  // hist[1] makes hist[0] count all keys
   for (int i = tid; i < 2 * 256; i += kSelectThreads) s.hist[i / 256][i % 256] = 0;
   __syncthreads();
   for (int base = 0; base < n; base += kSelectThreads) {
     const int j = base + tid;
-    const uint32_t none = 0x100u + lane;  // no bin, and unique: matches no lane
-    const uint32_t hi = j < n ? (uint32_t)keys[j] >> 8 : none;
-    warp_count(hi, s.hist[0]);
-    if (any_dead) warp_count(j < n && dead[j] ? hi : none, s.hist[1]);
+    uint32_t bin = 0x200u + lane;  // no bin, and unique: matches no lane
+    if (j < n) bin = ((uint32_t)keys[j] >> 8) | (any_dead && is_dead(dead, j) ? 0x100u : 0u);
+    warp_count(bin, s.hist[0], 0x200u);
   }
   __syncthreads();
+  if (any_dead) {
+    for (int b = tid; b < 256; b += kSelectThreads) s.hist[0][b] += s.hist[1][b];
+    __syncthreads();
+  }
   if (warp < nsel && radix[warp])
     find_bin(s.hist[only_dead[warp] ? 1 : 0], k[warp], &s.bcast[4 * warp]);
   __syncthreads();
@@ -183,7 +208,7 @@ __device__ void select_many(const uint16_t* keys, const uint8_t* dead, int n,
   for (int j = tid; j < n; j += kSelectThreads) {
     const uint32_t key = keys[j];
     for (int i = 0; i < nsel; ++i)
-      if ((key >> 8) == bucket[i] && (!only_dead[i] || dead[j]))
+      if ((key >> 8) == bucket[i] && (!only_dead[i] || is_dead(dead, j)))
         atomicAdd(&s.hist[i][key & 0xFFu], 1u);
   }
   __syncthreads();
@@ -193,6 +218,31 @@ __device__ void select_many(const uint16_t* keys, const uint8_t* dead, int n,
   for (int i = 0; i < nsel; ++i)
     if (radix[i]) out[i] = (bucket[i] << 8) | s.bcast[4 * i + 2];
   __syncthreads();  // s.bcast and s.hist are reused by the next call
+}
+
+// One block per row: the exact thresholds of `nsel` selections (t_main
+// with k[0], t_aux with k[1] among dead columns, t_multi with k[2]) into
+// t[i][row] as f32, and fired[j] = 1 for every positive key >= t_main.
+// keys and dead point into dynamic shared memory (row_smem_bytes).
+__device__ void select_row(const uint16_t* __restrict__ acts, const uint32_t* __restrict__ dead_g,
+                           int n, int nsel, const uint32_t* k, float* const* t,
+                           int* __restrict__ fired, unsigned char* smem, Scratch& s) {
+  uint16_t* keys = reinterpret_cast<uint16_t*>(smem);
+  uint32_t* dead = reinterpret_cast<uint32_t*>(smem + ((2 * (size_t)n + 15) & ~(size_t)15));
+  const size_t row = blockIdx.x;
+  const uint32_t n_dead = load_row(acts + row * n, dead_g, n, keys, dead, s);
+  __syncthreads();
+  const bool only_dead[kMaxSel] = {false, true, false};
+  uint32_t out[kMaxSel];
+  select_many(keys, dead, n, nsel, k, only_dead, n_dead, out, s);
+  if (threadIdx.x == 0)
+    for (int i = 0; i < nsel; ++i) t[i][row] = key_to_float(out[i]);
+  const uint32_t km = out[0];
+  for (int j = threadIdx.x; j < n; j += kSelectThreads) {
+    const uint32_t key = keys[j];
+    // OR into the mask: every writer stores the same 1
+    if (key >= km && key_positive(key)) fired[j] = 1;
+  }
 }
 
 }  // namespace topk

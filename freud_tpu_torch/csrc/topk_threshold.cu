@@ -20,8 +20,8 @@
 //
 // What bounds it on an H100: one read of the latent (0.9 GB bf16 at
 // M 75,000, n_dict 6144) against shared-memory passes per row: 2 histogram
-// passes shared by the exact thresholds, 26 counting passes per float
-// threshold. The
+// passes shared by the exact thresholds (the dead mask packed to bits once
+// a launch), 26 counting passes per float threshold. The
 // float path is bound by those passes; the row sits in shared memory so they
 // never reach device memory.
 
@@ -40,33 +40,15 @@ using topk::kWarps;
 using topk::Scratch;
 
 __global__ void __launch_bounds__(kSelectThreads)
-exact_kernel(const uint16_t* __restrict__ acts, const uint8_t* __restrict__ dead_g,
+exact_kernel(const uint16_t* __restrict__ acts, const uint32_t* __restrict__ dead_bits,
              int n, int k_main, int k_aux, int k_multi, float* __restrict__ t_main,
              float* __restrict__ t_aux, float* __restrict__ t_multi,
              int* __restrict__ fired) {
   extern __shared__ __align__(16) unsigned char smem[];
-  uint16_t* keys = reinterpret_cast<uint16_t*>(smem);
-  uint8_t* dead = smem + ((2 * (size_t)n + 15) & ~(size_t)15);
   __shared__ Scratch s;
-  const size_t row = blockIdx.x;
-
-  const uint32_t n_dead = topk::load_row(acts + row * n, dead_g, n, keys, dead, s);
-  __syncthreads();
   const uint32_t k[topk::kMaxSel] = {(uint32_t)k_main, (uint32_t)k_aux, (uint32_t)k_multi};
-  const bool only_dead[topk::kMaxSel] = {false, true, false};
-  uint32_t t[topk::kMaxSel];
-  topk::select_many(keys, dead, n, k_multi > 0 ? 3 : 2, k, only_dead, n_dead, t, s);
-  const uint32_t km = t[0];
-  if (threadIdx.x == 0) {
-    t_main[row] = topk::key_to_float(t[0]);
-    t_aux[row] = topk::key_to_float(t[1]);
-    if (k_multi > 0) t_multi[row] = topk::key_to_float(t[2]);
-  }
-  for (int j = threadIdx.x; j < n; j += kSelectThreads) {
-    const uint32_t key = keys[j];
-    // OR into the mask: every writer stores the same 1
-    if (key >= km && topk::key_positive(key)) fired[j] = 1;
-  }
+  float* const t[topk::kMaxSel] = {t_main, t_aux, t_multi};
+  topk::select_row(acts, dead_bits, n, k_multi > 0 ? 3 : 2, k, t, fired, smem, s);
 }
 
 __device__ __forceinline__ float load_f32(const float* p) { return *p; }
@@ -169,26 +151,34 @@ int prepare(K kernel, size_t smem_bytes) {
 
 extern "C" {
 
+// Bytes of dynamic shared memory a row takes: the exact path's keys and
+// dead bits, or the float path's values and dead mask.
+size_t freud_topk_thresholds_smem(int n, int exact) {
+  return exact ? topk::row_smem_bytes(n) : 5 * (size_t)n;
+}
+
 // acts (m, n) row-major: bf16 (dtype 1) or f32 (dtype 0); dead (n,) uint8;
-// exact = 1 takes the radix path (bf16 only). t_main, t_aux (m,) f32 and
-// t_multi (m,) when k_multi > 0; fired (n,) int32, zeroed by the caller.
-// Returns cudaError_t.
+// exact = 1 takes the radix path (bf16 only), with dead_bits scratch of
+// ceil(n / 32) words. t_main, t_aux (m,) f32 and t_multi (m,) when
+// k_multi > 0; fired (n,) int32, zeroed by the caller. Returns cudaError_t.
 int freud_topk_thresholds(const void* acts, int acts_bf16, int exact,
-                          const uint8_t* dead, int m, int n, int k_main, int k_aux,
-                          int k_multi, int iters, float* t_main, float* t_aux,
-                          float* t_multi, int* fired, void* stream) {
+                          const uint8_t* dead, uint32_t* dead_bits, int m, int n,
+                          int k_main, int k_aux, int k_multi, int iters, float* t_main,
+                          float* t_aux, float* t_multi, int* fired, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   if (exact) {
-    const size_t smem = ((2 * (size_t)n + 15) & ~(size_t)15) + n;
+    const size_t smem = freud_topk_thresholds_smem(n, 1);
     int err = prepare(exact_kernel, smem);
     if (err) return err;
+    topk::dead_bits_kernel<<<(n + kSelectThreads - 1) / kSelectThreads, kSelectThreads, 0,
+                             s>>>(dead, n, dead_bits);
     exact_kernel<<<m, kSelectThreads, smem, s>>>(
-        static_cast<const uint16_t*>(acts), dead, n, k_main, k_aux, k_multi, t_main,
+        static_cast<const uint16_t*>(acts), dead_bits, n, k_main, k_aux, k_multi, t_main,
         t_aux, t_multi, fired);
     return static_cast<int>(cudaGetLastError());
   }
-  const size_t smem = 5 * (size_t)n;
+  const size_t smem = freud_topk_thresholds_smem(n, 0);
   if (acts_bf16) {
     int err = prepare(float_kernel<__nv_bfloat16>, smem);
     if (err) return err;

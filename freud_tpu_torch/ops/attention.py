@@ -11,13 +11,14 @@
   softmax(q·kᵀ·dh^-½)·v over (b, h, s, dh) q/k/v that were projected
   outside. The medium and large encoders (d > 768) take it.
 
-On an H100 the work is bf16 tensor-core products (``mma.sync``) with f32
-accumulation and f32 softmax statistics; what bounds it is the softmax on
-f32 scores and the operand feed, and the design keeps the (s × s) scores
-out of device memory (header of ``csrc/attention.cu``): query tiles of 64
-rows per block, K/V streamed in 64-key tiles with an online max and sum, one
-normalisation of the output at the end. The fused entry first runs a q/k/v
-projection GEMM into bf16 scratch.
+On an H100 the work is bf16 tensor-core products (``wgmma``) with f32
+accumulation and f32 softmax statistics, and the design keeps the (s × s)
+scores out of device memory (header of ``csrc/attention.cu``): one block per
+128 query rows, a producer warp streaming 128-key K/V tiles by TMA through a
+ring of shared-memory stages, two consumer warpgroups with an online max and
+sum, one normalisation of the output at the end. The fused entry first runs
+a q/k/v projection GEMM into bf16 scratch; the whisper entry first rounds
+f32 input to bf16 scratch (TMA copies bytes as they are).
 
 Precision: the kernels' matmuls take bf16 operands for BOTH input dtypes,
 as the TPU kernels did on the TPU (``freud_tpu/models/whisper/model.py:194-205``,
@@ -76,6 +77,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p,
     ]
     lib.freud_cuda_error_string.restype = ctypes.c_char_p
     lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
@@ -166,9 +168,9 @@ def _check_head_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
     if t.shape != shape or t.dtype != dtype or t.device != device:
         raise ValueError(f"{name} must be {tuple(shape)} {dtype} on {device}, "
                          f"got {tuple(t.shape)} {t.dtype} on {t.device}")
-    # the kernel stages 16-byte chunks of 8 elements: head_dim contiguous,
-    # strides in multiples of 8, a 16-byte aligned base; offsets inside one
-    # (clip, head) are 32-bit
+    # TMA (bf16) and the f32 rounding pass read 16-byte chunks of 8
+    # elements: head_dim contiguous, strides in multiples of 8, a 16-byte
+    # aligned base; row offsets are 32-bit
     if t.stride(-1) != 1 or any(st % 8 for st in t.stride()[:3]):
         raise ValueError(f"{name} needs head_dim contiguous and strides in "
                          f"multiples of 8, got strides {t.stride()}")
@@ -197,7 +199,7 @@ def whisper_attention(
     A CPU tensor takes the plain version, with the products in
     ``matmul_dtype`` or, when it is None, in the input dtype — JAX's default
     off the TPU. ``block_q`` is accepted for the signature: the CUDA kernel's
-    tiles are its own (64 query rows, 64-key K/V tiles). ``stable=False``
+    tiles are its own (128 query rows, 128-key K/V tiles). ``stable=False``
     drops the softmax max-subtraction (valid when |scores| is known
     bounded)."""
     if not q.is_cuda:
@@ -225,13 +227,17 @@ def whisper_attention(
         return out
     strides = (ctypes.c_longlong * 12)(
         *(st for t in (q, k, v, out) for st in t.stride()[:3]))
+    # f32 input is rounded to bf16 (b, h, s, dh) scratch before the TMA loads
+    scratch = (None if q.dtype == torch.bfloat16 else
+               torch.empty((3, b, h, s, dh), dtype=torch.bfloat16, device=q.device))
     lib = _library()
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         status = lib.freud_whisper_attention(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
             int(q.dtype == torch.bfloat16), b, h, s, strides,
-            float(dh ** -0.5), int(stable), stream)
+            float(dh ** -0.5), int(stable),
+            None if scratch is None else scratch.data_ptr(), stream)
     check_cuda_status(status, "whisper attention kernel", lib)
     whisper_attention.launches += 1
     return out

@@ -9,10 +9,12 @@ Replaces the Pallas TPU kernel ``freud_tpu/ops/topk_fused.py``
   y_main, y_aux = the two masked decodes · W_dec (f32, b_dec excluded)
   fired  = latents with acts ≥ t_main and acts > 0 in any row
 
-The selection rules are ``ops/topk_threshold``'s exact path; on the card the
-kernel radix-selects and decodes by gathering the selected W_dec rows (the
-design is in the source's header). The signature is JAX's: ``enc_w_t`` is
-the encoder weight transposed, (d_in, n_dict).
+The selection rules are ``ops/topk_threshold``'s exact path. On the card the
+forward is five launches (the design is in the source's header): x − b_dec
+rounded to bf16, the dead mask packed to bits, the encode GEMM (wgmma fed by
+TMA), a radix select per row, and both masked decodes as one dense GEMM
+whose acts operand is masked in registers. The signature is JAX's:
+``enc_w_t`` is the encoder weight transposed, (d_in, n_dict).
 
 ``topk_sae_forward`` dispatches on the device: a CUDA tensor launches the
 kernel, a CPU tensor takes ``topk_sae_forward_plain``.
@@ -60,7 +62,7 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.freud_cuda_error_string.restype = ctypes.c_char_p
     lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
@@ -90,8 +92,8 @@ def topk_sae_forward(
                          f"{tuple(W_dec.shape)} do not match d_in {d}")
     if enc_b.shape != (n,) or b_dec.shape != (d,) or dead_f.shape != (n,):
         raise ValueError("enc_b, b_dec, dead_f must be (n_dict,), (d_in,), (n_dict,)")
-    if d % 32 or n % 2:
-        raise ValueError(f"the kernel needs d_in % 32 == 0 and even n_dict: "
+    if d % 32 or n % 8:
+        raise ValueError(f"the kernel needs d_in % 32 == 0 and n_dict % 8 == 0: "
                          f"d_in {d}, n_dict {n}")
     if min(k, k_aux) < 1:
         raise ValueError(f"k {k}, k_aux {k_aux} must be >= 1")
@@ -104,7 +106,7 @@ def topk_sae_forward(
     # operand preparation: the (n_dict, d_in) layout is the encoder weight's
     # own (Linear), so the transpose back is free before the bf16 cast
     x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the encode stages x with 16-byte loads
+    if x2.data_ptr() % 16:  # the centring pass reads x with 16-byte loads
         x2 = x2.clone()
     w_enc = enc_w_t.t().to(torch.bfloat16).contiguous()
     b_enc = enc_b.to(torch.bfloat16).contiguous()
@@ -118,13 +120,18 @@ def topk_sae_forward(
     t_main = torch.empty((m, 1), dtype=torch.float32, device=dev)
     t_aux = torch.empty_like(t_main)
     fired = torch.zeros((n,), dtype=torch.int32, device=dev)
+    # scratch: bf16(x − b_dec), the operand TMA feeds the encode; the dead
+    # mask as bits, padded to whole 64-column slices of the decode
+    xs = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
+    dead_bits = torch.zeros((2 * -(-n // 64),), dtype=torch.int32, device=dev)
     with torch.cuda.device(dev):
         stream = torch.cuda.current_stream(dev).cuda_stream
         status = lib.freud_topk_sae_forward(
             x2.data_ptr(), b_dec32.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
             w_dec.data_ptr(), dead.data_ptr(), m, n, d, k, k_aux, acts.data_ptr(),
             y_main.data_ptr(), y_aux.data_ptr(), t_main.data_ptr(),
-            t_aux.data_ptr(), fired.data_ptr(), stream)
+            t_aux.data_ptr(), fired.data_ptr(), xs.data_ptr(), dead_bits.data_ptr(),
+            stream)
     check_cuda_status(status, "topk SAE forward kernel", lib)
     topk_sae_forward.launches += 1
     return acts, y_main, y_aux, t_main, t_aux, fired > 0

@@ -95,12 +95,14 @@ def topk_thresholds_fired_plain(acts, dead_mask, k_main: int, k_aux: int,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_library("topk_threshold")
+    lib.freud_topk_thresholds_smem.restype = ctypes.c_size_t
+    lib.freud_topk_thresholds_smem.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.freud_topk_thresholds.restype = ctypes.c_int
     lib.freud_topk_thresholds.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
+        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
     lib.freud_cuda_error_string.restype = ctypes.c_char_p
     lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
@@ -128,7 +130,8 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
     if min(k_main, k_aux) < 1 or k_multi < 0:
         raise ValueError(f"k_main {k_main}, k_aux {k_aux} must be >= 1, k_multi >= 0")
     exact = exact_path(acts, signed)
-    smem = 3 * n + 16 if exact else 5 * n
+    lib = _library()
+    smem = lib.freud_topk_thresholds_smem(n, int(exact))
     if smem > _SMEM_LIMIT:
         raise ValueError(f"n_dict {n} does not fit one block's shared memory "
                          f"({smem} bytes)")
@@ -138,12 +141,12 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
     t_aux = torch.empty_like(t_main)
     t_multi = torch.empty_like(t_main) if k_multi else None
     fired = torch.zeros((n,), dtype=torch.int32, device=acts.device)
-    lib = _library()
+    dead_bits = torch.empty((-(-n // 32),), dtype=torch.int32, device=acts.device)
     with torch.cuda.device(acts.device):
         stream = torch.cuda.current_stream(acts.device).cuda_stream
         status = lib.freud_topk_thresholds(
             acts.data_ptr(), int(acts.dtype == torch.bfloat16), int(exact),
-            dead.data_ptr(), m, n, k_main, k_aux, k_multi, iters,
+            dead.data_ptr(), dead_bits.data_ptr(), m, n, k_main, k_aux, k_multi, iters,
             t_main.data_ptr(), t_aux.data_ptr(),
             t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
     check_cuda_status(status, "topk thresholds kernel", lib)

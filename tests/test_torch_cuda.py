@@ -91,14 +91,14 @@ def test_attention_kernel_matches_plain(cuda, s, x_dtype):
         fused_qkv_attention(x, wq, bq, wk, wv, bv, 12)
 
 
-@pytest.mark.parametrize("s,dtype,stable", [
-    (1500, torch.float32, True), (1500, torch.bfloat16, True),
-    (777, torch.float32, True), (65, torch.float32, True),
-    (777, torch.float32, False),
-])
+@pytest.mark.parametrize("stable", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("s", [1, 63, 64, 65, 127, 128, 129, 777, 1500])
 def test_whisper_attention_kernel_matches_plain(cuda, s, dtype, stable):
     """(b, h, s, 64) head views of (b, s, d) projections, as the encoder
-    passes them; s 65 and 777 are no multiple of the 64-row tiles."""
+    passes them, at s around the 128-row query and key tiles; the output is
+    a (b, h, s, 64) view of (b, s, h, 64) memory. Unit-normal q, k, v give
+    scores of std 1, which stable=False takes without overflow."""
     rng = np.random.default_rng(12)
     b, h = 2, 20
     q, k, v = (torch.from_numpy(rng.standard_normal((b, s, h * 64)).astype(np.float32))
@@ -108,6 +108,7 @@ def test_whisper_attention_kernel_matches_plain(cuda, s, dtype, stable):
     torch.cuda.synchronize()
     assert whisper_attention.launches == before + 1
     assert got.dtype == dtype and got.shape == (b, h, s, 64)
+    assert got.transpose(1, 2).is_contiguous()  # (b, s, h, 64) memory
     want = whisper_attention_plain(q, k, v)
     err = (got.float() - want.float()).abs().max() / want.float().abs().max()
     assert err.item() < 2e-2
@@ -219,6 +220,41 @@ def test_topk_fused_kernel_matches_plain(cuda, m, dead_share):
     with pytest.raises(ValueError):  # d_in % 32 != 0 is not a kernel shape
         topk_sae_forward(x[:, :100].contiguous(), w_enc[:, :100].T, b_enc, b_dec[:100],
                          w_dec[:, :100], dead.float(), 32, 192)
+
+
+def test_topk_fused_kernel_large_geometry(cuda):
+    """large_v1_audioset's geometry (d_in 1280, n_dict 20480, k 32, k_aux
+    640, 94% of latents dead) with silent rows and ties at t_main: the same
+    bounds, and two launches agree bit for bit."""
+    rng = np.random.default_rng(14)
+    m, d, n, k, k_aux = 2000, 1280, 20480, 32, 640
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    w_enc = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda)
+    b_enc = -torch.from_numpy((rng.random(n) * 0.1).astype(np.float32)).to(cuda)
+    b_dec = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda)
+    w_dec = torch.nn.functional.normalize(w_enc, dim=1)
+    x[3] = b_dec  # silent rows
+    x[m - 1] = b_dec
+    dead = torch.from_numpy(rng.random(n) < 0.94).to(cuda)
+    args = (x, w_enc.T, b_enc, b_dec, w_dec, dead.float(), k, k_aux)
+    got = topk_sae_forward(*args)
+    again = topk_sae_forward(*args)
+    want = topk_sae_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    acts = got[0]
+    diff = (acts.float() - want[0].float()).abs()
+    assert (diff > 0).float().mean().item() < 1e-3
+    tm, ta, _, fired = topk_thresholds_fired_plain(acts, dead, k, k_aux)
+    assert torch.equal(got[3], tm) and torch.equal(got[4], ta) and torch.equal(got[5], fired)
+    assert (got[3][[3, m - 1]] == 0).all() and not got[1][[3, m - 1]].any()
+    af = acts.float()
+    assert (((af >= tm).sum(dim=1) > k) & (tm[:, 0] > 0)).any()  # ties at t_main
+    w = w_dec.to(torch.bfloat16).float()
+    y_main = torch.where(af >= tm, af, 0.0) @ w
+    y_aux = torch.where((af >= ta) & dead, af, 0.0) @ w
+    assert ((got[1] - y_main).abs().max() / y_main.abs().max()).item() < 1e-3
+    assert ((got[2] - y_aux).abs().max() / y_aux.abs().max()).item() < 1e-3
 
 
 def test_topk_training_backward_on_card_matches_cpu(cuda):

@@ -1,0 +1,94 @@
+"""freud_tpu_torch.flops against freud_tpu.flops (the same conventions), the
+card's peak table, and each kernel's operations, bytes and bound at its
+main-path shape — the numbers of PERF.md's kernel table."""
+
+import ast
+from pathlib import Path
+
+import pytest
+
+from freud_tpu import flops as jflops
+from freud_tpu.models.whisper import dims_for as jdims_for
+from freud_tpu_torch import flops
+from freud_tpu_torch.models.whisper import dims_for
+
+SIZES = ["tiny", "large-v1", "large-v3"]
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_flops_equal(n_mels):
+    assert flops.mel_flops(n_mels) == jflops.mel_flops(n_mels)
+    assert flops.mel_flops(n_mels, 1500) == jflops.mel_flops(n_mels, 1500)
+
+
+@pytest.mark.parametrize("name", SIZES)
+def test_encoder_flops_equal(name):
+    for include_mel in (True, False):
+        assert flops.encoder_flops(dims_for(name), include_mel) == \
+            jflops.encoder_flops(jdims_for(name), include_mel)
+
+
+@pytest.mark.parametrize("rows,d_in,n_dict", [(75000, 384, 6144), (48000, 1280, 20480)])
+def test_sae_step_flops_equal(rows, d_in, n_dict):
+    assert flops.sae_l1_step_flops(rows, d_in, n_dict) == \
+        jflops.sae_l1_step_flops(rows, d_in, n_dict)
+    for live in (True, False):
+        assert flops.sae_topk_step_flops(rows, d_in, n_dict, live) == \
+            jflops.sae_topk_step_flops(rows, d_in, n_dict, live)
+
+
+@pytest.mark.parametrize("name", SIZES)
+def test_decode_flops_equal(name):
+    for mean_pos in (None, 40.0):
+        assert flops.decode_flops(dims_for(name), 8, 60, mean_pos) == \
+            jflops.decode_flops(jdims_for(name), 8, 60, mean_pos)
+
+
+def test_peaks_keyed_by_card_name():
+    h100 = flops.peaks_for_name("NVIDIA H100 80GB HBM3")
+    assert h100 == {"bf16": 989e12, "tf32": 495e12, "f32": 67e12, "bytes": 3.35e12}
+    assert flops.peaks_for_name("NVIDIA A100-SXM4-80GB") is None
+    assert flops.peaks_for_name("") is None
+
+
+# (bound, ops, bytes, bound ms rounded to 4 places, bound_by) at the main
+# paths' shapes, as PERF.md's kernel table states them
+MAIN_PATH = [
+    (flops.log_mel_bound(32, 80), 33.96096e9, 92.16e6, 0.5069, "operations"),
+    (flops.fused_qkv_attention_bound(32, 1500, 384, 6), 153.059328e9, 149.228544e6,
+     0.1548, "operations"),
+    (flops.topk_thresholds_bound(75000, 6144), 0.0, 922.512288e6, 0.2754, "bytes"),
+    (flops.topk_sae_forward_bound(48000, 1280, 20480, 32, 640), 2.59915776e12,
+     2.9135872e9, 2.6281, "operations"),
+    (flops.topk_sae_forward_bound(75000, 384, 6144, 32, 192), 366.7968e9,
+     1.286712768e9, 0.3841, "bytes"),
+    (flops.whisper_attention_bound(32, 20, 1500), 368.64e9, 983.04e6, 0.3727, "operations"),
+    (flops.whisper_attention_bound(16, 20, 1500), 184.32e9, 491.52e6, 0.1864, "operations"),
+    (flops.whisper_attention_bound(16, 20, 1500, in_bytes=2), 184.32e9, 245.76e6, 0.1864,
+     "operations"),
+]
+
+
+@pytest.mark.parametrize("case", range(len(MAIN_PATH)))
+def test_kernel_bounds_at_main_path_shapes(case):
+    bound, ops, nbytes, ms, by = MAIN_PATH[case]
+    assert bound.flops == pytest.approx(ops, rel=1e-12)
+    assert bound.bytes == pytest.approx(nbytes, rel=1e-12)
+    assert round(bound.bound_ms, 4) == ms
+    assert bound.bound_by == by
+    assert bound.bound_s == max(bound.flops_s, bound.bytes_s)
+
+
+def test_topk_forward_bound_counts_the_selected_entries():
+    """The decodes count what the data selected, 2·d_in a selected entry."""
+    base = flops.topk_sae_forward_bound(100, 64, 512, 8, 16)
+    fewer = flops.topk_sae_forward_bound(100, 64, 512, 8, 16, selected=1000)
+    assert base.flops - fewer.flops == 2.0 * 64 * (100 * 24 - 1000)
+    assert base.bytes == fewer.bytes
+
+
+def test_flops_module_imports_no_jax():
+    tree = ast.parse(Path(flops.__file__).read_text())
+    names = [a.name for n in ast.walk(tree) if isinstance(n, ast.Import) for a in n.names]
+    names += [n.module or "" for n in ast.walk(tree) if isinstance(n, ast.ImportFrom)]
+    assert not [m for m in names if m.split(".")[0] in ("jax", "jaxlib", "freud_tpu")]

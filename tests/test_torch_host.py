@@ -161,14 +161,34 @@ def test_port_never_imports_jax_or_freud_tpu():
 
 
 def test_port_package_data_patterns_match():
-    """pyproject ships the CUDA sources the kernels build from."""
+    """pyproject ships the CUDA and decoder sources the port builds from."""
     import tomllib
 
     cfg = tomllib.loads((PORT_DIR.parent / "pyproject.toml").read_text())
     setuptools_cfg = cfg["tool"]["setuptools"]
     assert "freud_tpu*" in setuptools_cfg["packages"]["find"]["include"]
     patterns = setuptools_cfg["package-data"]["freud_tpu_torch"]
-    assert sorted(patterns) == ["csrc/*.cu", "csrc/*.cuh"]
+    assert sorted(patterns) == ["audio/native/Makefile", "audio/native/decoder.cpp",
+                                "csrc/*.cu", "csrc/*.cuh"]
     shipped = {p.name for pat in patterns for p in PORT_DIR.glob(pat)}
-    assert {"mel.cu", "attention.cu", "common.cuh"} <= shipped
+    assert {"mel.cu", "attention.cu", "common.cuh", "hopper.cuh", "Makefile",
+            "decoder.cpp"} <= shipped
+
+
+def test_decoder_builds_from_the_ports_copy(tmp_path, monkeypatch):
+    """The port keeps its own copy of the decoder source, byte-identical to
+    the JAX package's, and builds the library from it alone."""
+    from freud_tpu_torch import _native
+
+    jax_dir = PORT_DIR.parent / "freud_tpu" / "audio" / "native"
+    assert _native.AUDIO_NATIVE_DIR == PORT_DIR / "audio" / "native"
+    for name in ("decoder.cpp", "Makefile"):
+        assert (_native.AUDIO_NATIVE_DIR / name).read_bytes() == \
+            (jax_dir / name).read_bytes(), name
+    monkeypatch.setattr(_native, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_native, "AUDIO_NATIVE_DIR", tmp_path / "nowhere")
+    assert _native.build_audio_decoder() is None  # no source, no library
+    monkeypatch.setattr(_native, "AUDIO_NATIVE_DIR", PORT_DIR / "audio" / "native")
+    built = _native.build_audio_decoder()
+    assert built == tmp_path / "build" / "libfreud_audio.so" and built.stat().st_size > 0
 
