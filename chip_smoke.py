@@ -20,11 +20,15 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and edge rows for the TopK kernels, kernel #4 also
-     at large_v1_audioset's geometry), with its stated tolerance, and both
-     timed (median CUDA-event time after warm-up), beside the kernel's
-     bound (freud_tpu_torch.flops, from this run's inputs) and the one
-     PyTorch call that computes the same function where there is one
-     (scaled_dot_product_attention for #5, F.linear + SDPA for #2; a
+     at large_v1_audioset's geometry; kernel #1 at 80 and 128 bands, with
+     mostly silent clips, and also against its recipe with exact sums;
+     kernel #2 also against its plain version rounded where the contract
+     rounds), with its stated tolerance, and both timed
+     (median CUDA-event time after warm-up), beside the kernel's bound
+     (freud_tpu_torch.flops, from this run's inputs; every time must be at
+     or above it) and the PyTorch calls that compute the same function where
+     there are (scaled_dot_product_attention for #5; for #2 F.linear + SDPA
+     on #2's own inputs, packing and casts inside the timed call; a
      yardstick only, the port never calls it);
   3. the collection CLI (``python -m freud_tpu_torch.scripts.collect_activations
      --config ...``, run in-process) over 48 30-s WAVs, 3 shorter ones and
@@ -61,12 +65,14 @@ library_ms or null with the reason, launches in the main path's run and
 per collection batch or train step) and the device JSON.
 
 ``--bench`` measures instead of checking: after the build it times the
-five kernels through their wrappers at the main paths' shapes (kernel #4
-also by launch, from torch.profiler kernel names), then collects 256 30-s
-WAVs with random:large-v1 to block 16 (the steady rate a batch, from the
-time between a 256-file and a 64-file run after an untimed one) and runs 8
-large_v1_audioset steps on that store (the last 4 profiled), and prints one
-JSON line. It reaches the package only through the wrappers, the CLIs and
+five kernels through their wrappers at the main paths' shapes (kernel #1
+at both band counts; kernels #2 and #4 also by launch, from torch.profiler
+kernel names; kernel #2's library yardstick), then collects 256 30-s WAVs
+with random:tiny to block 2 and with random:large-v1 to block 16 (the
+steady rate a batch, from the time between a 256-file and a 64-file run
+after an untimed one; device time a batch by kernel from a profiled
+64-file run) and runs 8 large_v1_audioset steps on the large store (the
+last 4 profiled), and prints one JSON line. It reaches the package only through the wrappers, the CLIs and
 the trainer, whose interfaces are those of every checkout that holds all
 five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
 code: run parent, change, change, parent in one call to compare two trees.
@@ -146,41 +152,115 @@ def yardsticks(bound, library_ms=None, library: str | None = None) -> dict:
 
 
 def check_mel(torch, device, card):
+    """Kernel #1 at both band counts against its plain version (the gate of
+    tests/test_mel_pallas.py) and against its recipe with exact sums
+    (log_mel_spectrogram_recipe, within the recipe gate of
+    freud_tpu_torch/ops/mel.py), on noise clips
+    and with clip 1 silent after 1000 samples (the floor clamps most of its
+    bins); two launches bit-equal. With all 32 clips silent after 1000
+    samples it is held to the recipe only: on clip 15 the recipe itself is
+    2.4e-3 off the f64 log-mel, above the plain path's 2e-3 gate
+    (tests/test_torch_mel.py pins that reading)."""
     from freud_tpu_torch import flops
     from freud_tpu_torch.audio.mel import log_mel_spectrogram
-    from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.mel import (
+        RECIPE_MAX,
+        RECIPE_SHARE,
+        log_mel_spectrogram_cuda,
+        log_mel_spectrogram_recipe,
+        recipe_gap,
+    )
 
     gen = torch.Generator().manual_seed(SEED)
     audio = (torch.randn((BATCH, 480000), generator=gen) * 0.1).to(device)
-    record = None
+    silent = audio.clone()
+    silent[1, 1000:] = 0.0
+    all_silent = audio.clone()
+    all_silent[:, 1000:] = 0.0
+    record = {}
     for n_mels in (80, 128):
-        got = log_mel_spectrogram_cuda(audio, n_mels)
-        want = log_mel_spectrogram(audio, n_mels)
-        torch.cuda.synchronize()
-        diff = (got - want).abs()
-        max_err = diff.max().item()
-        loose = (diff > 3e-4).float().mean().item()
-        print(f"mel n_mels={n_mels} B={BATCH}: max|Δ| {max_err:.3e} "
-              f"(bound 2e-3), share |Δ|>3e-4 {loose:.2e} (bound 1e-5)")
-        assert got.shape == (BATCH, n_mels, 3000)
-        assert max_err < 2e-3 and loose < 1e-5, (max_err, loose)
+        for name, clips in (("noise", audio), ("clip 1 silent after 1000 samples", silent),
+                            ("all clips silent after 1000 samples", all_silent)):
+            got = log_mel_spectrogram_cuda(clips, n_mels)
+            again = log_mel_spectrogram_cuda(clips, n_mels)
+            want = log_mel_spectrogram(clips, n_mels)
+            recipe = log_mel_spectrogram_recipe(clips, n_mels)
+            torch.cuda.synchronize()
+            diff = (got - want).abs()
+            max_err = diff.max().item()
+            loose = (diff > 3e-4).float().mean().item()
+            recipe_err, recipe_share = recipe_gap(got, recipe)
+            recipe_plain = (recipe - want).abs().max().item()
+            print(f"mel n_mels={n_mels} B={BATCH} ({name}): against the plain path max|Δ| "
+                  f"{max_err:.3e} (bound 2e-3; the recipe's own {recipe_plain:.3e}), share "
+                  f"|Δ|>3e-4 {loose:.2e} (bound 1e-5); against the recipe, log10 units: "
+                  f"max|Δ| {recipe_err:.3e} (bound {RECIPE_MAX}), share |Δ|>1e-5 "
+                  f"{recipe_share:.2e} (bound {RECIPE_SHARE}); two launches bit-equal")
+            assert got.shape == (BATCH, n_mels, 3000)
+            assert torch.equal(got, again)
+            assert recipe_err < RECIPE_MAX and recipe_share < RECIPE_SHARE, (
+                recipe_err, recipe_share)
+            if name.startswith("all"):
+                continue
+            assert max_err < 2e-3 and loose < 1e-5, (max_err, loose)
+            if name == "noise":
+                noise_err = max_err
         ms = cuda_ms(lambda: log_mel_spectrogram_cuda(audio, n_mels))
         plain_ms = cuda_ms(lambda: log_mel_spectrogram(audio, n_mels))
-        print(f"mel n_mels={n_mels} B={BATCH}: kernel {ms:.4f} ms, plain "
-              f"{plain_ms:.4f} ms on {card}")
+        bound = flops.log_mel_bound(BATCH, n_mels)
+        print(f"mel n_mels={n_mels} B={BATCH}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+              f"bound {bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
         if n_mels == 80:  # Whisper tiny's bank: the main path's shape
-            record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms, **yardsticks(
-                flops.log_mel_bound(BATCH, n_mels), None,
+            record.update(max_abs_err=noise_err, ms=ms, plain_ms=plain_ms, **yardsticks(
+                bound, None,
                 "none: torch.stft gives the spectrum only; the mel projection, "
                 "log and clamp are further calls"))
+        else:  # large-v3's bank
+            record.update(ms_128=ms, plain_ms_128=plain_ms, bound_ms_128=bound.bound_ms)
     return record
 
 
-def check_attention(torch, device, card):
+def fused_library_call(torch, x, w, bq, bv, heads):
+    """The one PyTorch call sequence that computes kernel #2's function from
+    its own inputs: pack [Wq | Wk | Wv] and [bq | 0 | bv] to bf16, cast x,
+    one F.linear, SDPA at 64^-½, heads merged back to x's dtype. A
+    yardstick only: the port never calls it."""
     import torch.nn.functional as F
 
+    b, s, d = x.shape
+    wp = torch.cat([w[0].t(), w[1].t(), w[2].t()]).to(torch.bfloat16)
+    bias = torch.cat([bq, torch.zeros_like(bq), bv]).to(torch.bfloat16)
+    qkv = F.linear(x.to(torch.bfloat16), wp, bias).view(b, s, 3, heads, 64)
+    qkv = qkv.permute(2, 0, 3, 1, 4)
+    o = F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=64 ** -0.5)
+    return o.transpose(1, 2).reshape(b, s, d).to(x.dtype)
+
+
+def fused_library_core(torch, x, w, heads):
+    """The yardstick's core alone, two calls: bf16 x and the packed weight
+    prepared outside the timed call, no biases, bf16 heads out."""
+    import torch.nn.functional as F
+
+    b, s, _ = x.shape
+    xb = x.to(torch.bfloat16)
+    w_qkv = torch.cat(w, dim=1).T.contiguous().to(torch.bfloat16)
+
+    def core():
+        qkv = F.linear(xb, w_qkv).view(b, s, 3, heads, 64).permute(2, 0, 3, 1, 4)
+        return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2], scale=64 ** -0.5)
+
+    return core
+
+
+def check_attention(torch, device, card):
+    """Kernel #2 against its f32 plain version (2e-2 of max) and against the
+    plain version rounded where the contract rounds (ATTN_BF16_GATE), for
+    f32 and bf16 x, with the weights as the model passes them (transposed
+    nn.Linear weights) and as (d_in, d_out) tensors; two launches
+    bit-equal."""
     from freud_tpu_torch import flops
     from freud_tpu_torch.ops.attention import (
+        ATTN_BF16_GATE,
         fused_qkv_attention,
         fused_qkv_attention_plain,
     )
@@ -189,40 +269,48 @@ def check_attention(torch, device, card):
     d, heads = 384, 6
     w = [(torch.randn((d, d), generator=gen) * d ** -0.5).to(device)
          for _ in range(3)]
+    w_model = [t.T.contiguous().T for t in w]  # nn.Linear (out, in) weights, transposed
     bq, bv = ((torch.randn((d,), generator=gen) * 0.1).to(device) for _ in range(2))
     record = None
-    for b, s in ((BATCH, 1500), (8, 1500), (8, 777)):
-        x = torch.randn((b, s, d), generator=gen).to(device)
-        got = fused_qkv_attention(x, w[0], bq, w[1], w[2], bv, heads)
-        want = fused_qkv_attention_plain(x, w[0], bq, w[1], w[2], bv, heads)
-        torch.cuda.synchronize()
-        max_err = (got - want).abs().max().item()
-        rel = max_err / want.abs().max().item()
-        print(f"attention b={b} s={s} d={d} h={heads}: max|Δ| {max_err:.3e}, "
-              f"max|Δ|/max|ref| {rel:.3e} (bound 2e-2)")
-        assert got.shape == x.shape and torch.isfinite(got).all()
-        assert rel < 2e-2, rel
-        if b == BATCH:  # the main path's shape
-            ms = cuda_ms(lambda: fused_qkv_attention(x, w[0], bq, w[1], w[2], bv, heads))
-            plain_ms = cuda_ms(
-                lambda: fused_qkv_attention_plain(x, w[0], bq, w[1], w[2], bv, heads))
-            # the library yardstick: the projection and SDPA, two calls in bf16
-            xb = x.to(torch.bfloat16)
-            w_qkv = torch.cat(w, dim=1).T.contiguous().to(torch.bfloat16)
-
-            def linear_sdpa():
-                qkv = F.linear(xb, w_qkv).view(b, s, 3, heads, 64).permute(2, 0, 3, 1, 4)
-                return F.scaled_dot_product_attention(qkv[0], qkv[1], qkv[2],
-                                                      scale=64 ** -0.5)
-
-            lib_ms = cuda_ms(linear_sdpa)
+    for b, s, dtype in ((BATCH, 1500, torch.float32), (8, 1500, torch.bfloat16),
+                        (8, 777, torch.float32), (3, 1, torch.bfloat16)):
+        x = torch.randn((b, s, d), generator=gen).to(device, dtype)
+        name = str(dtype)[6:]
+        for layout, ws in (("(d_in, d_out)", w), ("model", w_model)):
+            args = (x, ws[0], bq, ws[1], ws[2], bv, heads)
+            got = fused_qkv_attention(*args)
+            again = fused_qkv_attention(*args)
+            want = fused_qkv_attention_plain(x.float(), *args[1:])
+            want_bf16 = fused_qkv_attention_plain(x.float(), *args[1:],
+                                                  matmul_dtype=torch.bfloat16)
+            torch.cuda.synchronize()
+            max_err = (got.float() - want).abs().max().item()
+            rel = max_err / want.abs().max().item()
+            rel_bf16 = ((got.float() - want_bf16).abs().max() / want_bf16.abs().max()).item()
+            print(f"attention b={b} s={s} d={d} h={heads} {name} x, {layout} weights: "
+                  f"max|Δ|/max|ref| {rel:.3e} (bound 2e-2), against the bf16-rounded "
+                  f"plain {rel_bf16:.3e} (bound {ATTN_BF16_GATE[dtype]}), two launches "
+                  "bit-equal")
+            assert got.shape == x.shape and got.dtype == dtype and torch.isfinite(got).all()
+            assert torch.equal(got, again)
+            assert rel < 2e-2, rel
+            assert rel_bf16 < ATTN_BF16_GATE[dtype], rel_bf16
+        if b == BATCH:  # the main path's shape, weights as the model passes them
+            args = (x, w_model[0], bq, w_model[1], w_model[2], bv, heads)
+            ms = cuda_ms(lambda: fused_qkv_attention(*args))
+            plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(*args))
+            lib_ms = cuda_ms(lambda: fused_library_call(torch, x, w, bq, bv, heads))
+            core_ms = cuda_ms(fused_library_core(torch, x, w, heads))
             bound = flops.fused_qkv_attention_bound(b, s, d, heads)
-            print(f"attention b={b} s={s}: kernel {ms:.4f} ms, plain "
-                  f"{plain_ms:.4f} ms, F.linear + SDPA {lib_ms:.4f} ms, bound "
+            print(f"attention b={b} s={s}: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                  f"library {lib_ms:.4f} ms (its core alone {core_ms:.4f}), bound "
                   f"{bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
             record = dict(max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
-                          **yardsticks(bound, lib_ms, "two calls: F.linear + "
-                                       "scaled_dot_product_attention, bf16"))
+                          max_rel_err_bf16_plain=rel_bf16, library_core_ms=core_ms,
+                          **yardsticks(bound, lib_ms, "F.linear (packed bf16 weight, "
+                                       "[bq | 0 | bv]) + scaled_dot_product_attention on "
+                                       "kernel #2's own f32 inputs, packing and casts "
+                                       "inside the call"))
     return record
 
 
@@ -576,13 +664,44 @@ def device_ms_by_kernel(prof, units: int, top: int = 14) -> tuple[dict, float, f
     return ranked, sum(times.values()), copies
 
 
+def bench_collection(torch, tmp: Path, base: dict, model: str, wavs: dict) -> dict:
+    """The collection CLI's steady rate with ``base``'s config and ``model``:
+    an untimed run (kernel build, warm-up), runs over BENCH_FILES and over
+    2 batches (the steady time a batch is the difference over the batches
+    between them), and one over 2 batches under torch.profiler for the
+    device time a batch by kernel. ``wavs`` maps a file count to its folder
+    of 30-s WAVs."""
+    from torch.profiler import ProfilerActivity, profile
+
+    batch = base["batch_size"]
+    runs = []
+    for n_files in (2 * batch, BENCH_FILES, 2 * batch, 2 * batch):
+        cfg = {**base, "whisper_model": model, "data_path": str(wavs[n_files]),
+               "out_folder": str(tmp / f"{model.replace(':', '_')}_store{len(runs)}")}
+        prof = profile(activities=[ProfilerActivity.CUDA])
+        with prof if len(runs) == 3 else contextlib.nullcontext():
+            runs.append(collect(cfg, tmp / "collect.json"))
+            torch.cuda.synchronize()
+        free_device_memory(torch)
+    steady_s = (runs[1]["elapsed_s"] - runs[2]["elapsed_s"]) / (
+        (BENCH_FILES - 2 * batch) / batch)
+    by_kernel, total, copies = device_ms_by_kernel(prof, 2)
+    return {"files": BENCH_FILES, "batch": batch, "rtfx": runs[1]["rtfx"],
+            "steady_batch_ms": 1e3 * steady_s, "steady_rtfx": batch * 30.0 / steady_s,
+            "device_busy_steady": total / (1e3 * steady_s), "kernels_ms_per_batch": total,
+            "copies_ms_per_batch": copies, "by_kernel_ms_per_batch": by_kernel,
+            "store": str(tmp / f"{model.replace(':', '_')}_store1")}
+
+
 def bench(torch, device, card) -> dict:
     """``--bench``: the five kernels timed through their wrappers at the main
-    paths' shapes (kernel #4 also split by launch), then the large-v1
-    collection's steady rate and the large_v1_audioset recipe's step, with
-    the device time by kernel. It uses nothing but the wrappers, the CLIs and
-    the trainer, so a copy of this script beside an older freud_tpu_torch
-    times that package with the same code."""
+    paths' shapes (kernel #1 at both band counts; kernel #2 beside its
+    library yardstick and split by launch, kernel #4 split by launch), then
+    the tiny and the large-v1 collections' steady rates with the device time
+    a batch by kernel, and the large_v1_audioset recipe's step. It uses
+    nothing but the wrappers, the CLIs and the trainer, so a copy of this
+    script beside an older freud_tpu_torch times that package with the same
+    code."""
     from torch.profiler import ProfilerActivity, profile
 
     from freud_tpu_torch import profiling
@@ -595,15 +714,27 @@ def bench(torch, device, card) -> dict:
     kernels: dict[str, float] = {}
     rec = {"card": card, "package": str(REPO / "freud_tpu_torch"), "kernels_ms": kernels}
     audio = (torch.randn((BATCH, 480000), generator=gen) * 0.1).to(device)
-    kernels["log_mel (32, 480000) 80 bands"] = cuda_ms(
-        lambda: log_mel_spectrogram_cuda(audio, 80))
+    for n_mels in (80, 128):
+        kernels[f"log_mel (32, 480000) {n_mels} bands"] = cuda_ms(
+            lambda: log_mel_spectrogram_cuda(audio, n_mels))
     d, heads = 384, 6
     x = torch.randn((BATCH, 1500, d), generator=gen).to(device)
     w = [(torch.randn((d, d), generator=gen) * d ** -0.5).to(device) for _ in range(3)]
+    w_model = [t.T.contiguous().T for t in w]  # as the model passes nn.Linear weights
     bq, bv = ((torch.randn((d,), generator=gen) * 0.1).to(device) for _ in range(2))
+    args = (x, w_model[0], bq, w_model[1], w_model[2], bv, heads)
     kernels["fused_qkv_attention (32, 1500, 384) f32"] = cuda_ms(
-        lambda: fused_qkv_attention(x, w[0], bq, w[1], w[2], bv, heads))
-    del audio, x
+        lambda: fused_qkv_attention(*args))
+    kernels["fused_qkv_attention library: F.linear + SDPA on its inputs"] = cuda_ms(
+        lambda: fused_library_call(torch, x, w, bq, bv, heads))
+    kernels["fused_qkv_attention library core: bf16 x and weight prepared"] = cuda_ms(
+        fused_library_core(torch, x, w, heads))
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(3):
+            fused_qkv_attention(*args)
+        torch.cuda.synchronize()
+    rec["fused_qkv_attention_by_kernel_ms"] = device_ms_by_kernel(prof, 3)[0]
+    del audio, x, args, prof
     for b, dtype in ((16, torch.float32), (16, torch.bfloat16), (32, torch.float32),
                      (32, torch.bfloat16)):
         q, k, v = (torch.randn((b, 1500, 20 * 64), generator=gen).to(device, dtype)
@@ -638,38 +769,26 @@ def bench(torch, device, card) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="chip_bench_") as tmp:
         tmp = Path(tmp)
-        # large-v1 collection: an untimed run (kernel build, warm-up), runs
-        # over BENCH_FILES and over 64 files (the steady time a batch is the
-        # difference over the batches between them), one over 64 profiled
+        wavs = {}
+        for n_files in (2 * BATCH, BENCH_FILES):
+            wavs[n_files] = tmp / f"audio{n_files}"
+            wavs[n_files].mkdir()
+            write_wavs(wavs[n_files], [480000] * n_files)
+        # tiny collection to block 2 (kernels #1 and #2), batch 32
+        tiny = json.loads((REPO / "configs/features/tiny_block_2_test.json").read_text())
+        rec["tiny_collection"] = bench_collection(
+            torch, tmp, {**tiny, "batch_size": BATCH}, "random:tiny", wavs)
+        # large-v1 collection to block 16 (kernels #1 and #5), batch 32
         base = json.loads(
             (REPO / "configs/features/large_v1_block_16_audioset_train.json").read_text())
-        batch = base["batch_size"]
-        runs = []
-        for n_files in (2 * batch, BENCH_FILES, 2 * batch, 2 * batch):
-            folder = tmp / f"audio{n_files}"
-            if not folder.exists():
-                folder.mkdir()
-                write_wavs(folder, [480000] * n_files)
-            cfg = {**base, "whisper_model": "random:large-v1", "data_path": str(folder),
-                   "out_folder": str(tmp / f"store{len(runs)}")}
-            prof = profile(activities=[ProfilerActivity.CUDA])
-            with prof if len(runs) == 3 else contextlib.nullcontext():
-                runs.append(collect(cfg, tmp / "collect.json"))
-                torch.cuda.synchronize()
-            free_device_memory(torch)
-        steady_s = (runs[1]["elapsed_s"] - runs[2]["elapsed_s"]) / (
-            (BENCH_FILES - 2 * batch) / batch)
-        by_kernel, total, copies = device_ms_by_kernel(prof, 2)
-        rec["large_v1_collection"] = {
-            "files": BENCH_FILES, "batch": batch, "rtfx": runs[1]["rtfx"],
-            "steady_batch_ms": 1e3 * steady_s, "steady_rtfx": batch * 30.0 / steady_s,
-            "device_busy_steady": total / (1e3 * steady_s), "kernels_ms_per_batch": total,
-            "copies_ms_per_batch": copies, "by_kernel_ms_per_batch": by_kernel}
-        del prof
+        assert base["batch_size"] == BATCH
+        rec["large_v1_collection"] = large = bench_collection(
+            torch, tmp, base, "random:large-v1", wavs)
 
         # large_v1_audioset on the BENCH_FILES store, the last half profiled
         tbase = json.loads((REPO / "configs/train/large_v1_audioset.json").read_text())
-        store = str(tmp / "store1")
+        store = large.pop("store")
+        rec["tiny_collection"].pop("store")
         tcfg = {**tbase, "train_folder": store, "val_folder": store,
                 "run_dir": str(tmp / "run"), "steps": BENCH_STEPS, "save_every": 10 ** 6,
                 "val_every": 10 ** 6, "log_tb_every": 10 ** 6,
@@ -1102,6 +1221,10 @@ def main() -> int:
          "replaces": "freud_tpu/ops/topk_threshold.py:225",
          "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"), **thresh_rec},
     ]
+    for k in kernels:  # a time under its bound would mean a wrong bound
+        assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])
+        print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of "
+              f"its bound {k['bound_ms']:.4f} ms ({k['bound_by']})")
     print(card)
     print(json.dumps({"kernels": kernels}))
     print(json.dumps({"ok": True, "device": {

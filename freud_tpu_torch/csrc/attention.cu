@@ -28,11 +28,30 @@
 // is flash-style: K/V stream through shared memory in 128-key tiles and the
 // softmax statistics are kept online.
 //
+// The fused path's projection is 2·b·s·d·3d of bf16 products (42.5 GFLOP at
+// (32, 1500, 384), 43 µs at the tensor-core peak) over ~150 MB of operand
+// and q/k/v traffic: it has to run on wgmma, fed by TMA, to stay under the
+// attention phase it feeds. At K = d = 384 a tile's products take ~2.5 µs,
+// so its epilogue weighs as much as its main loop.
+//
 // Design:
-//   (a) qkv_projection_kernel (fused path only): one GEMM x(b·s, d) ·
-//       [Wq | Wk | Wv](d, 3d) on 64 × 64 tiles with mma.sync, x rounded to
-//       bf16 on load; the epilogue adds bq, folds dh^-½ into q after the
-//       bias, adds bv, and writes bf16 q, k, v scratch (b, s, d).
+//   (a) fused path only, two launches. prep_kernel packs [Wq | Wk | Wv] as
+//       one K-major (3d, d) bf16 matrix from the caller's (d_in, d_out)
+//       views (every call: the packing is part of the kernel's time) and,
+//       for f32 x, rounds x to bf16 scratch (TMA copies bytes as they are;
+//       bf16 x is read in place). qkv_projection_kernel is one GEMM
+//       x(b·s, d) · W(d, 3d) on 128 × 192 output tiles (3d / 192 = heads
+//       column tiles, so no ragged column tile), persistent: a producer
+//       warp streams 64-wide K slices of both operands (128-byte swizzle)
+//       by TMA through a 4-stage ring that runs on across a block's tiles,
+//       so the next tile loads during this one's epilogue; two consumer
+//       warpgroups of 64 rows issue m64n192k16 from shared memory. The
+//       epilogue applies the contract's rounding — q = bf16((x·Wq +
+//       bq)·dh^-½), k = bf16(x·Wk), v = bf16(x·Wv + bv) — with [bq | 0 |
+//       bv] read from shared memory (loaded once a block; gathered from
+//       global memory a column pair at a time it cost more than the
+//       products) and writes q, k, v into (3, b, s, d) bf16 scratch through
+//       a dedicated shared-memory stage in 16-byte pieces.
 //   (b) to_bf16_kernel (whisper path, f32 input only): TMA copies bytes as
 //       they are, so f32 head views are first rounded to bf16 scratch
 //       (b, h, s, 64) in one elementwise pass (the conversion is part of the
@@ -77,31 +96,11 @@
 namespace {
 
 constexpr int kHeadDim = 64;
-constexpr int kThreads = 128;  // 4 warps
-
-// projection tiles
-constexpr int kBM = 64;
-constexpr int kBN = 64;
-constexpr int kBK = 32;
-constexpr int kBKPad = kBK + 8;
-
-__device__ __forceinline__ void mma_16816(float (&d)[4], const uint32_t (&a)[4],
-                                          const uint32_t (&b)[2]) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
 
 // two bf16 (lo = lower column) as one 32-bit fragment register
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
-}
-
-__device__ __forceinline__ uint32_t load_pair(const __nv_bfloat16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
 }
 
 // eight neighbouring f32 (16-byte aligned) as eight bf16 in 16 bytes
@@ -111,11 +110,6 @@ __device__ __forceinline__ uint4 load8(const float* p) {
   return make_uint4(pack_bf16(a.x, a.y), pack_bf16(a.z, a.w), pack_bf16(b.x, b.y),
                     pack_bf16(b.z, b.w));
 }
-
-__device__ __forceinline__ __nv_bfloat16 to_bf16(float v) {
-  return __float2bfloat16_rn(v);
-}
-__device__ __forceinline__ __nv_bfloat16 to_bf16(__nv_bfloat16 v) { return v; }
 
 __device__ __forceinline__ void store_pair(float* p, float a, float b) {
   *reinterpret_cast<float2*>(p) = make_float2(a, b);
@@ -138,87 +132,190 @@ struct AttnArgs {
   int stable;     // 1: subtract the running row max before exp
 };
 
+constexpr int kConsumers = 256;               // two warpgroups
+constexpr int kThreads = kConsumers + 32;     // and one producer warp
+
 // ---------------------------------------------------------------- phase (a)
-// x (m_rows, d) · w (d, 3d) → qkv (3, m_rows, d) bf16.
-template <typename TIn>
-__global__ void __launch_bounds__(kThreads)
-qkv_projection_kernel(const TIn* __restrict__ x,
-                      const __nv_bfloat16* __restrict__ w,
-                      const float* __restrict__ bq,
-                      const float* __restrict__ bv,
-                      __nv_bfloat16* __restrict__ qkv,
-                      int m_rows, int d, float scale) {
-  __shared__ __align__(16) __nv_bfloat16 As[kBM][kBKPad];  // [row][k]
-  __shared__ __align__(16) __nv_bfloat16 Bs[kBN][kBKPad];  // [col][k]
+constexpr int kProjBM = 128;   // x rows a tile: 64 per consumer warpgroup
+constexpr int kProjBN = 192;   // output columns a tile: 3d / 192 = heads tiles
+constexpr int kProjBK = 64;    // one 128-byte swizzle row of bf16
+constexpr int kProjStages = 4;
+constexpr int kGroup = 8;      // row tiles walked together (L2 reuse of x)
 
-  const int tid = threadIdx.x;
-  const int warp = tid / 32;
-  const int lane = tid % 32;
-  const int g = lane / 4;
-  const int t = lane % 4;
-  const int n0 = blockIdx.x * kBN;
-  const int m0 = blockIdx.y * kBM;
-  const int ldw = 3 * d;
+// Operand preparation, one launch: eight weights or sixteen x a thread. The
+// packed weight wt (3d, d) bf16: row n is output column n of [Wq | Wk | Wv],
+// K contiguous — the projection's K-major B operand — read from three
+// (d_in, d_out) f32 views with element strides `ws` (the model passes
+// nn.Linear's (out, in) weights transposed, so K is read contiguously). For
+// f32 x also xb (m, d) = bf16(x): TMA copies bytes as they are.
+struct WeightStrides {
+  long long s[6];  // (d_in, d_out) element strides of Wq, Wk, Wv
+};
 
-  float acc[kBN / 8][4];
+__global__ void __launch_bounds__(256)
+prep_kernel(const float* __restrict__ wq, const float* __restrict__ wk,
+            const float* __restrict__ wv, const WeightStrides ws, int d,
+            __nv_bfloat16* __restrict__ wt, const float* __restrict__ x,
+            long long x_chunks, __nv_bfloat16* __restrict__ xb) {
+  const long long i = blockIdx.x * 256ll + threadIdx.x;
+  const long long w_chunks = 3ll * d * (d / 8);
+  if (i < w_chunks) {
+    const int n = static_cast<int>(i / (d / 8));
+    const int k0 = 8 * static_cast<int>(i % (d / 8));
+    const int which = n / d;
+    const float* w = which == 0 ? wq : which == 1 ? wk : wv;
+    const long long s0 = ws.s[2 * which], s1 = ws.s[2 * which + 1];
+    w += (n - which * d) * s1 + k0 * s0;
+    float v[8];
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int e = 0; e < 8; ++e) v[e] = w[e * s0];
+    *reinterpret_cast<uint4*>(wt + (size_t)n * d + k0) =
+        make_uint4(pack_bf16(v[0], v[1]), pack_bf16(v[2], v[3]), pack_bf16(v[4], v[5]),
+                   pack_bf16(v[6], v[7]));
+    return;
+  }
+  const long long j = i - w_chunks;  // x: sixteen elements, four loads in flight
+  if (j < x_chunks) {
+    const uint4 lo = load8(x + 16 * j);
+    const uint4 hi = load8(x + 16 * j + 8);
+    *reinterpret_cast<uint4*>(xb + 16 * j) = lo;
+    *reinterpret_cast<uint4*>(xb + 16 * j + 8) = hi;
+  }
+}
 
-  for (int k0 = 0; k0 < d; k0 += kBK) {
-    for (int i = tid; i < kBM * kBK; i += kThreads) {
-      const int r = i / kBK;
-      const int c = i % kBK;
-      const int m = m0 + r;
-      As[r][c] = m < m_rows ? to_bf16(x[(size_t)m * d + k0 + c])
-                            : __float2bfloat16_rn(0.f);
+constexpr int kPitch = kProjBN + 8;  // bf16 a staged output row (padded: no bank conflicts)
+constexpr int kMaxFusedD = 768;      // the fused path's widest d (Whisper small)
+
+struct ProjSmem {  // every tile 1024-byte aligned (the swizzle atom)
+  __nv_bfloat16 a[kProjStages][kProjBM * kProjBK];
+  __nv_bfloat16 b[kProjStages][kProjBN * kProjBK];
+  __nv_bfloat16 out[kProjBM * kPitch];  // the output tile on its way out
+  float bias[3 * kMaxFusedD];           // [bq | 0 | bv], the epilogue's
+  uint64_t full[kProjStages];
+  uint64_t empty[kProjStages];
+};
+constexpr size_t kProjSmem = sizeof(ProjSmem) + 1024;  // + alignment slack
+
+// xb (m, d) bf16 · wtᵀ → qkv (3, m, d) bf16, the contract's rounding: q =
+// bf16((x·Wq + bq)·scale), k = bf16(x·Wk), v = bf16(x·Wv + bv). xmap: tensor
+// map (d, m), box (64, 128); wmap: (d, 3d), box (64, 192). Persistent: block
+// b takes output tiles b, b + gridDim.x, ... (kGroup row tiles at a time
+// across all column tiles, so the x tiles are reused from L2). A producer
+// warp streams 64-wide K slices of both operands through a ring of
+// kProjStages stages that runs on across tiles, so the next tile's slices
+// load while this one's epilogue runs; two consumer warpgroups of 64 rows
+// each issue m64n192k16 from shared memory, one group of products in flight
+// while the next slice's barrier is awaited.
+__global__ void __launch_bounds__(kThreads, 1)
+qkv_projection_kernel(const __grid_constant__ CUtensorMap xmap,
+                      const __grid_constant__ CUtensorMap wmap,
+                      const float* __restrict__ bq, const float* __restrict__ bv,
+                      __nv_bfloat16* __restrict__ qkv, int m, int d, float scale) {
+  extern __shared__ unsigned char smem_raw[];
+  ProjSmem& sm = *reinterpret_cast<ProjSmem*>(hopper::align1024(smem_raw));
+  const int warp = threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  const int tiles_m = (m + kProjBM - 1) / kProjBM;
+  const int tiles_n = 3 * d / kProjBN;
+  const int tiles = tiles_m * tiles_n;
+  const int k_tiles = d / kProjBK;
+
+  if (threadIdx.x == 0) {
+    for (int st = 0; st < kProjStages; ++st) {
+      hopper::mbar_init(&sm.full[st], 1);
+      hopper::mbar_init(&sm.empty[st], kConsumers / 32);
     }
-    for (int i = tid; i < kBK * kBN; i += kThreads) {
-      const int kk = i / kBN;
-      const int nn = i % kBN;
-      Bs[nn][kk] = w[(size_t)(k0 + kk) * ldw + n0 + nn];
-    }
-    __syncthreads();
-#pragma unroll
-    for (int ks = 0; ks < kBK; ks += 16) {
-      const int r = warp * 16 + g;
-      uint32_t a[4];
-      a[0] = load_pair(&As[r][ks + 2 * t]);
-      a[1] = load_pair(&As[r + 8][ks + 2 * t]);
-      a[2] = load_pair(&As[r][ks + 2 * t + 8]);
-      a[3] = load_pair(&As[r + 8][ks + 2 * t + 8]);
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-        uint32_t b[2];
-        b[0] = load_pair(&Bs[j * 8 + g][ks + 2 * t]);
-        b[1] = load_pair(&Bs[j * 8 + g][ks + 2 * t + 8]);
-        mma_16816(acc[j], a, b);
+    hopper::fence_barrier_init();
+  }
+  __syncthreads();
+
+  if (warp == kConsumers / 32) {  // ------------------------------ producer
+    if (lane == 0) {
+      int it = 0;
+      for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+        int tm, tn;
+        hopper::grouped_tile(tile, tiles_m, tiles_n, kGroup, tm, tn);
+        for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+          const int st = it % kProjStages;
+          if (it >= kProjStages) hopper::mbar_wait(&sm.empty[st], ((it / kProjStages) & 1) ^ 1);
+          hopper::mbar_expect_tx(&sm.full[st], (kProjBM + kProjBN) * kProjBK * 2);
+          hopper::tma_load_2d(sm.a[st], &xmap, &sm.full[st], kt * kProjBK, tm * kProjBM);
+          hopper::tma_load_2d(sm.b[st], &wmap, &sm.full[st], kt * kProjBK, tn * kProjBN);
+        }
       }
     }
-    __syncthreads();
+    return;
   }
 
-  // Epilogue. A 64-wide column tile never straddles q | k | v (d % 64 == 0).
-  const int which = n0 / d;
-  __nv_bfloat16* dst = qkv + (size_t)which * m_rows * d;
+  // ------------------------------------------------------------ consumers
+  const int wg = warp / 4;
+  const int wt = threadIdx.x % 128;  // thread in the warpgroup
+  const int g = lane / 4;
+  const int t = lane % 4;
+  const int r0 = (warp % 4) * 16 + g;  // row in the warpgroup's 64
+  __nv_bfloat16* stage = sm.out + wg * 64 * kPitch;
+  // the biases once a block: the epilogue reads them with no branch and no
+  // global-memory latency (read from global, a column pair at a time, they
+  // cost more than the products)
+  for (int c = threadIdx.x; c < 3 * d; c += kConsumers)
+    sm.bias[c] = c < d ? bq[c] : c < 2 * d ? 0.f : bv[c - 2 * d];
+  hopper::named_barrier(1, kConsumers);
+  int it = 0;
+  for (int tile = blockIdx.x; tile < tiles; tile += gridDim.x) {
+    int tm, tn;
+    hopper::grouped_tile(tile, tiles_m, tiles_n, kGroup, tm, tn);
+    float acc[kProjBN / 2];
 #pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int c = n0 - which * d + j * 8 + 2 * t;
+    for (int i = 0; i < kProjBN / 2; ++i) acc[i] = 0.f;
+    for (int kt = 0; kt < k_tiles; ++kt, ++it) {
+      const int st = it % kProjStages;
+      hopper::mbar_wait(&sm.full[st], (it / kProjStages) & 1);
+      const uint64_t a_desc = hopper::desc_sw128(sm.a[st] + wg * 64 * kProjBK);
+      const uint64_t b_desc = hopper::desc_sw128(sm.b[st]);
+      hopper::fence_regs(acc);
+      hopper::wgmma_fence();
 #pragma unroll
-    for (int half = 0; half < 2; ++half) {
-      const int m = m0 + warp * 16 + g + 8 * half;
-      if (m >= m_rows) continue;
-      float v0 = acc[j][2 * half];
-      float v1 = acc[j][2 * half + 1];
-      if (which == 0) {
-        v0 = (v0 + bq[c]) * scale;
-        v1 = (v1 + bq[c + 1]) * scale;
-      } else if (which == 2) {
-        v0 += bv[c];
-        v1 += bv[c + 1];
-      }
-      store_pair(dst + (size_t)m * d + c, v0, v1);
+      for (int kk = 0; kk < kProjBK / 16; ++kk)
+        hopper::wgmma_m64n192k16_ss(acc, a_desc + hopper::k_step_kmajor(kk),
+                                    b_desc + hopper::k_step_kmajor(kk), 1);
+      hopper::wgmma_commit();
+      hopper::wgmma_wait<1>();  // the previous slice's products are done
+      hopper::fence_regs(acc);
+      if (kt > 0 && lane == 0) hopper::mbar_arrive(&sm.empty[(it - 1) % kProjStages]);
+    }
+    hopper::wgmma_wait<0>();
+    hopper::fence_regs(acc);
+    if (lane == 0) hopper::mbar_arrive(&sm.empty[(it - 1) % kProjStages]);
+
+    // Epilogue: bias, q's scale, the bf16 rounding. A column pair never
+    // straddles q | k | v (d is even). The warpgroup stages its 64 × 192
+    // bf16 tile in shared memory, once its last tile has left it, and
+    // writes it to its plane of qkv in 16-byte pieces (d % 8 == 0: a piece
+    // never straddles two planes).
+    hopper::named_barrier(2 + wg, 128);
+#pragma unroll
+    for (int j = 0; j < kProjBN / 8; ++j) {
+      const int c = 8 * j + 2 * t;
+      const int col = tn * kProjBN + c;
+      const float2 bias = *reinterpret_cast<const float2*>(sm.bias + col);
+      const float mul = col < d ? scale : 1.f;
+#pragma unroll
+      for (int h = 0; h < 2; ++h)
+        store_pair(stage + (r0 + 8 * h) * kPitch + c, (acc[4 * j + 2 * h] + bias.x) * mul,
+                   (acc[4 * j + 2 * h + 1] + bias.y) * mul);
+    }
+    hopper::named_barrier(2 + wg, 128);
+    constexpr int kChunks = kProjBN / 8;  // 16-byte pieces a row
+#pragma unroll 4
+    for (int i = wt; i < 64 * kChunks; i += 128) {
+      const int r = i / kChunks;
+      const int c = 8 * (i % kChunks);
+      const int row = tm * kProjBM + wg * 64 + r;
+      const int col = tn * kProjBN + c;
+      const int which = (col >= d) + (col >= 2 * d);
+      if (row < m)
+        *reinterpret_cast<uint4*>(qkv + ((size_t)which * m + row) * d + col - which * d) =
+            *reinterpret_cast<const uint4*>(stage + r * kPitch + c);
     }
   }
 }
@@ -248,8 +345,6 @@ to_bf16_kernel(const float* __restrict__ q, const float* __restrict__ k,
 constexpr int kBQ = 128;   // query rows per block: 64 per consumer warpgroup
 constexpr int kBKV = 128;  // keys per K/V tile
 constexpr int kStages = 3;
-constexpr int kConsumers = 256;                 // two warpgroups
-constexpr int kAttnThreads = kConsumers + 32;   // and one producer warp
 constexpr uint32_t kTileBytes = kBKV * kHeadDim * 2;
 
 struct AttnSmem {  // every tile 1024-byte aligned (the swizzle atom)
@@ -289,7 +384,7 @@ __device__ __forceinline__ void issue_pv(float (&o)[kHeadDim / 2], uint32_t (&p)
 // clip), query tiles fastest; the K/V ring runs on across items (slice
 // counter `it`), and Q has its own full / empty pair.
 template <typename TOut>
-__global__ void __launch_bounds__(kAttnThreads, 1)
+__global__ void __launch_bounds__(kThreads, 1)
 attention_kernel(const __grid_constant__ CUtensorMap qmap,
                  const __grid_constant__ CUtensorMap kmap,
                  const __grid_constant__ CUtensorMap vmap, TOut* __restrict__ out,
@@ -474,37 +569,55 @@ int launch_attention(const __nv_bfloat16* q, const __nv_bfloat16* k,
   if (!err) err = head_map(&kmap, k, batch, heads, args.seq, args.k, kBKV);
   if (!err) err = head_map(&vmap, v, batch, heads, args.seq, args.v, kBKV);
   if (!err) err = hopper::allow_smem(attention_kernel<TOut>, kAttnSmem);
-  int device = 0, sms = 0;
-  if (!err) err = static_cast<int>(cudaGetDevice(&device));
-  if (!err)
-    err = static_cast<int>(cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device));
+  int sms = 0;
+  if (!err) err = hopper::sm_count(&sms);
   if (err) return err;
   const int items = (args.seq + kBQ - 1) / kBQ * heads * batch;
-  attention_kernel<TOut><<<std::min(items, sms), kAttnThreads, kAttnSmem, s>>>(
+  attention_kernel<TOut><<<std::min(items, sms), kThreads, kAttnSmem, s>>>(
       qmap, kmap, vmap, out, args.out, args.seq, heads, items,
       args.q_scale * 1.4426950408889634f, args.stable);
   return static_cast<int>(cudaGetLastError());
 }
 
+// x (m, d) as TIn; wq, wk, wv (d_in, d_out) f32 views; scratch: qkv
+// (3, m, d), then wt (3d, d), then (f32 x only) xb (m, d), all bf16.
 template <typename TIn>
-int launch_fused(const void* x, const void* w, const float* bq, const float* bv,
-                 void* qkv, void* out, int batch, int seq, int d, int heads,
-                 float scale, cudaStream_t s) {
-  const int m_rows = batch * seq;
-  const dim3 pgrid(3 * d / kBN, (m_rows + kBM - 1) / kBM);
-  qkv_projection_kernel<TIn><<<pgrid, kThreads, 0, s>>>(
-      static_cast<const TIn*>(x), static_cast<const __nv_bfloat16*>(w), bq, bv,
-      static_cast<__nv_bfloat16*>(qkv), m_rows, d, scale);
-  cudaError_t err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
+int launch_fused(const void* x, const float* wq, const float* wk, const float* wv,
+                 const WeightStrides& ws, const float* bq, const float* bv, void* scratch,
+                 void* out, int batch, int seq, int d, int heads, float scale,
+                 cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  const int m = batch * seq;
+  bf16* qkv = static_cast<bf16*>(scratch);
+  bf16* wt = qkv + 3ull * m * d;
+  bf16* xb = wt + 3ull * d * d;
+  const bool f32 = sizeof(TIn) == 4;
+  const long long x_chunks = f32 ? (long long)m * d / 16 : 0;
+  const long long chunks = 3ll * d * (d / 8) + x_chunks;
+  // the pre-pass first: the host prepares the other launches while it runs
+  prep_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+      wq, wk, wv, ws, d, wt, f32 ? static_cast<const float*>(x) : nullptr, x_chunks, xb);
+  const bf16* xin = f32 ? xb : static_cast<const bf16*>(x);
+  CUtensorMap xmap, wmap;
+  int err = static_cast<int>(cudaGetLastError());
+  if (!err) err = hopper::matrix_map(&xmap, xin, m, d, kProjBK, kProjBM);
+  if (!err) err = hopper::matrix_map(&wmap, wt, 3 * d, d, kProjBK, kProjBN);
+  if (!err) err = hopper::allow_smem(qkv_projection_kernel, kProjSmem);
+  int sms = 0;
+  if (!err) err = hopper::sm_count(&sms);
+  if (err) return err;
+  const int tiles = (m + kProjBM - 1) / kProjBM * (3 * d / kProjBN);
+  qkv_projection_kernel<<<std::min(tiles, sms), kThreads, kProjSmem, s>>>(xmap, wmap, bq, bv,
+                                                                         qkv, m, d, scale);
+  const cudaError_t launched = cudaGetLastError();
+  if (launched != cudaSuccess) return static_cast<int>(launched);
   // q, k, v scratch planes and out are (b, s, d): head h of clip c starts
   // at c·s·d + h·64, rows d apart; q is pre-scaled
   const HeadStrides bsd{(long long)seq * d, kHeadDim, d};
   const AttnArgs args{bsd, bsd, bsd, bsd, seq, 1.f, 1};
-  const __nv_bfloat16* qp = static_cast<const __nv_bfloat16*>(qkv);
-  const size_t plane = (size_t)m_rows * d;
-  return launch_attention(qp, qp + plane, qp + 2 * plane, static_cast<TIn*>(out), args,
-                          batch, heads, s);
+  const size_t plane = (size_t)m * d;
+  return launch_attention<TIn>(qkv, qkv + plane, qkv + 2 * plane, static_cast<TIn*>(out),
+                               args, batch, heads, s);
 }
 
 AttnArgs whisper_args(const long long* st, int seq, float scale, int stable) {
@@ -517,19 +630,23 @@ AttnArgs whisper_args(const long long* st, int seq, float scale, int stable) {
 
 extern "C" {
 
-// x (b, s, d) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w (d, 3d) bf16 =
-// [Wq | Wk | Wv] in (d_in, d_out) layout; bq, bv (d,) f32; qkv scratch
-// (3, b, s, d) bf16; out (b, s, d) in x's dtype. d = heads · 64, d % 64 == 0.
-// Returns cudaError_t.
-int freud_qkv_attention(const void* x, int x_bf16, const void* w,
-                        const float* bq, const float* bv, void* qkv, void* out,
-                        int batch, int seq, int d, int heads, float scale,
-                        void* stream) {
+// x (b, s, d) f32 (x_bf16 = 0) or bf16 (x_bf16 = 1), contiguous, 16-byte
+// aligned; wq, wk, wv (d_in, d_out) f32 views with element strides
+// wstrides[2i], wstrides[2i + 1] (any layout); bq, bv (d,) f32; scratch
+// (3·b·s·d + 3·d² [+ b·s·d for f32 x]) bf16; out (b, s, d) in x's dtype.
+// d = heads · 64. Returns cudaError_t.
+int freud_qkv_attention(const void* x, int x_bf16, const float* wq, const float* wk,
+                        const float* wv, const long long* wstrides, const float* bq,
+                        const float* bv, void* scratch, void* out, int batch, int seq,
+                        int d, int heads, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  WeightStrides ws;
+  for (int i = 0; i < 6; ++i) ws.s[i] = wstrides[i];
   if (x_bf16)
-    return launch_fused<__nv_bfloat16>(x, w, bq, bv, qkv, out, batch, seq, d,
-                                       heads, scale, s);
-  return launch_fused<float>(x, w, bq, bv, qkv, out, batch, seq, d, heads, scale, s);
+    return launch_fused<__nv_bfloat16>(x, wq, wk, wv, ws, bq, bv, scratch, out, batch, seq,
+                                       d, heads, scale, s);
+  return launch_fused<float>(x, wq, wk, wv, ws, bq, bv, scratch, out, batch, seq, d, heads,
+                             scale, s);
 }
 
 // q, k, v, out: (b, h, s, 64) views, f32 (in_bf16 = 0) or bf16 (in_bf16 = 1),

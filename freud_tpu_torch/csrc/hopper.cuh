@@ -1,17 +1,19 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // through TMA into shared memory and multiply them with wgmma:
-// csrc/attention.cu and csrc/topk_fused.cu.
+// csrc/attention.cu, csrc/topk_fused.cu and csrc/mel.cu.
 //
 //  * Tensor maps, built on the host per call. cuTensorMapEncodeTiled lives
 //    in libcuda, not in the runtime; it is looked up in the loaded libcuda with
 //    dlsym, so the kernel libraries keep linking against the runtime alone.
-//    Every map here is bf16 with a 128-byte swizzle, and the box's inner
-//    extent is 64 elements (one 128-byte row), the width of the swizzle.
+//    Every map here is bf16 with a 128-byte swizzle and a box inner extent
+//    of 64 elements (one 128-byte row), the width of the swizzle, or with a
+//    64-byte swizzle and 32 elements.
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    and a parity wait.
-//  * TMA tile loads (2-D and 4-D) that complete on an mbarrier.
-//  * wgmma: shared-memory matrix descriptors for 128-byte-swizzled tiles,
-//    fence / commit / wait, and the three shapes the kernels issue.
+//  * TMA tile loads (2-D and 4-D) that complete on an mbarrier; 16-byte
+//    cp.async copies for what TMA cannot address.
+//  * wgmma: shared-memory matrix descriptors for 128- and 64-byte-swizzled
+//    tiles, fence / commit / wait, and the shapes the kernels issue.
 //
 // Operand tiles: a TMA load with the 128-byte swizzle writes rows of 128
 // bytes (64 bf16) whose 16-byte chunks are permuted by the row's index
@@ -23,7 +25,9 @@
 // W_dec are stored, read with the transpose bit) it starts 16 rows, 2048
 // bytes, further on. An MN-major operand of N = 128 is two 64-wide tiles,
 // the second `lbo` bytes after the first (the descriptor's leading byte
-// offset); at N = 64 and for K-major operands that offset is unused.
+// offset); at N = 64 and for K-major operands that offset is unused. With
+// the 64-byte swizzle a row is 64 bytes (32 bf16), an 8-row atom 512 bytes,
+// and a K-major k-step of 16 again starts 32·k bytes into the row.
 #pragma once
 
 #include <cuda.h>  // CUtensorMap and its enums: types only
@@ -53,18 +57,40 @@ inline EncodeTiled encode_tiled() {
 
 // A bf16 tensor map of `rank` dimensions, innermost first: dims[i]
 // elements, strides[i] bytes between consecutive indices of dimension i + 1
-// (multiples of 16), box[i] elements a load; box[0] must be 64. Elements
-// outside the tensor load as zeros. Returns a cudaError_t.
+// (multiples of 16), box[i] elements a load; box[0] must be 64 (128-byte
+// swizzle) or 32 (64-byte). Elements outside the tensor load as zeros.
+// Returns a cudaError_t.
 inline int make_map(CUtensorMap* map, const void* base, int rank, const uint64_t* dims,
-                    const uint64_t* strides, const uint32_t* box) {
+                    const uint64_t* strides, const uint32_t* box,
+                    CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return static_cast<int>(cudaErrorSharedObjectInitFailed);
   const cuuint32_t ones[5] = {1, 1, 1, 1, 1};
   const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, const_cast<void*>(base),
-                        dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE,
-                        CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                        dims, strides, box, ones, CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle,
+                        CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);
   return r == CUDA_SUCCESS ? 0 : static_cast<int>(cudaErrorInvalidValue);
+}
+
+// A bf16 tensor map over a row-major (rows, cols) matrix, box (box_cols,
+// box_rows); box_cols must be the swizzle's width (64, or 32 for 64 bytes).
+inline int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
+                      int box_rows,
+                      CUtensorMapSwizzle swizzle = CU_TENSOR_MAP_SWIZZLE_128B) {
+  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
+  const uint64_t strides[1] = {2ull * cols};
+  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
+  return make_map(map, base, 2, dims, strides, box, swizzle);
+}
+
+// The current device's number of SMs (a persistent grid's size).
+inline int sm_count(int* sms) {
+  int device = 0;
+  int err = static_cast<int>(cudaGetDevice(&device));
+  if (!err)
+    err = static_cast<int>(cudaDeviceGetAttribute(sms, cudaDevAttrMultiProcessorCount, device));
+  return err;
 }
 
 // Raise a kernel's dynamic shared-memory limit to `bytes`.
@@ -75,6 +101,19 @@ int allow_smem(K kernel, size_t bytes) {
 }
 
 // ----------------------------------------------------------------- device
+
+// Output tile (tm, tn) of block `id` of a GEMM grid: `group` row tiles at a
+// time, all column tiles of the group before the next, so the tiles of the
+// operand shared along a row are reused from L2.
+__device__ __forceinline__ void grouped_tile(int id, int tiles_m, int tiles_n, int group,
+                                             int& tm, int& tn) {
+  const int per_group = group * tiles_n;
+  const int first = (id / per_group) * group;
+  const int rows = min(tiles_m - first, group);
+  const int r = id % per_group;
+  tm = first + r % rows;
+  tn = r / rows;
+}
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
   return static_cast<uint32_t>(__cvta_generic_to_shared(p));
@@ -147,12 +186,28 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// 16 bytes from global to shared memory without passing through registers;
+// cp_async_wait_all() then a barrier make them visible to the block.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)), "l"(src)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.wait_all;\n" ::: "memory");
+}
+
 // Descriptor of a 128-byte-swizzled operand tile at p (see the header).
 // An MN-major operand wider than 64 (one swizzle width) continues in
 // further 64-wide tiles `lbo` bytes apart (the leading byte offset).
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo = 16) {
   return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) |
          (static_cast<uint64_t>(lbo >> 4) << 16) | (64ull << 32) | (1ull << 62);
+}
+// Descriptor of a K-major, 64-byte-swizzled operand tile at p (512-byte
+// aligned): 8-row groups 512 bytes apart.
+__device__ __forceinline__ uint64_t desc_sw64(const void* p) {
+  return static_cast<uint64_t>((smem_addr(p) & 0x3FFFFu) >> 4) | (1ull << 16) |
+         (32ull << 32) | (2ull << 62);
 }
 // Offsets of the k-th step of 16 from a tile's descriptor, in its 16-byte units.
 __device__ __forceinline__ uint64_t k_step_kmajor(int k) { return 2ull * k; }
@@ -303,6 +358,73 @@ __device__ __forceinline__ void wgmma_m64n128k16_ss_mn(float (&d)[64], uint64_t 
         "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]),
         "+f"(d[62]), "+f"(d[63])
       : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+
+// D(64 × 192) (+)= A(64 × 16) · B(192 × 16)ᵀ, A and B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n192k16_ss(float (&d)[96], uint64_t desc_a,
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %98, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n192k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95}, "
+      "%96, %97, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95])
+      : "l"(desc_a), "l"(desc_b), "r"(scale_d));
+}
+
+// D(64 × 208) (+)= A(64 × 16, registers) · B(208 × 16)ᵀ, B K-major in shared memory
+__device__ __forceinline__ void wgmma_m64n208k16_rs(float (&d)[104], const uint32_t (&a)[4],
+    uint64_t desc_b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %109, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n208k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, %16, %17, "
+      "%18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, %32, %33, "
+      "%34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, %48, %49, "
+      "%50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, %64, %65, "
+      "%66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79, %80, %81, "
+      "%82, %83, %84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, %96, %97, "
+      "%98, %99, %100, %101, %102, %103}, {%104, %105, %106, %107}, %108, p, 1, 1, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]),
+        "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]),
+        "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]),
+        "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]),
+        "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]),
+        "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]), "+f"(d[42]),
+        "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]),
+        "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]),
+        "+f"(d[61]), "+f"(d[62]), "+f"(d[63]), "+f"(d[64]), "+f"(d[65]), "+f"(d[66]),
+        "+f"(d[67]), "+f"(d[68]), "+f"(d[69]), "+f"(d[70]), "+f"(d[71]), "+f"(d[72]),
+        "+f"(d[73]), "+f"(d[74]), "+f"(d[75]), "+f"(d[76]), "+f"(d[77]), "+f"(d[78]),
+        "+f"(d[79]), "+f"(d[80]), "+f"(d[81]), "+f"(d[82]), "+f"(d[83]), "+f"(d[84]),
+        "+f"(d[85]), "+f"(d[86]), "+f"(d[87]), "+f"(d[88]), "+f"(d[89]), "+f"(d[90]),
+        "+f"(d[91]), "+f"(d[92]), "+f"(d[93]), "+f"(d[94]), "+f"(d[95]), "+f"(d[96]),
+        "+f"(d[97]), "+f"(d[98]), "+f"(d[99]), "+f"(d[100]), "+f"(d[101]), "+f"(d[102]),
+        "+f"(d[103])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(desc_b), "r"(scale_d));
 }
 
 }  // namespace hopper

@@ -86,17 +86,6 @@ __device__ __forceinline__ __nv_bfloat16 act_of(float z, float b) {
   return __float2bfloat16_rn(s > 0.f ? s : 0.f);
 }
 
-// Output tile (tm, tn) of block `id`: kGroup row tiles at a time, all column
-// tiles of the group before the next.
-__device__ __forceinline__ void tile_of(int id, int tiles_m, int tiles_n, int& tm, int& tn) {
-  const int per_group = kGroup * tiles_n;
-  const int first = (id / per_group) * kGroup;
-  const int rows = min(tiles_m - first, kGroup);
-  const int r = id % per_group;
-  tm = first + r % rows;
-  tn = r / rows;
-}
-
 // ---------------------------------------------------------------- phase (a)
 // x (m, d) f32, b_dec (d,) f32 → xs (m, d) bf16; eight elements a thread.
 __global__ void __launch_bounds__(256)
@@ -136,7 +125,8 @@ encode_kernel(const __grid_constant__ CUtensorMap xmap,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   int tm, tn;
-  tile_of(blockIdx.x, (m + kEncBM - 1) / kEncBM, (n + kEncBN - 1) / kEncBN, tm, tn);
+  hopper::grouped_tile(blockIdx.x, (m + kEncBM - 1) / kEncBM, (n + kEncBN - 1) / kEncBN,
+                       kGroup, tm, tn);
   const int k_tiles = (d + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -300,7 +290,8 @@ decode_kernel(const __grid_constant__ CUtensorMap amap,
   const int warp = threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   int tm, tn;
-  tile_of(blockIdx.x, (m + kDecBM - 1) / kDecBM, (d + kDecBN - 1) / kDecBN, tm, tn);
+  hopper::grouped_tile(blockIdx.x, (m + kDecBM - 1) / kDecBM, (d + kDecBN - 1) / kDecBN,
+                       kGroup, tm, tn);
   const int k_tiles = (n + kBK - 1) / kBK;
 
   if (threadIdx.x == 0) {
@@ -404,15 +395,6 @@ decode_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
-// A 2-D bf16 tensor map over a row-major (rows, cols) matrix.
-int matrix_map(CUtensorMap* map, const void* base, int rows, int cols, int box_cols,
-               int box_rows) {
-  const uint64_t dims[2] = {(uint64_t)cols, (uint64_t)rows};
-  const uint64_t strides[1] = {2ull * cols};
-  const uint32_t box[2] = {(uint32_t)box_cols, (uint32_t)box_rows};
-  return hopper::make_map(map, base, 2, dims, strides, box);
-}
-
 }  // namespace
 
 extern "C" {
@@ -435,10 +417,10 @@ int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc
   if (m == 0) return 0;
   using bf16 = __nv_bfloat16;
   CUtensorMap xmap, wemap, amap, wdmap;
-  int err = matrix_map(&xmap, xs, m, d, kBK, kEncBM);
-  if (!err) err = matrix_map(&wemap, w_enc, n, d, kBK, kEncBN);
-  if (!err) err = matrix_map(&amap, acts, m, n, kBK, kDecBM);
-  if (!err) err = matrix_map(&wdmap, w_dec, n, d, 64, kBK);
+  int err = hopper::matrix_map(&xmap, xs, m, d, kBK, kEncBM);
+  if (!err) err = hopper::matrix_map(&wemap, w_enc, n, d, kBK, kEncBN);
+  if (!err) err = hopper::matrix_map(&amap, acts, m, n, kBK, kDecBM);
+  if (!err) err = hopper::matrix_map(&wdmap, w_dec, n, d, 64, kBK);
   if (!err) err = hopper::allow_smem(encode_kernel, kEncSmem);
   if (!err) err = hopper::allow_smem(decode_kernel, kDecSmem);
   const size_t sel_smem = topk::row_smem_bytes(n);

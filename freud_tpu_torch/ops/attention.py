@@ -16,16 +16,20 @@ accumulation and f32 softmax statistics, and the design keeps the (s × s)
 scores out of device memory (header of ``csrc/attention.cu``): one block per
 128 query rows, a producer warp streaming 128-key K/V tiles by TMA through a
 ring of shared-memory stages, two consumer warpgroups with an online max and
-sum, one normalisation of the output at the end. The fused entry first runs
-a q/k/v projection GEMM into bf16 scratch; the whisper entry first rounds
-f32 input to bf16 scratch (TMA copies bytes as they are).
+sum, one normalisation of the output at the end. The fused entry first packs
+the three weights to one bf16 matrix (and rounds f32 x to bf16) and runs the
+q/k/v projection as a ``wgmma`` GEMM fed by TMA into bf16 scratch; the
+whisper entry first rounds f32 input to bf16 scratch (TMA copies bytes as
+they are).
 
 Precision: the kernels' matmuls take bf16 operands for BOTH input dtypes,
 as the TPU kernels did on the TPU (``freud_tpu/models/whisper/model.py:194-205``,
 ``freud_tpu/ops/attention.py:87-88``), so on CUDA the f32 collection path
 runs attention at bf16 precision (~0.4% relative, bounded by 2e-2 of the
-output's max in the tests). The plain versions are f32 math throughout, like
-the JAX CPU paths; the CPU path runs them.
+output's max in the tests). The plain versions are f32 math throughout by
+default, like the JAX CPU paths, and the CPU path runs them so; with
+``matmul_dtype=torch.bfloat16`` they round where the kernels do (the tests
+and ``chip_smoke.py`` hold the kernels to that too).
 
 Each wrapper dispatches on the device: a CUDA tensor launches the kernel
 (head_dim 64 — every Whisper size), a CPU tensor takes the plain version.
@@ -36,39 +40,61 @@ kernel launches.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
 from .._native import check_cuda_status, cuda_library
 
 HEAD_DIM = 64  # the kernel's head_dim (csrc/attention.cu kHeadDim)
-_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y and .z (row tiles; heads, clips)
+FUSED_MAX_D = 768  # the fused kernel's widest d (csrc/attention.cu kMaxFusedD)
+_MAX_GRID_Y = 65535  # CUDA's limit on gridDim.y and .z (heads, clips)
+
+# The fused kernel against fused_qkv_attention_plain(..., matmul_dtype=bf16),
+# max |Δ| / max |ref|, by x's dtype: the two differ by the order of f32 sums,
+# which flips a few bf16 roundings of q, k, v and P (measured up to 1.8e-3
+# for f32 x on an H100); bf16 x also rounds the output to bf16, up to 2^-8
+# of max on top (measured up to 3.0e-3). The card tests and chip_smoke.py
+# hold the kernel to it.
+ATTN_BF16_GATE = {torch.float32: 3e-3, torch.bfloat16: 6e-3}
 
 
-def fused_qkv_attention_plain(x, wq, bq, wk, wv, bv, heads: int) -> torch.Tensor:
-    """f32 reference: per head softmax(q·kᵀ·dh^-½)·v, heads concatenated."""
+def fused_qkv_attention_plain(x, wq, bq, wk, wv, bv, heads: int,
+                              matmul_dtype=None) -> torch.Tensor:
+    """Per head softmax(q·kᵀ·dh^-½)·v, heads concatenated; f32 sums.
+
+    ``matmul_dtype`` None is f32 throughout. ``torch.bfloat16`` rounds
+    exactly where the kernels' contract does: x and the weights before the
+    projections, q = bf16((x·Wq + bq)·dh^-½), k = bf16(x·Wk), v = bf16(x·Wv
+    + bv) after them, and the probabilities before P·V (the attention part
+    is ``whisper_attention_plain``'s)."""
     b, s, d = x.shape
-    dh = d // heads
-    xf = x.to(torch.float32)
-    q = xf @ wq.to(torch.float32) + bq.to(torch.float32)
-    k = xf @ wk.to(torch.float32)
-    v = xf @ wv.to(torch.float32) + bv.to(torch.float32)
+    f32 = torch.float32
+
+    def rounded(t):
+        t = t.to(f32)
+        return t if matmul_dtype is None else t.to(matmul_dtype).to(f32)
+
+    xf = rounded(x)
+    q = xf @ rounded(wq) + bq.to(f32)
+    k = xf @ rounded(wk)
+    v = xf @ rounded(wv) + bv.to(f32)
 
     def split(t):
-        return t.reshape(b, s, heads, dh).transpose(1, 2)
+        return t.reshape(b, s, heads, d // heads).transpose(1, 2)
 
-    scores = (split(q) * dh ** -0.5) @ split(k).transpose(-1, -2)
-    weights = torch.softmax(scores, dim=-1)
-    out = (weights @ split(v)).transpose(1, 2).reshape(b, s, d)
-    return out.to(x.dtype)
+    out = whisper_attention_plain(split(q), split(k), split(v), matmul_dtype)
+    return out.transpose(1, 2).reshape(b, s, d).to(x.dtype)
 
 
+@functools.cache
 def _library() -> ctypes.CDLL:
     lib = cuda_library("attention")
     lib.freud_qkv_attention.restype = ctypes.c_int
     lib.freud_qkv_attention.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
         ctypes.c_float, ctypes.c_void_p,
     ]
@@ -98,9 +124,9 @@ def fused_qkv_attention(
     if x.ndim != 3:
         raise ValueError(f"expected x (b, s, d), got {tuple(x.shape)}")
     b, s, d = x.shape
-    if d != heads * HEAD_DIM:
-        raise ValueError(
-            f"the CUDA kernel needs head_dim {HEAD_DIM}: d {d}, heads {heads}")
+    if d != heads * HEAD_DIM or d > FUSED_MAX_D:
+        raise ValueError(f"the CUDA kernel needs head_dim {HEAD_DIM} and d ≤ "
+                         f"{FUSED_MAX_D}: d {d}, heads {heads}")
     if x.dtype not in (torch.float32, torch.bfloat16):
         raise TypeError(f"x must be float32 or bfloat16, got {x.dtype}")
     if not x.is_contiguous():
@@ -114,25 +140,32 @@ def fused_qkv_attention(
     for t in (wq, bq, wk, wv, bv):
         if t.device != x.device:
             raise ValueError(f"parameters must be on {x.device}, got {t.device}")
-    if b > _MAX_GRID_Y or -(-b * s // 64) > _MAX_GRID_Y:
-        raise ValueError(f"b {b}, b·s {b * s} exceed the kernel's grid "
-                         f"({_MAX_GRID_Y} clips, {_MAX_GRID_Y} row tiles of "
-                         "64); split the batch")
-    # operand preparation: [Wq | Wk | Wv] as one (d, 3d) bf16 matrix
-    w = torch.cat([wq, wk, wv], dim=1).to(torch.bfloat16).contiguous()
+    if x.data_ptr() % 16:
+        raise ValueError("x is not 16-byte aligned")
+    if -(-b * s // 128) * heads >= 2 ** 31:
+        raise ValueError(f"b·s {b * s} at {heads} heads exceeds the projection "
+                         "kernel's grid (2³¹ − 1 tiles of 128 rows × 192 "
+                         "columns); split the batch")
+    # the weights as f32 (d_in, d_out) views in any layout: the kernel packs
+    # [Wq | Wk | Wv] to bf16 itself, on every call
+    ws = [w.to(torch.float32) for w in (wq, wk, wv)]
+    wstrides = (ctypes.c_longlong * 6)(*(st for w in ws for st in w.stride()))
     bq32 = bq.to(torch.float32).contiguous()
     bv32 = bv.to(torch.float32).contiguous()
     out = torch.empty_like(x)
     if b * s == 0:
         return out
-    qkv = torch.empty((3, b, s, d), dtype=torch.bfloat16, device=x.device)
+    # q, k, v planes (3, b, s, d), the packed weight (3d, d), bf16 x (f32 x)
+    planes = 3 if x.dtype == torch.bfloat16 else 4
+    scratch = torch.empty((planes * b * s * d + 3 * d * d,), dtype=torch.bfloat16,
+                          device=x.device)
     lib = _library()
     with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream(x.device).cuda_stream
         status = lib.freud_qkv_attention(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), w.data_ptr(),
-            bq32.data_ptr(), bv32.data_ptr(), qkv.data_ptr(), out.data_ptr(),
-            b, s, d, heads, float(HEAD_DIM ** -0.5), stream)
+            x.data_ptr(), int(x.dtype == torch.bfloat16), ws[0].data_ptr(),
+            ws[1].data_ptr(), ws[2].data_ptr(), wstrides, bq32.data_ptr(),
+            bv32.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, d, heads,
+            float(HEAD_DIM ** -0.5), torch.cuda.current_stream(x.device).cuda_stream)
     check_cuda_status(status, "fused qkv attention kernel", lib)
     fused_qkv_attention.launches += 1
     return out

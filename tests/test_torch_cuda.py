@@ -7,9 +7,14 @@ card machine without it:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: log-mel — the bounds of tests/test_mel_pallas.py (max |Δ| <
-2e-3, share of |Δ| > 3e-4 below 1e-5); both attention kernels — max |Δ| /
-max |ref| < 2e-2, the bf16-product bound of tests/test_attention_kernel.py,
-and an encoder block on the card within 5e-2 of max of the CPU; TopK
+2e-3, share of |Δ| > 3e-4 below 1e-5) against the plain path, and the
+recipe gate of ``freud_tpu_torch/ops/mel.py`` (log10 units: max |Δ| <
+1e-3, share of |Δ| > 1e-5 below 1e-3) against its recipe with exact sums;
+both attention kernels — max |Δ| / max |ref| < 2e-2 against the f32 plain
+version, the bf16-product bound of tests/test_attention_kernel.py, and the
+fused kernel within
+``ATTN_BF16_GATE`` of the plain version rounded where the contract rounds;
+an encoder block on the card within 5e-2 of max of the CPU; TopK
 thresholds and fired — bit for bit against the plain version on the same
 input; the fused forward — acts differ on fewer than 1e-3 of entries, by at
 most one bf16 ulp of the pre-activation (the card's f32 sums round it
@@ -24,12 +29,19 @@ import torch
 from freud_tpu_torch.audio.mel import log_mel_spectrogram
 from freud_tpu_torch.models.whisper import WhisperDims, WhisperRuntime
 from freud_tpu_torch.ops.attention import (
+    ATTN_BF16_GATE,
     fused_qkv_attention,
     fused_qkv_attention_plain,
     whisper_attention,
     whisper_attention_plain,
 )
-from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+from freud_tpu_torch.ops.mel import (
+    RECIPE_MAX,
+    RECIPE_SHARE,
+    log_mel_spectrogram_cuda,
+    log_mel_spectrogram_recipe,
+    recipe_gap,
+)
 from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
 from freud_tpu_torch.ops.topk_threshold import (
     topk_thresholds_fired,
@@ -67,6 +79,30 @@ def test_mel_kernel_matches_plain(cuda, n_mels):
         log_mel_spectrogram_cuda(audio.double(), n_mels)
 
 
+def _smoke_clips(cuda, silent: bool) -> torch.Tensor:
+    """chip_smoke.py's 32 seeded noise clips, all silent after 1000 samples
+    when ``silent``."""
+    gen = torch.Generator().manual_seed(0)
+    audio = (torch.randn((32, 480000), generator=gen) * 0.1).to(cuda)
+    if silent:
+        audio[:, 1000:] = 0.0
+    return audio
+
+
+@pytest.mark.parametrize("silent", [False, True])
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_matches_recipe(cuda, n_mels, silent):
+    """The kernel against its own recipe (three bf16 limb products, exact
+    sums) within the recipe gate, on chip_smoke.py's batch of 32 seeded
+    clips; ``silent``: every clip silent after 1000 samples, where on clip
+    15 the recipe itself is 2.4e-3 off the f64 log-mel, above the plain
+    path's 2e-3 gate (tests/test_torch_mel.py pins that reading)."""
+    audio = _smoke_clips(cuda, silent)
+    got = log_mel_spectrogram_cuda(audio, n_mels)
+    max_err, share = recipe_gap(got, log_mel_spectrogram_recipe(audio, n_mels))
+    assert max_err < RECIPE_MAX and share < RECIPE_SHARE, (max_err, share)
+
+
 @pytest.mark.parametrize("s", [1500, 77])
 @pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
 def test_attention_kernel_matches_plain(cuda, s, x_dtype):
@@ -89,6 +125,47 @@ def test_attention_kernel_matches_plain(cuda, s, x_dtype):
     assert err.item() < 2e-2
     with pytest.raises(ValueError):  # head_dim 32 is not a kernel shape
         fused_qkv_attention(x, wq, bq, wk, wv, bv, 12)
+
+
+@pytest.mark.parametrize("s", [1500, 77, 1])
+@pytest.mark.parametrize("x_dtype", [torch.float32, torch.bfloat16])
+def test_attention_kernel_matches_bf16_plain(cuda, s, x_dtype):
+    """The fused kernel (wgmma projection, then the attention phase) against
+    the bf16-rounded plain version, with nn.Linear-style (out, in) weights
+    passed transposed as the model passes them; two launches bit-equal."""
+    rng = np.random.default_rng(15)
+    d = 384
+    x = torch.from_numpy(rng.standard_normal((3, s, d)).astype(np.float32)).to(cuda, x_dtype)
+    lin = [torch.from_numpy((rng.standard_normal((d, d)) * d ** -0.5).astype(np.float32)).to(cuda)
+           for _ in range(3)]
+    bq, bv = (torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda)
+              for _ in range(2))
+    args = (x, lin[0].t(), bq, lin[1].t(), lin[2].t(), bv, 6)
+    got = fused_qkv_attention(*args)
+    again = fused_qkv_attention(*args)
+    want = fused_qkv_attention_plain(x.float(), *args[1:], matmul_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    err = (got.float() - want).abs().max() / want.abs().max()
+    assert err.item() < ATTN_BF16_GATE[x_dtype]
+
+
+@pytest.mark.parametrize("n_mels", [80, 128])
+def test_mel_kernel_ragged_batch_bit_equal(cuda, n_mels):
+    """33 clips (not a multiple of anything in the design), one of them
+    silent after 1000 samples: the plain path's gate, and two launches
+    agree bit for bit (no atomics in the sums)."""
+    rng = np.random.default_rng(16)
+    audio = torch.from_numpy(
+        (rng.standard_normal((33, 480000)) * 0.1).astype(np.float32)).to(cuda)
+    audio[7, 1000:] = 0.0
+    got = log_mel_spectrogram_cuda(audio, n_mels)
+    again = log_mel_spectrogram_cuda(audio, n_mels)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    diff = (got - log_mel_spectrogram(audio, n_mels)).abs()
+    assert diff.max().item() < 2e-3
+    assert (diff > 3e-4).float().mean().item() < 1e-5
 
 
 @pytest.mark.parametrize("stable", [True, False])

@@ -54,7 +54,7 @@ def test_peaks_keyed_by_card_name():
 # (bound, ops, bytes, bound ms rounded to 4 places, bound_by) at the main
 # paths' shapes, as PERF.md's kernel table states them
 MAIN_PATH = [
-    (flops.log_mel_bound(32, 80), 33.96096e9, 92.16e6, 0.5069, "operations"),
+    (flops.log_mel_bound(32, 80), 92.695872e9, 92.16e6, 0.0948, "operations"),
     (flops.fused_qkv_attention_bound(32, 1500, 384, 6), 153.059328e9, 149.228544e6,
      0.1548, "operations"),
     (flops.topk_thresholds_bound(75000, 6144), 0.0, 922.512288e6, 0.2754, "bytes"),
@@ -72,11 +72,26 @@ MAIN_PATH = [
 @pytest.mark.parametrize("case", range(len(MAIN_PATH)))
 def test_kernel_bounds_at_main_path_shapes(case):
     bound, ops, nbytes, ms, by = MAIN_PATH[case]
-    assert bound.flops == pytest.approx(ops, rel=1e-12)
+    assert bound.flops + bound.f32_flops == pytest.approx(ops, rel=1e-12)
     assert bound.bytes == pytest.approx(nbytes, rel=1e-12)
     assert round(bound.bound_ms, 4) == ms
     assert bound.bound_by == by
     assert bound.bound_s == max(bound.flops_s, bound.bytes_s)
+
+
+@pytest.mark.parametrize("n_mels,nnz", [(80, 391), (128, 394)])
+def test_log_mel_bound_counts_three_bf16_products(n_mels, nnz):
+    """Kernel #1's bound is the contract's recipe on the tensor cores: three
+    bf16 limb products of the (400, 402) DFT against the bf16 peak, then the
+    mel projection once in f32 over the bank's nonzero weights against the
+    f32 peak; the bytes are the f32 audio in and log-mel out."""
+    bound = flops.log_mel_bound(32, n_mels)
+    dft = flops.mel_flops(n_mels) - 2.0 * 3000 * 201 * n_mels
+    assert bound.dtype == "bf16"
+    assert bound.flops == 3 * 32 * dft
+    assert bound.f32_flops == 32 * 2.0 * 3000 * nnz
+    assert bound.flops_s == bound.flops / 989e12 + bound.f32_flops / 67e12
+    assert bound.bytes == 4.0 * 32 * (480000 + n_mels * 3000)
 
 
 def test_topk_forward_bound_counts_the_selected_entries():
