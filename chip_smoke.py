@@ -20,7 +20,10 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      sm_90a, in parallel;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and edge rows for the TopK kernels, kernel #4 also
-     at large_v1_audioset's geometry; kernel #1 at 80 and 128 bands, with
+     at large_v1_audioset's geometry, its select launch timed alone by its
+     profiler name; kernel #3 also in f32 and at the selection core's edges:
+     widths not a multiple of 8, n_dict 20,480 and 2^15 + 8, one row, rows
+     all -inf; kernel #1 at 80 and 128 bands, with
      mostly silent clips, and also against its recipe with exact sums;
      kernel #2 also against its plain version rounded where the contract
      rounds), with its stated tolerance, and both timed
@@ -66,8 +69,9 @@ per collection batch or train step) and the device JSON.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
-at both band counts; kernels #2 and #4 also by launch, from torch.profiler
-kernel names; kernel #2's library yardstick), then collects 256 30-s WAVs
+at both band counts; kernel #3 in bf16 and f32; kernels #2 and #4 also by
+launch, from torch.profiler kernel names, #4's select launch picked out;
+kernel #2's library yardstick), then collects 256 30-s WAVs
 with random:tiny to block 2 and with random:large-v1 to block 16 (the
 steady rate a batch, from the time between a 256-file and a 64-file run
 after an untimed one; device time a batch by kernel from a profiled
@@ -482,6 +486,13 @@ def check_topk_fused(torch, device, card):
             record = dict(max_abs_err=abs_err, ms=ms, plain_ms=plain_ms, **yardsticks(
                 bound, None, "none: no one PyTorch call encodes, selects per row "
                 "and decodes both masks"))
+            # the select launch alone, by its profiler name
+            sel_ms = profiled_ms(torch, lambda: topk_sae_forward(*args), "select_rows")
+            sel_bound = flops.topk_select_bound(m, n_dict)
+            assert sel_ms >= sel_bound.bound_ms, (sel_ms, sel_bound.bound_ms)
+            record.update(select_ms=sel_ms, select_bound_ms=sel_bound.bound_ms)
+            print(f"topk_sae_forward m={m} n_dict={n_dict}: select launch {sel_ms:.4f} ms, "
+                  f"bound {sel_bound.bound_ms:.4f} ms on {card}")
         if d_in == LARGE_D:  # time large_v1_audioset's step shape, 48,000 rows
             x = torch.cat([x] * (LARGE_M_ROWS // m))
             largs = (x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, k_aux)
@@ -492,6 +503,22 @@ def check_topk_fused(torch, device, card):
                   f"kernel {large_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
                   f"({bound.bound_by}) on {card}")
             record.update(large_ms=large_ms, large_bound_ms=bound.bound_ms)
+            sel_ms = profiled_ms(torch, lambda: topk_sae_forward(*largs), "select_rows")
+            sel_bound = flops.topk_select_bound(LARGE_M_ROWS, n_dict)
+            assert sel_ms >= sel_bound.bound_ms, (sel_ms, sel_bound.bound_ms)
+            # what the launch computes, in plain PyTorch, on the kernel's acts;
+            # torch.topk(acts, k) gives t_main only
+            acts = topk_sae_forward(*largs)[0]
+            sel_plain_ms = cuda_ms(lambda: topk_thresholds_fired_plain(acts, dead, K, k_aux),
+                                   warmup=1, reps=3)
+            sel_partial_ms = cuda_ms(lambda: torch.topk(acts, K, dim=1), reps=5)
+            record.update(select_large_ms=sel_ms, select_large_bound_ms=sel_bound.bound_ms,
+                          select_large_plain_ms=sel_plain_ms,
+                          select_large_library_partial_ms=sel_partial_ms)
+            print(f"topk_sae_forward m={LARGE_M_ROWS} n_dict={n_dict}: select launch "
+                  f"{sel_ms:.4f} ms, plain selection {sel_plain_ms:.4f} ms, torch.topk(k) "
+                  f"{sel_partial_ms:.4f} ms (t_main only), bound {sel_bound.bound_ms:.4f} ms "
+                  f"on {card}")
             del x, largs
         del got, again, want, acts, af
     torch.cuda.empty_cache()
@@ -511,9 +538,57 @@ def _threshold_err(got, want) -> float:
     return err
 
 
+def profiled_ms(torch, fn, name: str, reps: int = 3) -> float:
+    """Device ms a call of the kernels whose profiler name holds ``name``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return sum(e.device_time_total for e in prof.key_averages()
+               if name in e.key) / 1e3 / reps
+
+
+def _threshold_edges(torch, device, gen, a, dead):
+    """Kernel #3's edge cases for the selection core: (name, acts, dead,
+    keyword arguments)."""
+    inf_rows = a[:3000].clone()
+    inf_rows[4:8] = float("-inf")
+    inf_rows[8, 5:] = float("-inf")
+    wide = torch.relu(torch.randn((3000, LARGE_N_DICT), generator=gen)).to(device)
+    widest = torch.relu(torch.randn((500, 2 ** 15 + 8), generator=gen)).to(device)
+    none = torch.zeros_like(dead)
+    kw = dict(k_multi=4 * K)
+    return [
+        ("bf16 n 6143 (not a multiple of 8: rows load without the ring)",
+         a[:3000, :6143].to(torch.bfloat16).contiguous(), dead[:6143], kw),
+        ("f32 n 6141", a[:3000, :6141].contiguous(), dead[:6141], kw),
+        ("bf16 n 20480 (exact path at large_v1_audioset's width, 94% dead)",
+         wide.to(torch.bfloat16),
+         (torch.rand((LARGE_N_DICT,), generator=gen) < 0.94).to(device), kw),
+        ("bf16 n 32776 (float path: n_dict >= 2^15)", widest.to(torch.bfloat16),
+         (torch.rand((2 ** 15 + 8,), generator=gen) < 1 / 3).to(device), kw),
+        ("bf16 M 1", a[:1].to(torch.bfloat16), dead, kw),
+        ("f32 M 1", a[:1].contiguous(), dead, kw),
+        ("f32 M 1237 (not a multiple of the grid)", a[:1237].contiguous(), dead, kw),
+        ("f32 rows all -inf, none dead", inf_rows, none, kw),
+        ("bf16 signed rows all -inf, none dead", inf_rows.to(torch.bfloat16), none,
+         dict(kw, signed=True)),
+    ]
+
+
 def check_topk_threshold(torch, device, card):
     """Kernel #3 against its plain version: thresholds and fired bit-equal,
-    bf16 (exact path, k_multi 128) and f32 / signed (float bisection)."""
+    two launches bit-equal, bf16 (exact path, k_multi 128) and f32 / signed
+    (float path) at the main shape, then the selection core's edges: widths
+    that are not a multiple of 8, n_dict 20,480 on the exact path and
+    2^15 + 8 on the float path, one row, a row count that is not a multiple
+    of the grid, rows all -inf with no dead column. Timed in bf16 and in
+    f32, each beside its bound; torch.topk(acts, k_multi) is timed as a
+    partial yardstick (it gives t_main and t_multi, not t_aux or fired)."""
     from freud_tpu_torch import flops
     from freud_tpu_torch.ops.topk_threshold import (
         topk_thresholds_fired,
@@ -525,39 +600,51 @@ def check_topk_threshold(torch, device, card):
     a[5] = 0.0  # silent row
     a[6] = 0.5  # one tie across the row
     dead = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
-    record = None
+    record = {}
     cases = [("bf16", a.to(torch.bfloat16), dict(k_multi=4 * K)),
              ("f32", a, dict(k_multi=4 * K)),
              ("bf16 signed", (a - 0.5).to(torch.bfloat16), dict(signed=True))]
-    for name, acts, kw in cases:
-        for dname, dm in (("a third dead", dead), ("none dead", torch.zeros_like(dead))):
-            got = topk_thresholds_fired(acts, dm, K, K_AUX, **kw)
-            want = topk_thresholds_fired_plain(acts, dm, K, K_AUX, **kw)
-            torch.cuda.synchronize()
-            for g, w in zip(got, want):
-                assert (g is None and w is None) or torch.equal(g, w), (name, dname)
-            err = _threshold_err(got, want)
-            print(f"topk_thresholds_fired {name} ({dname}): thresholds and fired "
-                  "bit-equal to plain")
-        if name == "bf16":
-            ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, K_AUX, **kw), reps=10)
-            plain_ms = cuda_ms(
-                lambda: topk_thresholds_fired_plain(acts, dead, K, K_AUX, **kw),
-                warmup=1, reps=5)
-            bound = flops.topk_thresholds_bound(M_ROWS, N_DICT)
-            record = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, **yardsticks(
-                bound, None, "none: torch.topk gives t_main only; t_aux and fired "
-                "are further calls"))
-            print(f"topk_thresholds_fired bf16 m={M_ROWS} n_dict={N_DICT}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
-                  f"({bound.bound_by}) on {card}")
-        if name == "f32":
-            ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, K_AUX, **kw), reps=5)
-            plain_ms = cuda_ms(
-                lambda: topk_thresholds_fired_plain(acts, dead, K, K_AUX, **kw),
-                warmup=1, reps=3)
-            print(f"topk_thresholds_fired f32 m={M_ROWS} n_dict={N_DICT}: kernel "
-                  f"{ms:.4f} ms, plain {plain_ms:.4f} ms on {card}")
+    checks = [(f"{name} ({dname})", acts, dm, kw)
+              for name, acts, kw in cases
+              for dname, dm in (("a third dead", dead), ("none dead", torch.zeros_like(dead)))]
+    checks += _threshold_edges(torch, device, gen, a, dead)
+    err = 0.0
+    for name, acts, dm, kw in checks:
+        got = topk_thresholds_fired(acts, dm, K, K_AUX, **kw)
+        again = topk_thresholds_fired(acts, dm, K, K_AUX, **kw)
+        want = topk_thresholds_fired_plain(acts, dm, K, K_AUX, **kw)
+        torch.cuda.synchronize()
+        for g, g2, w in zip(got, again, want):
+            assert (g is None and w is None) or (torch.equal(g, w) and torch.equal(g, g2)), name
+        if acts.shape == (M_ROWS, N_DICT):
+            err = max(err, _threshold_err(got, want))
+        print(f"topk_thresholds_fired {name} {tuple(acts.shape)}: thresholds and fired "
+              "bit-equal to plain, two launches bit-equal")
+    bf16, kw = cases[0][1], cases[0][2]
+    ms = cuda_ms(lambda: topk_thresholds_fired(bf16, dead, K, K_AUX, **kw), reps=10)
+    plain_ms = cuda_ms(lambda: topk_thresholds_fired_plain(bf16, dead, K, K_AUX, **kw),
+                       warmup=1, reps=5)
+    partial_ms = cuda_ms(lambda: torch.topk(bf16, 4 * K, dim=1), reps=10)
+    bound = flops.topk_thresholds_bound(M_ROWS, N_DICT)
+    record.update(max_abs_err=err, ms=ms, plain_ms=plain_ms, **yardsticks(
+        bound, None, "none: torch.topk gives t_main and t_multi only; t_aux and "
+        "fired are further calls"), library_partial_ms=partial_ms,
+        library_partial="torch.topk(acts, k_multi) on the bf16 acts: t_main and "
+        "t_multi only, not the function")
+    print(f"topk_thresholds_fired bf16 m={M_ROWS} n_dict={N_DICT}: kernel "
+          f"{ms:.4f} ms, plain {plain_ms:.4f} ms, torch.topk(k_multi) {partial_ms:.4f} ms "
+          f"(partial), bound {bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+    f32_ms = cuda_ms(lambda: topk_thresholds_fired(a, dead, K, K_AUX, **kw), reps=10)
+    f32_plain_ms = cuda_ms(lambda: topk_thresholds_fired_plain(a, dead, K, K_AUX, **kw),
+                           warmup=1, reps=3)
+    f32_bound = flops.topk_thresholds_bound(M_ROWS, N_DICT, in_bytes=4)
+    assert f32_ms >= f32_bound.bound_ms, (f32_ms, f32_bound.bound_ms)
+    record.update(f32_ms=f32_ms, f32_plain_ms=f32_plain_ms, f32_bound_ms=f32_bound.bound_ms)
+    print(f"topk_thresholds_fired f32 m={M_ROWS} n_dict={N_DICT}: kernel {f32_ms:.4f} ms, "
+          f"plain {f32_plain_ms:.4f} ms, bound {f32_bound.bound_ms:.4f} ms "
+          f"({f32_bound.bound_by}) on {card}")
+    del a, cases, checks
+    torch.cuda.empty_cache()
     return record
 
 
@@ -764,7 +851,15 @@ def bench(torch, device, card) -> dict:
     dead = (torch.rand((N_DICT,), generator=gen) < 1 / 3).to(device)
     kernels["topk_thresholds_fired bf16 (75000, 6144) k_multi 128"] = cuda_ms(
         lambda: topk_thresholds_fired(acts, dead, K, K_AUX, k_multi=4 * K), reps=10)
+    acts = acts.float()
+    kernels["topk_thresholds_fired f32 (75000, 6144) k_multi 128"] = cuda_ms(
+        lambda: topk_thresholds_fired(acts, dead, K, K_AUX, k_multi=4 * K), reps=5)
     del acts
+    # kernel #4's select launch by its profiler name (select_kernel before
+    # the shared selection core, select_rows since)
+    rec["topk_select_launch_ms"] = {
+        name: sum(ms for k, ms in by.items() if k.startswith("select"))
+        for name, by in split.items()}
     torch.cuda.empty_cache()
 
     with tempfile.TemporaryDirectory(prefix="chip_bench_") as tmp:

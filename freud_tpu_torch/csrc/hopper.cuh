@@ -1,6 +1,7 @@
 // Hopper (sm_90a) building blocks shared by the kernels that stream tiles
 // through TMA into shared memory and multiply them with wgmma:
-// csrc/attention.cu, csrc/topk_fused.cu and csrc/mel.cu.
+// csrc/attention.cu, csrc/topk_fused.cu and csrc/mel.cu; the bulk row copies
+// of csrc/topk_select.cuh.
 //
 //  * Tensor maps, built on the host per call. cuTensorMapEncodeTiled lives
 //    in libcuda, not in the runtime; it is looked up in the loaded libcuda with
@@ -10,8 +11,8 @@
 //    64-byte swizzle and 32 elements.
 //  * mbarriers: init, arrive, arrive with an expected transaction count,
 //    and a parity wait.
-//  * TMA tile loads (2-D and 4-D) that complete on an mbarrier; 16-byte
-//    cp.async copies for what TMA cannot address.
+//  * TMA tile loads (2-D and 4-D) and 1-D bulk copies that complete on an
+//    mbarrier; 16-byte cp.async copies for what TMA cannot address.
 //  * wgmma: shared-memory matrix descriptors for 128- and 64-byte-swizzled
 //    tiles, fence / commit / wait, and the shapes the kernels issue.
 //
@@ -183,6 +184,18 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "[%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_addr(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_addr(bar)), "r"(c0), "r"(c1), "r"(c2),
       "r"(c3)
+      : "memory");
+}
+
+// A 1-D bulk copy (no tensor map) of `bytes` from global to shared memory
+// that completes on an mbarrier armed with mbar_expect_tx: both addresses
+// 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load_1d(void* dst, const void* src, uint32_t bytes,
+                                             uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, "
+      "[%3];\n" ::"r"(smem_addr(dst)),
+      "l"(src), "r"(bytes), "r"(smem_addr(bar))
       : "memory");
 }
 

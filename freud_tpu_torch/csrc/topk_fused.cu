@@ -32,9 +32,11 @@
 //       rounding exactly (topk_fused.py:298-302 of the JAX package):
 //       bf16(z), + bf16(b_enc) rounded to bf16, ReLU; it stages the tile in
 //       the freed stage buffers and writes acts in 16-byte pieces.
-//   (d) select_kernel: one block per row does only the selection
-//       (topk::select_row): exact t_main and t_aux and the fired OR, with
-//       the keys (40 KB at n_dict 20,480) and the dead bits in shared memory.
+//   (d) the selection core of csrc/topk_select.cuh (topk::launch_select
+//       with the exact keys, two selections): exact t_main and t_aux and
+//       the fired bits, from a persistent grid that streams acts rows into
+//       a ring of row buffers and radix-selects each over the keys that can
+//       hold its k-th values.
 //   (e) decode_kernel: acts · W_dec for both masks at once, on 128-row ×
 //       128-column output tiles over K = n_dict. The producer streams acts
 //       (K-major) and W_dec (MN-major: d_in contiguous) tiles by TMA; each
@@ -63,8 +65,6 @@
 
 namespace {
 
-using topk::kSelectThreads;
-using topk::Scratch;
 
 constexpr int kConsumers = 256;                // two warpgroups
 constexpr int kThreads = kConsumers + 32;      // and one producer warp
@@ -213,20 +213,6 @@ encode_kernel(const __grid_constant__ CUtensorMap xmap,
       *reinterpret_cast<uint4*>(acts + (size_t)row * n + col) =
           *reinterpret_cast<const uint4*>(stage + r * kPitch + c);
   }
-}
-
-// ---------------------------------------------------------------- phase (d)
-// One block per row of acts (m, n) bf16 → t_main, t_aux (m,) f32; fired
-// (n,) int32 OR-ed (zeroed by the caller).
-__global__ void __launch_bounds__(kSelectThreads)
-select_kernel(const uint16_t* __restrict__ acts, const uint32_t* __restrict__ dead_bits,
-              int n, int k, int k_aux, float* __restrict__ t_main, float* __restrict__ t_aux,
-              int* __restrict__ fired) {
-  extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ Scratch s;
-  const uint32_t ks[topk::kMaxSel] = {(uint32_t)k, (uint32_t)k_aux, 0u};
-  float* const t[topk::kMaxSel] = {t_main, t_aux, nullptr};
-  topk::select_row(acts, dead_bits, n, 2, ks, t, fired, smem, s);
 }
 
 // ---------------------------------------------------------------- phase (e)
@@ -399,12 +385,13 @@ decode_kernel(const __grid_constant__ CUtensorMap amap,
 
 extern "C" {
 
-// Bytes of dynamic shared memory the selection needs for n_dict n.
-size_t freud_topk_fused_smem(int n) { return topk::row_smem_bytes(n); }
+// The widest n_dict the selection takes (its rows live in registers).
+int freud_topk_fused_max_n() { return topk::max_n<topk::Bf16Bits>(); }
 
 // x (m, d) f32; b_dec (d,) f32; w_enc (n, d) bf16; b_enc (n,) bf16;
 // w_dec (n, d) bf16; dead (n,) uint8 → acts (m, n) bf16; y_main, y_aux (m, d)
-// f32; t_main, t_aux (m,) f32; fired (n,) int32 zeroed by the caller.
+// f32; t_main, t_aux (m,) f32; fired ceil(n / 32) words of bits, zeroed by
+// the caller.
 // Scratch: xs (m, d) bf16; dead_bits 2·ceil(n / 64) int32, zeroed by the
 // caller. d % 32 == 0, n % 8 == 0, all bases 16-byte aligned. Returns
 // cudaError_t.
@@ -412,7 +399,7 @@ int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc
                            const void* b_enc, const void* w_dec, const uint8_t* dead,
                            int m, int n, int d, int k, int k_aux, void* acts,
                            float* y_main, float* y_aux, float* t_main, float* t_aux,
-                           int* fired, void* xs, uint32_t* dead_bits, void* stream) {
+                           uint32_t* fired, void* xs, uint32_t* dead_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
   using bf16 = __nv_bfloat16;
@@ -423,20 +410,30 @@ int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc
   if (!err) err = hopper::matrix_map(&wdmap, w_dec, n, d, 64, kBK);
   if (!err) err = hopper::allow_smem(encode_kernel, kEncSmem);
   if (!err) err = hopper::allow_smem(decode_kernel, kDecSmem);
-  const size_t sel_smem = topk::row_smem_bytes(n);
-  if (!err && sel_smem > 48 * 1024) err = hopper::allow_smem(select_kernel, sel_smem);
   if (err) return err;
 
   const long long chunks = (long long)m * d / 8;
   center_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
       x, b_dec, d, chunks, static_cast<bf16*>(xs));
-  topk::dead_bits_kernel<<<(n + kSelectThreads - 1) / kSelectThreads, kSelectThreads, 0, s>>>(
-      dead, n, dead_bits);
+  topk::dead_bits_kernel<<<(n + topk::kBitsThreads - 1) / topk::kBitsThreads,
+                           topk::kBitsThreads, 0, s>>>(dead, n, dead_bits);
   const int enc_tiles = ((m + kEncBM - 1) / kEncBM) * ((n + kEncBN - 1) / kEncBN);
   encode_kernel<<<enc_tiles, kThreads, kEncSmem, s>>>(
       xmap, wemap, static_cast<const bf16*>(b_enc), static_cast<bf16*>(acts), m, n, d);
-  select_kernel<<<m, kSelectThreads, sel_smem, s>>>(
-      static_cast<const uint16_t*>(acts), dead_bits, n, k, k_aux, t_main, t_aux, fired);
+  topk::SelectParams sel{};
+  sel.acts = acts;
+  sel.dead = dead_bits;
+  sel.fired = fired;
+  sel.t[0] = t_main;
+  sel.t[1] = t_aux;
+  sel.k[0] = static_cast<uint32_t>(k);
+  sel.k[1] = static_cast<uint32_t>(k_aux);
+  sel.m = m;
+  sel.n = n;
+  sel.nsel = 2;
+  err = static_cast<int>(cudaGetLastError());  // the launches before it
+  if (!err) err = topk::launch_select<topk::Bf16Bits>(sel, s);
+  if (err) return err;
   const int dec_tiles = ((m + kDecBM - 1) / kDecBM) * ((d + kDecBN - 1) / kDecBN);
   decode_kernel<<<dec_tiles, kThreads, kDecSmem, s>>>(amap, wdmap, t_main, t_aux, dead_bits,
                                                       y_main, y_aux, m, n, d);

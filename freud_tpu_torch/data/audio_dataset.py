@@ -54,9 +54,11 @@ class AudioBatchPipeline:
         decode_threads: int | None = None,
         exclude: Optional[set] = None,
         device: torch.device | str = "cpu",
+        drop_last: bool = False,
     ):
         """``exclude``: file paths to skip, applied after ``subset_size`` so
-        a resumed run keeps the original run's universe."""
+        a resumed run keeps the original run's universe. ``drop_last``
+        leaves out a last batch shorter than ``batch_size``."""
         self.files = list_audio_files(folder)
         if subset_size is not None:
             self.files = self.files[:subset_size]
@@ -66,6 +68,11 @@ class AudioBatchPipeline:
         self.n_mels = n_mels
         self.decode_threads = decode_threads
         self.device = torch.device(device)
+        self.drop_last = drop_last
+
+    def __len__(self) -> int:
+        n = len(self.files)
+        return n // self.batch_size if self.drop_last else -(-n // self.batch_size)
 
     @property
     def dataset_length(self) -> int:
@@ -73,7 +80,7 @@ class AudioBatchPipeline:
 
     def _batches(self) -> list[list[str]]:
         return [self.files[i : i + self.batch_size]
-                for i in range(0, len(self.files), self.batch_size)]
+                for i in range(0, len(self) * self.batch_size, self.batch_size)]
 
     def _host_buffer(self, n: int) -> torch.Tensor:
         # pinned on CUDA: the host→device copy then runs asynchronously

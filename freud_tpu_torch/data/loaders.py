@@ -126,6 +126,7 @@ class FlyActivationLoader:
         exclude: set | None = None,
         fetch_dtype: torch.dtype | None = None,
         device: torch.device | str = "cpu",
+        drop_last: bool = False,
     ):
         self.device = torch.device(device)
         self.runtime = WhisperRuntime(whisper_model, layer_name,
@@ -141,6 +142,7 @@ class FlyActivationLoader:
             decode_threads=decode_threads,
             exclude=exclude,
             device=self.device,
+            drop_last=drop_last,
         )
         self.sae = None
         self.activation_type = "tensor"
@@ -159,6 +161,9 @@ class FlyActivationLoader:
     @property
     def dataset_length(self) -> int:
         return self.pipeline.dataset_length
+
+    def __len__(self) -> int:
+        return len(self.pipeline)
 
     def _compute(self, mels: torch.Tensor, n: int):
         pad = self.batch_size - n if mels.is_cuda else 0
@@ -332,7 +337,7 @@ def init_dataloader(
     else:
         loader = FlyActivationLoader(
             data_path, whisper_model, sae_checkpoint, layer_name, batch_size,
-            subset_size=subset_size, device=device,
+            subset_size=subset_size, drop_last=drop_last, device=device,
         )
     feat_dim = loader.activation_shape[-1]
     return loader, feat_dim, loader.dataset_length

@@ -192,11 +192,20 @@ def whisper_attention_bound(batch: int, heads: int, seq: int, head_dim: int = 64
     return KernelBound(flops, "bf16", 4.0 * in_bytes * batch * heads * seq * head_dim)
 
 
-def topk_thresholds_bound(rows: int, n_dict: int) -> KernelBound:
-    """Kernel #3 as multi_topk calls it: bf16 acts (M, n_dict) and the dead
-    mask (n_dict,) bool → t_main, t_aux, t_multi (M, 1) f32, fired (n_dict,)
-    bool; a selection, no counted operations."""
-    nbytes = 2.0 * rows * n_dict + 2.0 * n_dict + 4.0 * 3 * rows
+def topk_thresholds_bound(rows: int, n_dict: int, in_bytes: int = 2) -> KernelBound:
+    """Kernel #3 as multi_topk calls it: acts (M, n_dict) of ``in_bytes``
+    an entry (2: bf16, 4: the f32 route) and the dead mask (n_dict,) bool →
+    t_main, t_aux, t_multi (M, 1) f32, fired (n_dict,) bool; a selection, no
+    counted operations."""
+    nbytes = float(in_bytes) * rows * n_dict + 2.0 * n_dict + 4.0 * 3 * rows
+    return KernelBound(0.0, "bf16", nbytes)
+
+
+def topk_select_bound(rows: int, n_dict: int) -> KernelBound:
+    """Kernel #4's select launch alone: bf16 acts (M, n_dict) and the dead
+    mask as bits → t_main, t_aux (M,) f32 and the fired bits; no counted
+    operations."""
+    nbytes = 2.0 * rows * n_dict + n_dict / 8 + 2 * 4.0 * rows + n_dict / 8
     return KernelBound(0.0, "bf16", nbytes)
 
 

@@ -12,7 +12,9 @@ Replaces the Pallas TPU kernel ``freud_tpu/ops/topk_fused.py``
 The selection rules are ``ops/topk_threshold``'s exact path. On the card the
 forward is five launches (the design is in the source's header): x − b_dec
 rounded to bf16, the dead mask packed to bits, the encode GEMM (wgmma fed by
-TMA), a radix select per row, and both masked decodes as one dense GEMM
+TMA), the selection core shared with kernel #3 (``csrc/topk_select.cuh``:
+a radix select per row over the keys that can hold the k-th, rows streamed
+by a persistent grid), and both masked decodes as one dense GEMM
 whose acts operand is masked in registers. The signature is JAX's:
 ``enc_w_t`` is the encoder weight transposed, (d_in, n_dict).
 
@@ -28,9 +30,7 @@ import ctypes
 import torch
 
 from .._native import check_cuda_status, cuda_library
-from .topk_threshold import topk_thresholds_fired_plain
-
-_SMEM_LIMIT = 232448 - 4096  # a block's shared memory, less the static scratch
+from .topk_threshold import fired_from_bits, topk_thresholds_fired_plain
 
 
 def topk_sae_forward_plain(x2, enc_w_t, enc_b, b_dec, W_dec, dead_f,
@@ -54,8 +54,8 @@ def topk_sae_forward_plain(x2, enc_w_t, enc_b, b_dec, W_dec, dead_f,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_library("topk_fused")
-    lib.freud_topk_fused_smem.restype = ctypes.c_size_t
-    lib.freud_topk_fused_smem.argtypes = [ctypes.c_int]
+    lib.freud_topk_fused_max_n.restype = ctypes.c_int
+    lib.freud_topk_fused_max_n.argtypes = []
     lib.freud_topk_sae_forward.restype = ctypes.c_int
     lib.freud_topk_sae_forward.argtypes = [
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
@@ -101,8 +101,9 @@ def topk_sae_forward(
         if t.device != x2.device:
             raise ValueError(f"operands must be on {x2.device}, got {t.device}")
     lib = _library()
-    if lib.freud_topk_fused_smem(n) > _SMEM_LIMIT:
-        raise ValueError(f"n_dict {n} does not fit one block's shared memory")
+    max_n = lib.freud_topk_fused_max_n()
+    if n > max_n:
+        raise ValueError(f"n_dict {n} is wider than the selection's rows ({max_n})")
     # operand preparation: the (n_dict, d_in) layout is the encoder weight's
     # own (Linear), so the transpose back is free before the bf16 cast
     x2 = x2.contiguous()
@@ -119,7 +120,7 @@ def topk_sae_forward(
     y_aux = torch.empty_like(y_main)
     t_main = torch.empty((m, 1), dtype=torch.float32, device=dev)
     t_aux = torch.empty_like(t_main)
-    fired = torch.zeros((n,), dtype=torch.int32, device=dev)
+    fired = torch.zeros((-(-n // 32),), dtype=torch.int32, device=dev)  # bits
     # scratch: bf16(x − b_dec), the operand TMA feeds the encode; the dead
     # mask as bits, padded to whole 64-column slices of the decode
     xs = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
@@ -134,7 +135,7 @@ def topk_sae_forward(
             stream)
     check_cuda_status(status, "topk SAE forward kernel", lib)
     topk_sae_forward.launches += 1
-    return acts, y_main, y_aux, t_main, t_aux, fired > 0
+    return acts, y_main, y_aux, t_main, t_aux, fired_from_bits(fired, n)
 
 
 topk_sae_forward.launches = 0

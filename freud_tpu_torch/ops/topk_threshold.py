@@ -12,9 +12,16 @@ Two paths, with the JAX kernel's routing rule: bfloat16 input with
 exact bf16 k-th values, ordered as the bit patterns read as int16, which for
 the non-negative latents it serves is value order; the kernel radix-selects,
 the plain version uses ``torch.topk``); everything else takes the 26-iteration
-float bisection, reproduced operation for operation so the thresholds equal
-JAX's bit for bit. Edge rules of both: fewer than k candidates → the
-smallest candidate (select all); no candidate → +inf (select nothing).
+float bisection, with thresholds equal to JAX's bit for bit. Edge rules of
+the exact path: fewer than k candidates → the smallest candidate (select
+all); no candidate → +inf (select nothing).
+
+The kernel does not run the bisection's 26 counting passes: count(a ≥ mid)
+≥ k holds exactly when mid ≤ v_k, the row's k-th largest entry, so it
+selects v_k once (a radix select on ``order_key``) and replays the
+bisection on scalars. ``replay_kth`` and ``order_key`` are those two steps
+in PyTorch; the tests hold them to ``bisect_kth`` and to the kernel's key
+order.
 
 ``topk_thresholds_fired`` dispatches on the device: a CUDA tensor launches
 the kernel, a CPU tensor takes ``topk_thresholds_fired_plain``.
@@ -30,7 +37,6 @@ import torch
 from .._native import check_cuda_status, cuda_library
 
 ITERS = 26  # the JAX kernel's float bisection count (topk_threshold.py:25)
-_SMEM_LIMIT = 232448 - 4096  # a block's shared memory, less the static scratch
 
 
 def exact_path(acts: torch.Tensor, signed: bool) -> bool:
@@ -70,6 +76,57 @@ def bisect_kth(masked: torch.Tensor, k: int, iters: int = ITERS) -> torch.Tensor
     return lo
 
 
+def order_key(x: torch.Tensor) -> torch.Tensor:
+    """The kernel's order key of float32 or bfloat16 values, as int64: the
+    bit pattern with every bit flipped when the sign is set, else with the
+    sign bit set. Keys order as the values for every non-NaN value, -0.0
+    just below +0.0."""
+    if x.dtype == torch.bfloat16:
+        bits = x.view(torch.int16).to(torch.int64) & 0xFFFF
+        sign, full = 0x8000, 0xFFFF
+    elif x.dtype == torch.float32:
+        bits = x.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+        sign, full = 0x80000000, 0xFFFFFFFF
+    else:
+        raise TypeError(f"order keys are for float32 or bfloat16, got {x.dtype}")
+    return torch.where((bits & sign) != 0, bits ^ full, bits | sign)
+
+
+def key_value(key: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """``order_key``'s inverse: int64 keys → values of ``dtype``."""
+    sign, full = (0x8000, 0xFFFF) if dtype == torch.bfloat16 else (0x80000000, 0xFFFFFFFF)
+    bits = torch.where((key & sign) != 0, key ^ sign, key ^ full)
+    if dtype == torch.bfloat16:
+        return bits.to(torch.int16).view(torch.bfloat16)
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits).to(torch.int32).view(torch.float32)
+
+
+def replay_kth(masked: torch.Tensor, k: int, iters: int = ITERS) -> torch.Tensor:
+    """``bisect_kth`` without a pass over the row per step: the k-th largest
+    entry v_k (with multiplicity; none when a row has fewer than k entries)
+    decides every step, since count(masked ≥ mid) ≥ k ⇔ mid ≤ v_k; lo and
+    hi start as the bisection's. Bit-equal to ``bisect_kth``."""
+    inf = torch.tensor(float("inf"), dtype=masked.dtype, device=masked.device)
+    lo = torch.where(torch.isfinite(masked), masked, inf).amin(dim=-1, keepdim=True)
+    hi = masked.amax(dim=-1, keepdim=True)
+    if k <= masked.shape[-1]:
+        vk = torch.topk(masked, k, dim=-1).values[..., -1:]
+    else:  # count ≥ k never holds: NaN fails every comparison
+        vk = torch.full_like(lo, float("nan"))
+    for _ in range(iters):
+        mid = (lo + hi) * 0.5
+        ok = mid <= vk
+        lo, hi = torch.where(ok, mid, lo), torch.where(ok, hi, mid)
+    return lo
+
+
+def fired_from_bits(words: torch.Tensor, n: int) -> torch.Tensor:
+    """(ceil(n / 32),) int32 words, bit j % 32 of word j / 32 for column j
+    → (n,) bool."""
+    shifts = torch.arange(32, dtype=torch.int32, device=words.device)
+    return ((words.unsqueeze(1) >> shifts) & 1).reshape(-1)[:n].bool()
+
+
 def topk_thresholds_fired_plain(acts, dead_mask, k_main: int, k_aux: int,
                                 iters: int = ITERS, k_multi: int = 0,
                                 signed: bool = False):
@@ -95,8 +152,8 @@ def topk_thresholds_fired_plain(acts, dead_mask, k_main: int, k_aux: int,
 
 def _library() -> ctypes.CDLL:
     lib = cuda_library("topk_threshold")
-    lib.freud_topk_thresholds_smem.restype = ctypes.c_size_t
-    lib.freud_topk_thresholds_smem.argtypes = [ctypes.c_int, ctypes.c_int]
+    lib.freud_topk_thresholds_max_n.restype = ctypes.c_int
+    lib.freud_topk_thresholds_max_n.argtypes = [ctypes.c_int, ctypes.c_int]
     lib.freud_topk_thresholds.restype = ctypes.c_int
     lib.freud_topk_thresholds.argtypes = [
         ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
@@ -130,28 +187,30 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
     if min(k_main, k_aux) < 1 or k_multi < 0:
         raise ValueError(f"k_main {k_main}, k_aux {k_aux} must be >= 1, k_multi >= 0")
     exact = exact_path(acts, signed)
+    bf16 = acts.dtype == torch.bfloat16
     lib = _library()
-    smem = lib.freud_topk_thresholds_smem(n, int(exact))
-    if smem > _SMEM_LIMIT:
-        raise ValueError(f"n_dict {n} does not fit one block's shared memory "
-                         f"({smem} bytes)")
+    max_n = lib.freud_topk_thresholds_max_n(int(bf16), int(exact))
+    if n > max_n:
+        raise ValueError(f"n_dict {n} is wider than the kernel's rows ({max_n} "
+                         f"for {acts.dtype})")
     acts = acts.contiguous()
     dead = dead_mask.to(device=acts.device, dtype=torch.uint8).contiguous()
     t_main = torch.empty((m, 1), dtype=torch.float32, device=acts.device)
     t_aux = torch.empty_like(t_main)
     t_multi = torch.empty_like(t_main) if k_multi else None
-    fired = torch.zeros((n,), dtype=torch.int32, device=acts.device)
-    dead_bits = torch.empty((-(-n // 32),), dtype=torch.int32, device=acts.device)
+    words = -(-n // 32)
+    fired = torch.zeros((words,), dtype=torch.int32, device=acts.device)
+    dead_bits = torch.empty((words,), dtype=torch.int32, device=acts.device)
     with torch.cuda.device(acts.device):
         stream = torch.cuda.current_stream(acts.device).cuda_stream
         status = lib.freud_topk_thresholds(
-            acts.data_ptr(), int(acts.dtype == torch.bfloat16), int(exact),
+            acts.data_ptr(), int(bf16), int(exact),
             dead.data_ptr(), dead_bits.data_ptr(), m, n, k_main, k_aux, k_multi, iters,
             t_main.data_ptr(), t_aux.data_ptr(),
             t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
     check_cuda_status(status, "topk thresholds kernel", lib)
     topk_thresholds_fired.launches += 1
-    return t_main, t_aux, t_multi, fired > 0
+    return t_main, t_aux, t_multi, fired_from_bits(fired, n)
 
 
 topk_thresholds_fired.launches = 0

@@ -18,7 +18,9 @@ of ``(top_acts, top_indices)`` (``{layer}_activation_values.npy`` and
 ``device`` is honoured when it is ``cpu`` or ``cuda[:N]``; any other value
 (the repo's configs say ``"tpu"``) means ``cuda``. A CUDA device without a
 card raises — the run never carries on on the CPU. Not in this port yet (each
-raises): ``data_parallel``, a list of layers, and ``build_index``.
+raises): ``data_parallel``, a list of layers, and ``build_index``; and
+because it cannot extend a feature-major index, a collection into a folder
+that holds one for the layer raises before it reads or writes anything.
 
 Usage: python -m freud_tpu_torch.scripts.collect_activations --config cfg.json
 """
@@ -38,6 +40,7 @@ import torch
 
 from .. import profiling
 from ..constants import CHUNK_LENGTH
+from ..data.feature_index import existing_index
 from ..data.loaders import FlyActivationLoader
 from ..data.store import ActivationStoreWriter
 from ..device import resolve_device
@@ -76,6 +79,15 @@ def get_activations(
             "build_index (feature-store indexing) is not ported to "
             "freud_tpu_torch yet; index the store with freud_tpu's "
             "index_activations")
+    index = existing_index(out_folder, layer_name)
+    if index is not None:
+        raise ValueError(
+            f"{out_folder!r} holds a feature-major index of {layer_name} "
+            f"({index}), which this collection would leave stale: "
+            "freud_tpu_torch does not extend indexes yet. Collect into a "
+            "folder without the index, then rebuild it with freud_tpu's "
+            "index_activations (python -m freud_tpu.scripts.index_activations "
+            "--config <feature config>)")
     dev = resolve_device(device)
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
 

@@ -385,7 +385,7 @@ def train(
         batch_size=batch_size, shuffle=True, drop_last=True, seed=seed,
         resample_padding=decoder_store, device=dev,
     )
-    if from_disk and len(loader) == 0:
+    if len(loader) == 0:
         raise ValueError(
             f"{train_folder!r} holds {loader.dataset_length} files, fewer than "
             f"one batch of {batch_size}: there is nothing to train on")

@@ -191,3 +191,43 @@ def test_unported_options_raise(setup, tmp_path, change):
     path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError):
         tcollect.main(["--config", str(path)])
+
+
+@pytest.mark.parametrize("kind", ["dense", "sparse"])
+def test_collection_refuses_an_indexed_folder(setup, tmp_path, monkeypatch, kind):
+    """A folder that freud_tpu collected and indexed (the dense index, or
+    the sparse one of a TopK store): the port's collection into it raises
+    before it writes anything, naming the index file, and every file of the
+    folder stays byte-identical."""
+    from freud_tpu.data import feature_store as fs
+
+    root, wdir, audio = setup
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
+    folder = tmp_path / "indexed"
+    common = dict(data_path=str(audio), layer_name=LAYER, whisper_model="tiny",
+                  batch_size=2, verbose=False)
+    if kind == "dense":
+        jax_collect(out_folder=str(folder), sae_model=None, **common)
+        index = fs.build_feature_major_index(folder, LAYER, verbose=False)
+    else:
+        # a TopK store's sparse index, written from a hand-made indexed store
+        from freud_tpu.data.store import ActivationStoreWriter
+
+        rng = np.random.default_rng(3)
+        w = ActivationStoreWriter(str(folder), LAYER, tensor_shape=(1500, 4),
+                                  activation_shape=(1500, 32), indexed=True)
+        for i in range(3):
+            w.append_batch([f"clip{i}.wav"],
+                           rng.random((1, 1500, 4), dtype=np.float32),
+                           rng.integers(0, 32, (1, 1500, 4)).astype(np.int32),
+                           n_frames=[1500])
+        w.close()
+        index = fs.build_sparse_feature_major_index(folder, LAYER, verbose=False)
+    before = {p.name: p.read_bytes() for p in folder.iterdir()}
+    assert any("feature_major" in name for name in before)
+    with pytest.raises(ValueError, match="index_activations") as err:
+        tcollect.get_activations(out_folder=str(folder), sae_model=None, device="cpu",
+                                 **common)
+    assert "feature_major" in str(err.value)
+    assert {p.name: p.read_bytes() for p in folder.iterdir()} == before
+    assert index is not None

@@ -237,27 +237,52 @@ def test_runtime_on_card_matches_cpu(cuda):
 def _topk_rows(cuda, m=3000, n=1024, seed=8):
     rng = np.random.default_rng(seed)
     a = np.maximum(rng.standard_normal((m, n)), 0).astype(np.float32)
-    a[1] = 0.0  # silent row
-    a[2] = 0.25  # one tie across the row
-    a[3] = 0.0
-    a[3, :5] = 1.0  # fewer positives than k
+    if m > 3:
+        a[1] = 0.0  # silent row
+        a[2] = 0.25  # one tie across the row
+        a[3] = 0.0
+        a[3, :5] = 1.0  # fewer positives than k
     return torch.from_numpy(a).to(cuda)
 
 
-@pytest.mark.parametrize("dead_share", [0.0, 0.01, 0.4])
-@pytest.mark.parametrize("dtype,signed", [(torch.bfloat16, False), (torch.float32, False),
-                                          (torch.bfloat16, True)])
-def test_topk_thresholds_kernel_bit_equal(cuda, dtype, signed, dead_share):
-    a = _topk_rows(cuda)
+BF16, F32 = torch.bfloat16, torch.float32
+# (dtype, signed, dead share, m, n, rows of -inf): the main-path types at
+# (3000, 1024), then the edges of the selection core — a width that is not
+# a multiple of 8 (rows load without the ring), n_dict 20,480 on the exact
+# path, 2^15 + 8 bf16 columns on the float path, one row, a row count that
+# is not a multiple of the grid, rows all -inf with no dead column
+THRESHOLD_CASES = [
+    *[(dtype, signed, share, 3000, 1024, False)
+      for dtype, signed in ((BF16, False), (F32, False), (BF16, True))
+      for share in (0.0, 0.01, 0.4)],
+    (BF16, False, 0.4, 3000, 1001, False),
+    (F32, False, 0.4, 500, 1001, False),
+    (BF16, False, 0.94, 600, 20480, False),
+    (BF16, False, 0.4, 300, 2 ** 15 + 8, False),
+    (BF16, False, 0.4, 1, 1024, False),
+    (F32, False, 0.4, 1, 1024, False),
+    (F32, False, 0.4, 1237, 1024, False),
+    (F32, False, 0.0, 3000, 1024, True),
+    (BF16, True, 0.0, 3000, 1024, True),
+]
+
+
+@pytest.mark.parametrize("dtype,signed,dead_share,m,n,neg_inf", THRESHOLD_CASES)
+def test_topk_thresholds_kernel_bit_equal(cuda, dtype, signed, dead_share, m, n, neg_inf):
+    a = _topk_rows(cuda, m, n)
+    if neg_inf:  # rows all -inf, and a row of -inf but for 5 entries
+        a[4:8] = float("-inf")
+        a[8, 5:] = float("-inf")
     acts = (a - 0.5 if signed else a).to(dtype)
-    dead = torch.from_numpy(np.random.default_rng(9).random(a.shape[1]) < dead_share).to(cuda)
+    dead = torch.from_numpy(np.random.default_rng(9).random(n) < dead_share).to(cuda)
     before = topk_thresholds_fired.launches
     got = topk_thresholds_fired(acts, dead, 32, 192, k_multi=128, signed=signed)
+    again = topk_thresholds_fired(acts, dead, 32, 192, k_multi=128, signed=signed)
     want = topk_thresholds_fired_plain(acts, dead, 32, 192, k_multi=128, signed=signed)
     torch.cuda.synchronize()
-    assert topk_thresholds_fired.launches == before + 1
-    for g, w in zip(got, want):
-        assert torch.equal(g, w)
+    assert topk_thresholds_fired.launches == before + 2
+    for g, g2, w in zip(got, again, want):
+        assert torch.equal(g, w) and torch.equal(g, g2)
     if dead_share == 0.0:
         assert torch.isinf(got[1]).all()
 

@@ -58,6 +58,10 @@ MAIN_PATH = [
     (flops.fused_qkv_attention_bound(32, 1500, 384, 6), 153.059328e9, 149.228544e6,
      0.1548, "operations"),
     (flops.topk_thresholds_bound(75000, 6144), 0.0, 922.512288e6, 0.2754, "bytes"),
+    (flops.topk_thresholds_bound(75000, 6144, in_bytes=4), 0.0, 1844.112288e6, 0.5505,
+     "bytes"),
+    (flops.topk_select_bound(48000, 20480), 0.0, 1966.46912e6, 0.587, "bytes"),
+    (flops.topk_select_bound(75000, 6144), 0.0, 922.201536e6, 0.2753, "bytes"),
     (flops.topk_sae_forward_bound(48000, 1280, 20480, 32, 640), 2.59915776e12,
      2.9135872e9, 2.6281, "operations"),
     (flops.topk_sae_forward_bound(75000, 384, 6144, 32, 192), 366.7968e9,

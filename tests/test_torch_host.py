@@ -192,3 +192,48 @@ def test_decoder_builds_from_the_ports_copy(tmp_path, monkeypatch):
     built = _native.build_audio_decoder()
     assert built == tmp_path / "build" / "libfreud_audio.so" and built.stat().st_size > 0
 
+
+
+def _index_layouts(root: Path, layer: str):
+    """Folders of index files: none; the dense base; a dense growth segment
+    without its base; one complete sparse group; a sparse group missing a
+    part; two sparse groups; both kinds; another layer's index."""
+    from freud_tpu.data import feature_store as fs
+
+    def touch(folder, names):
+        folder.mkdir()
+        for name in names:
+            (folder / name).write_bytes(b"")
+        return folder
+
+    sparse = [f"{layer}_feature_major.sparse{{k}}.{p}.npy" for p in fs.SPARSE_PARTS]
+    group = lambda k: [n.format(k=k) for n in sparse]  # noqa: E731
+    return [
+        touch(root / "none", []),
+        touch(root / "dense", [f"{layer}_feature_major.npy"]),
+        touch(root / "segment_only", [f"{layer}_feature_major.seg1.npy"]),
+        touch(root / "sparse", group(0)),
+        touch(root / "sparse_partial", group(0)[:-1]),
+        touch(root / "sparse_two", group(0) + group(1)),
+        touch(root / "gap", group(1)),
+        touch(root / "both", [f"{layer}_feature_major.npy"] + group(0)),
+        touch(root / "other_layer", ["encoder.blocks.9_feature_major.npy"]),
+    ]
+
+
+def test_feature_index_checks_equal_feature_store(tmp_path):
+    """The port's copy of feature_store's index path rules answers as
+    freud_tpu does on every folder layout."""
+    from freud_tpu.data import feature_store as fs
+    from freud_tpu_torch.data import feature_index as fi
+
+    layer = "encoder.blocks.2"
+    assert fi.SPARSE_PARTS == fs.SPARSE_PARTS
+    for folder in _index_layouts(tmp_path, layer):
+        assert fi.index_path(folder, layer) == fs.index_path(folder, layer)
+        assert fi.sparse_segment_groups(folder, layer) == fs.sparse_segment_groups(folder, layer)
+        dense = fs.FeatureMajorReader.exists(folder, layer)
+        sparse = fs.SparseFeatureMajorReader.exists(folder, layer)
+        assert fi.dense_index_exists(folder, layer) == dense, folder.name
+        assert fi.sparse_index_exists(folder, layer) == sparse, folder.name
+        assert (fi.existing_index(folder, layer) is not None) == (dense or sparse), folder.name

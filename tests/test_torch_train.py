@@ -328,3 +328,57 @@ def test_train_cli_and_refusals(tmp_path, capsys, monkeypatch):
     w.close()
     with pytest.raises(SystemExit):
         train(**_config(str(tmp_path / "idx"), tmp_path / "x", batch_size=1))
+
+
+# ------------------------------------------------------------ fly mode
+
+
+def test_fly_mode_drops_the_ragged_tail_like_jax(tmp_path, monkeypatch):
+    """Fly-mode training (``from_disk: false``) over 3 clips at batch 2:
+    JAX drops the short last batch (``drop_last``), so both packages take 2
+    steps on full (2, 1500, 384) batches, and the port's fly loader counts
+    1 batch with ``drop_last`` and 2 without."""
+    import wave
+
+    from freud_tpu.train import trainer as jtrainer
+
+    audio = tmp_path / "audio"
+    audio.mkdir()
+    rng = np.random.default_rng(0)
+    for i in range(3):
+        with wave.open(str(audio / f"clip{i}.wav"), "wb") as w:
+            w.setnchannels(1)
+            w.setsampwidth(2)
+            w.setframerate(16000)
+            w.writeframes((rng.standard_normal(16000) * 2000).astype(np.int16).tobytes())
+    common = dict(
+        seed=0, train_folder=str(audio), val_folder=str(audio), lr=1e-3,
+        weight_decay=0.0, steps=2, clip_thresh=1.0, batch_size=2,
+        log_tb_every=100, save_every=100, val_every=100,
+        whisper_config={"model": "test:tiny", "layer_name": LAYER},
+        optimizer="adam", scheduler="linear", scheduler_params={},
+        autoencoder_variant="l1",
+        autoencoder_config={"n_dict_components": 16, "recon_alpha": 100.0},
+        from_disk=False, enable_transcripts=False, verbose=False)
+    seen = {"jax": [], "torch": []}
+    jstep, tstep = jtrainer.SAETrainer.train_step, SAETrainer.train_step
+
+    def jspy(self, batch, host_local=False):
+        seen["jax"].append(tuple(np.shape(batch)))
+        return jstep(self, batch, host_local)
+
+    def tspy(self, batch):
+        seen["torch"].append(tuple(batch.shape))
+        return tstep(self, batch)
+
+    monkeypatch.setattr(jtrainer.SAETrainer, "train_step", jspy)
+    monkeypatch.setattr(SAETrainer, "train_step", tspy)
+    jstats = jtrainer.train(run_dir=str(tmp_path / "jax"), **common)
+    tstats = train(run_dir=str(tmp_path / "torch"), device="cpu", **common)
+    assert jstats["steps"] == tstats["steps"] == 2
+    assert seen["torch"] == seen["jax"] == [(2, 1500, 384)] * 2
+    for drop_last, batches in ((True, 1), (False, 2)):
+        loader = tloaders.FlyActivationLoader(str(audio), "test:tiny", None, LAYER, 2,
+                                              drop_last=drop_last)
+        assert len(loader) == batches and loader.dataset_length == 3
+        assert len(loader.pipeline._batches()) == batches
