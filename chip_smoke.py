@@ -43,6 +43,19 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      with AuxK active from step 2, checkpoints that load with
      weights_only=True, kernel #4's launches; then 4 steps with multi_topk
      (kernel #3's launches) and 4 steps of tiny_l1.json; steps/s each;
+ 5b. the train CLI through the device cache (``device_cache_files`` 24 of
+     the 51 files, refresh on, ``fused_steps`` 10, ``save_every`` and
+     ``val_every`` 30): tiny_topk with an f32 and a bf16 window (AuxK from
+     step 2), 10 multi_topk steps and tiny_l1 at batch 50; each chunk a
+     CUDA graph replay: steps, checkpoints and the one validation on their
+     cadence, kernel #4 (#3 under multi_topk) once a replayed step (and once
+     for the capture's warm-up), finite losses, the window's bytes against
+     its shape and dtype, the resident validation set on; then a chunk of 5
+     tiny_topk steps (batch 50, kernel #4 inside, AuxK active) and one of 5
+     tiny_l1 steps (batch 100) replayed as a graph against the same steps
+     run eagerly from the same state on the same window rows: parameters,
+     moments, count, counters and metrics bit-equal (else within 1e-6 of
+     max), and a second replay equal to the first;
   6. one TopK batch (2 files) at full width on the card and on the CPU from
      the same weights: losses and parameter gradients;
   7. collection with the trained TopK checkpoint as sae_model: the indexed
@@ -65,7 +78,8 @@ Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
 record (per kernel: ms, plain_ms, bound_ms and what bounds it,
 library_ms or null with the reason, launches in the main path's run and
-per collection batch or train step) and the device JSON.
+per collection batch or train step; #3 and #4 also their launches in the
+cache runs, #4 the graph-against-eager difference) and the device JSON.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
@@ -76,7 +90,13 @@ with random:tiny to block 2 and with random:large-v1 to block 16 (the
 steady rate a batch, from the time between a 256-file and a 64-file run
 after an untimed one; device time a batch by kernel from a profiled
 64-file run) and runs 8 large_v1_audioset steps on the large store (the
-last 4 profiled), and prints one JSON line. It reaches the package only through the wrappers, the CLIs and
+last 4 profiled), then trains tiny_l1 (batch 100) and tiny_topk (batch 50)
+at their recipes' cadence on a seeded 1,024-file store (2.36 GB) with a
+64-file validation store in four modes: the mmap loader a step (100 steps),
+and the device cache of 512 files (300 steps) a step, in fused chunks (CUDA
+graphs) with an f32 window and with a bf16 one; steps/s, median step,
+median mmap gather, peak device memory, and tiny_topk's device busy share
+in a profiled chunk. It prints one JSON line. It reaches the package only through the wrappers, the CLIs and
 the trainer, whose interfaces are those of every checkout that holds all
 five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
 code: run parent, change, change, parent in one call to compare two trees.
@@ -114,6 +134,7 @@ CARD_VS_CPU_TOL = 5e-2
 D_IN, N_DICT, K, K_AUX = 384, 6144, 32, 192
 M_ROWS = 50 * 1500  # one step's rows
 TRAIN_STEPS = 30
+CACHE_FILES = 24  # the device cache's window in the smoke (of a 51-file store)
 # the large path: Whisper large (d 1280, 20 heads) to block 16
 LARGE_LAYER = "encoder.blocks.16"
 LARGE_D, LARGE_N_DICT, LARGE_K_AUX = 1280, 20480, 640
@@ -121,6 +142,16 @@ LARGE_M_ROWS = 32 * 1500  # one large_v1_audioset step's rows
 LARGE_TRAIN_STEPS = 10
 # --bench: 30-s files of large-v1 collection, large_v1_audioset steps
 BENCH_FILES, BENCH_STEPS = 256, 8
+# --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
+# f32 files, in four modes (name, steps, config keys)
+TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
+TRAIN_BENCH_MODES = (
+    ("mmap_per_step", 100, {"device_cache_files": 0}),
+    ("cache_per_step", 300, {"device_cache_files": 512, "fused_steps": 0}),
+    ("cache_fused", 300, {"device_cache_files": 512, "fused_steps": None}),
+    ("cache_fused_bf16", 300, {"device_cache_files": 512, "fused_steps": None,
+                               "device_cache_dtype": "bfloat16"}),
+)
 
 
 def card_line() -> str:
@@ -694,39 +725,94 @@ def collect(config: dict, cfg_path: Path) -> dict:
     return run_cli("freud_tpu_torch.scripts.collect_activations", config, cfg_path)
 
 
-def train(config: dict, cfg_path: Path, prof=None, warm: int = 0) -> tuple[dict, list[dict]]:
+# the device cache and resident validation set the last train() run built
+RUN_OBJECTS: dict = {}
+
+
+def train(config: dict, cfg_path: Path, prof=None, warm: int = 0,
+          prof_chunk: int | None = None) -> tuple[dict, list[dict]]:
     """The train CLI in this process; → (its stats, every step's metrics as
-    floats, with the TopK kernels' launches in that step). A torch.profiler
-    ``prof`` traces the steps after the first ``warm``."""
+    floats, with the TopK kernels' launches in that step). A fused chunk's
+    steps come from its metric stack, each with the chunk's number and its
+    launches (kernel launches counted by the wrappers under replay). A
+    torch.profiler ``prof`` traces the steps after the first ``warm``, or
+    the chunk numbered ``prof_chunk``. The cache and validation set the run
+    built land in ``RUN_OBJECTS``. Trees without ``train_chunk`` (before the
+    device cache) run the same per-step path."""
     import torch
 
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
-    from freud_tpu_torch.train.trainer import SAETrainer
+    from freud_tpu_torch.train import trainer as trainer_mod
 
-    seen = []
+    SAETrainer = trainer_mod.SAETrainer
+    seen: list[dict] = []
+    chunks: list[dict] = []
+    RUN_OBJECTS.clear()
+
+    def counts() -> tuple[int, int]:
+        return topk_sae_forward.launches, topk_thresholds_fired.launches
+
+    def launched(before: tuple[int, int]) -> dict:
+        after = counts()
+        return {"launches_topk_sae_forward": after[0] - before[0],
+                "launches_topk_thresholds_fired": after[1] - before[1]}
+
     step = SAETrainer.train_step
 
     def spy(self, batch):
-        if prof is not None and len(seen) == warm:
+        if prof is not None and prof_chunk is None and len(seen) == warm:
             torch.cuda.synchronize()
             prof.start()
-        before = (topk_sae_forward.launches, topk_thresholds_fired.launches)
+        before = counts()
         metrics = step(self, batch)
-        seen.append({**{k: float(v) for k, v in metrics.items()},
-                     "launches_topk_sae_forward": topk_sae_forward.launches - before[0],
-                     "launches_topk_thresholds_fired":
-                         topk_thresholds_fired.launches - before[1]})
-        if prof is not None and len(seen) == config["steps"]:
+        seen.append({**{k: float(v) for k, v in metrics.items()}, **launched(before)})
+        if prof is not None and prof_chunk is None and len(seen) == config["steps"]:
             torch.cuda.synchronize()
             prof.stop()
         return metrics
 
+    chunk = getattr(SAETrainer, "train_chunk", None)
+
+    def chunk_spy(self, cache, batch_size, n_steps, indices=None):
+        traced = prof is not None and len(chunks) == prof_chunk
+        if traced:
+            torch.cuda.synchronize()
+            prof.start()
+        before = counts()
+        metrics = chunk(self, cache, batch_size, n_steps, indices)
+        if traced:
+            torch.cuda.synchronize()
+            prof.stop()
+        chunks.append({"steps": n_steps, **launched(before)})
+        stack = {k: v.tolist() for k, v in metrics.items()}
+        for i in range(n_steps):
+            seen.append({**{k: v[i] for k, v in stack.items()}, "chunk": len(chunks) - 1,
+                         **{k: v / n_steps for k, v in chunks[-1].items()
+                            if k.startswith("launches")}})
+        return metrics
+
+    made = {}
+    for name in ("DeviceShuffleCache", "DeviceValSet"):
+        cls = getattr(trainer_mod, name, None)
+        if cls is not None:
+            def record(*a, _cls=cls, _name=name, **k):
+                RUN_OBJECTS[_name] = _cls(*a, **k)
+                return RUN_OBJECTS[_name]
+            made[name] = cls
+            setattr(trainer_mod, name, record)
     SAETrainer.train_step = spy
+    if chunk is not None:
+        SAETrainer.train_chunk = chunk_spy
     try:
         stats = run_cli("freud_tpu_torch.scripts.train_sae", config, cfg_path)
     finally:
         SAETrainer.train_step = step
+        if chunk is not None:
+            SAETrainer.train_chunk = chunk
+        for name, cls in made.items():
+            setattr(trainer_mod, name, cls)
+    RUN_OBJECTS["chunks"] = chunks
     return stats, seen
 
 
@@ -778,6 +864,87 @@ def bench_collection(torch, tmp: Path, base: dict, model: str, wavs: dict) -> di
             "device_busy_steady": total / (1e3 * steady_s), "kernels_ms_per_batch": total,
             "copies_ms_per_batch": copies, "by_kernel_ms_per_batch": by_kernel,
             "store": str(tmp / f"{model.replace(':', '_')}_store1")}
+
+
+def write_training_store(folder: Path, n_files: int, seed: int) -> None:
+    """A tiny-width store of seeded normal rows, ``n_files`` × (1500, 384)
+    f32, written 32 files at a time with the port's store writer."""
+    from freud_tpu_torch.data.store import ActivationStoreWriter
+
+    rng = np.random.default_rng(seed)
+    w = ActivationStoreWriter(folder, LAYER, (1500, D_IN), (1500, D_IN))
+    for i in range(0, n_files, 32):
+        n = min(32, n_files - i)
+        w.append_batch([f"f{j:05d}.wav" for j in range(i, i + n)],
+                       rng.standard_normal((n, 1500, D_IN), dtype=np.float32),
+                       n_frames=[1500] * n)
+    w.close()
+
+
+def bench_training(torch, tmp: Path) -> dict:
+    """tiny_l1 (batch 100) and tiny_topk (batch 50) at their recipes'
+    cadence (save_every 1000, val_every 100, log_tb_every 10) on a
+    TRAIN_BENCH_FILES-file store with a TRAIN_BENCH_VAL_FILES-file
+    validation store, in the TRAIN_BENCH_MODES: steps/s from the CLI, the
+    median step (``train_step``, or ``train_chunk_wait`` over the chunk's
+    steps), the median ``mmap_batch``, peak device memory; for tiny_topk's
+    fused f32 mode the device's busy share: the kernels' device time in a
+    profiled chunk (the second of a further 2-chunk run: the profiler
+    stretches a replayed chunk's wall many times over) over the median
+    chunk of the unprofiled run. A tree whose ``train()`` raises for the
+    cache gets null rows with the reason."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freud_tpu_torch import profiling
+
+    t0 = time.perf_counter()
+    train_dir, val_dir = tmp / "train_store", tmp / "val_store"
+    write_training_store(train_dir, TRAIN_BENCH_FILES, SEED + 10)
+    write_training_store(val_dir, TRAIN_BENCH_VAL_FILES, SEED + 11)
+    rec = {"train_files": TRAIN_BENCH_FILES, "val_files": TRAIN_BENCH_VAL_FILES,
+           "store_write_s": time.perf_counter() - t0}
+    for recipe, batch in (("tiny_l1", 100), ("tiny_topk", 50)):
+        base = json.loads((REPO / f"configs/train/{recipe}.json").read_text())
+        assert base["batch_size"] == batch, base["batch_size"]
+        assert (base["save_every"], base["val_every"], base["log_tb_every"]) == (1000, 100, 10)
+        rows = rec[recipe] = {}
+        for mode, steps, extra in TRAIN_BENCH_MODES:
+            cfg = {**base, "train_folder": str(train_dir), "val_folder": str(val_dir),
+                   "run_dir": str(tmp / f"run_{recipe}_{mode}"), "steps": steps, **extra}
+            free_device_memory(torch)
+            torch.cuda.reset_peak_memory_stats()
+            try:
+                stats, _ = train(cfg, tmp / "bench_train.json")
+            except NotImplementedError as e:
+                rows[mode] = None
+                rows[f"{mode}_null_reason"] = f"{type(e).__name__}: {e}"
+                continue
+            waits = profiling.calls("train_chunk_wait")
+            chunk = RUN_OBJECTS["chunks"][0]["steps"] if waits else 1
+            step_ms = 1e3 * statistics.median(waits or profiling.calls("train_step")) / chunk
+            mmap = profiling.calls("mmap_batch")
+            row = rows[mode] = {
+                "steps": stats["steps"], "steps_per_sec": stats["steps_per_sec"],
+                "median_step_ms": step_ms,
+                "step_span": "train_chunk_wait / chunk" if waits else "train_step",
+                "chunk_steps": chunk if waits else None,
+                "first_chunk_ms": 1e3 * waits[0] if waits else None,  # with the capture
+                "validations": len(profiling.calls("validate")),
+                "median_validate_ms": 1e3 * statistics.median(profiling.calls("validate")),
+                "median_mmap_batch_ms": 1e3 * statistics.median(mmap) if mmap else None,
+                "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+            if (recipe, mode) == ("tiny_topk", "cache_fused"):
+                chunk_ms = 1e3 * statistics.median(waits)
+                prof = profile(activities=[ProfilerActivity.CUDA])
+                train({**cfg, "steps": 2 * chunk, "run_dir": str(tmp / "run_profiled")},
+                      tmp / "bench_train.json", prof=prof, prof_chunk=1)
+                by_kernel, total, copies = device_ms_by_kernel(prof, 1)
+                row.update(median_chunk_ms=chunk_ms, profiled_kernels_ms=total,
+                           profiled_copies_ms=copies,
+                           device_busy=(total + copies) / chunk_ms,
+                           by_kernel_ms_per_chunk=by_kernel)
+            print(f"bench training {recipe} {mode}: {json.dumps(row)}", flush=True)
+    return rec
 
 
 def bench(torch, device, card) -> dict:
@@ -903,6 +1070,8 @@ def bench(torch, device, card) -> dict:
             "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
             "dead_pct_last": steps[-1]["dead_pct"], "kernels_ms_per_step": total,
             "copies_ms_per_step": copies, "by_kernel_ms_per_step": by_kernel}
+        free_device_memory(torch)
+        rec["tiny_training"] = bench_training(torch, tmp)
     return rec
 
 
@@ -963,6 +1132,82 @@ def card_vs_cpu_batch(torch, device, store, d_in: int = D_IN, n_dict: int = N_DI
         assert err < 3e-2, (n, err)
         worst = max(worst, err)
     return worst
+
+
+def graph_against_eager(torch, store_dir: str, variant: str, batch: int,
+                        n_steps: int = 5) -> dict:
+    """A chunk of ``n_steps`` train steps at full width (tiny_topk: kernel
+    #4 inside, AuxK active; tiny_l1) replayed as a CUDA graph, against the
+    same steps run eagerly from the same state on the same injected
+    (n_steps, batch) window rows: parameters, moments, update count,
+    dead-feature counters and the metric stack. A second replay from the
+    same state must repeat the first, and launch kernel #4 once a step.
+    → the largest difference relative to its max, and the launches."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    base = json.loads((REPO / f"configs/train/tiny_{variant}.json").read_text())
+    ae = dict(base["autoencoder_config"])
+    if variant == "topk":  # below one step's frames: AuxK from the chunk's first step
+        ae["dead_feature_threshold"] = batch * 1500 // 2
+    trainer = SAETrainer(variant, ae, D_IN, optimizer=base["optimizer"],
+                         scheduler=base["scheduler"], scheduler_params={"num_warmup_steps": 2},
+                         lr=1e-3, steps=100, seed=SEED, device="cuda")
+    cache = DeviceShuffleCache(store_dir, LAYER, 10 ** 6, refresh_files=0, seed=SEED,
+                               device="cuda")
+    try:
+        trainer.train_step(cache.next_batch(batch))  # latents that did not fire are dead
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 7)
+        idx = torch.randint(0, cache.capacity, (n_steps, batch), generator=gen, device="cuda")
+        start = [t.clone() for t in trainer._state()]
+
+        def restore():
+            with torch.no_grad():
+                for t, s in zip(trainer._state(), start):
+                    t.copy_(s)
+
+        runs = []
+        for _ in range(2):  # the first call captures (after its warm-up step)
+            restore()
+            before = topk_sae_forward.launches
+            m = trainer.train_chunk(cache, batch, n_steps, indices=idx)
+            torch.cuda.synchronize()
+            runs.append(([t.clone() for t in trainer._state()], m,
+                         topk_sae_forward.launches - before))
+        restore()
+        eager = [trainer._step(sample_rows(cache.cache, idx[i])) for i in range(n_steps)]
+        eager_m = {k: torch.stack([e[k] for e in eager]) for k in eager[0]}
+        eager_state = [t.clone() for t in trainer._state()]
+    finally:
+        cache.close()
+    (g_state, g_m, _), (r_state, r_m, replay_launches) = runs
+
+    def rel(a, b) -> float:
+        a, b = a.detach().double(), b.detach().double()
+        return float((a - b).abs().max() / b.abs().max().clamp(min=1e-30))
+
+    names = ([n for n, _ in trainer.params.named_parameters()]
+             + ["mu"] * len(trainer.opt.mu) + ["nu"] * len(trainer.opt.nu)
+             + ["count", "num_frames_since_fired"])
+    diffs = {}
+    for name, g, e, r in zip(names, g_state, eager_state, r_state):
+        assert torch.equal(g, r), f"{variant}: two replays differ in {name}"
+        diffs[name] = max(diffs.get(name, 0.0), rel(g, e))
+    for k in eager_m:
+        assert torch.equal(g_m[k], r_m[k]), f"{variant}: two replays differ in {k}"
+        diffs[f"metric {k}"] = rel(g_m[k], eager_m[k])
+    worst = max(diffs.values())
+    bit_equal = worst == 0.0
+    print(f"graph vs eager, tiny_{variant} chunk of {n_steps} at batch {batch}: "
+          f"{'bit-equal' if bit_equal else f'max|Δ|/max {worst:.3e} (bound 1e-6)'} "
+          f"{ {k: v for k, v in diffs.items() if v} }; kernel #4 launches a replay "
+          f"{replay_launches}")
+    assert worst <= 1e-6, diffs
+    if variant == "topk":
+        assert float(g_m["auxk_loss"][0]) > 0, "AuxK did not run in the chunk"
+        assert replay_launches == n_steps, replay_launches
+    return {"bit_equal": bit_equal, "max_rel_diff": worst, "replay_launches": replay_launches}
 
 
 def read_store(folder: Path, layer: str = LAYER):
@@ -1147,6 +1392,61 @@ def main() -> int:
         assert all(np.isfinite(list(m.values())).all() for m in lsteps)
         check_checkpoints(torch, tmp / "run_l1" / "checkpoints", ["step4.pth"])
 
+        # phase 5b — the train CLI through the device cache (a 24-file window
+        # of the 51-file store, refresh on), chunks of 10 as CUDA graphs
+        topk_sae_forward.launches = 0
+        topk_thresholds_fired.launches = 0
+        cache_runs = [
+            ("tiny_topk, f32 window", tcfg, 30),
+            ("tiny_topk, bf16 window", {**tcfg, "device_cache_dtype": "bfloat16"}, 30),
+            ("tiny_topk multi_topk", {**tcfg, "autoencoder_config": {
+                **tcfg["autoencoder_config"], "multi_topk": True}}, 10),
+            ("tiny_l1 (batch 50)", {**lbase, "batch_size": 50, "log_tb_every": 10}, 30)]
+        for name, cfg, n in cache_runs:
+            cstats, csteps = train(
+                {**cfg, "train_folder": store_dir, "val_folder": store_dir,
+                 "run_dir": str(tmp / "run_cache"), "steps": n, "save_every": n,
+                 "val_every": n, "device_cache_files": CACHE_FILES, "fused_steps": 10},
+                tmp / "cache.json")
+            cache, vset = RUN_OBJECTS["DeviceShuffleCache"], RUN_OBJECTS["DeviceValSet"]
+            chunks = RUN_OBJECTS["chunks"]
+            wait_ms = [1e3 * t / 10 for t in profiling.calls("train_chunk_wait")]
+            print(f"{name} through the cache: steps_per_sec {cstats['steps_per_sec']:.3f} "
+                  f"(incl. capture, 1 validation, checkpoint writes), train_chunk_wait a "
+                  f"step {[round(t, 3) for t in wait_ms]} ms on {card}; window "
+                  f"{tuple(cache.cache.shape)} {cache.cache.dtype} "
+                  f"({cache.window_bytes / 2**30:.3f} GiB), refresh {cache.refresh_files} "
+                  f"files; launches a chunk {chunks}; loss {csteps[0]['loss']:.4f} → "
+                  f"{csteps[-1]['loss']:.4f}")
+            assert cstats["steps"] == n and len(csteps) == n, (cstats, len(csteps))
+            assert [c["steps"] for c in chunks] == [10] * (n // 10), chunks
+            assert all(np.isfinite([v for k, v in m.items() if k != "chunk"]).all()
+                       for m in csteps)
+            itemsize = 2 if cfg.get("device_cache_dtype") == "bfloat16" else 4
+            assert cache.capacity == CACHE_FILES and cache.refresh_files > 0
+            assert cache.window_bytes == CACHE_FILES * 1500 * 384 * itemsize == (
+                cache.cache.numel() * cache.cache.element_size()), cache.window_bytes
+            assert vset.ok, "the resident validation set is not on"
+            assert len(profiling.calls("validate")) == 1
+            check_checkpoints(torch, tmp / "run_cache" / "checkpoints",
+                              [f"step{n}.pth", "bestval.pth"])
+            kernel = ("launches_topk_thresholds_fired" if "multi" in name
+                      else "launches_topk_sae_forward" if "topk" in name else None)
+            if kernel:  # the capture's warm-up step, then one a replayed step
+                assert [c[kernel] for c in chunks] == [11] + [10] * (n // 10 - 1), chunks
+            if "topk" in name and "multi" not in name:
+                assert max(m["auxk_loss"] for m in csteps[1:]) > 0
+            free_device_memory(torch)
+        launches["cache_topk_sae_forward"] = topk_sae_forward.launches
+        launches["cache_topk_thresholds_fired"] = topk_thresholds_fired.launches
+        print(f"launches in the cache runs: kernel #4 {topk_sae_forward.launches}, "
+              f"kernel #3 {topk_thresholds_fired.launches}")
+        assert topk_sae_forward.launches == 2 * (30 + 1)
+        assert topk_thresholds_fired.launches == 10 + 1
+        graph_recs = {"topk": graph_against_eager(torch, store_dir, "topk", 50),
+                      "l1": graph_against_eager(torch, store_dir, "l1", 100)}
+        free_device_memory(torch)
+
         # phase 6 — one TopK batch at full width, card against CPU
         card_vs_cpu_batch(torch, device, store)
 
@@ -1310,11 +1610,14 @@ def main() -> int:
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",
-         "launches": launches["topk_sae_forward"], **unit("topk_sae_forward"), **fused_rec},
+         "launches": launches["topk_sae_forward"], **unit("topk_sae_forward"),
+         "launches_cache_path": launches["cache_topk_sae_forward"],
+         "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"], **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_threshold.cu",
          "replaces": "freud_tpu/ops/topk_threshold.py:225",
-         "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"), **thresh_rec},
+         "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"),
+         "launches_cache_path": launches["cache_topk_thresholds_fired"], **thresh_rec},
     ]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])

@@ -20,7 +20,9 @@ whose acts operand is masked in registers. The signature is JAX's:
 
 ``topk_sae_forward`` dispatches on the device: a CUDA tensor launches the
 kernel, a CPU tensor takes ``topk_sae_forward_plain``.
-``topk_sae_forward.launches`` counts kernel launches.
+``topk_sae_forward.launches`` counts kernel launches; a launch captured into a
+CUDA graph counts in ``.captured``, and each replay adds it to ``.launches``
+(``train/graph.py``).
 """
 
 from __future__ import annotations
@@ -134,8 +136,12 @@ def topk_sae_forward(
             t_aux.data_ptr(), fired.data_ptr(), xs.data_ptr(), dead_bits.data_ptr(),
             stream)
     check_cuda_status(status, "topk SAE forward kernel", lib)
-    topk_sae_forward.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        topk_sae_forward.captured += 1  # launched by each replay (train/graph.py)
+    else:
+        topk_sae_forward.launches += 1
     return acts, y_main, y_aux, t_main, t_aux, fired_from_bits(fired, n)
 
 
 topk_sae_forward.launches = 0
+topk_sae_forward.captured = 0

@@ -25,7 +25,9 @@ order.
 
 ``topk_thresholds_fired`` dispatches on the device: a CUDA tensor launches
 the kernel, a CPU tensor takes ``topk_thresholds_fired_plain``.
-``topk_thresholds_fired.launches`` counts kernel launches.
+``topk_thresholds_fired.launches`` counts kernel launches; a launch captured into a
+CUDA graph counts in ``.captured``, and each replay adds it to ``.launches``
+(``train/graph.py``).
 """
 
 from __future__ import annotations
@@ -209,8 +211,12 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
             t_main.data_ptr(), t_aux.data_ptr(),
             t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
     check_cuda_status(status, "topk thresholds kernel", lib)
-    topk_thresholds_fired.launches += 1
+    if torch.cuda.is_current_stream_capturing():
+        topk_thresholds_fired.captured += 1  # launched by each replay (train/graph.py)
+    else:
+        topk_thresholds_fired.launches += 1
     return t_main, t_aux, t_multi, fired_from_bits(fired, n)
 
 
 topk_thresholds_fired.launches = 0
+topk_thresholds_fired.captured = 0

@@ -3,18 +3,30 @@
 The port of ``freud_tpu/train/optim.py``, whose optax chain is
 global-norm clip → (L2 weight decay, RAdam only) → Adam/RAdam → schedule:
 
-  optimizer "adam"  → ``torch.optim.Adam(lr)``
-  optimizer "radam" → ``RAdam(eps=1e-5, weight_decay)`` below: optax's
-                      ``scale_by_radam`` formula, which puts eps outside the
-                      bias-corrected root (torch's own RAdam divides eps by
-                      √(1 − β₂ᵗ) and drifts from JAX once rectification
-                      starts); weight decay is L2, added after clipping
+  optimizer "adam"  → optax ``scale_by_adam`` (eps 1e-8), torch Adam's
+                      recipe
+  optimizer "radam" → optax ``scale_by_radam`` (eps 1e-5), which puts eps
+                      outside the bias-corrected root (torch's own RAdam
+                      divides eps by √(1 − β₂ᵗ) and drifts from JAX once
+                      rectification starts); weight decay is L2, added
+                      after clipping
   scheduler "cosine" → lr · ½(1 + cos(π·min(c, steps)/steps))
   scheduler "linear" → warmup c/warmup, then (steps − c)/(steps − warmup)
 
-with ``clip_grad_norm_(clip_thresh)`` before every update. The schedule is a
-function of the update count c, which starts at 0 as optax's does: under
-"linear" the first update has lr 0.
+with optax's ``clip_by_global_norm(clip_thresh)`` before every update. The
+schedule is a function of the update count c, which starts at 0 as optax's
+does: under "linear" the first update has lr 0.
+
+Every update reads the count from a device tensor, and the schedule, the
+bias corrections and RAdam's rectification branch are device arithmetic
+(``torch.where``), so a step captured in a CUDA graph replays with the
+count of its replay, not the count of its capture. Those scalars are
+float64, as the Python floats of the host form were (optax takes them in
+f32: RAdam's rectification term 1999 − 2tβ₂ᵗ/(1 − β₂ᵗ) cancels to ~5 at
+its start, so the two differ there by ~1e-6 of the parameters, inside the
+optax test's 1e-5). The moments, the count and the parameters are updated
+in place at fixed addresses. The schedule's ``.host`` is the same formula
+in Python, for logging.
 """
 
 from __future__ import annotations
@@ -25,12 +37,17 @@ import torch
 
 
 def make_schedule(scheduler: str, lr: float, steps: int, scheduler_params: dict):
-    """count → lr. ``.host`` is the function itself (the JAX package's name
-    for its host-side mirror)."""
+    """count → lr in Python (the function itself, also ``.host``);
+    ``.device(count)`` takes a device tensor and returns the lr as a 0-dim
+    float64 tensor on its device."""
     if scheduler == "cosine":
         def schedule(count: int) -> float:
             c = min(max(float(count), 0.0), float(steps))
             return lr * 0.5 * (1.0 + math.cos(math.pi * c / steps))
+
+        def device(count: torch.Tensor) -> torch.Tensor:
+            c = count.to(torch.float64).clamp(0.0, float(steps))
+            return lr * (0.5 * (1.0 + torch.cos(math.pi * c / steps)))
     elif scheduler == "linear":
         warmup = int((scheduler_params or {}).get("num_warmup_steps", 0))
 
@@ -39,86 +56,93 @@ def make_schedule(scheduler: str, lr: float, steps: int, scheduler_params: dict)
             if c < warmup:
                 return lr * c / max(warmup, 1)
             return lr * max((steps - c) / max(steps - warmup, 1), 0.0)
+
+        def device(count: torch.Tensor) -> torch.Tensor:
+            c = count.to(torch.float64)
+            warm = c / max(warmup, 1)
+            decay = torch.clamp((steps - c) / max(steps - warmup, 1), min=0.0)
+            return lr * torch.where(c < warmup, warm, decay)
     else:
         raise ValueError(f"Invalid scheduler: {scheduler!r}, must be 'cosine' or 'linear'")
     schedule.host = schedule
+    schedule.device = device
     return schedule
 
 
-class RAdam(torch.optim.Optimizer):
-    """Rectified Adam as ``optax.scale_by_radam`` computes it, with L2 weight
-    decay added to the (clipped) gradient first."""
-
-    def __init__(self, params, lr: float = 1e-3, betas=(0.9, 0.999),
-                 eps: float = 1e-5, weight_decay: float = 0.0):
-        super().__init__(params, dict(lr=lr, betas=betas, eps=eps,
-                                      weight_decay=weight_decay))
-
-    @torch.no_grad()
-    def step(self, closure=None):
-        for group in self.param_groups:
-            b1, b2 = group["betas"]
-            ro_inf = 2.0 / (1.0 - b2) - 1.0
-            for p in group["params"]:
-                if p.grad is None:
-                    continue
-                g = p.grad
-                if group["weight_decay"]:
-                    g = g.add(p, alpha=group["weight_decay"])
-                st = self.state[p]
-                if not st:
-                    st["step"] = torch.zeros((), dtype=torch.float32)
-                    st["exp_avg"] = torch.zeros_like(p)
-                    st["exp_avg_sq"] = torch.zeros_like(p)
-                st["step"] += 1
-                t = int(st["step"])
-                m = st["exp_avg"].mul_(b1).add_(g, alpha=1.0 - b1)
-                v = st["exp_avg_sq"].mul_(b2).addcmul_(g, g, value=1.0 - b2)
-                b2t = b2 ** t
-                ro = ro_inf - 2.0 * t * b2t / (1.0 - b2t)
-                mu_hat = m / (1.0 - b1 ** t)
-                if ro >= 5.0:
-                    r = math.sqrt((ro - 4.0) * (ro - 2.0) * ro_inf
-                                  / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro))
-                    upd = r * mu_hat / ((v / (1.0 - b2t)).sqrt() + group["eps"])
-                else:
-                    upd = mu_hat
-                p.add_(upd, alpha=-group["lr"])
-
-
 class SAEOptimizer:
-    """Clip → optimizer → schedule for one parameter list (in the JAX
-    package's leaf order), counting updates as optax does."""
+    """Clip → (weight decay) → Adam/RAdam → schedule for one parameter list
+    (in the JAX package's leaf order), with the update count, the moments
+    and the parameters on the parameters' device."""
 
-    def __init__(self, inner: torch.optim.Optimizer, params: list, schedule,
-                 clip_thresh: float):
-        self.inner = inner
+    def __init__(self, kind: str, params: list, schedule, clip_thresh: float,
+                 weight_decay: float = 0.0):
+        if kind not in ("adam", "radam"):
+            raise ValueError(f"Invalid optimizer: {kind!r}, must be 'radam' or 'adam'")
+        self.kind = kind
         self.params = params
         self.schedule = schedule
         self.clip_thresh = clip_thresh
-        self.count = 0  # updates applied; the schedule reads it before the update
-
-    def zero_grad(self) -> None:
-        self.inner.zero_grad(set_to_none=True)
+        self.weight_decay = weight_decay if kind == "radam" else 0.0
+        self.eps = 1e-5 if kind == "radam" else 1e-8
+        self.b1, self.b2 = 0.9, 0.999
+        dev = params[0].device
+        # updates applied; the schedule reads it before the update
+        self.count = torch.zeros((), dtype=torch.int32, device=dev)
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
 
     def step(self) -> None:
-        torch.nn.utils.clip_grad_norm_(self.params, self.clip_thresh)
-        for group in self.inner.param_groups:
-            group["lr"] = self.schedule(self.count)
-        self.inner.step()
-        self.count += 1
+        """One update from the parameters' ``.grad``."""
+        self.update([p.grad for p in self.params])
+
+    @torch.no_grad()
+    def update(self, grads: list) -> None:
+        """One update from ``grads`` (the parameters' order), with no host
+        synchronisation and no Python value that depends on the count.
+        Multi-tensor ops: a launch covers every parameter."""
+        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        # optax clip_by_global_norm: g under the threshold, else scaled to it
+        grads = torch._foreach_mul(grads, torch.where(
+            norm < self.clip_thresh, 1.0, self.clip_thresh / norm).to(grads[0].dtype))
+        if self.weight_decay:
+            torch._foreach_add_(grads, self.params, alpha=self.weight_decay)
+        lr = self.schedule.device(self.count)
+        self.count.add_(1)
+        t = self.count.to(torch.float64)
+        b1, b2 = self.b1, self.b2
+        bc1 = 1.0 - torch.pow(b1, t)
+        b2t = torch.pow(b2, t)
+        bc2 = 1.0 - b2t
+        torch._foreach_lerp_(self.mu, grads, 1.0 - b1)
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_addcmul_(self.nu, grads, grads, value=1.0 - b2)
+        # mu_hat / (sqrt(nu_hat) + eps), then · lr
+        denom = torch._foreach_mul(self.nu, (1.0 / bc2).float())
+        torch._foreach_sqrt_(denom)
+        torch._foreach_add_(denom, self.eps)
+        upd = torch._foreach_div(self.mu, denom)
+        del denom
+        if self.kind == "radam":
+            ro_inf = 2.0 / (1.0 - b2) - 1.0
+            ro = ro_inf - 2.0 * t * b2t / bc2
+            r = torch.sqrt(torch.clamp(
+                (ro - 4.0) * (ro - 2.0) * ro_inf / ((ro_inf - 4.0) * (ro_inf - 2.0) * ro),
+                min=0.0))
+            # rectified: r · the Adam step; before that, momentum alone
+            upd = [torch.where(ro >= 5.0, u * r.float(), m)
+                   for u, m in zip(upd, self.mu)]
+        torch._foreach_mul_(upd, (lr / bc1).float())
+        torch._foreach_sub_(self.params, upd)
 
     def state_leaves(self) -> list[torch.Tensor]:
         """The state as optax's leaves: [count, mu…, nu…, schedule count]
         (int32 scalars, f32 moments on the parameters' device)."""
-        states = [self.inner.state.get(p, {}) for p in self.params]
-        count = int(states[0]["step"]) if states[0] else 0
-        mu = [s["exp_avg"] if s else torch.zeros_like(p) for s, p in zip(states, self.params)]
-        nu = [s["exp_avg_sq"] if s else torch.zeros_like(p) for s, p in zip(states, self.params)]
-        return [torch.tensor(count, dtype=torch.int32), *mu, *nu,
-                torch.tensor(self.count, dtype=torch.int32)]
+        return [self.count.clone(), *self.mu, *self.nu, self.count.clone()]
 
+    @torch.no_grad()
     def load_state_leaves(self, leaves: list) -> None:
+        """Copy optax's leaves into the state in place (a captured graph
+        keeps reading the same tensors)."""
         n = len(self.params)
         if len(leaves) != 2 * n + 2:
             raise ValueError(
@@ -130,16 +154,10 @@ class SAEOptimizer:
                     f"optimizer-state leaf {i + 1} has shape {tuple(leaf.shape)}, "
                     f"expected {tuple(p.shape)} (model config changed since the "
                     "checkpoint?)")
-        count = int(leaves[0])
-        self.inner.state.clear()
-        if count:
-            for i, p in enumerate(self.params):
-                self.inner.state[p] = {
-                    "step": torch.tensor(float(count)),
-                    "exp_avg": torch.as_tensor(leaves[1 + i]).to(p.device, torch.float32).clone(),
-                    "exp_avg_sq": torch.as_tensor(leaves[1 + n + i]).to(p.device, torch.float32).clone(),
-                }
-        self.count = int(leaves[-1])
+        for dst, leaf in zip(self.mu + self.nu, leaves[1:1 + 2 * n]):
+            dst.copy_(torch.as_tensor(leaf))
+        # the update count and the schedule's count move together
+        self.count.fill_(int(leaves[-1]))
 
 
 def make_optimizer(optimizer: str, scheduler: str, lr: float, steps: int,
@@ -148,10 +166,5 @@ def make_optimizer(optimizer: str, scheduler: str, lr: float, steps: int,
                    scheduler_params: dict | None = None):
     """→ (SAEOptimizer, schedule) for ``params`` in the JAX leaf order."""
     schedule = make_schedule(scheduler, lr, steps, scheduler_params or {})
-    if optimizer == "radam":
-        inner = RAdam(params, lr=lr, eps=1e-5, weight_decay=weight_decay)
-    elif optimizer == "adam":
-        inner = torch.optim.Adam(params, lr=lr)
-    else:
-        raise ValueError(f"Invalid optimizer: {optimizer!r}, must be 'radam' or 'adam'")
-    return SAEOptimizer(inner, params, schedule, clip_thresh), schedule
+    return SAEOptimizer(optimizer, params, schedule, clip_thresh,
+                        weight_decay=weight_decay), schedule

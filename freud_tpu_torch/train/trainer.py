@@ -1,22 +1,31 @@
 """SAE trainer on one device (PyTorch).
 
-The per-step path of ``freud_tpu/train/trainer.py``: the same config surface
+The port of ``freud_tpu/train/trainer.py``: the same config surface
 (``train(**config)``), loss arithmetic, optimizer/scheduler recipes,
 dead-feature bookkeeping, TensorBoard tags and checkpoint cadence
 (``step{N}.pth`` every ``save_every``, ``bestval.pth`` on an improved
 validation, the final step). One step: (L1) renormalise the decoder columns
 in place, so the optimizer updates the normalised weight; forward, losses
 and backward (TopK: ``models/sae/topk.training_losses``, kernel #4 under
-bf16); clip; update; (TopK) age the dead-feature counters.
+bf16); clip; update; (TopK) age the dead-feature counters. Every piece of
+state a step updates (parameters, optimizer moments and count, dead-feature
+counters) is updated in place, and a step reads nothing on the host.
 
-Not in this port yet: ``train_chunk`` and the device-resident shuffle cache,
-``DeviceValSet``, pod/mesh training and ``shard_dict``, and validation
-transcripts (``enable_transcripts`` prints that they are off and goes on).
+Batches come from the mmap loader, one a step, or with ``device_cache_files``
+from the device-resident shuffle cache (``data/device_cache.py``), where
+``train_chunk`` runs K sample+step pairs at once: on a CUDA device as one
+replay of a captured CUDA graph (``train/graph.py``), on the CPU as a loop
+of the same body. ``DeviceValSet`` keeps the validation set resident.
+
+Not in this port yet: pod/mesh training and ``shard_dict`` (the pod chunk
+and sampler raise), and validation transcripts (``enable_transcripts``
+prints that they are off and goes on).
 """
 
 from __future__ import annotations
 
 import json
+import math
 import os
 import random
 import time
@@ -28,6 +37,7 @@ import numpy as np
 import torch
 
 from .. import profiling
+from ..data.device_cache import DeviceShuffleCache, sample_rows
 from ..data.loaders import init_dataloader
 from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
@@ -36,12 +46,19 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import topk as topk_mod
 from ..models.sae.serialize import params_from_state_dict
 from ..models.whisper.runtime import pin_full_f32
+from ..ops.topk_fused import topk_sae_forward
+from ..ops.topk_threshold import topk_thresholds_fired
 from .checkpoint import (
     AsyncCheckpointWriter,
     load_trainer_checkpoint,
     save_trainer_checkpoint,
 )
+from .graph import capture_chunk
 from .optim import make_optimizer
+
+# the kernel wrappers a train step can launch (their launches are counted
+# under graph replay)
+STEP_KERNELS = (topk_sae_forward, topk_thresholds_fired)
 
 
 def set_seeds(seed: int = 42) -> None:
@@ -104,18 +121,30 @@ class SAETrainer:
             (self.n_dict_components,), dtype=torch.int32, device=self.device)
         self.step = 0
         self.best_val_loss = float("inf")
+        # (n_steps, batch_size) → (window, index buffer, CapturedChunk)
+        self._chunks: dict = {}
 
     # ------------------------------------------------------------- steps
 
-    def train_step(self, batch) -> dict:
-        """One update on a (B, T, d) batch; → metrics as 0-dim device
-        tensors (no host sync)."""
-        x = torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
+    def _state(self) -> list:
+        """Every tensor a step updates in place."""
+        return [*_param_list(self.variant, self.params), *self.opt.mu,
+                *self.opt.nu, self.opt.count, self.num_frames_since_fired]
+
+    def _step(self, x: torch.Tensor) -> dict:
+        """The step body on a (B, T, d) f32 device batch: → metrics as 0-dim
+        device tensors. No host synchronisation, no rebinding: a CUDA graph
+        replays it."""
         mm = torch.bfloat16 if self.amp else None
-        p = self.params
         if self.variant == "l1":
             with torch.no_grad():
-                p.W.copy_(l1_mod.normalize_columns(p).W)
+                self.params.W.copy_(l1_mod.normalize_columns(self.params).W)
+        # fresh leaves over the parameters' storage: no autograd node outlives
+        # the step (a parameter's own accumulator, made on another stream by
+        # an earlier step, would make a captured backward wait on that stream)
+        p = SimpleNamespace(**{n: t.detach().requires_grad_()
+                               for n, t in self.params.named_parameters()})
+        if self.variant == "l1":
             out = l1_mod.forward(p, x, self.cfg, pre_normalized=True, matmul_dtype=mm)
             loss = out.reconstruction_loss + out.l1_loss
             metrics = {"loss": loss, "loss_recon": out.reconstruction_loss,
@@ -129,14 +158,76 @@ class SAETrainer:
                        "auxk_loss": terms["auxk_loss"],
                        "multi_topk_fvu": terms["multi_topk_fvu"],
                        "dead_pct": dead_mask.float().mean()}
-        self.opt.zero_grad()
-        loss.backward()
-        self.opt.step()
+        self.opt.update(torch.autograd.grad(loss, _param_list(self.variant, p)))
         if self.variant == "topk":
-            self.num_frames_since_fired = topk_mod.age_counters(
-                self.num_frames_since_fired, fired, x.shape[0] * x.shape[1])
-        self.step += 1
+            with torch.no_grad():
+                self.num_frames_since_fired.copy_(topk_mod.age_counters(
+                    self.num_frames_since_fired, fired, x.shape[0] * x.shape[1]))
         return {k: v.detach() for k, v in metrics.items()}
+
+    def train_step(self, batch) -> dict:
+        """One update on a (B, T, d) batch; → metrics as 0-dim device
+        tensors (no host sync)."""
+        x = torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
+        metrics = self._step(x)
+        self.step += 1
+        return metrics
+
+    def train_chunk(self, cache: DeviceShuffleCache, batch_size: int, n_steps: int,
+                    indices: Optional[torch.Tensor] = None) -> dict:
+        """``n_steps`` train steps on batches sampled from ``cache`` (any
+        pending refresh applied first, so refresh lands at chunk
+        boundaries). → the per-step metric stack, ``{name: (n_steps,)
+        device tensor}`` (row i = step ``self.step - n_steps + 1 + i``).
+
+        The chunk's (n_steps, batch_size) window rows are drawn in one
+        launch from the cache's generator, or taken from ``indices``. On a
+        CUDA device the steps run as one replay of a CUDA graph captured
+        once per (n_steps, batch_size) (``train/graph.py``); a step that
+        will not capture raises. On the CPU they run as a loop of the same
+        body."""
+        window, _ = cache.sample_state()
+        if indices is None:
+            indices = cache.draw(n_steps, batch_size)
+        if tuple(indices.shape) != (n_steps, batch_size):
+            raise ValueError(f"indices {tuple(indices.shape)} must be "
+                             f"({n_steps}, {batch_size})")
+        if self.device.type != "cuda":
+            stack = [self._step(sample_rows(window, indices[i])) for i in range(n_steps)]
+            metrics = {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
+        else:
+            captured = self._chunks.get((n_steps, batch_size))
+            if captured is None or captured[0] is not window:
+                # the graph reads the window and this index buffer in place
+                idx = torch.zeros((n_steps, batch_size), dtype=torch.int64,
+                                  device=self.device)
+                chunk = capture_chunk(
+                    lambda i: self._step(sample_rows(window, idx[i])), n_steps,
+                    self._state(), STEP_KERNELS, f"train_chunk ({self.variant})")
+                captured = self._chunks[(n_steps, batch_size)] = (window, idx, chunk)
+            _, idx, chunk = captured
+            idx.copy_(indices)
+            metrics = chunk.replay()
+        self.step += n_steps
+        return metrics
+
+    def train_chunk_pod(self, cache, local_batch: int, n_steps: int) -> dict:
+        raise NotImplementedError("the pod fused chunk is not ported to "
+                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+
+    def _build_pod_sampler(self, n_steps: int, batch_size: int):
+        raise NotImplementedError("the pod chunk sampler is not ported to "
+                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+
+    def step_working_bytes(self, batch_rows: int) -> int:
+        """An estimate of the device bytes a train step needs at
+        ``batch_rows`` rows: ~18 bytes per latent entry (the bf16 latent,
+        its masks and the backward's bf16 cotangents; 17.3 measured at
+        large_v1_audioset's peak), ~40 per input entry, and parameters,
+        gradients and both moments."""
+        n_params = self.param_count()
+        return (batch_rows * (18 * self.n_dict_components + 40 * self.activation_size)
+                + 16 * n_params)
 
     def current_lr(self, step: Optional[int] = None) -> float:
         """The lr of update ``step`` (1-based; default the last one)."""
@@ -240,9 +331,8 @@ class SAETrainer:
         self.step = step
         self.best_val_loss = best
         if "num_frames_since_fired" in ckpt:
-            self.num_frames_since_fired = torch.as_tensor(
-                np.asarray(ckpt["num_frames_since_fired"]), dtype=torch.int32
-            ).to(self.device)
+            self.num_frames_since_fired.copy_(torch.as_tensor(
+                np.asarray(ckpt["num_frames_since_fired"]), dtype=torch.int32))
 
     def param_count(self) -> int:
         mod = l1_mod if self.variant == "l1" else topk_mod
@@ -285,6 +375,38 @@ def _val_batches(loader):
         yield x, x.shape[0], list(filenames)
 
 
+class DeviceValSet:
+    """Device-resident validation set: the val store uploads ONCE and every
+    validation runs on the resident tensors, with no per-call host gather
+    or copy. ``ok`` is False when the set exceeds ``max_bytes`` (JAX's
+    default 1 GiB) or the store is indexed; callers then stream from the
+    loader. ``mesh`` (sharded placement) is not ported."""
+
+    def __init__(self, loader, device: torch.device | str, val_batch: int = 8,
+                 max_bytes: int = 1 << 30, mesh=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "mesh placement of the validation set is not ported to "
+                "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+        self.batches = []
+        self.ok = False
+        if getattr(loader, "activation_type", "tensor") == "indexed":
+            return
+        if hasattr(loader, "set_position"):
+            loader.set_position(0)
+        total = 0
+        for x, n_valid, filenames in _val_batches(loader):
+            total += x.nbytes
+            if total > max_bytes:
+                self.batches = []
+                return
+            self.batches.append((torch.from_numpy(x).to(device), n_valid, filenames))
+        self.ok = True
+
+    def __iter__(self):
+        return iter(self.batches)
+
+
 def validate(
     trainer: SAETrainer,
     val_folder: str,
@@ -293,27 +415,34 @@ def validate(
     from_disk: bool,
     val_batch: int = 8,
     loader=None,
+    device_set: Optional[DeviceValSet] = None,
 ):
     """Reference ``validate`` statistics: per-file losses and MSE
     (batch-size-1 math), per-feature magnitude maxes and stds. Transcripts
     are not ported: the transcript lists come back empty. Pass a ``loader``
-    to reuse one across calls.
+    to reuse one across calls, or a ``device_set`` (an ``ok``
+    ``DeviceValSet``) to validate on resident tensors; both give the same
+    numbers.
 
     → (losses, subbed_transcripts, base_transcripts, base_filenames,
        magnitude maxes, magnitude stds)."""
-    if loader is None:
-        loader, _, _ = init_dataloader(
-            from_disk, val_folder, whisper_model, None, layer_name,
-            batch_size=val_batch, shuffle=False,
-            resample_padding=layer_name.startswith("decoder."),
-            device=trainer.device,
-        )
-    if hasattr(loader, "set_position"):
-        loader.set_position(0)  # a reused loader must scan from the start
+    if device_set is not None and device_set.ok:
+        source = device_set
+    else:
+        if loader is None:
+            loader, _, _ = init_dataloader(
+                from_disk, val_folder, whisper_model, None, layer_name,
+                batch_size=val_batch, shuffle=False,
+                resample_padding=layer_name.startswith("decoder."),
+                device=trainer.device,
+            )
+        if hasattr(loader, "set_position"):
+            loader.set_position(0)  # a reused loader must scan from the start
+        source = _val_batches(loader)
     sums: dict[str, float] = {}
     counts = 0
     mags = []
-    for x, n_valid, _ in _val_batches(loader):
+    for x, n_valid, _ in source:
         out = trainer.validate_files(x)
         for key in ("recon", "l1", "fvu", "auxk_loss", "multi_topk_fvu", "mse"):
             if key in out:
@@ -361,19 +490,31 @@ def train(
     verbose: bool = True,
     device_cache_files: int = 0,
     fused_steps: Optional[int] = None,
-    device_cache_dtype: str = "float32",  # accepted for config parity
-    val_device_cache: Optional[bool] = None,  # validation always streams here
+    device_cache_dtype: str = "float32",
+    val_device_cache: Optional[bool] = None,
 ) -> dict:
     """``device``: ``cpu`` / ``cuda[:N]``; anything else (the configs'
-    ``"tpu"``) means cuda, and a CUDA device without a card raises."""
+    ``"tpu"``) means cuda, and a CUDA device without a card raises.
+
+    ``device_cache_files > 0`` (with ``from_disk``; fly mode ignores it, as
+    JAX does) trains from a device-resident shuffle cache of that many
+    files (``data/device_cache.py``), stored as ``device_cache_dtype``
+    (``float32`` or ``bfloat16``). A window that does not fit the device
+    raises, naming the largest that fits.
+
+    ``fused_steps``: the chunk of sample+step pairs ``train_chunk`` runs at
+    once from the cache (on a CUDA device, one CUDA graph replay). ``None``
+    picks the largest divisor of gcd(save_every, val_every) that is at most
+    100; ``0``/``1`` trains per step; an explicit value must divide
+    save_every and val_every. A resume off a chunk boundary and the tail
+    of fewer than ``fused_steps`` steps run per step.
+
+    ``val_device_cache``: keep the validation set resident on the device
+    (``DeviceValSet``). ``None`` turns it on when the set fits in 1 GiB,
+    ``True`` forces it, ``False`` streams from the loader every call."""
     if mesh is not None:
         raise NotImplementedError("mesh (pod) training is not ported to "
-                                  "freud_tpu_torch yet (one device per run)")
-    if device_cache_files or (fused_steps is not None and fused_steps > 1):
-        raise NotImplementedError(
-            "the device-resident shuffle cache and fused multi-step chunks "
-            "are not ported to freud_tpu_torch yet; train per step "
-            "(device_cache_files: 0)")
+                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
     dev = resolve_device(device, what="training")
     set_seeds(seed)
     layer_name = whisper_config["layer_name"]
@@ -448,9 +589,37 @@ def train(
               "ported to freud_tpu_torch yet")
 
     val_loader = None
+    val_set = None
     t_start = time.perf_counter()
     steps_done_at_start = trainer.step
     cuda = dev.type == "cuda"
+
+    cache = None
+    fused = 0
+    if device_cache_files and from_disk:
+        rows = batch_size * loader.activation_shape[0]
+        cache = DeviceShuffleCache(
+            train_folder, layer_name, device_cache_files, seed=seed,
+            start_step=trainer.step, cache_dtype=device_cache_dtype, device=dev,
+            # the graph's private pool and the per-step path's pool each
+            # hold a step's working set
+            reserve_bytes=2 * trainer.step_working_bytes(rows))
+        # save/val events run host code against the trainer state, so they
+        # must land on chunk boundaries; TB logs interior steps from the
+        # chunk's stack. The auto chunk stays a DIVISOR of the cadence gcd
+        g = math.gcd(save_every, val_every)
+        auto = max(k for k in range(1, min(g, 100) + 1) if g % k == 0)
+        if fused_steps is None:
+            fused = auto if auto > 1 else 0
+        elif fused_steps > 1:
+            for name, cadence in (("save_every", save_every),
+                                  ("val_every", val_every)):
+                if cadence % fused_steps:
+                    raise ValueError(
+                        f"fused_steps={fused_steps} must divide {name}="
+                        f"{cadence} (checkpoint/validation events must land "
+                        "on chunk boundaries)")
+            fused = fused_steps
 
     def batch_stream():
         while True:
@@ -474,18 +643,41 @@ def train(
         if verbose:
             print(f"step {step}: loss {m['loss']:.4f}")
 
-    stream = prefetch_iter(batch_stream(), 2)
+    # the cache serves on-device batches; only the loader needs a prefetch
+    # thread
+    stream = None if cache is not None else prefetch_iter(batch_stream(), 2)
     ckpt_writer = AsyncCheckpointWriter()
     try:
         while trainer.step < steps:
-            x = next(stream)
-            with profiling.span("train_step"):
-                metrics = trainer.train_step(x)
-                if cuda:
-                    # the span covers the step's device work, not its enqueue
-                    torch.cuda.synchronize(dev)
-            if trainer.step % log_tb_every == 0:
-                log_train({k: float(v) for k, v in metrics.items()}, trainer.step)
+            if (fused and trainer.step % fused == 0
+                    and steps - trainer.step >= fused):
+                first = trainer.step + 1
+                # train_chunk: the enqueue (refresh, index draw, replay);
+                # train_chunk_wait: the chunk through its synchronisation
+                with profiling.span("train_chunk_wait"):
+                    with profiling.span("train_chunk"):
+                        metrics = trainer.train_chunk(cache, batch_size, fused)
+                    if cuda:
+                        torch.cuda.synchronize(dev)
+                log_steps = [s for s in range(first, trainer.step + 1)
+                             if s % log_tb_every == 0]
+                if log_steps:
+                    # ONE host fetch of the whole (fused,) stack per chunk
+                    names = list(metrics)
+                    stack = torch.stack([metrics[k] for k in names]).cpu().numpy()
+                    for s in log_steps:
+                        log_train({k: float(stack[j, s - first])
+                                   for j, k in enumerate(names)}, s)
+            else:
+                x = cache.next_batch(batch_size) if cache is not None else next(stream)
+                with profiling.span("train_step"):
+                    metrics = trainer.train_step(x)
+                    if cuda:
+                        # the span covers the step's device work, not its
+                        # enqueue
+                        torch.cuda.synchronize(dev)
+                if trainer.step % log_tb_every == 0:
+                    log_train({k: float(v) for k, v in metrics.items()}, trainer.step)
 
             ckpt_paths: list[str] = []
             if trainer.step % save_every == 0:
@@ -498,10 +690,16 @@ def train(
                         layer_name, batch_size=8, shuffle=False,
                         resample_padding=decoder_store, device=dev,
                     )
+                    if val_device_cache is not False:
+                        vs = DeviceValSet(
+                            val_loader, dev,
+                            max_bytes=(1 << 62) if val_device_cache else (1 << 30))
+                        if vs.ok:
+                            val_set = vs
                 with profiling.span("validate"):
                     losses_dict, _, _, _, mag_maxes, mag_stds = validate(
                         trainer, val_folder, layer_name, whisper_model,
-                        from_disk, loader=val_loader)
+                        from_disk, loader=val_loader, device_set=val_set)
                 val_keys = (("recon", "l1") if autoencoder_variant == "l1"
                             else ("fvu", "auxk_loss", "multi_topk_fvu"))
                 if any(losses_dict.get(k) is None for k in val_keys):
@@ -536,6 +734,8 @@ def train(
         # close() flushes queued checkpoints, so an interrupted run's resume
         # point is whatever was last submitted, never a torn file
         ckpt_writer.close()
+        if cache is not None:
+            cache.close()
     trainer.save(str(ckpt_dir / f"step{trainer.step}.pth"), hparam_dict)
     elapsed = time.perf_counter() - t_start
     done = trainer.step - steps_done_at_start

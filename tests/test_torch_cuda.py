@@ -22,6 +22,8 @@ either way), selection bit-equal to the plain selection on the kernel's own
 acts, decodes within 1e-3 of max; one TopK training backward on the card
 within 3e-2 of max of the CPU's gradients."""
 
+import time
+
 import numpy as np
 import pytest
 import torch
@@ -382,3 +384,97 @@ def test_topk_training_backward_on_card_matches_cpu(cuda):
         grads[dev.type] = {k: p.grad.cpu() for k, p in params.named_parameters()}
     for k, g in grads["cpu"].items():
         assert ((grads["cuda"][k] - g).abs().max() / g.abs().max()).item() < 3e-2, k
+
+
+# ------------------------------------------- GPU-resident training input
+
+
+def _activation_store(folder, n_files=12, t=1500, d=384, seed=5):
+    """A store of seeded rows, each file tagged with its index at [0, 0]."""
+    from freud_tpu_torch.data.store import ActivationStoreWriter
+
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n_files, t, d)).astype(np.float32)
+    data[:, 0, 0] = np.arange(n_files)
+    w = ActivationStoreWriter(folder, "encoder.blocks.2", (t, d), (t, d))
+    w.append_batch([f"f{i}" for i in range(n_files)], data, n_frames=[t] * n_files)
+    w.close()
+    return str(folder), data
+
+
+@pytest.mark.parametrize("variant,batch", [("topk", 4), ("l1", 8)])
+def test_train_chunk_graph_matches_eager(cuda, tmp_path, variant, batch):
+    """A chunk of 3 steps at tiny width (d_in 384; TopK n_dict 6144 with AuxK
+    active, kernel #4 inside the graph) replayed as a CUDA graph is bit-equal
+    to the same steps run eagerly from the same state on the same window
+    rows, and launches kernel #4 once a replayed step. On these noise rows
+    every latent fires, so half of them get a bias that keeps them silent:
+    they are dead after the first step, and AuxK runs."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    path, _ = _activation_store(tmp_path / "s")
+    cfg = ({"expansion_factor": 16, "k": 32, "auxk_alpha": 1 / 32,
+            "dead_feature_threshold": batch * 1500 // 2}
+           if variant == "topk" else {"n_dict_components": 200, "recon_alpha": 1e4})
+    trainer = SAETrainer(variant, cfg, 384, optimizer="adam", scheduler="linear",
+                         scheduler_params={"num_warmup_steps": 2}, lr=1e-3, steps=50,
+                         device=cuda)
+    if variant == "topk":
+        with torch.no_grad():
+            trainer.params.encoder_bias[::2] = -1e3
+    cache = DeviceShuffleCache(path, "encoder.blocks.2", 12, refresh_files=0, device=cuda)
+    try:
+        trainer.train_step(cache.next_batch(batch))  # unfired latents are dead now
+        idx = torch.randint(0, 12, (3, batch), device=cuda,
+                            generator=torch.Generator(cuda).manual_seed(1))
+        start = [t.clone() for t in trainer._state()]
+        before = topk_sae_forward.launches
+        graph_m = trainer.train_chunk(cache, batch, 3, indices=idx)
+        graph_state = [t.clone() for t in trainer._state()]
+        before_replay = topk_sae_forward.launches
+        with torch.no_grad():
+            for t, s in zip(trainer._state(), start):
+                t.copy_(s)
+        eager = [trainer._step(sample_rows(cache.cache, idx[i])) for i in range(3)]
+    finally:
+        cache.close()
+    for g, e in zip(graph_state, trainer._state()):
+        assert torch.equal(g, e)
+    for k, v in graph_m.items():
+        assert torch.equal(v, torch.stack([m[k] for m in eager])), k
+    if variant == "topk":
+        assert float(graph_m["auxk_loss"][0]) > 0
+        # the capture's warm-up step launches once; the replay three times
+        assert before_replay - before == 1 + 3
+
+
+def test_refresh_upload_ordered_before_the_sample(cuda, tmp_path):
+    """Refreshes upload on the producer's side stream; the copy into the
+    window waits on their event, so a sample taken right after (no host
+    synchronisation) reads whole store rows, never a row in flight."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache
+
+    path, data = _activation_store(tmp_path / "s", n_files=40)
+    cache = DeviceShuffleCache(path, "encoder.blocks.2", 8, refresh_files=8, device=cuda)
+    want = torch.from_numpy(data).to(cuda)
+    first = {int(t) for t in cache.cache[:, 0, 0]}
+    try:
+        applied, deadline = 0, time.time() + 60
+        while applied < 6 and time.time() < deadline:
+            applied += cache._q.qsize() > 0
+            batch = cache.next_batch(16)  # applies a pending refresh first
+            assert torch.equal(batch, want[batch[:, 0, 0].long()])
+        assert applied == 6
+        assert {int(t) for t in cache.cache[:, 0, 0]} - first
+    finally:
+        cache.close()
+
+
+def test_window_that_cannot_fit_raises(cuda, tmp_path):
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache
+
+    path, _ = _activation_store(tmp_path / "s", n_files=4)
+    _, total = torch.cuda.mem_get_info(cuda)
+    with pytest.raises(ValueError, match="largest device_cache_files that fits is 0"):
+        DeviceShuffleCache(path, "encoder.blocks.2", 4, device=cuda, reserve_bytes=total)

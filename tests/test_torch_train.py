@@ -315,8 +315,11 @@ def test_train_cli_and_refusals(tmp_path, capsys, monkeypatch):
     lines = capsys.readouterr().out.strip().splitlines()
     assert any(ln.startswith("transcript logging disabled:") for ln in lines)
     assert json.loads(lines[-1])["steps"] == 2
-    with pytest.raises(NotImplementedError):
-        train(**_config(store, tmp_path / "x", device_cache_files=4))
+    # through the device cache: 2 steps as one fused chunk (gcd(2, 2) = 2)
+    cached = train(**_config(store, tmp_path / "cached", steps=2, device_cache_files=4))
+    assert cached["steps"] == 2
+    assert {p.name for p in (tmp_path / "cached" / "checkpoints").iterdir()} == {
+        "step2.pth", "bestval.pth"}
     with pytest.raises(ValueError):  # no full batch in the store
         train(**_config(store, tmp_path / "x", batch_size=11))
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
