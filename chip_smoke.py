@@ -72,14 +72,32 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      large-v1 store, 10 steps with AuxK active (kernel #4 at d_in 1280,
      n_dict 20480), and from large_v3_l1.json on the large-v3 store, 4
      steps; steps/s, median step and peak device memory;
- 11. one TopK batch (1 file) at large width on the card and on the CPU.
+ 11. one TopK batch (1 file) at large width on the card and on the CPU;
+ 12. the transcribe CLI (``python -m freud_tpu_torch.scripts.transcribe``,
+     run in-process) with random:tiny at batch 8 over 8 30-s WAVs, 3 short
+     ones and an undecodable one (a padded tail batch): greedy f32 twice
+     (token-equal), greedy bf16, beam 5, the fallback ladder; one transcript
+     a file ("<decode-failed>" for the broken one), kernel #1 once a batch
+     and #2 four times a batch in each run, and whisper's rules on every
+     decoded row (EOT padding, non-decreasing paired timestamps, the first
+     sampled token a timestamp ≤ ts0 + 50); files/s, RTFx, tokens a clip,
+     ms a step and peak memory; phase 5's run also decodes its validation
+     transcripts (4 files a validation, their TensorBoard tags read back);
+ 12b. one encoded batch (2 clips) from the CPU on the card: teacher-forced
+     logits and the KV-cached step's rows within 1e-4 of max of the CPU's,
+     greedy and beam-5 tokens equal to the CPU's up to the first step whose
+     CPU post-rules top-two margin is under 1e-3;
+ 13. the transcribe CLI with random:large-v3 (128 bands) over 8 30-s WAVs:
+     greedy at batch 8 in f32 and bf16, beam 5 at batch 2; kernel #5 32
+     times a batch, #2 never; ms a step, RTFx, peak memory.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
 record (per kernel: ms, plain_ms, bound_ms and what bounds it,
 library_ms or null with the reason, launches in the main path's run and
-per collection batch or train step; #3 and #4 also their launches in the
-cache runs, #4 the graph-against-eager difference) and the device JSON.
+per collection batch or train step; #1, #2 and #5 also their launches in
+the transcription runs, #3 and #4 in the cache runs, #4 the
+graph-against-eager difference) and the device JSON.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
@@ -96,7 +114,11 @@ at their recipes' cadence on a seeded 1,024-file store (2.36 GB) with a
 and the device cache of 512 files (300 steps) a step, in fused chunks (CUDA
 graphs) with an f32 window and with a bf16 one; steps/s, median step,
 median mmap gather, peak device memory, and tiny_topk's device busy share
-in a profiled chunk. It prints one JSON line. It reaches the package only through the wrappers, the CLIs and
+in a profiled chunk; then one batch of 8 30-s clips transcribed greedily at
+the full 224-token budget (early exit off) with random:tiny in f32 and
+bf16 and random:large-v3 in bf16: RTFx, ms a token, device-busy share and
+device time by kernel and by decode part (null on a tree without
+transcription). It prints one JSON line. It reaches the package only through the wrappers, the CLIs and
 the trainer, whose interfaces are those of every checkout that holds all
 five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
 code: run parent, change, change, parent in one call to compare two trees.
@@ -142,6 +164,10 @@ LARGE_M_ROWS = 32 * 1500  # one large_v1_audioset step's rows
 LARGE_TRAIN_STEPS = 10
 # --bench: 30-s files of large-v1 collection, large_v1_audioset steps
 BENCH_FILES, BENCH_STEPS = 256, 8
+# transcription: tiny's batch, its file mix (30-s clips, shorter ones and an
+# undecodable one: a padded tail) and large-v3's beam batch
+TRANSCRIBE_BATCH, TRANSCRIBE_LONG, BEAM_BATCH = 8, 8, 2
+DECODE_CLOSE_CALL = 1e-3  # a post-rules top-two margin below this may flip
 # --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
 # f32 files, in four modes (name, steps, config keys)
 TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
@@ -1072,7 +1098,123 @@ def bench(torch, device, card) -> dict:
             "copies_ms_per_step": copies, "by_kernel_ms_per_step": by_kernel}
         free_device_memory(torch)
         rec["tiny_training"] = bench_training(torch, tmp)
+        free_device_memory(torch)
+        rec["transcription"] = bench_transcription(torch, tmp, device)
     return rec
+
+
+# --bench transcription rows: (name, model, compute dtype)
+TRANSCRIBE_BENCH = (("tiny f32", "random:tiny", "float32"),
+                    ("tiny bf16", "random:tiny", "bfloat16"),
+                    ("large-v3 bf16", "random:large-v3", "bfloat16"))
+DECODE_LABELS = ("self_attention", "cross_attention", "rules")
+
+
+def bench_transcription(torch, tmp: Path, device) -> dict | None:
+    """--bench: one batch of 8 30-s clips transcribed greedily at the full
+    224-token budget (early exit off: random weights rarely emit EOT, so
+    the budget is the stable yardstick) for each TRANSCRIBE_BENCH row: RTFx
+    (240 s of audio over the median of 3 warm ``transcribe`` calls, encode
+    and decode), ms a token (the synchronised ``decode`` span ÷ steps), and
+    one profiled call: device time by kernel name, by decode part (the
+    self- and cross-attention and the rules, labelled with
+    ``record_function``; the rest of the step is projections, MLP and the
+    vocabulary product), the device-busy share (kernel time over the
+    unprofiled call's wall) and the host gaps (wall − kernel time). A tree
+    without transcription gives null."""
+    from freud_tpu_torch.models.whisper import runtime as rt_mod
+
+    if not hasattr(rt_mod.WhisperRuntime, "transcribe"):
+        return None
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from freud_tpu_torch import profiling
+    from freud_tpu_torch.data.audio_dataset import AudioBatchPipeline
+    from freud_tpu_torch.models.whisper import decoding
+
+    wav_dir = tmp / "audio_transcribe_bench"
+    wav_dir.mkdir()
+    write_wavs(wav_dir, [480000] * TRANSCRIBE_BATCH, seed=SEED + 9)
+    real = {name: getattr(decoding, name) for name in ("attend", "_apply_rules")}
+
+    def labelled(name, fn, pick=None):
+        def wrapper(*a, **k):
+            with record_function(pick(*a) if pick else name):
+                return fn(*a, **k)
+        return wrapper
+
+    rows = {}
+    for name, model, dtype in TRANSCRIBE_BENCH:
+        rt = rt_mod.WhisperRuntime(model, compute_dtype=getattr(torch, dtype),
+                                   device=device, early_exit=False)
+        rt.decoder
+        mels = next(iter(AudioBatchPipeline(str(wav_dir), TRANSCRIBE_BATCH, rt.dims.n_mels,
+                                            device=device)))[0]
+        rt.transcribe(mels)  # warm-up
+        profiling.reset()
+        walls = []
+        steps = decoding.sample_decode.steps
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            rt.transcribe(mels)  # ends with the tokens on the host
+            walls.append(time.perf_counter() - t0)
+        steps = (decoding.sample_decode.steps - steps) / 3
+        wall = statistics.median(walls)
+        decode_s = profiling.calls("decode")
+        decoding.attend = labelled("attention", real["attend"],
+                                   lambda q, k, *a: "cross_attention" if k.shape[-2] == 1500
+                                   else "self_attention")
+        decoding._apply_rules = labelled("rules", real["_apply_rules"])
+        try:
+            with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+                rt.transcribe(mels)
+                torch.cuda.synchronize()
+        finally:
+            for k, fn in real.items():
+                setattr(decoding, k, fn)
+        # the labels show twice: as CPU ranges, whose device time is their
+        # kernels', and as device-timeline annotations, spanning first to
+        # last kernel with the gaps between them
+        events = prof.key_averages()
+        kernels = [e for e in events if e.device_type == DeviceType.CUDA
+                   and e.device_time_total > 0 and e.key not in DECODE_LABELS]
+        kernel_ms = sum(e.device_time_total for e in kernels) / 1e3
+        by_name: dict[str, float] = {}
+        by_kind = dict.fromkeys(("gemm", "softmax", "layer_norm", "reduce",
+                                 "elementwise and other"), 0.0)
+        for e in kernels:
+            short = e.key.replace("(anonymous namespace)::", "").split("(")[0]
+            short = short.split("<")[0].split("::")[-1].removeprefix("void ")[:60]
+            by_name[short] = by_name.get(short, 0.0) + e.device_time_total / 1e3
+            low = e.key.lower()
+            kind = ("gemm" if any(t in low for t in ("gemm", "gemv", "nvjet", "xmma"))
+                    else next((k for k in ("softmax", "layer_norm", "reduce") if k in low),
+                              "elementwise and other"))
+            by_kind[kind] += e.device_time_total / 1e3
+        parts = {k: sum(e.device_time_total for e in events
+                        if e.key == k and e.device_type == DeviceType.CPU) / 1e3
+                 for k in DECODE_LABELS}
+        spans = {k: sum(e.device_time_total for e in events
+                        if e.key == k and e.device_type == DeviceType.CUDA) / 1e3
+                 for k in DECODE_LABELS}
+        rows[name] = {
+            "model": model, "dtype": dtype, "batch": TRANSCRIBE_BATCH,
+            "max_new_tokens": rt.max_new_tokens, "early_exit": False,
+            "wall_ms": 1e3 * wall, "walls_ms": [1e3 * w for w in walls],
+            "rtfx": TRANSCRIBE_BATCH * 30.0 / wall, "steps": steps,
+            "decode_ms": [1e3 * t for t in decode_s],
+            "ms_per_token": 1e3 * statistics.median(decode_s) / steps,
+            "kernel_ms": kernel_ms, "device_busy": kernel_ms / (1e3 * wall),
+            "host_gap_ms": 1e3 * wall - kernel_ms,
+            "decode_parts_kernel_ms": parts, "decode_parts_device_span_ms": spans,
+            "by_kind_ms": by_kind,
+            "by_kernel_ms": dict(sorted(by_name.items(), key=lambda kv: -kv[1])[:16])}
+        print(f"transcription bench {name}: {json.dumps(rows[name])}")
+        del rt, mels, prof
+        free_device_memory(torch)
+    return rows
 
 
 def free_device_memory(torch) -> None:
@@ -1210,6 +1352,182 @@ def graph_against_eager(torch, store_dir: str, variant: str, batch: int,
     return {"bit_equal": bit_equal, "max_rel_diff": worst, "replay_launches": replay_launches}
 
 
+def run_transcribe(torch, args: list[str], out: Path) -> dict:
+    """``python -m freud_tpu_torch.scripts.transcribe <args> --out <out>``,
+    in this process (so the launch counters are readable). → {"result": the
+    JSON it wrote, "decodes": each decode's token rows, steps and
+    synchronised seconds (the runtime's ``_decode`` returns host arrays),
+    "seconds": the run's wall after the runtime was built (its model init
+    excluded)}."""
+    from freud_tpu_torch.models.whisper import decoding, runtime
+
+    cls = runtime.WhisperRuntime
+    real_init, real_decode = cls.__init__, cls._decode
+    rec: dict = {"decodes": []}
+
+    def init_spy(self, *a, **k):
+        real_init(self, *a, **k)
+        self.decoder  # build the decoder here too, outside the timed run
+        torch.cuda.synchronize()
+        rec["ready"], rec["n_vocab"] = time.perf_counter(), self.dims.n_vocab
+
+    def decode_spy(self, encoded, prompt, n_prompt, **kw):
+        steps = decoding.sample_decode.steps + decoding.beam_decode.steps
+        t0 = time.perf_counter()
+        got = real_decode(self, encoded, prompt, n_prompt, **kw)
+        rec["decodes"].append({
+            "tokens": got[0], "n_prompt": n_prompt, "seconds": time.perf_counter() - t0,
+            "steps": decoding.sample_decode.steps + decoding.beam_decode.steps - steps})
+        return got
+
+    argv = sys.argv
+    sys.argv = ["transcribe", *args, "--out", str(out)]
+    cls.__init__, cls._decode = init_spy, decode_spy
+    try:
+        with contextlib.redirect_stdout(io.StringIO()):
+            runpy.run_module("freud_tpu_torch.scripts.transcribe", run_name="__main__",
+                             alter_sys=True)
+        torch.cuda.synchronize()
+    finally:
+        sys.argv = argv
+        cls.__init__, cls._decode = real_init, real_decode
+    rec["seconds"] = time.perf_counter() - rec.pop("ready")
+    rec["result"] = json.loads(out.read_text())
+    return rec
+
+
+def check_token_rows(tokens: np.ndarray, n_prompt: int, st) -> int:
+    """Whisper's rules on decoded rows: the first sampled token a timestamp
+    ≤ ts0 + 50, EOT padding after the first EOT, timestamps non-decreasing,
+    a pair of timestamps followed by text, no special token. → the rows'
+    generated non-EOT tokens."""
+    ts0, n_text = st.timestamp_begin, 0
+    for row in tokens:
+        gen = [int(t) for t in row[n_prompt:]]
+        assert ts0 <= gen[0] <= ts0 + 50, gen[:4]
+        if st.eot in gen:
+            cut = gen.index(st.eot)
+            assert all(t == st.eot for t in gen[cut:]), gen
+            gen = gen[:cut]
+        n_text += len(gen)
+        stamps = [t for t in gen if t >= ts0]
+        assert stamps == sorted(stamps), stamps
+        for i in range(2, len(gen)):
+            assert not (gen[i - 2] >= ts0 and gen[i - 1] >= ts0 and gen[i] >= ts0), gen
+        banned = {st.sot, st.sot_prev, st.no_speech, st.no_timestamps, st.transcribe,
+                  st.translate}
+        assert not banned & set(gen), gen
+    return n_text
+
+
+def transcribe_runs(torch, tmp: Path, card: str, runs, n_batches: int, audio_s: float,
+                    counters: dict, expect: dict) -> dict:
+    """Each (name, CLI args) of ``runs`` once through ``run_transcribe``,
+    the kernel counters in ``counters`` ({name: wrapper}) set to 0 just
+    before and read just after; ``expect`` gives each counter's launches a
+    batch. → {name: the run's record with its launches}."""
+    from freud_tpu_torch.models.whisper import special_tokens
+
+    out = {}
+    for name, args in runs:
+        for fn in counters.values():
+            fn.launches = 0
+        torch.cuda.reset_peak_memory_stats()
+        rec = run_transcribe(torch, args, tmp / "transcribe.json")
+        rec["launches"] = {k: fn.launches for k, fn in counters.items()}
+        rec["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+        for k, per_batch in expect.items():
+            assert rec["launches"][k] == per_batch * n_batches, (name, rec["launches"])
+        st = special_tokens(rec["n_vocab"])
+        n_text = sum(check_token_rows(d["tokens"], d["n_prompt"], st)
+                     for d in rec["decodes"])
+        n_rows = sum(len(d["tokens"]) for d in rec["decodes"])
+        ms_token = statistics.median(1e3 * d["seconds"] / d["steps"] for d in rec["decodes"])
+        n_files = len(rec["result"])
+        print(f"transcribe {name}: {n_files} files in {rec['seconds']:.3f} s after model "
+              f"init ({n_files / rec['seconds']:.2f} files/s, RTFx "
+              f"{audio_s / rec['seconds']:.1f} of the clips' {audio_s:.1f} s), "
+              f"{len(rec['decodes'])} decodes, {n_text / n_rows:.1f} tokens a clip, median "
+              f"{ms_token:.3f} ms a step (synchronised decode ÷ steps), steps "
+              f"{[d['steps'] for d in rec['decodes']]}, peak device memory "
+              f"{rec['peak_gib']:.3f} GiB, launches {rec['launches']} on {card}")
+        rec.update(rtfx=audio_s / rec["seconds"], ms_per_token=ms_token)
+        out[name] = rec
+        free_device_memory(torch)
+    return out
+
+
+def decode_card_vs_cpu(torch, device, wavs: list[str], card: str) -> None:
+    """One encoded batch (2 clips) computed on the CPU and moved to the
+    card; from the same random:tiny decoder weights: teacher-forced logits
+    and the KV-cached step's rows on the card within 1e-4 of max of the
+    CPU's (f32, TF32 off), then greedy and beam-5 tokens on the card equal
+    to the CPU's up to the first step whose CPU post-rules top-two margin is
+    under DECODE_CLOSE_CALL."""
+    from freud_tpu_torch.audio.decode import load_audio
+    from freud_tpu_torch.audio.mel import mels_from_array
+    from freud_tpu_torch.models.whisper import (
+        decoder_forward, encoder_forward, load_decoder, load_model, special_tokens)
+    from freud_tpu_torch.models.whisper import decoding
+
+    enc, dims = load_model("random:tiny")
+    dec_cpu, _ = load_decoder("random:tiny")
+    dec_card, _ = load_decoder("random:tiny", device=device)
+    with torch.inference_mode():
+        mels = torch.stack([mels_from_array(load_audio(f), 80) for f in wavs])
+        encoded, _ = encoder_forward(enc, dims, mels)
+    st = special_tokens(dims.n_vocab)
+    prompt = torch.tensor([st.sot_sequence(0)] * len(wavs))
+    greedy = decoding.sample_decode(dec_cpu, dims, encoded, prompt, 3)
+    enc_card = encoded.to(device)
+    with torch.inference_mode():
+        want, _ = decoder_forward(dec_cpu, dims, greedy[0], encoded)
+        got, _ = decoder_forward(dec_card, dims, greedy[0].to(device), enc_card)
+        rel_tf = float((got.cpu() - want).abs().max() / want.abs().max())
+        cross = decoding._cross_kv_stacks(dec_card, dims, enc_card)
+        sk, sv = decoding._self_kv(dims, len(wavs), greedy[0].shape[1], torch.float32, device)
+        pos = torch.zeros((), dtype=torch.int64, device=device)
+        rows = []
+        for p in range(greedy[0].shape[1]):
+            rows.append(decoding._decode_step(dec_card, dims, greedy[0][:, p].to(device),
+                                              pos, sk, sv, cross))
+            pos += 1
+        rel_kv = float((torch.stack(rows, 1) - got).abs().max() / got.abs().max())
+    print(f"decoder card vs CPU, 2 clips: teacher-forced logits max|Δ|/max {rel_tf:.3e}, "
+          f"KV-cached step rows vs teacher-forced on the card {rel_kv:.3e} (bound 1e-4)")
+    assert rel_tf < 1e-4 and rel_kv < 1e-4, (rel_tf, rel_kv)
+    for name, fn, kw in (("greedy", decoding.sample_decode, {}),
+                         ("beam 5", decoding.beam_decode, {"beam_size": 5})):
+        want = greedy if name == "greedy" else fn(dec_cpu, dims, encoded, prompt, 3, **kw)
+        got = fn(dec_card, dims, enc_card, prompt.to(device), 3, **kw)
+        margins = decoding.decision_margins(dec_cpu, dims, encoded, want[0], 3)
+        close = [int(np.argmax(m < DECODE_CLOSE_CALL)) if (m < DECODE_CLOSE_CALL).any()
+                 else None for m in margins]
+        for r, c in enumerate(close):
+            upto = want[0].shape[1] if c is None else c
+            assert torch.equal(got[0][r, :upto].cpu(), want[0][r, :upto]), (name, r, upto)
+        same = bool(torch.equal(got[0].cpu(), want[0]))
+        print(f"{name} card vs CPU: tokens equal up to the first CPU close call "
+              f"(margin < {DECODE_CLOSE_CALL}) at step {close if any(c is not None for c in close) else 'none'}"
+              f"; whole rows equal: {same} on {card}")
+
+
+def check_transcript_tags(run_dir: Path) -> None:
+    """The trainer logged val/transcripts/reconstructed_i and base_i for the
+    4 transcript slots (read back when tensorboard imports)."""
+    try:
+        from tensorboard.backend.event_processing.event_accumulator import EventAccumulator
+    except ImportError:
+        print("tensorboard missing: transcript tags not read back")
+        return
+    acc = EventAccumulator(str(run_dir))
+    acc.Reload()
+    tags = acc.Tags().get("tensors", [])
+    for i in range(4):
+        for kind in ("reconstructed", "base"):
+            assert any(t.startswith(f"val/transcripts/{kind}_{i}") for t in tags), tags
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -1337,6 +1655,8 @@ def main() -> int:
                 "run_dir": str(tmp / "run_topk"), "steps": TRAIN_STEPS,
                 "lr": 1e-3, "scheduler_params": {"num_warmup_steps": 2},
                 "save_every": 10, "val_every": 10, "log_tb_every": 10,
+                # the store's model: the validation transcripts decode with it
+                "whisper_config": {**tbase["whisper_config"], "model": "random:tiny"},
                 # below one step's 75,000 frames: latents that did not fire
                 # in step 1 are dead from step 2, so AuxK runs
                 "autoencoder_config": {**tbase["autoencoder_config"],
@@ -1364,6 +1684,11 @@ def main() -> int:
         ckpts = tmp / "run_topk" / "checkpoints"
         check_checkpoints(torch, ckpts, ["step10.pth", "step20.pth",
                                          "step30.pth", "bestval.pth"])
+        n_val = len(profiling.calls("val_transcripts"))
+        print(f"validation transcripts: {n_val} batched decodes of 4 files, "
+              f"{[round(t, 3) for t in profiling.calls('val_transcripts')]} s")
+        assert n_val == 3, n_val  # one a validation (the base ones in it once)
+        check_transcript_tags(tmp / "run_topk")
 
         topk_thresholds_fired.launches = 0
         mstats, msteps = train(
@@ -1406,7 +1731,9 @@ def main() -> int:
             cstats, csteps = train(
                 {**cfg, "train_folder": store_dir, "val_folder": store_dir,
                  "run_dir": str(tmp / "run_cache"), "steps": n, "save_every": n,
-                 "val_every": n, "device_cache_files": CACHE_FILES, "fused_steps": 10},
+                 "val_every": n, "device_cache_files": CACHE_FILES, "fused_steps": 10,
+                 # the validation transcripts are phase 5's
+                 "enable_transcripts": False},
                 tmp / "cache.json")
             cache, vset = RUN_OBJECTS["DeviceShuffleCache"], RUN_OBJECTS["DeviceValSet"]
             chunks = RUN_OBJECTS["chunks"]
@@ -1540,6 +1867,8 @@ def main() -> int:
         tlcfg = {**tlarge, "train_folder": v1_dir, "val_folder": v1_dir,
                  "run_dir": str(tmp / "run_large_topk"), "steps": LARGE_TRAIN_STEPS,
                  "save_every": 5, "val_every": 5, "log_tb_every": 5,
+                 # the large decoder's transcripts are phase 13's
+                 "enable_transcripts": False,
                  # below one step's 48,000 frames: AuxK runs from step 2
                  "autoencoder_config": {**tlarge["autoencoder_config"],
                                         "dead_feature_threshold": LARGE_M_ROWS // 2}}
@@ -1576,7 +1905,8 @@ def main() -> int:
         l1stats, l1steps = train(
             {**l1large, "train_folder": v3_dir, "val_folder": v3_dir,
              "run_dir": str(tmp / "run_large_l1"), "steps": 4, "save_every": 4,
-             "val_every": 4, "log_tb_every": 2}, tmp / "large_l1.json")
+             "val_every": 4, "log_tb_every": 2, "enable_transcripts": False},
+            tmp / "large_l1.json")
         span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
         print(f"large_v3_l1 (batch 16): steps_per_sec {l1stats['steps_per_sec']:.3f}, "
               f"median train_step {span_ms:.3f} ms, peak device memory "
@@ -1589,6 +1919,72 @@ def main() -> int:
         # phase 11 — one TopK batch (1 file) at large width, card against CPU
         card_vs_cpu_batch(torch, device, large_stores["large-v1"][1],
                           d_in=LARGE_D, n_dict=LARGE_N_DICT, n_files=1)
+        free_device_memory(torch)
+
+        # phase 12 — the transcribe CLI at tiny width: 8 30-s clips, 3 short
+        # ones and the broken one at batch 8 (a padded tail batch)
+        tdir = tmp / "audio_transcribe"
+        tdir.mkdir()
+        tclips = write_wavs(tdir, [480000] * TRANSCRIBE_LONG
+                            + [int(16000 * t) for t in N_SHORT_S], broken=True, seed=SEED + 7)
+        t_batches = -(-(len(tclips) + 1) // TRANSCRIBE_BATCH)
+        t_audio_s = sum(n for _, n in tclips) / 16000
+        base_args = ["--data_path", str(tdir), "--model", "random:tiny",
+                     "--batch_size", str(TRANSCRIBE_BATCH)]
+        tiny_runs = transcribe_runs(
+            torch, tmp, card,
+            [("tiny greedy f32", base_args), ("tiny greedy f32 again", base_args),
+             ("tiny greedy bf16", base_args + ["--precision", "bfloat16"]),
+             ("tiny beam 5", base_args + ["--beam_size", "5"]),
+             ("tiny fallback", base_args + ["--fallback"])],
+            t_batches, t_audio_s,
+            {"log_mel": log_mel_spectrogram_cuda, "fused_qkv_attention": fused_qkv_attention,
+             "whisper_attention": whisper_attention},
+            {"log_mel": 1, "fused_qkv_attention": 4, "whisper_attention": 0})
+        for name, rec in tiny_runs.items():
+            res = rec["result"]
+            assert sorted(res) == sorted([p for p, _ in tclips]
+                                         + [str(tdir / "clip_broken.wav")]), name
+            assert res[str(tdir / "clip_broken.wav")] == "<decode-failed>", name
+            assert all(t != "<decode-failed>" for f, t in res.items()
+                       if not f.endswith("broken.wav")), name
+        first, again = (np.concatenate([d["tokens"] for d in tiny_runs[k]["decodes"]])
+                        for k in ("tiny greedy f32", "tiny greedy f32 again"))
+        assert np.array_equal(first, again), "two greedy runs differ"
+        for k in ("log_mel", "fused_qkv_attention"):
+            launches[f"transcribe_{k}"] = sum(r["launches"][k] for r in tiny_runs.values())
+
+        # phase 12b — the decoder on the card against the CPU, 2 clips
+        decode_card_vs_cpu(torch, device, [p for p, _ in tclips[:2]], card)
+        free_device_memory(torch)
+
+        # phase 13 — the transcribe CLI at large-v3 width (128 bands): 8 30-s
+        # clips greedy at batch 8 in f32 and bf16, then beam 5 at batch 2
+        ldir = tmp / "audio_transcribe_large"
+        ldir.mkdir()
+        write_wavs(ldir, [480000] * TRANSCRIBE_LONG, seed=SEED + 8)
+        largs = ["--data_path", str(ldir), "--model", "random:large-v3"]
+        large_counters = {"log_mel": log_mel_spectrogram_cuda,
+                          "fused_qkv_attention": fused_qkv_attention,
+                          "whisper_attention": whisper_attention}
+        large_expect = {"log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": 32}
+        large_runs = transcribe_runs(
+            torch, tmp, card,
+            [("large-v3 greedy f32", largs + ["--batch_size", str(TRANSCRIBE_BATCH)]),
+             ("large-v3 greedy bf16", largs + ["--batch_size", str(TRANSCRIBE_BATCH),
+                                                "--precision", "bfloat16"])],
+            TRANSCRIBE_LONG // TRANSCRIBE_BATCH, TRANSCRIBE_LONG * 30.0,
+            large_counters, large_expect)
+        large_runs.update(transcribe_runs(
+            torch, tmp, card,
+            [("large-v3 beam 5", largs + ["--batch_size", str(BEAM_BATCH),
+                                          "--beam_size", "5"])],
+            TRANSCRIBE_LONG // BEAM_BATCH, TRANSCRIBE_LONG * 30.0,
+            large_counters, large_expect))
+        launches["transcribe_whisper_attention"] = sum(
+            r["launches"]["whisper_attention"] for r in large_runs.values())
+        for rec in large_runs.values():
+            assert len(rec["result"]) == TRANSCRIBE_LONG
 
     def unit(name: str) -> dict:
         count, what = per_unit[name]
@@ -1598,15 +1994,18 @@ def main() -> int:
         {"name": "log_mel", "route": "cuda",
          "source": "freud_tpu_torch/csrc/mel.cu",
          "replaces": "freud_tpu/ops/mel_pallas.py:162",
-         "launches": launches["log_mel"], **unit("log_mel"), **mel_rec},
+         "launches": launches["log_mel"], **unit("log_mel"),
+         "launches_transcribe": launches["transcribe_log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
-         "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"), **attn_rec},
+         "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"),
+         "launches_transcribe": launches["transcribe_fused_qkv_attention"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
-         "launches": large_launches["whisper_attention"], **unit("whisper_attention"), **wattn_rec},
+         "launches": large_launches["whisper_attention"], **unit("whisper_attention"),
+         "launches_transcribe": launches["transcribe_whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",

@@ -1,9 +1,11 @@
 """Whisper weight resolution and loading.
 
-``load_model(name)`` resolves a model name to ``(AudioEncoder, dims)``:
+``load_model(name)`` resolves a model name to ``(AudioEncoder, dims)``, and
+``load_decoder(name)`` to ``(TextDecoder, dims)`` from the same source (the
+decoder is built only when a caller asks for it — collection never does):
 
 * ``random:NAME`` / ``test:NAME`` → seeded random init (``torch.Generator``)
-  with NAME's geometry (``test:`` shrinks to 2 layers). The numbers differ
+  with NAME's geometry (``test:`` shrinks to 2 + 2 layers). The numbers differ
   from the JAX package's ``init_params``; move JAX weights across with
   ``state_dict_from_jax`` when both must hold the same model.
 * a bare name → the OpenAI ``.pt`` checkpoint from ``$FREUD_WHISPER_DIR`` or
@@ -26,7 +28,7 @@ import numpy as np
 import torch
 
 from .config import MODEL_DIMS, WhisperDims, dims_for
-from .model import AudioEncoder, init_encoder
+from .model import AudioEncoder, TextDecoder, init_decoder, init_encoder
 
 _SEARCH_ENV = "FREUD_WHISPER_DIR"
 _DEFAULT_DIRS = ("~/.cache/whisper", "~/.cache/freud_tpu/whisper")
@@ -111,16 +113,29 @@ def state_dict_from_jax(np_params: Mapping, dims: WhisperDims) -> dict[str, torc
     return sd
 
 
+def _own(sd: Mapping[str, torch.Tensor], prefix: str) -> dict[str, torch.Tensor]:
+    return {k[len(prefix):]: v for k, v in sd.items() if k.startswith(prefix)}
+
+
 def encoder_from_state_dict(sd: Mapping[str, torch.Tensor], dims: WhisperDims,
                             device: torch.device | str = "cpu") -> AudioEncoder:
     """An ``AudioEncoder`` holding the ``encoder.*`` entries of an
     OpenAI-layout state dict (decoder entries are ignored)."""
     enc = AudioEncoder(dims)
-    own = {k[len("encoder."):]: v for k, v in sd.items() if k.startswith("encoder.")}
+    own = _own(sd, "encoder.")
     # older checkpoints may omit the (deterministic) sinusoid table
     own.setdefault("positional_embedding", enc.positional_embedding)
     enc.load_state_dict({k: v.to(torch.float32) for k, v in own.items()})
     return enc.to(device)
+
+
+def decoder_from_state_dict(sd: Mapping[str, torch.Tensor], dims: WhisperDims,
+                            device: torch.device | str = "cpu") -> TextDecoder:
+    """A ``TextDecoder`` holding the ``decoder.*`` entries of an
+    OpenAI-layout state dict (encoder entries are ignored)."""
+    dec = TextDecoder(dims)
+    dec.load_state_dict({k: v.to(torch.float32) for k, v in _own(sd, "decoder.").items()})
+    return dec.to(device)
 
 
 # ------------------------------------------------------ HuggingFace layout
@@ -159,23 +174,31 @@ def read_safetensors(path: str | Path) -> dict[str, np.ndarray]:
     return out
 
 
-# HF encoder-layer modules → the OpenAI (and this package's) module names
+# HF layer modules → the OpenAI (and this package's) module names; decoder
+# layers add the cross-attention's
 _HF_BLOCK = (("self_attn_layer_norm", "attn_ln"), ("self_attn.q_proj", "attn.query"),
              ("self_attn.k_proj", "attn.key"), ("self_attn.v_proj", "attn.value"),
              ("self_attn.out_proj", "attn.out"), ("final_layer_norm", "mlp_ln"),
              ("fc1", "mlp.0"), ("fc2", "mlp.2"))
+_HF_CROSS = (("encoder_attn_layer_norm", "cross_attn_ln"),
+             ("encoder_attn.q_proj", "cross_attn.query"),
+             ("encoder_attn.k_proj", "cross_attn.key"),
+             ("encoder_attn.v_proj", "cross_attn.value"),
+             ("encoder_attn.out_proj", "cross_attn.out"))
 
 
 def state_dict_from_hf(sd: Mapping, dims: WhisperDims) -> dict[str, torch.Tensor]:
-    """OpenAI-layout encoder state dict (``encoder.*``, f32) from a
-    HuggingFace-transformers Whisper state dict (``model.encoder.*`` or
-    ``encoder.*`` keys; numpy arrays or tensors) — the encoder half of
-    ``freud_tpu.models.whisper.load.params_from_hf_state_dict``. HF linears,
-    LayerNorms and convs share torch's layout, so tensors move across
-    unchanged; the decoder's entries are not read."""
-    enc = "model.encoder"
+    """OpenAI-layout state dict (``encoder.*`` and ``decoder.*``, f32) from a
+    HuggingFace-transformers Whisper state dict (``model.encoder.*`` /
+    ``model.decoder.*`` or ``encoder.*`` / ``decoder.*`` keys; numpy arrays
+    or tensors), with the names
+    ``freud_tpu.models.whisper.load.params_from_hf_state_dict`` maps. HF
+    linears, LayerNorms, convs and embeddings share torch's layout, so
+    tensors move across unchanged. A state dict without the decoder's
+    entries yields the encoder's alone."""
+    enc, dec = "model.encoder", "model.decoder"
     if f"{enc}.conv1.weight" not in sd and "encoder.conv1.weight" in sd:
-        enc = "encoder"
+        enc, dec = "encoder", "decoder"
     out: dict[str, torch.Tensor] = {}
 
     def f32(x) -> torch.Tensor:  # a tensor (maybe bf16) or a numpy array
@@ -186,26 +209,28 @@ def state_dict_from_hf(sd: Mapping, dims: WhisperDims) -> dict[str, torch.Tensor
     def move(src: str, dst: str) -> None:
         for suffix in ("weight", "bias"):
             if f"{src}.{suffix}" in sd:
-                out[f"encoder.{dst}.{suffix}"] = f32(sd[f"{src}.{suffix}"])
+                out[f"{dst}.{suffix}"] = f32(sd[f"{src}.{suffix}"])
 
-    move(f"{enc}.conv1", "conv1")
-    move(f"{enc}.conv2", "conv2")
+    move(f"{enc}.conv1", "encoder.conv1")
+    move(f"{enc}.conv2", "encoder.conv2")
     out["encoder.positional_embedding"] = f32(sd[f"{enc}.embed_positions.weight"])
     for i in range(dims.n_audio_layer):
         for theirs, ours in _HF_BLOCK:
-            move(f"{enc}.layers.{i}.{theirs}", f"blocks.{i}.{ours}")
-    move(f"{enc}.layer_norm", "ln_post")
+            move(f"{enc}.layers.{i}.{theirs}", f"encoder.blocks.{i}.{ours}")
+    move(f"{enc}.layer_norm", "encoder.ln_post")
+    if f"{dec}.embed_tokens.weight" not in sd:
+        return out
+    out["decoder.token_embedding.weight"] = f32(sd[f"{dec}.embed_tokens.weight"])
+    out["decoder.positional_embedding"] = f32(sd[f"{dec}.embed_positions.weight"])
+    for i in range(dims.n_text_layer):
+        for theirs, ours in _HF_BLOCK + _HF_CROSS:
+            move(f"{dec}.layers.{i}.{theirs}", f"decoder.blocks.{i}.{ours}")
+    move(f"{dec}.layer_norm", "decoder.ln")
     return out
 
 
-def load_hf_dir(path: str | Path, device: torch.device | str = "cpu"
-                ) -> tuple[AudioEncoder, WhisperDims]:
-    """(encoder, dims) from a local HuggingFace Whisper checkpoint directory:
-    ``config.json`` gives the dims, ``model.safetensors`` (preferred) or
-    ``pytorch_model.bin`` the weights."""
-    path = Path(path)
-    hf_cfg = json.loads((path / "config.json").read_text())
-    dims = WhisperDims(
+def _hf_dims(hf_cfg: dict) -> WhisperDims:
+    return WhisperDims(
         n_mels=hf_cfg["num_mel_bins"],
         n_audio_ctx=hf_cfg.get("max_source_positions", 1500),
         n_audio_state=hf_cfg["d_model"],
@@ -217,6 +242,15 @@ def load_hf_dir(path: str | Path, device: torch.device | str = "cpu"
         n_text_head=hf_cfg["decoder_attention_heads"],
         n_text_layer=hf_cfg["decoder_layers"],
     )
+
+
+def hf_state_dict(path: str | Path) -> tuple[dict[str, torch.Tensor], WhisperDims]:
+    """(OpenAI-layout state dict, dims) of a local HuggingFace Whisper
+    checkpoint directory: ``config.json`` gives the dims,
+    ``model.safetensors`` (preferred) or ``pytorch_model.bin`` the
+    weights."""
+    path = Path(path)
+    dims = _hf_dims(json.loads((path / "config.json").read_text()))
     if (path / "model.safetensors").exists():
         sd = read_safetensors(path / "model.safetensors")
     elif (path / "pytorch_model.bin").exists():
@@ -226,18 +260,25 @@ def load_hf_dir(path: str | Path, device: torch.device | str = "cpu"
         raise FileNotFoundError(
             f"{path} holds config.json but neither model.safetensors nor "
             "pytorch_model.bin")
-    return encoder_from_state_dict(state_dict_from_hf(sd, dims), dims, device), dims
+    return state_dict_from_hf(sd, dims), dims
 
 
-def load_model(name: str, device: torch.device | str = "cpu") -> tuple[AudioEncoder, WhisperDims]:
-    """Resolve a model name to (encoder, dims) on ``device``."""
+def load_hf_dir(path: str | Path, device: torch.device | str = "cpu"
+                ) -> tuple[AudioEncoder, WhisperDims]:
+    """(encoder, dims) from a local HuggingFace Whisper checkpoint
+    directory (``hf_state_dict``)."""
+    sd, dims = hf_state_dict(path)
+    return encoder_from_state_dict(sd, dims, device), dims
+
+
+def _state_dict(name: str) -> tuple[Mapping | None, WhisperDims]:
+    """(OpenAI-layout state dict, dims) a model name resolves to; the state
+    dict is None for ``random:``/``test:`` names."""
     if name.startswith(("random:", "test:")):
-        dims = dims_for(name)
-        return init_encoder(dims, seed=0, device=device), dims
-
+        return None, dims_for(name)
     as_path = Path(name).expanduser()
     if as_path.is_dir() and (as_path / "config.json").exists():
-        return load_hf_dir(as_path, device)
+        return hf_state_dict(as_path)
     if name not in MODEL_DIMS:
         raise ValueError(f"Unknown whisper model: {name!r}")
     path = find_checkpoint(name)
@@ -253,4 +294,20 @@ def load_model(name: str, device: torch.device | str = "cpu") -> tuple[AudioEnco
     dims_dict = ckpt["dims"]
     dims = WhisperDims(**{k: dims_dict[k] for k in WhisperDims.__dataclass_fields__
                           if k in dims_dict})
-    return encoder_from_state_dict(ckpt["model_state_dict"], dims, device), dims
+    return ckpt["model_state_dict"], dims
+
+
+def load_model(name: str, device: torch.device | str = "cpu") -> tuple[AudioEncoder, WhisperDims]:
+    """Resolve a model name to (encoder, dims) on ``device``."""
+    sd, dims = _state_dict(name)
+    if sd is None:
+        return init_encoder(dims, seed=0, device=device), dims
+    return encoder_from_state_dict(sd, dims, device), dims
+
+
+def load_decoder(name: str, device: torch.device | str = "cpu") -> tuple[TextDecoder, WhisperDims]:
+    """Resolve a model name to (text decoder, dims) on ``device``."""
+    sd, dims = _state_dict(name)
+    if sd is None:
+        return init_decoder(dims, seed=0, device=device), dims
+    return decoder_from_state_dict(sd, dims, device), dims

@@ -30,10 +30,22 @@ the q/k/v projections at d > 768, the out-projection and the convs stay
 ``torch.matmul`` and ``F.conv1d`` — the JAX package left them to XLA. For
 f32 on CUDA the caller pins TF32 off (``WhisperRuntime`` does), or cuDNN
 would run the convs in TF32.
+
+The text decoder (``TextDecoder``: ``token_embedding``,
+``positional_embedding``, ``blocks.N.{attn_ln, attn, cross_attn_ln,
+cross_attn, mlp_ln, mlp}``, ``ln``, OpenAI's names) has no kernel of its
+own, as in the JAX package: its attention is plain matmuls, with JAX's
+numerics — q and k each scaled by dh^-¼ before the product, scores and
+vocabulary logits f32 products of the compute-dtype operands (the operands
+are upcast, so a bf16 decode rounds as ``preferred_element_type=f32``
+does), the softmax in f32. ``decoder_forward`` is the teacher-forced
+full-sequence pass (causal mask); the KV-cached step is
+``decoding._decode_step``.
 """
 
 from __future__ import annotations
 
+import copy
 from typing import Mapping, Optional, Sequence
 
 import numpy as np
@@ -122,10 +134,13 @@ class MultiHeadAttention(nn.Module):
 
 
 class ResidualAttentionBlock(nn.Module):
-    def __init__(self, n_state: int, n_head: int):
+    def __init__(self, n_state: int, n_head: int, cross_attention: bool = False):
         super().__init__()
         self.attn = MultiHeadAttention(n_state, n_head)
         self.attn_ln = nn.LayerNorm(n_state)
+        if cross_attention:  # the decoder's blocks
+            self.cross_attn = MultiHeadAttention(n_state, n_head)
+            self.cross_attn_ln = nn.LayerNorm(n_state)
         self.mlp = nn.Sequential(
             nn.Linear(n_state, 4 * n_state), nn.GELU(), nn.Linear(4 * n_state, n_state)
         )
@@ -252,3 +267,121 @@ def init_encoder(dims: WhisperDims, seed: int = 0,
                 bound = 1.0 / np.sqrt(linear.in_features)
                 p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
     return enc.to(device)
+
+
+# ---------------------------------------------------------------- decoder
+
+
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, s, d) → a (b, h, s, dh) view."""
+    b, s, d = t.shape
+    return t.view(b, s, heads, d // heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(b, h, s, dh) → (b, s, h·dh)."""
+    b, h, s, dh = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           keep: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Softmax attention with the JAX decoder's numerics: ``q`` (…, g, dh)
+    and ``k`` (…, s, dh), each already scaled by dh^-¼; the scores are the
+    f32 product of the (upcast) operands, ``keep`` (bool, broadcast to the
+    scores) masks to -inf, the softmax runs in f32 and its weights are cast
+    to ``v``'s dtype before the product with ``v``."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if keep is not None:
+        scores = scores.masked_fill(~keep, float("-inf"))
+    return torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)
+
+
+class TextDecoder(nn.Module):
+    """Whisper's text decoder: (b, T) tokens and (b, 1500, d) encoded audio
+    → (b, T, n_vocab) logits (``decoder_forward``)."""
+
+    def __init__(self, dims: WhisperDims):
+        super().__init__()
+        d = dims.n_text_state
+        self.dims = dims
+        self.token_embedding = nn.Embedding(dims.n_vocab, d)
+        self.positional_embedding = nn.Parameter(torch.empty(dims.n_text_ctx, d))
+        self.blocks = nn.ModuleList(
+            ResidualAttentionBlock(d, dims.n_text_head, cross_attention=True)
+            for _ in range(dims.n_text_layer)
+        )
+        self.ln = nn.LayerNorm(d)
+
+
+def cast_module(module: nn.Module, dtype: torch.dtype) -> nn.Module:
+    """``module`` itself when its parameters are ``dtype``, else a cast copy
+    (the module is not changed)."""
+    if next(module.parameters()).dtype == dtype:
+        return module
+    return copy.deepcopy(module).to(dtype)
+
+
+def decoder_forward(
+    module: TextDecoder,
+    dims: WhisperDims,
+    tokens: torch.Tensor,
+    encoded: torch.Tensor,
+    compute_dtype: torch.dtype = torch.float32,
+) -> tuple[torch.Tensor, Captures]:
+    """Teacher-forced full-sequence decoder with a causal mask: (b, T)
+    tokens → ((b, T, n_vocab) f32 logits, captures) — the counterpart of
+    ``freud_tpu.models.whisper.model.decoder_forward`` and the oracle of the
+    KV-cached step. Weights and ``encoded`` run in ``compute_dtype`` (a
+    cast copy when the module differs). Decoder capture and substitution
+    names come with decoder-layer capture (ROADMAP Queue 1 #9); the
+    captures are empty until then."""
+    if dims != module.dims:
+        raise ValueError(f"dims {dims} do not match the module's {module.dims}")
+    dec = cast_module(module, compute_dtype)
+    heads = dims.n_text_head
+    scale = (dims.n_text_state // heads) ** -0.25
+    t = tokens.shape[-1]
+    xa = encoded.to(compute_dtype)
+    x = dec.token_embedding(tokens) + dec.positional_embedding[:t]
+    causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+    for block in dec.blocks:
+        a = block.attn
+        h = block.attn_ln(x)
+        q = split_heads(a.query(h), heads) * scale
+        k = split_heads(a.key(h), heads) * scale
+        x = x + a.out(merge_heads(attend(q, k, split_heads(a.value(h), heads), causal)))
+        c = block.cross_attn
+        h = block.cross_attn_ln(x)
+        q = split_heads(c.query(h), heads) * scale
+        k = split_heads(c.key(xa), heads) * scale
+        x = x + c.out(merge_heads(attend(q, k, split_heads(c.value(xa), heads))))
+        x = x + block.mlp(block.mlp_ln(x))
+    x = dec.ln(x)
+    logits = torch.matmul(x.float(), dec.token_embedding.weight.float().T)
+    return logits, {}
+
+
+def init_decoder(dims: WhisperDims, seed: int = 0,
+                 device: torch.device | str = "cpu") -> TextDecoder:
+    """Random-initialized decoder from a seeded ``torch.Generator``: the
+    JAX ``init_params`` distributions — token embedding N(0, 0.02²),
+    positional embedding N(0, 0.01²), uniform ±1/√d_in linears (keys
+    without bias), unit LayerNorms — but not the same numbers."""
+    gen = torch.Generator(device="cpu").manual_seed(seed)
+    dec = TextDecoder(dims)
+    with torch.no_grad():
+        for name, p in dec.named_parameters():
+            if name == "token_embedding.weight":
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.02)
+            elif name == "positional_embedding":
+                p.copy_(torch.randn(p.shape, generator=gen) * 0.01)
+            elif name.endswith("ln.weight"):
+                p.fill_(1.0)
+            elif name.endswith("ln.bias"):
+                p.zero_()
+            else:  # linear weight (out, in) or bias (out,) of a linear
+                linear = dec.get_submodule(name.rsplit(".", 1)[0])
+                bound = 1.0 / np.sqrt(linear.in_features)
+                p.copy_((torch.rand(p.shape, generator=gen) * 2 - 1) * bound)
+    return dec.to(device)

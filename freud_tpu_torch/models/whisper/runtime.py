@@ -1,21 +1,53 @@
-"""Whisper runtime: the collection subset of ``freud_tpu``'s ``WhisperRuntime``.
+"""Whisper runtime: capture, substitution and transcription on one device.
 
-One runtime object owns the encoder on its device and one capture layer.
-``activations(mels)`` is one encoder forward that stops after the captured
-layer — collection never touches the decoder. Encoder layers only: a
-``decoder.*`` layer (greedy decode + teacher-forced capture in the JAX
-package), transcription and substitution-driven transcripts come in later
-slices of the port.
+The port of ``freud_tpu``'s ``WhisperRuntime``. One runtime object owns the
+model on its device (the card unless the caller passes ``device="cpu"``)
+and at most one capture layer:
+
+* ``activations(mels)`` — one encoder forward that stops after the captured
+  layer; collection never touches the decoder, which is built only when a
+  transcription first needs it.
+* ``transcribe(mels, substitute_layer=..., substitute_value=...)`` — the
+  encoder (optionally with one encoder layer's output replaced) and the
+  KV-cached greedy decoder (``decoding.py``); ``transcribe_with_fallback``
+  is whisper.transcribe's temperature ladder (one decode a rung, beam
+  search on the t = 0 rung when ``beam_size`` is given).
+
+The log-mel on the card: the transcribe CLI's ``AudioBatchPipeline`` runs
+the log-mel kernel (#1), as the JAX pipeline runs its Pallas kernel on the
+TPU; on CUDA the port's ``mels_from_array`` (the trainer's validation
+transcripts) runs #1 too, where the JAX package's runs its XLA path. Both
+are held within #1's gate on the card. The differential tests run on the
+CPU, where both packages take their plain paths.
+
+Not ported yet, each raising ``NotImplementedError`` that names the slice
+that brings it: ``decoder.*`` capture layers, ``decode_capture`` and the
+online ``decoder_tap`` (ROADMAP Queue 1 #9); word timestamps
+(``transcribe_with_word_timestamps``, ``align_words``) and long-form audio
+(``transcribe_long``) (#11).
 """
 
 from __future__ import annotations
 
+import zlib
 from typing import Optional
 
+import numpy as np
 import torch
 
-from .load import load_model
-from .model import encoder_forward
+from ... import profiling
+from ...device import resolve_device
+from .decoding import (
+    _check_tap,
+    beam_decode,
+    detect_language,
+    sample_decode,
+)
+from .load import load_decoder, load_model
+from .model import TextDecoder, encoder_forward
+from .tokenizer import decode_text, language_index, special_tokens
+
+FALLBACK_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
 
 
 def pin_full_f32(device: torch.device) -> None:
@@ -26,35 +58,103 @@ def pin_full_f32(device: torch.device) -> None:
         torch.backends.cuda.matmul.allow_tf32 = False
 
 
+def fallback_accepts(text, sum_lp, n_text, no_speech_prob,
+                     compression_ratio_threshold, logprob_threshold,
+                     no_speech_threshold):
+    """whisper transcribe.py decode_with_fallback's acceptance rule for one
+    clip → (accept, compression_ratio, avg_logprob), as the JAX package
+    applies it."""
+    ratio = 0.0
+    if text:
+        raw = text.encode("utf-8")
+        ratio = len(raw) / max(len(zlib.compress(raw)), 1)
+    avg_lp = sum_lp / (n_text + 1.0)
+    accept = True
+    if (compression_ratio_threshold is not None
+            and "<tok:" not in text
+            and ratio > compression_ratio_threshold):
+        # "<tok:N>" is the rendering without BPE assets: its scaffolding
+        # compresses to ≈ 2.9 whatever the content, so the repetition gate
+        # is skipped there (it would reject every rung)
+        accept = False  # too repetitive
+    if logprob_threshold is not None and avg_lp < logprob_threshold:
+        accept = False  # average log probability too low
+    if (no_speech_threshold is not None
+            and no_speech_prob > no_speech_threshold):
+        accept = True  # confident silence: don't escalate
+    return accept, ratio, avg_lp
+
+
+def _check_encoder_layer(layer_name: str, what: str) -> None:
+    """Tensor substitution splices the encoder forward only: a ``decoder.*``
+    name would never match a tap and silently do nothing."""
+    if layer_name.startswith("decoder."):
+        raise ValueError(
+            f"{what} supports encoder layers only, got {layer_name!r}; "
+            "decoder-layer capture and steering are not ported to "
+            "freud_tpu_torch yet (ROADMAP Queue 1 #9)")
+
+
+def _not_ported(what: str, slice_no: int):
+    raise NotImplementedError(f"{what} is not ported to freud_tpu_torch yet "
+                              f"(ROADMAP Queue 1 #{slice_no})")
+
+
 class WhisperRuntime:
-    """Encoder forward passes for one model + capture layer on one device."""
+    """Encoder capture and transcription for one model + capture layer on
+    one device."""
 
     def __init__(
         self,
         model_name: str,
         layer_name: Optional[str] = None,
         compute_dtype: torch.dtype = torch.float32,
-        device: torch.device | str = "cpu",
+        max_new_tokens: int = 224,
+        language: Optional[str] = None,
+        task: str = "transcribe",
+        device: torch.device | str | None = None,
+        early_exit: bool = True,
     ):
+        """``language=None`` detects the language per clip (multilingual
+        vocabularies); a code like ``"en"`` pins it. ``task`` is
+        "transcribe" or "translate" (multilingual vocabularies only).
+        ``device`` None means the card. ``early_exit=False`` makes every
+        decode run its whole ``max_new_tokens`` budget (the same output; a
+        benchmark's fixed yardstick)."""
         if layer_name is not None and layer_name.startswith("decoder."):
-            raise NotImplementedError(
-                f"decoder-layer capture ({layer_name!r}) is not ported to "
-                "freud_tpu_torch yet; capture an encoder.* layer")
+            _not_ported(f"decoder-layer capture ({layer_name!r})", 9)
         if layer_name is not None and not layer_name.startswith("encoder."):
             raise ValueError(f"unknown capture layer {layer_name!r}")
+        if task not in ("transcribe", "translate"):
+            raise ValueError(f"task must be transcribe|translate, got {task!r}")
         self.model_name = model_name
         self.layer_name = layer_name
         self.compute_dtype = compute_dtype
-        self.device = torch.device(device)
-        if self.device.type == "cuda" and not torch.cuda.is_available():
-            raise RuntimeError(
-                f"device {device!r} requested but torch.cuda.is_available() "
-                "is False")
+        self.max_new_tokens = max_new_tokens
+        self.language = language
+        self.task = task
+        self.early_exit = early_exit
+        self.device = resolve_device(device, "WhisperRuntime",
+                                     hint='pass device="cpu" to run on the CPU')
         if compute_dtype == torch.float32:
             pin_full_f32(self.device)
         encoder, self.dims = load_model(model_name, device=self.device)
         # cast once here; encoder_forward then runs the module as it is
         self.encoder = encoder.to(compute_dtype).eval()
+        self._decoder: Optional[TextDecoder] = None
+        self._st = special_tokens(self.dims.n_vocab)
+        if task == "translate" and not self._st.multilingual:
+            raise ValueError(
+                f"{model_name!r} is English-only; task='translate' needs a "
+                "multilingual model")
+
+    @property
+    def decoder(self) -> TextDecoder:
+        """The text decoder in ``compute_dtype``, built at first use."""
+        if self._decoder is None:
+            decoder, _ = load_decoder(self.model_name, device=self.device)
+            self._decoder = decoder.to(self.compute_dtype).eval()
+        return self._decoder
 
     # -- capture ------------------------------------------------------------
 
@@ -64,15 +164,12 @@ class WhisperRuntime:
         (b, 1500, width)."""
         if self.layer_name is None:
             raise ValueError("runtime was built without a capture layer")
-        mels = torch.as_tensor(mels)
-        if mels.ndim == 2:
-            mels = mels[None]
         # eager PyTorch runs every layer it is given: stop after the
         # captured block (XLA dropped the unused tail of the JAX collection
         # program, whose encoded output it discards)
         with torch.inference_mode():
             _, caps = encoder_forward(
-                self.encoder, self.dims, mels.to(self.device),
+                self.encoder, self.dims, self._batch(mels),
                 capture=(self.layer_name,), compute_dtype=self.compute_dtype,
                 stop_after_capture=True)
         return caps[self.layer_name]
@@ -85,6 +182,156 @@ class WhisperRuntime:
         acts = self.activations(mels)
         n_valid = torch.full((acts.shape[0],), acts.shape[1], dtype=torch.int32)
         return acts, n_valid
+
+    def decode_capture(self, mels):
+        _not_ported("decoder-layer capture (decode_capture)", 9)
+
+    # -- transcription ------------------------------------------------------
+
+    def encode(self, mels: torch.Tensor, substitute_layer: Optional[str] = None,
+               substitute_value=None) -> torch.Tensor:
+        """(b, n_mels, 3000) mels → (b, 1500, d) encoded audio in
+        ``compute_dtype``, with ``substitute_layer``'s output replaced by
+        ``substitute_value`` ((s, d) or (b, s, d)) when given."""
+        mels = self._batch(mels)
+        substitute = None
+        if substitute_layer is not None:
+            _check_encoder_layer(substitute_layer, "substitution")
+            substitute = {substitute_layer: self._batched_substitute(
+                substitute_value, mels.shape[0])}
+        with torch.inference_mode():
+            encoded, _ = encoder_forward(self.encoder, self.dims, mels,
+                                         substitute=substitute,
+                                         compute_dtype=self.compute_dtype)
+        return encoded
+
+    def _prompt(self, encoded: torch.Tensor, lang_idx=None) -> tuple[torch.Tensor, int]:
+        """(b, n_prompt) SOT sequences on the runtime's device: the pinned
+        language, ``lang_idx`` where given, else the language detected per
+        clip (multilingual vocabularies)."""
+        batch = encoded.shape[0]
+        seq = self._st.sot_sequence(
+            lang_index=0, task_translate=self.task == "translate", timestamps=True)
+        arr = np.tile(np.asarray(seq, np.int64), (batch, 1))
+        if self._st.multilingual:
+            if lang_idx is not None:
+                lang = np.broadcast_to(np.asarray(lang_idx), (batch,))
+            elif self.language is None:
+                lang = detect_language(self.decoder, self.dims, encoded,
+                                       compute_dtype=self.compute_dtype).cpu().numpy()
+            else:
+                lang = np.full((batch,), language_index(self.language, self.dims.n_vocab))
+            arr[:, 1] = self._st.lang_base + lang
+        return torch.from_numpy(arr).to(self.device), len(seq)
+
+    def _decode(self, encoded: torch.Tensor, prompt: torch.Tensor, n_prompt: int,
+                temperature: float = 0.0, beam_size: Optional[int] = None,
+                generator: Optional[torch.Generator] = None) -> tuple[np.ndarray, ...]:
+        """One decode of the batch → (tokens, sum_logprob, n_text,
+        no_speech_prob) as numpy arrays. The ``decode`` span covers the
+        device work: it ends with the results on the host."""
+        with profiling.span("decode"):
+            if beam_size:
+                out = beam_decode(self.decoder, self.dims, encoded, prompt, n_prompt,
+                                  max_new=self.max_new_tokens, beam_size=beam_size,
+                                  compute_dtype=self.compute_dtype)
+            else:
+                out = sample_decode(self.decoder, self.dims, encoded, prompt, n_prompt,
+                                    max_new=self.max_new_tokens, temperature=temperature,
+                                    generator=generator, compute_dtype=self.compute_dtype,
+                                    early_exit=self.early_exit)
+            return tuple(t.cpu().numpy() for t in out)
+
+    def transcribe(self, mels: torch.Tensor, substitute_layer: Optional[str] = None,
+                   substitute_value=None, decoder_tap: Optional[tuple] = None) -> list[str]:
+        """Greedy transcripts of (b, n_mels, 3000) mels; with
+        ``substitute_layer``, that encoder layer's output is replaced by
+        ``substitute_value`` for the encode (the reference's
+        ``WhisperSubbedActivation``). ``decoder_tap`` raises until
+        decoder-layer steering is ported (ROADMAP Queue 1 #9)."""
+        _check_tap(decoder_tap)
+        encoded = self.encode(mels, substitute_layer, substitute_value)
+        prompt, n_prompt = self._prompt(encoded)
+        return self.decode_tokens_text(self._decode(encoded, prompt, n_prompt)[0])
+
+    def transcribe_one(self, mels, **kw) -> str:
+        return self.transcribe(mels, **kw)[0]
+
+    def transcribe_with_fallback(
+        self,
+        mels: torch.Tensor,
+        substitute_layer: Optional[str] = None,
+        substitute_value=None,
+        temperatures: tuple = FALLBACK_TEMPERATURES,
+        beam_size: Optional[int] = None,
+        compression_ratio_threshold: Optional[float] = 2.4,
+        logprob_threshold: Optional[float] = -1.0,
+        no_speech_threshold: Optional[float] = 0.6,
+        seed: int = 0,
+    ) -> list[str]:
+        """whisper.transcribe's decode-with-fallback schedule, batched: one
+        decode of the whole batch a temperature (beam search on the t = 0
+        rung when ``beam_size`` is given; rung i samples from a
+        ``torch.Generator`` seeded ``seed + i``). A clip takes the first rung
+        whose transcript ``fallback_accepts``; the last rung is taken
+        whatever it holds."""
+        encoded = self.encode(mels, substitute_layer, substitute_value)
+        prompt, n_prompt = self._prompt(encoded)
+        b = encoded.shape[0]
+        texts: list[Optional[str]] = [None] * b
+        for ti, t in enumerate(temperatures):
+            generator = None
+            if t > 0:
+                generator = torch.Generator(device=self.device).manual_seed(seed + ti)
+            tokens, sum_lp, n_text, nsp = self._decode(
+                encoded, prompt, n_prompt, temperature=float(t),
+                beam_size=beam_size if t == 0.0 else None, generator=generator)
+            last = ti == len(temperatures) - 1
+            for i in range(b):
+                if texts[i] is not None:
+                    continue
+                text = decode_text(tokens[i], self.dims.n_vocab)
+                ok, _, _ = fallback_accepts(
+                    text, float(sum_lp[i]), float(n_text[i]), float(nsp[i]),
+                    compression_ratio_threshold, logprob_threshold,
+                    no_speech_threshold)
+                if ok or last:
+                    texts[i] = text
+            if all(x is not None for x in texts):
+                break
+        return texts  # type: ignore[return-value]
+
+    def decode_tokens_text(self, tokens) -> list[str]:
+        """Render decoded token rows to transcripts (``decode_text``)."""
+        return [decode_text(row, self.dims.n_vocab) for row in np.asarray(tokens)]
+
+    def transcribe_with_word_timestamps(self, mels, num_frames=None):
+        _not_ported("word timestamps (transcribe_with_word_timestamps)", 11)
+
+    def align_words(self, encoded, text_tokens, lang_idx=0, num_frames=None):
+        _not_ported("word alignment (align_words)", 11)
+
+    def transcribe_long(self, audio, verbose=False, **kw):
+        _not_ported("long-form transcription (transcribe_long)", 11)
+
+    # -- helpers ------------------------------------------------------------
+
+    def _batch(self, mels) -> torch.Tensor:
+        mels = torch.as_tensor(mels)
+        if mels.ndim == 2:
+            mels = mels[None]
+        return mels.to(self.device, torch.float32)
+
+    def _batched_substitute(self, substitute_value, batch: int) -> torch.Tensor:
+        """Broadcast a single (s, d) replacement over the mel batch: the
+        substitution replaces the tensor wholesale, so a batch-1 value
+        against batch-N mels would collapse the encode to one clip."""
+        sub = torch.as_tensor(substitute_value).to(self.device)
+        if sub.ndim == 2:
+            sub = sub[None]
+        if sub.shape[0] == 1 and batch > 1:
+            sub = sub.expand(batch, *sub.shape[1:])
+        return sub
 
     @property
     def activation_width(self) -> int:

@@ -17,8 +17,15 @@ from the device-resident shuffle cache (``data/device_cache.py``), where
 replay of a captured CUDA graph (``train/graph.py``), on the CPU as a loop
 of the same body. ``DeviceValSet`` keeps the validation set resident.
 
+Validation transcripts (``enable_transcripts``, encoder-layer stores): the
+first ``N_TRANSCRIPTS`` validation files are transcribed with the layer's
+output replaced by the SAE's reconstruction, and (once) as they are, in one
+batched decode each (``WhisperRuntime.transcribe``), and logged as
+``val/transcripts/reconstructed_i`` / ``base_i``.
+
 Not in this port yet: pod/mesh training and ``shard_dict`` (the pod chunk
-and sampler raise), and validation transcripts (``enable_transcripts``
+and sampler raise), and the transcripts of ``decoder.*`` stores, which
+need the online decoder steering of ROADMAP Queue 1 #9 (``enable_transcripts``
 prints that they are off and goes on).
 """
 
@@ -37,6 +44,9 @@ import numpy as np
 import torch
 
 from .. import profiling
+from ..audio.decode import load_audio
+from ..audio.mel import mels_from_array
+from ..constants import get_n_mels
 from ..data.device_cache import DeviceShuffleCache, sample_rows
 from ..data.loaders import init_dataloader
 from ..data.prefetch import prefetch_iter
@@ -45,7 +55,7 @@ from ..models.sae import config as sae_config
 from ..models.sae import l1 as l1_mod
 from ..models.sae import topk as topk_mod
 from ..models.sae.serialize import params_from_state_dict
-from ..models.whisper.runtime import pin_full_f32
+from ..models.whisper.runtime import WhisperRuntime, pin_full_f32
 from ..ops.topk_fused import topk_sae_forward
 from ..ops.topk_threshold import topk_thresholds_fired
 from .checkpoint import (
@@ -59,6 +69,7 @@ from .optim import make_optimizer
 # the kernel wrappers a train step can launch (their launches are counted
 # under graph replay)
 STEP_KERNELS = (topk_sae_forward, topk_thresholds_fired)
+N_TRANSCRIPTS = 4  # validation files transcribed per validation
 
 
 def set_seeds(seed: int = 42) -> None:
@@ -235,12 +246,17 @@ class SAETrainer:
         return float(self.schedule.host(count))
 
     @torch.no_grad()
-    def validate_files(self, batch) -> dict:
+    def validate_files(self, batch, sae_out: bool = False) -> dict:
         """Per-file statistics with batch-size-1 semantics (each file is
         its own batch, so the total variance is 0 → 1 and a val fvu is the
-        file's squared error): → numpy arrays, one row per file."""
+        file's squared error): → numpy arrays, one row per file. With
+        ``sae_out``, also each file's reconstruction (``sae_out``, f32) and
+        the transcript transport head (``sae_out_head``: the first
+        N_TRANSCRIPTS reconstructions rounded to bf16, as the JAX package
+        fetches them for the validation transcripts)."""
         x = torch.as_tensor(batch).to(self.device, torch.float32)
         rows = []
+        recons = []
         p = self.params
         if self.variant == "l1":
             p = l1_mod.normalize_columns(p)
@@ -264,7 +280,14 @@ class SAETrainer:
                     "multi_topk_fvu": out.multi_topk_fvu,
                     "mse": torch.mean((out.sae_out[0] - xi) ** 2), "mag": mag,
                 })
-        return {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in rows[0]}
+            recons.append(out.sae_out[0])
+        result = {k: torch.stack([r[k] for r in rows]).cpu().numpy() for k in rows[0]}
+        if sae_out:
+            full = torch.stack(recons)
+            result["sae_out"] = full.cpu().numpy()
+            result["sae_out_head"] = (full[:N_TRANSCRIPTS].to(torch.bfloat16)
+                                      .float().cpu().numpy())
+        return result
 
     # ------------------------------------------------------- checkpoints
 
@@ -413,20 +436,32 @@ def validate(
     layer_name: str,
     whisper_model: str,
     from_disk: bool,
+    log_base_transcripts: bool = False,
     val_batch: int = 8,
+    transcriber=None,
     loader=None,
     device_set: Optional[DeviceValSet] = None,
 ):
-    """Reference ``validate`` statistics: per-file losses and MSE
-    (batch-size-1 math), per-feature magnitude maxes and stds. Transcripts
-    are not ported: the transcript lists come back empty. Pass a ``loader``
-    to reuse one across calls, or a ``device_set`` (an ``ok``
-    ``DeviceValSet``) to validate on resident tensors; both give the same
-    numbers.
+    """Reference ``validate`` semantics: per-file losses and MSE
+    (batch-size-1 math), per-feature magnitude maxes and stds, and the
+    transcripts of the first N_TRANSCRIPTS files whose audio loads (a file
+    that fails to load takes no slot) with the layer's output replaced by
+    the SAE's reconstruction — and, with ``log_base_transcripts``, as they
+    are. Pass a ``loader`` to reuse one across calls, or a ``device_set``
+    (an ``ok`` ``DeviceValSet``) to validate on resident tensors; both give
+    the same numbers.
+
+    ``transcriber`` is batched: ``transcriber(mels, substitute_values=None)
+    → list[str]`` over stacked (B, n_mels, 3000) mels and (B, s, d)
+    replacement rows; the slots are padded to N_TRANSCRIPTS so every
+    validation decodes one shape. The rows are the bf16 transport head of
+    the batch (``validate_files``), or the f32 reconstruction past it, as
+    the JAX package fetches them.
 
     → (losses, subbed_transcripts, base_transcripts, base_filenames,
        magnitude maxes, magnitude stds)."""
-    if device_set is not None and device_set.ok:
+    resident = device_set is not None and device_set.ok
+    if resident:
         source = device_set
     else:
         if loader is None:
@@ -442,20 +477,59 @@ def validate(
     sums: dict[str, float] = {}
     counts = 0
     mags = []
-    for x, n_valid, _ in source:
-        out = trainer.validate_files(x)
+    pending: list[tuple] = []  # (mel, sae_out row, filename)
+    budget = 0  # files offered to the transcripts so far (the resident rule)
+    for x, n_valid, filenames in source:
+        # the JAX package fetches the transport head for a resident batch
+        # while the slots could remain assuming every offered file loads,
+        # and for a streamed batch while slots remain
+        if resident:
+            head_wanted = transcriber is not None and budget < N_TRANSCRIPTS
+            budget += n_valid
+        else:
+            head_wanted = transcriber is not None and len(pending) < N_TRANSCRIPTS
+        want_rows = transcriber is not None and len(pending) < N_TRANSCRIPTS
+        out = trainer.validate_files(x, sae_out=want_rows)
         for key in ("recon", "l1", "fvu", "auxk_loss", "multi_topk_fvu", "mse"):
             if key in out:
                 sums[key] = sums.get(key, 0.0) + float(np.sum(out[key]))
         counts += n_valid
         mags.append(out["mag"])
+        if not want_rows:
+            continue
+        head = out["sae_out_head"] if head_wanted else None
+        for j in range(n_valid):
+            if len(pending) >= N_TRANSCRIPTS:
+                break
+            try:
+                audio = load_audio(filenames[j])
+            except RuntimeError:
+                continue  # a file that does not load takes no slot
+            mel = mels_from_array(audio, get_n_mels(whisper_model), device=trainer.device)
+            row = head[j] if head is not None and j < head.shape[0] else out["sae_out"][j]
+            pending.append((mel, row, filenames[j]))
+
+    subbed: list[str] = []
+    base: list[str] = []
+    base_filenames: list[str] = []
+    if pending:
+        n_real = len(pending)
+        padded = pending + [pending[-1]] * (N_TRANSCRIPTS - n_real)
+        mels = torch.stack([p[0] for p in padded])
+        subs = np.stack([p[1] for p in padded])
+        with profiling.span("val_transcripts"):
+            subbed = list(transcriber(mels, substitute_values=subs))[:n_real]
+            if log_base_transcripts:
+                base = list(transcriber(mels))[:n_real]
+                base_filenames = [p[2] for p in pending]
+
     mag_matrix = np.concatenate(mags, axis=0) if mags else np.zeros((0, 1))
     means = {k: v / max(counts, 1) for k, v in sums.items()}
     losses = {k: means.get(k) for k in ("l1", "recon", "fvu", "auxk_loss",
                                         "multi_topk_fvu")}
     losses["mse"] = means.get("mse", 0.0)
     return (
-        losses, [], [], [],
+        losses, subbed, base, base_filenames,
         mag_matrix.max(axis=0) if len(mag_matrix) else np.zeros(1),
         mag_matrix.std(axis=0) if len(mag_matrix) else np.zeros(1),
     )
@@ -486,7 +560,7 @@ def train(
     dl_max_workers: int = 0,  # accepted for config parity
     mesh=None,
     enable_transcripts: bool = True,
-    max_transcript_tokens: int = 224,  # accepted for config parity
+    max_transcript_tokens: int = 224,
     verbose: bool = True,
     device_cache_files: int = 0,
     fused_steps: Optional[int] = None,
@@ -584,9 +658,28 @@ def train(
         if hasattr(loader, "set_position"):
             loader.set_position(trainer.step)
 
-    if enable_transcripts and verbose:
-        print("transcript logging disabled: decode and transcription are not "
-              "ported to freud_tpu_torch yet")
+    transcriber = None
+    if enable_transcripts and decoder_store:
+        if verbose:
+            print("transcript logging disabled: the transcripts of decoder-layer "
+                  "stores steer the decode online (decoder_tap), which is not "
+                  "ported to freud_tpu_torch yet (ROADMAP Queue 1 #9)")
+    elif enable_transcripts:
+        try:
+            rt = WhisperRuntime(whisper_model, layer_name,
+                                max_new_tokens=max_transcript_tokens, device=dev)
+
+            def transcriber(mels, substitute_values=None):
+                # batched: mels (B, n_mels, T), substitute_values (B, s, d)
+                # or None → B transcripts
+                if substitute_values is None:
+                    return rt.transcribe(mels)
+                return rt.transcribe(mels, substitute_layer=layer_name,
+                                     substitute_value=substitute_values)
+        except (FileNotFoundError, ValueError) as e:
+            if verbose:
+                print(f"transcript logging disabled: {e}")
+    logged_base_transcripts = False
 
     val_loader = None
     val_set = None
@@ -697,9 +790,13 @@ def train(
                         if vs.ok:
                             val_set = vs
                 with profiling.span("validate"):
-                    losses_dict, _, _, _, mag_maxes, mag_stds = validate(
+                    (losses_dict, subbed, base_ts, base_files,
+                     mag_maxes, mag_stds) = validate(
                         trainer, val_folder, layer_name, whisper_model,
-                        from_disk, loader=val_loader, device_set=val_set)
+                        from_disk, not logged_base_transcripts,
+                        transcriber=transcriber, loader=val_loader,
+                        device_set=val_set)
+                logged_base_transcripts = True
                 val_keys = (("recon", "l1") if autoencoder_variant == "l1"
                             else ("fvu", "auxk_loss", "multi_topk_fvu"))
                 if any(losses_dict.get(k) is None for k in val_keys):
@@ -720,6 +817,14 @@ def train(
                 tb.add_scalar("val/encoded/num_dead", num_dead, trainer.step)
                 tb.add_scalar("val/encoded/percent_dead",
                               num_dead / mag_maxes.shape[-1], trainer.step)
+                for i, t in enumerate(subbed):
+                    tb.add_text(f"val/transcripts/reconstructed_{i}", t, trainer.step)
+                for i, t in enumerate(base_ts):
+                    tb.add_text(f"val/transcripts/base_{i}", t, trainer.step)
+                for i, fname in enumerate(base_files):
+                    tb.add_audio(f"val/transcripts/audio_{i}",
+                                 load_audio(fname).reshape(1, -1), trainer.step,
+                                 sample_rate=16000)
                 save_loss = (losses_dict["recon"] if autoencoder_variant == "l1"
                              else losses_dict["fvu"])
                 if verbose:

@@ -478,3 +478,63 @@ def test_window_that_cannot_fit_raises(cuda, tmp_path):
     _, total = torch.cuda.mem_get_info(cuda)
     with pytest.raises(ValueError, match="largest device_cache_files that fits is 0"):
         DeviceShuffleCache(path, "encoder.blocks.2", 4, device=cuda, reserve_bytes=total)
+
+
+# ---------------------------------------------------------------- decoding
+
+DECODE_CLOSE_CALL = 1e-3  # a post-rules top-two margin below this may flip
+
+
+def _decoder_inputs(cuda):
+    from freud_tpu_torch.models.whisper import dims_for, init_decoder, special_tokens
+
+    dims = dims_for("test:tiny")
+    dec = init_decoder(dims, seed=4).eval()
+    rng = np.random.default_rng(9)
+    encoded = torch.from_numpy(rng.standard_normal((2, 1500, 384)).astype(np.float32))
+    st = special_tokens(dims.n_vocab)
+    prompt = torch.tensor([st.sot_sequence(0)] * 2)
+    return dims, dec, encoded, prompt
+
+
+def test_decoder_on_card_matches_cpu(cuda):
+    """Teacher-forced logits and the KV-cached step's rows on the card
+    within 1e-4 of max of the CPU's (f32, TF32 off)."""
+    from freud_tpu_torch.models.whisper import decoder_forward
+    from freud_tpu_torch.models.whisper import decoding as dec_mod
+
+    dims, dec, encoded, prompt = _decoder_inputs(cuda)
+    tokens = torch.cat([prompt, torch.randint(0, 50000, (2, 9),
+                                              generator=torch.Generator().manual_seed(1))], 1)
+    with torch.inference_mode():
+        want, _ = decoder_forward(dec, dims, tokens, encoded)
+        card = dec.to(cuda)
+        got, _ = decoder_forward(card, dims, tokens.to(cuda), encoded.to(cuda))
+        assert ((got.cpu() - want).abs().max() / want.abs().max()).item() < 1e-4
+        cross = dec_mod._cross_kv_stacks(card, dims, encoded.to(cuda))
+        sk, sv = dec_mod._self_kv(dims, 2, tokens.shape[1], torch.float32, cuda)
+        pos = torch.zeros((), dtype=torch.int64, device=cuda)
+        for p in range(tokens.shape[1]):
+            row = dec_mod._decode_step(card, dims, tokens[:, p].to(cuda), pos, sk, sv, cross)
+            assert ((row.cpu() - want[:, p]).abs().max() / want.abs().max()).item() < 1e-4
+            pos += 1
+
+
+@pytest.mark.parametrize("beam", [None, 5])
+def test_decode_on_card_matches_cpu(cuda, beam):
+    """Greedy and beam-5 tokens on the card equal the CPU's up to the first
+    step whose CPU post-rules margin is a close call."""
+    from freud_tpu_torch.models.whisper import decoding as dec_mod
+
+    dims, dec, encoded, prompt = _decoder_inputs(cuda)
+    kw = dict(max_new=24) if beam is None else dict(max_new=24, beam_size=beam)
+    fn = dec_mod.sample_decode if beam is None else dec_mod.beam_decode
+    want = fn(dec, dims, encoded, prompt, 3, **kw)
+    got = fn(dec.to(cuda), dims, encoded.to(cuda), prompt.to(cuda), 3, **kw)
+    margins = dec_mod.decision_margins(dec.cpu(), dims, encoded, want[0], 3)
+    close = [int(np.argmax(m < DECODE_CLOSE_CALL)) if (m < DECODE_CLOSE_CALL).any()
+             else m.shape[0] for m in margins]
+    for r in range(2):
+        np.testing.assert_array_equal(got[0][r, :close[r]].cpu().numpy(),
+                                      want[0][r, :close[r]].numpy())
+    assert torch.isfinite(got[1]).all() and got[0].shape == want[0].shape

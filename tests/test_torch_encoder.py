@@ -117,7 +117,7 @@ def test_random_models_and_runtime():
     again, _ = load_model("test:tiny")
     torch.testing.assert_close(enc.state_dict(), again.state_dict(), rtol=0, atol=0)
     assert enc.blocks[0].attn.key.bias is None
-    rt = WhisperRuntime("test:tiny", "encoder.blocks.0.mlp.1")
+    rt = WhisperRuntime("test:tiny", "encoder.blocks.0.mlp.1", device="cpu")
     assert (rt.activation_frames, rt.activation_width) == (1500, 1536)
     mels = torch.zeros(80, 3000)
     acts, n_valid = rt.activations_with_lengths(mels)

@@ -95,3 +95,36 @@ def test_safetensors_reader_dtypes(tmp_path):
     for name in ("f16", "i64", "scalar"):
         assert got[name].dtype == tensors[name].numpy().dtype, name
         np.testing.assert_array_equal(got[name], tensors[name].numpy())
+
+
+@pytest.mark.parametrize("form", ["safetensors", "bin"])
+def test_hf_decoder_mapping_matches_jax(hf_dirs, form):
+    """``state_dict_from_hf`` maps the decoder's names as
+    ``params_from_hf_state_dict`` does (the JAX pytree carried across by
+    ``state_dict_from_jax`` gives the same tensors), and the loaded decoder's
+    teacher-forced logits agree with JAX's within 1e-4 of max."""
+    import jax
+
+    from freud_tpu.models.whisper.model import decoder_forward as jax_decoder_forward
+    from freud_tpu_torch.models.whisper import decoder_forward, load_decoder, state_dict_from_jax
+    from freud_tpu_torch.models.whisper.load import hf_state_dict
+
+    path = hf_dirs / form
+    jparams, jdims = jax_load_hf_dir(Path(path))
+    sd, dims = hf_state_dict(path)
+    want = state_dict_from_jax(jax.tree_util.tree_map(np.asarray, jparams), dims)
+    assert sorted(sd) == sorted(want)
+    assert any(k.startswith("decoder.blocks.0.cross_attn.") for k in sd)
+    for k, v in want.items():
+        torch.testing.assert_close(sd[k], v, rtol=0, atol=0, msg=k)
+    dec, ddims = load_decoder(str(path))
+    assert ddims == dims and dec.blocks[0].cross_attn.key.bias is None
+    rng = np.random.default_rng(3)
+    encoded = rng.standard_normal((2, CTX, 64)).astype(np.float32)
+    tokens = rng.integers(0, 120, (2, 9))
+    jl, _ = jax_decoder_forward(jparams, jdims, tokens, encoded)
+    with torch.inference_mode():
+        tl, _ = decoder_forward(dec, dims, torch.from_numpy(tokens), torch.from_numpy(encoded))
+    jl = np.asarray(jl)
+    assert tl.shape == jl.shape == (2, 9, 120)
+    assert np.abs(tl.numpy() - jl).max() / np.abs(jl).max() < 1e-4

@@ -237,3 +237,71 @@ def test_feature_index_checks_equal_feature_store(tmp_path):
         assert fi.dense_index_exists(folder, layer) == dense, folder.name
         assert fi.sparse_index_exists(folder, layer) == sparse, folder.name
         assert (fi.existing_index(folder, layer) is not None) == (dense or sparse), folder.name
+
+
+# ------------------------------------------------------------- tokenizer
+
+
+def _synthetic_ranks(folder: Path) -> None:
+    """A tiny multilingual tiktoken table: the 256 single bytes plus a few
+    merges (tests/test_suppression.py's table)."""
+    import base64
+
+    merges = [b" -", b" '", b"((", b"<<", b"\xe2\x99", b"\xe2\x99\xaa", b" (", b"  ",
+              b"he", b"hel", b"hell", b"hello", b" w", b" wo"]
+    lines = [base64.b64encode(bytes([b])) + b" " + str(b).encode() for b in range(256)]
+    lines += [base64.b64encode(m) + b" " + str(256 + i).encode()
+              for i, m in enumerate(merges)]
+    (folder / "multilingual.tiktoken").write_bytes(b"\n".join(lines))
+
+
+@pytest.mark.parametrize("assets", [False, True], ids=["no-assets", "synthetic-ranks"])
+def test_tokenizer_equals_jax(tmp_path, monkeypatch, assets):
+    """The port's tokenizer copy answers as freud_tpu's: the special-token
+    layout of every vocabulary, language indices, and (without and with a
+    rank table) text rendering, pieces, BPE encoding and the suppression
+    lists."""
+    from freud_tpu.models.whisper import tokenizer as jt
+    from freud_tpu_torch.models.whisper import tokenizer as tt
+
+    monkeypatch.setenv("FREUD_TOKENIZER_DIR", str(tmp_path))
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))  # no user cache
+    if assets:
+        _synthetic_ranks(tmp_path)
+    for mod in (jt, tt):
+        mod.clear_asset_caches()
+    try:
+        assert tt.LANGUAGES == jt.LANGUAGES
+        for n_vocab in (51864, 51865, 51866):
+            assert tt.special_tokens(n_vocab).__dict__ == jt.special_tokens(n_vocab).__dict__
+            st = tt.special_tokens(n_vocab)
+            for flags in ((0, False, True), (3, True, True), (5, False, False)):
+                assert st.sot_sequence(*flags) == jt.special_tokens(n_vocab).sot_sequence(*flags)
+        for code in ("en", "de", "yue"):
+            for n_vocab in (51865, 51866):
+                try:
+                    want = jt.language_index(code, n_vocab)
+                except ValueError:
+                    with pytest.raises(ValueError):
+                        tt.language_index(code, n_vocab)
+                else:
+                    assert tt.language_index(code, n_vocab) == want
+        with pytest.raises(ValueError):
+            tt.special_tokens(1000)
+        tokens = [104, 101, 108, 108, 111, 32, 119, 259, 50257, 50364, 300, 2]
+        for n_vocab in (51865, 51866):
+            assert tt.decode_text(tokens, n_vocab) == jt.decode_text(tokens, n_vocab)
+            assert tt.token_pieces(tokens, n_vocab) == jt.token_pieces(tokens, n_vocab)
+            assert tt.tokenizer_available(n_vocab) == jt.tokenizer_available(n_vocab) == assets
+            assert tt.encode_text("hello world ((x", n_vocab) == \
+                jt.encode_text("hello world ((x", n_vocab)
+            assert tt.suppress_token_ids(n_vocab) == jt.suppress_token_ids(n_vocab)
+            assert tt.non_speech_token_ids(n_vocab) == jt.non_speech_token_ids(n_vocab)
+            assert tt.blank_token_id(n_vocab) == jt.blank_token_id(n_vocab)
+        if assets:
+            assert tt.decode_text(tokens, 51865).startswith("hello w")
+        else:
+            assert tt.decode_text(tokens, 51865).startswith("<tok:104>")
+    finally:
+        for mod in (jt, tt):
+            mod.clear_asset_caches()
