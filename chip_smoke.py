@@ -89,15 +89,39 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      CPU post-rules top-two margin is under 1e-3;
  13. the transcribe CLI with random:large-v3 (128 bands) over 8 30-s WAVs:
      greedy at batch 8 in f32 and bf16, beam 5 at batch 2; kernel #5 32
-     times a batch, #2 never; ms a step, RTFx, peak memory.
+     times a batch, #2 never; ms a step, RTFx, peak memory;
+ 14. (after phase 7) decoder-layer collection: the collection CLI on
+     random:tiny ``decoder.blocks.2`` over phase 3's WAVs at batch 32 (the
+     whole encoder, a 224-token greedy decode, one teacher-forced captured
+     pass a batch): store (51, 227, 384), n_frames the decode's valid
+     positions in [4, 227], kernel #1 once and #2 four times a batch; then
+     ``.mlp.1`` over 8 files (width 1536) and phase 5's TopK checkpoint
+     attached over 8 files (an indexed store); RTFx, ms a decode step;
+ 15. the train CLI on that store: tiny_topk 10 steps, val_every 5, the
+     validation transcripts steered online by the live SAE (TensorBoard
+     tags read back), kernel #4 once a step; the same through a 24-file
+     device cache in CUDA-graph chunks of 5 (#4: 6, 5); 4 tiny_l1 steps (an
+     L1 tap); 3 fly-mode steps at batch 8 from the WAVs (#1 once and #2
+     four times in each captured batch);
+ 16. 2 clips on the card against the CPU (the encoder's attention on its
+     f32 path on both): ``decode_capture`` activations within 1e-4 of max,
+     tokens and greedy tokens steered by phase 5's TopK SAE (factor 1 and
+     8) equal up to the first CPU post-rules margin under 1e-3 (the
+     steered margins those of the substituted teacher-forced oracle), and
+     the tapped KV-cached step against that oracle on the card;
+ 17. (after phase 13) random:large-v3 ``decoder.blocks.16`` over phase 13's
+     8 30-s WAVs at batch 8: store (8, 227, 1280), #5 32 times a batch, ms
+     a decode step and peak memory; a raw-channel tap at factor 1 gives
+     the unsteered decode's tokens.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
 record (per kernel: ms, plain_ms, bound_ms and what bounds it,
 library_ms or null with the reason, launches in the main path's run and
 per collection batch or train step; #1, #2 and #5 also their launches in
-the transcription runs, #3 and #4 in the cache runs, #4 the
-graph-against-eager difference) and the device JSON.
+the transcription runs, #3 and #4 in the cache runs, every kernel in the
+decoder runs of phases 14–17, #4 the graph-against-eager difference) and
+the device JSON.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
@@ -118,7 +142,11 @@ in a profiled chunk; then one batch of 8 30-s clips transcribed greedily at
 the full 224-token budget (early exit off) with random:tiny in f32 and
 bf16 and random:large-v3 in bf16: RTFx, ms a token, device-busy share and
 device time by kernel and by decode part (null on a tree without
-transcription). It prints one JSON line. It reaches the package only through the wrappers, the CLIs and
+transcription); then random:tiny ``decoder.blocks.2`` collection's steady
+RTFx (64 and 32 30-s files after an untimed run, batch 32) and ms a decode
+step of 8 30-s clips at the full budget unsteered and steered by a TopK SAE
+at tiny_topk width (null on a tree without decoder capture). It prints one
+JSON line. It reaches the package only through the wrappers, the CLIs and
 the trainer, whose interfaces are those of every checkout that holds all
 five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
 code: run parent, change, change, parent in one call to compare two trees.
@@ -168,6 +196,10 @@ BENCH_FILES, BENCH_STEPS = 256, 8
 # undecodable one: a padded tail) and large-v3's beam batch
 TRANSCRIBE_BATCH, TRANSCRIBE_LONG, BEAM_BATCH = 8, 8, 2
 DECODE_CLOSE_CALL = 1e-3  # a post-rules top-two margin below this may flip
+# decoder-layer capture: tiny's block 2 and large-v3's block 16; a store's
+# rows are the multilingual SOT sequence (3) and the decode's 224 tokens
+DEC_LAYER, LARGE_DEC_LAYER, DEC_FRAMES = "decoder.blocks.2", "decoder.blocks.16", 3 + 224
+STEER_FACTOR = 8.0
 # --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
 # f32 files, in four modes (name, steps, config keys)
 TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
@@ -1100,6 +1132,7 @@ def bench(torch, device, card) -> dict:
         rec["tiny_training"] = bench_training(torch, tmp)
         free_device_memory(torch)
         rec["transcription"] = bench_transcription(torch, tmp, device)
+        rec["decoder"] = bench_decoder(torch, tmp, wavs[2 * BATCH], device)
     return rec
 
 
@@ -1215,6 +1248,105 @@ def bench_transcription(torch, tmp: Path, device) -> dict | None:
         del rt, mels, prof
         free_device_memory(torch)
     return rows
+
+
+def bench_decoder(torch, tmp: Path, wavs64: Path, device) -> dict | None:
+    """--bench: decoder-layer capture and steering at tiny width.
+    Collection of random:tiny decoder block 2 at batch 32 (each batch the
+    whole encoder, a 224-token greedy decode and a teacher-forced capture):
+    an untimed run over 32 files, then 64 files and 32 files; the steady
+    time a batch is their difference. Then one batch of 8 30-s clips
+    greedily decoded at the full budget (early exit off), unsteered and
+    steered by a TopK SAE roundtrip at tiny_topk width (d 384, n_dict 6144,
+    k 32, the validation transcripts' tap): after a warm-up pair, 10
+    pairs, their order alternating, each decode timed on the host's clock (synchronised)
+    and between CUDA events, → ms a step, each side's median, min and max;
+    then one decode of each under the profiler, → its kernels' device ms a
+    step, which host jitter does not reach. A tree without decoder capture
+    gives null."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from freud_tpu_torch.models.whisper import runtime as rt_mod
+
+    if not hasattr(rt_mod.WhisperRuntime, "activations_with_decode"):
+        return None
+    from freud_tpu_torch.analysis.features import sae_roundtrip_tap_params, sae_steer_fn
+    from freud_tpu_torch.data.audio_dataset import AudioBatchPipeline
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
+    from freud_tpu_torch.models.whisper import decoding
+
+    wavs32 = tmp / "audio_dec32"
+    wavs32.mkdir()
+    write_wavs(wavs32, [480000] * BATCH, seed=SEED + 12)
+    base = json.loads((REPO / "configs/features/tiny_block_2_test.json").read_text())
+    runs = []
+    for folder in (wavs32, wavs64, wavs32):
+        cfg = {**base, "whisper_model": "random:tiny", "layer_name": DEC_LAYER,
+               "batch_size": BATCH, "data_path": str(folder),
+               "out_folder": str(tmp / f"dec_bench{len(runs)}")}
+        runs.append(collect(cfg, tmp / "dec_bench.json"))
+        free_device_memory(torch)
+    steady_s = runs[1]["elapsed_s"] - runs[2]["elapsed_s"]
+    rec = {"collection": {
+        "model": "random:tiny", "layer": DEC_LAYER, "batch": BATCH,
+        "elapsed_s_64_32": [runs[1]["elapsed_s"], runs[2]["elapsed_s"]],
+        "rtfx_64_32": [runs[1]["rtfx"], runs[2]["rtfx"]],
+        "steady_batch_ms": 1e3 * steady_s, "steady_rtfx": BATCH * 30.0 / steady_s}}
+    print(f"decoder bench collection: {json.dumps(rec['collection'])}", flush=True)
+
+    rt = rt_mod.WhisperRuntime("random:tiny", DEC_LAYER, device=device, early_exit=False)
+    mels = next(iter(AudioBatchPipeline(str(wavs32), TRANSCRIBE_BATCH, rt.dims.n_mels,
+                                        device=device)))[0]
+    encoded = rt.encode(mels)
+    prompt, n_prompt = rt._prompt(encoded)
+    cfg = TopKAutoEncoderConfig(expansion_factor=16, k=K)
+    sae = topk_mod.init_topk(D_IN, cfg, seed=SEED, device=device)
+    tap = (2, sae_steer_fn("topk", cfg), sae_roundtrip_tap_params("topk", sae))
+
+    def decode(steered: bool, timing: dict | None = None) -> None:
+        start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+        torch.cuda.synchronize()
+        steps, t0 = decoding.sample_decode.steps, time.perf_counter()
+        start.record()
+        rt._decode(encoded, prompt, n_prompt, decoder_tap=tap if steered else None)
+        end.record()
+        torch.cuda.synchronize()
+        n = decoding.sample_decode.steps - steps
+        if timing is not None:
+            timing["wall"].append(1e3 * (time.perf_counter() - t0) / n)
+            timing["events"].append(start.elapsed_time(end) / n)
+
+    sides = ("unsteered", "steered")
+    ms = {k: {"wall": [], "events": []} for k in sides}
+    for steered in (False, True):  # the warm-up pair
+        decode(steered)
+    for i in range(10):  # each pair in the other order than the last
+        for k in sides[::-1] if i % 2 else sides:
+            decode(k == "steered", ms[k])
+    kernel_ms = {}
+    for k in sides:
+        steps = decoding.sample_decode.steps
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            decode(k == "steered")
+        kernel_ms[k] = sum(e.device_time_total for e in prof.key_averages()
+                           if e.device_type == DeviceType.CUDA) / 1e3 / (
+                               decoding.sample_decode.steps - steps)
+
+    def spread(v: list) -> dict:
+        return {"median": statistics.median(v), "min": min(v), "max": max(v)}
+
+    rec["steering"] = {"batch": TRANSCRIBE_BATCH, "dtype": "float32",
+                       "sae": "topk d_in 384 n_dict 6144 k 32", "pairs": 10,
+                       "ms_a_step": ms,
+                       "wall_ms_a_step": {k: spread(ms[k]["wall"]) for k in sides},
+                       "event_ms_a_step": {k: spread(ms[k]["events"]) for k in sides},
+                       "kernel_ms_a_step": kernel_ms}
+    print(f"decoder bench steering: {json.dumps(rec['steering'])}", flush=True)
+    del rt, mels, encoded, sae
+    free_device_memory(torch)
+    return rec
 
 
 def free_device_memory(torch) -> None:
@@ -1528,6 +1660,391 @@ def check_transcript_tags(run_dir: Path) -> None:
             assert any(t.startswith(f"val/transcripts/{kind}_{i}") for t in tags), tags
 
 
+# ------------------------------------------------- decoder capture, steering
+
+
+@contextlib.contextmanager
+def count_batches(loader_cls, counters: dict):
+    """Record each batch a fly loader computes — its rows and the launches
+    of ``counters`` ({name: wrapper}) since the previous batch was done,
+    its log-mel included (the loader's thread runs the mel, then
+    ``_compute``) — by wrapping ``loader_cls._compute`` while the block
+    runs: the fly trainer's prefetch thread computes batches ahead, so
+    totals read after a run would race it. Yields the growing list."""
+    real = loader_cls._compute
+    seen: list[dict] = []
+    last = {k: fn.launches for k, fn in counters.items()}
+
+    def spy(self, mels, n):
+        out = real(self, mels, n)
+        now = {k: fn.launches for k, fn in counters.items()}
+        seen.append({"rows": n, **{k: now[k] - last[k] for k in now}})
+        last.update(now)
+        return out
+
+    loader_cls._compute = spy
+    try:
+        yield seen
+    finally:
+        loader_cls._compute = real
+
+
+@contextlib.contextmanager
+def timed_decodes(torch):
+    """Synchronise and time every ``sample_decode`` the runtime calls
+    (decode_capture and transcription) while the block runs. Yields a
+    record whose "seconds" and "steps" grow a call."""
+    from freud_tpu_torch.models.whisper import decoding
+    from freud_tpu_torch.models.whisper import runtime as rt_mod
+
+    real = rt_mod.sample_decode
+    rec: dict = {"seconds": [], "steps": []}
+
+    def spy(*a, **k):
+        torch.cuda.synchronize()
+        steps, t0 = decoding.sample_decode.steps, time.perf_counter()
+        out = real(*a, **k)
+        torch.cuda.synchronize()
+        rec["seconds"].append(time.perf_counter() - t0)
+        rec["steps"].append(decoding.sample_decode.steps - steps)
+        return out
+
+    rt_mod.sample_decode = spy
+    try:
+        yield rec
+    finally:
+        rt_mod.sample_decode = real
+
+
+def ms_a_step(rec: dict) -> float:
+    return 1e3 * sum(rec["seconds"]) / max(sum(rec["steps"]), 1)
+
+
+def check_decoder_store(folder: Path, layer: str, n_files: int, width: int,
+                        filenames: list[str]) -> tuple[dict, np.ndarray]:
+    """A decoder-layer store: (n, DEC_FRAMES, width) finite rows, metadata
+    of the decode's buffer, n_frames the decode's valid positions."""
+    meta, rows = read_store(folder, layer)
+    assert rows.shape == (n_files, DEC_FRAMES, width), rows.shape
+    assert np.isfinite(rows).all()
+    assert meta["tensor_shape"] == meta["activation_shape"] == [DEC_FRAMES, width]
+    assert meta["filenames"] == filenames
+    assert all(4 <= n <= DEC_FRAMES for n in meta["n_frames"]), meta["n_frames"]
+    return meta, rows
+
+
+def decoder_collections(torch, tmp: Path, config: dict, clips, ckpt: Path, card: str,
+                        counters: dict) -> dict:
+    """Phase 14: the collection CLI on decoder block 2 of random:tiny over
+    phase 3's WAVs at batch 32 (each batch: kernel #1 once, #2 four times —
+    the whole encoder — then a greedy decode of 224 tokens and one
+    teacher-forced captured pass); then ``.mlp.1`` over 8 files (width
+    1536) and phase 5's TopK checkpoint attached over 8 files (an indexed
+    store). → the launches, RTFx and ms a decode step."""
+    from freud_tpu_torch.data.loaders import FlyActivationLoader
+
+    names = [p for p, _ in clips]
+    runs = {}
+    n_all = -(-(len(clips) + 1) // BATCH)  # the broken file takes a slot
+    for name, over, n_files, n_batches, width in (
+            ("decoder.blocks.2", {}, len(clips), n_all, D_IN),
+            ("decoder.blocks.2.mlp.1", {"layer_name": f"{DEC_LAYER}.mlp.1",
+                                        "collect_max": 8}, 8, 1, 4 * D_IN),
+            ("decoder.blocks.2 + TopK SAE", {"sae_model": str(ckpt), "collect_max": 8},
+             8, 1, None)):
+        cfg = {**config, "layer_name": DEC_LAYER, **over,
+               "out_folder": str(tmp / f"dec_{len(runs)}")}
+        for fn in counters.values():
+            fn.launches = 0
+        with count_batches(FlyActivationLoader, counters) as batches, \
+                timed_decodes(torch) as decodes:
+            stats = collect(cfg, tmp / "dec.json")
+            torch.cuda.synchronize()
+        got = {k: fn.launches for k, fn in counters.items()}
+        print(f"decoder collection {name}: {stats['n_files']} files in "
+              f"{stats['elapsed_s']:.3f} s (after model init), RTFx {stats['rtfx']:.1f}, "
+              f"{len(batches)} batches, decode {ms_a_step(decodes):.3f} ms a step "
+              f"(synchronised, steps {decodes['steps']}), launches {got} on {card}")
+        assert len(batches) == n_batches, (len(batches), n_batches)
+        assert got == {"log_mel": n_batches, "fused_qkv_attention": 4 * n_batches,
+                       "whisper_attention": 0, "topk_thresholds_fired": 0}, got
+        assert stats["n_files"] == n_files
+        out = Path(cfg["out_folder"])
+        if width is not None:
+            meta, _ = check_decoder_store(out, cfg["layer_name"], n_files, width,
+                                          names[:n_files])
+        else:
+            meta = json.loads((out / f"{DEC_LAYER}_metadata.json").read_text())
+            vals = np.load(out / f"{DEC_LAYER}_activation_values.npy", mmap_mode="r")
+            idx = np.load(out / f"{DEC_LAYER}_feature_indices.npy", mmap_mode="r")
+            assert vals.shape == idx.shape == (n_files, DEC_FRAMES * K), vals.shape
+            assert meta["activation_shape"] == [DEC_FRAMES, N_DICT]
+            assert np.isfinite(vals).all() and (np.asarray(vals) >= 0).all()
+            assert idx.min() >= 0 and idx.max() < N_DICT
+        runs[name] = {"rtfx": stats["rtfx"], "elapsed_s": stats["elapsed_s"],
+                      "launches": got, "batches": len(batches),
+                      "decode_ms_a_step": ms_a_step(decodes),
+                      "n_frames": meta["n_frames"][:4]}
+        free_device_memory(torch)
+    return runs
+
+
+def decoder_training(torch, tmp: Path, store_dir: str, audio_dir: Path, card: str) -> dict:
+    """Phase 15: the train CLI on the decoder store (51 files × 227 rows):
+    tiny_topk 10 steps with the validation transcripts steered online by
+    the live SAE (val_every 5), kernel #4 once a step; the same through a
+    24-file device cache in chunks of 5 (CUDA graphs: the transcriber reads
+    the parameters the replays update in place); 4 tiny_l1 steps (an L1
+    tap); 3 fly-mode steps at batch 8 from the WAVs (each batch a decoder
+    capture: #1 once, #2 four times). Kernel #3 is counted in every run
+    and launches in none: neither recipe sets ``multi_topk``. → launches
+    and steps/s."""
+    from freud_tpu_torch import profiling
+    from freud_tpu_torch.data.loaders import FlyActivationLoader
+    from freud_tpu_torch.ops.attention import fused_qkv_attention
+    from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+
+    tbase = json.loads((REPO / "configs/train/tiny_topk.json").read_text())
+    lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
+    rows = 50 * DEC_FRAMES
+    common = {"train_folder": store_dir, "val_folder": store_dir, "steps": 10,
+              "save_every": 5, "val_every": 5, "log_tb_every": 5,
+              "whisper_config": {"model": "random:tiny", "layer_name": DEC_LAYER}}
+    tcfg = {**tbase, **common, "lr": 1e-3, "scheduler_params": {"num_warmup_steps": 2},
+            # below one step's rows: AuxK runs from step 2
+            "autoencoder_config": {**tbase["autoencoder_config"],
+                                   "dead_feature_threshold": rows // 2}}
+    out = {}
+    for name, cfg, n_val, chunked in (
+            ("tiny_topk", tcfg, 2, False),
+            ("tiny_topk through the cache", {**tcfg, "device_cache_files": CACHE_FILES,
+                                             "fused_steps": 5}, 2, True),
+            ("tiny_l1 (batch 50)", {**lbase, **common, "steps": 4, "save_every": 4,
+                                    "val_every": 4, "batch_size": 50}, 1, False)):
+        run_dir = tmp / f"run_dec_{len(out)}"
+        topk_sae_forward.launches = topk_thresholds_fired.launches = 0
+        stats, steps = train({**cfg, "run_dir": str(run_dir)}, tmp / "dec_train.json")
+        launches = topk_sae_forward.launches
+        thresholds = topk_thresholds_fired.launches
+        val_s = profiling.calls("val_transcripts")
+        print(f"decoder store {name}: {stats['steps']} steps, steps_per_sec "
+              f"{stats['steps_per_sec']:.3f} (incl. validations with steered transcripts "
+              f"{[round(t, 3) for t in val_s]} s), kernel #4 launches {launches}, #3 "
+              f"{thresholds}; loss "
+              f"{steps[0]['loss']:.4f} → {steps[-1]['loss']:.4f} on {card}")
+        assert stats["steps"] == cfg["steps"] == len(steps)
+        assert all(np.isfinite([v for k, v in m.items() if k != "chunk"]).all()
+                   for m in steps)
+        assert len(val_s) == n_val, val_s  # one batched steered decode a validation
+        assert thresholds == 0 and not cfg.get("multi_topk"), thresholds
+        check_transcript_tags(run_dir)
+        if "topk" in name:
+            assert max(m["auxk_loss"] for m in steps[1:]) > 0
+            chunks = RUN_OBJECTS["chunks"]
+            if chunked:  # the capture's warm-up step, then one a replayed step
+                assert [c["launches_topk_sae_forward"] for c in chunks] == [6, 5], chunks
+                assert RUN_OBJECTS["DeviceValSet"].ok
+            else:
+                assert [m["launches_topk_sae_forward"] for m in steps] == [1] * 10
+            assert launches == 10 + chunked, launches
+        out[name] = {"steps_per_sec": stats["steps_per_sec"], "launches": launches,
+                     "launches_thresholds": thresholds, "val_transcripts_s": val_s}
+        free_device_memory(torch)
+    # fly mode: each step's batch is a decoder capture of 8 WAVs (the
+    # loader's prefetch computes a batch or two ahead)
+    capture = {"log_mel": log_mel_spectrogram_cuda, "fused_qkv_attention": fused_qkv_attention}
+    for fn in (*capture.values(), topk_sae_forward, topk_thresholds_fired):
+        fn.launches = 0
+    with count_batches(FlyActivationLoader, capture) as batches:
+        stats, steps = train({**tcfg, "train_folder": str(audio_dir),
+                              "val_folder": str(audio_dir), "from_disk": False,
+                              "batch_size": 8, "steps": 3, "save_every": 100,
+                              "val_every": 100, "log_tb_every": 1,
+                              "enable_transcripts": False,
+                              "run_dir": str(tmp / "run_dec_fly")}, tmp / "dec_fly.json")
+    done = list(batches)  # the batches computed by now, each with its launches
+    got = {"log_mel": sum(b["log_mel"] for b in done),
+           "fused_qkv_attention": sum(b["fused_qkv_attention"] for b in done),
+           "topk_sae_forward": topk_sae_forward.launches,
+           "topk_thresholds_fired": topk_thresholds_fired.launches}
+    print(f"decoder fly-mode tiny_topk at batch 8: {stats['steps']} steps, steps_per_sec "
+          f"{stats['steps_per_sec']:.3f}, {len(done)} batches captured, launches {got} "
+          f"on {card}")
+    assert stats["steps"] == 3 and len(done) >= 3
+    assert all(b == {"rows": 8, "log_mel": 1, "fused_qkv_attention": 4} for b in done), done
+    assert got["topk_sae_forward"] == 3 and got["topk_thresholds_fired"] == 0, got
+    out["fly"] = {"steps_per_sec": stats["steps_per_sec"], "launches": got,
+                  "batches": len(done)}
+    free_device_memory(torch)
+    return out
+
+
+def decoder_card_vs_cpu(torch, device, wavs: list[str], ckpt: Path, card: str) -> dict:
+    """Phase 16: 2 clips, random:tiny decoder block 2, the card against the
+    CPU (f32, TF32 off; the encoder's attention on the plain f32 path on
+    the card too, as kernel #2's bf16 products alone move the encoding by
+    more than the bound): ``decode_capture`` activations within 1e-4 of max
+    and tokens equal up to the first CPU post-rules margin under
+    DECODE_CLOSE_CALL; greedy tokens steered by phase 5's TopK SAE at
+    factor 1 and STEER_FACTOR likewise (the encoding the CPU's on both);
+    and the tapped step's logits on the card against the teacher-forced
+    oracle with the tapped block output substituted (2e-3)."""
+    from freud_tpu_torch.analysis.features import sae_steer_fn
+    from freud_tpu_torch.audio.decode import load_audio
+    from freud_tpu_torch.audio.mel import mels_from_array
+    from freud_tpu_torch.data.loaders import load_sae
+    from freud_tpu_torch.models.whisper import WhisperRuntime, decoder_forward, special_tokens
+    from freud_tpu_torch.models.whisper import decoding
+    from freud_tpu_torch.models.whisper import model as model_mod
+    from freud_tpu_torch.models.sae import topk as topk_mod
+
+    mels = torch.stack([mels_from_array(load_audio(f), 80) for f in wavs])
+    rts = {}
+    impl = model_mod.ATTENTION_IMPL
+    model_mod.ATTENTION_IMPL = "einsum"
+    try:
+        for dev in ("cpu", device):
+            rts[str(dev)] = rt = WhisperRuntime("random:tiny", DEC_LAYER, device=dev)
+            rts[f"{dev} capture"] = rt.activations_with_decode(mels.to(dev))
+    finally:
+        model_mod.ATTENTION_IMPL = impl
+    cpu_rt, card_rt = rts["cpu"], rts[str(device)]
+    (w_acts, w_n, w_tok), (g_acts, g_n, g_tok) = rts["cpu capture"], rts[f"{device} capture"]
+    with torch.inference_mode():
+        encoded = cpu_rt.encode(mels)
+    margins = decoding.decision_margins(cpu_rt.decoder, cpu_rt.dims, encoded, w_tok, 3)
+    rec = {"capture_rel": [], "close_calls": []}
+    for r in range(len(wavs)):
+        close = margins[r] < DECODE_CLOSE_CALL
+        upto = int(np.argmax(close)) if close.any() else DEC_FRAMES
+        assert torch.equal(g_tok[r, :upto].cpu(), w_tok[r, :upto]), (r, upto)
+        rel = float((g_acts[r, :upto].cpu() - w_acts[r, :upto]).abs().max()
+                    / w_acts.abs().max())
+        assert rel < 1e-4, (r, rel)
+        if upto == DEC_FRAMES:
+            assert int(g_n[r]) == int(w_n[r])
+        rec["capture_rel"].append(rel)
+        rec["close_calls"].append(None if upto == DEC_FRAMES else upto)
+    print(f"decode_capture card vs CPU, 2 clips: activations max|Δ|/max "
+          f"{rec['capture_rel']} (bound 1e-4), tokens equal up to the first close call "
+          f"{rec['close_calls']}, n_valid {w_n.tolist()} on {card}")
+
+    st = special_tokens(cpu_rt.dims.n_vocab)
+    prompt = torch.tensor([st.sot_sequence(0)] * len(wavs))
+    variant, cfg, _, sae_cpu = load_sae(str(ckpt))
+    _, _, _, sae_card = load_sae(str(ckpt), device)
+    fn = sae_steer_fn(variant, cfg)
+    with torch.inference_mode():  # the feature most often on top in the capture
+        top = topk_mod.pre_acts(sae_cpu, w_acts).argmax(-1)
+    feat = int(torch.bincount(top.flatten()).argmax())
+    enc_card = encoded.to(device)
+    rec["steered"] = {}
+    for factor in (1.0, STEER_FACTOR):
+        taps = {}
+        for dev, sae in (("cpu", sae_cpu), (str(device), sae_card)):
+            taps[dev] = (2, fn, (sae, torch.tensor(feat, device=dev),
+                                 torch.tensor(factor, device=dev)))
+        want = decoding.sample_decode(cpu_rt.decoder, cpu_rt.dims, encoded, prompt, 3,
+                                      decoder_tap=taps["cpu"])[0]
+        got = decoding.sample_decode(card_rt.decoder, card_rt.dims, enc_card,
+                                     prompt.to(device), 3, decoder_tap=taps[str(device)])[0]
+        m = decoding.decision_margins(cpu_rt.decoder, cpu_rt.dims, encoded, want, 3,
+                                      decoder_tap=taps["cpu"])
+        close = [int(np.argmax(r < DECODE_CLOSE_CALL)) if (r < DECODE_CLOSE_CALL).any()
+                 else None for r in m]
+        for r, c in enumerate(close):
+            upto = want.shape[1] if c is None else c
+            assert torch.equal(got[r, :upto].cpu(), want[r, :upto]), (factor, r, upto)
+        rec["steered"][factor] = {"close_calls": close,
+                                  "whole_rows_equal": bool(torch.equal(got.cpu(), want))}
+        print(f"TopK-steered greedy (feature {feat}, factor {factor}) card vs CPU: tokens "
+              f"equal up to the first close call {close}; whole rows equal "
+              f"{rec['steered'][factor]['whole_rows_equal']} on {card}")
+
+    # the tapped step against the substituted oracle, on the card
+    tokens = w_tok[:, :12].to(device)
+    t = tokens.shape[1]
+    tp = (torch.tensor(0.9, device=device), torch.tensor(0.03, device=device))
+
+    def affine(p, x):
+        return x * p[0] + p[1]
+
+    dec, dims = card_rt.decoder, card_rt.dims
+    with torch.inference_mode():
+        cross = decoding._cross_kv_stacks(dec, dims, enc_card)
+        sk, sv = decoding._self_kv(dims, len(wavs), t, torch.float32, device)
+        pos = torch.zeros((), dtype=torch.int64, device=device)
+        rows = []
+        for p in range(t):
+            rows.append(decoding._decode_step(dec, dims, tokens[:, p], pos, sk, sv, cross,
+                                              tap_layer=2, tap_fn=affine, tap_params=tp))
+            pos += 1
+        got = torch.stack(rows, 1)
+        args = (dec, dims, tokens, enc_card)
+        _, caps = decoder_forward(*args, capture=(DEC_LAYER,))
+        oracle, _ = decoder_forward(*args, substitute={DEC_LAYER: affine(tp, caps[DEC_LAYER])})
+    err = float(((got - oracle).abs() / (2e-3 + 2e-3 * oracle.abs())).max())
+    rel = float((got - oracle).abs().max() / oracle.abs().max())
+    print(f"tapped step vs substituted oracle on the card: max|Δ|/max {rel:.3e}, "
+          f"worst |Δ| / (2e-3 + 2e-3|oracle|) {err:.3e} (bound 1) on {card}")
+    assert err <= 1.0, err
+    rec["tapped_step_rel"] = rel
+    return rec
+
+
+def large_decoder(torch, tmp: Path, wav_dir: Path, card: str, counters: dict) -> dict:
+    """Phase 17: random:large-v3 (32 + 32 layers, 128 bands) decoder block
+    16 over 8 30-s WAVs at batch 8 through the collection CLI (kernel #5
+    32 times a batch: the whole encoder); ms a decode step (synchronised)
+    and peak device memory; then a raw-channel tap at factor 1 on that
+    batch gives tokens equal to the unsteered decode's."""
+    from freud_tpu_torch.analysis.features import _raw_steer_tap
+    from freud_tpu_torch.data.audio_dataset import AudioBatchPipeline
+    from freud_tpu_torch.models.whisper import WhisperRuntime
+
+    base = json.loads((REPO / "configs/features/large_v3_block_16_dev.json").read_text())
+    cfg = {**base, "whisper_model": "random:large-v3", "layer_name": LARGE_DEC_LAYER,
+           "batch_size": TRANSCRIBE_BATCH, "data_path": str(wav_dir),
+           "out_folder": str(tmp / "dec_large")}
+    for fn in counters.values():
+        fn.launches = 0
+    torch.cuda.reset_peak_memory_stats()
+    with timed_decodes(torch) as decodes:
+        stats = collect(cfg, tmp / "dec_large.json")
+        torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    got = {k: fn.launches for k, fn in counters.items()}
+    n_files = TRANSCRIBE_LONG
+    print(f"random:large-v3 {LARGE_DEC_LAYER} collection, batch {TRANSCRIBE_BATCH}: "
+          f"{n_files} files in {stats['elapsed_s']:.3f} s (after model init), RTFx "
+          f"{stats['rtfx']:.1f}, decode {ms_a_step(decodes):.3f} ms a step (synchronised, "
+          f"steps {decodes['steps']}), peak device memory {peak:.3f} GiB, launches {got} "
+          f"on {card}")
+    assert got == {"log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": 32}, got
+    names = sorted(str(p) for p in wav_dir.glob("*.wav"))
+    check_decoder_store(Path(cfg["out_folder"]), LARGE_DEC_LAYER, n_files, LARGE_D, names)
+    free_device_memory(torch)
+
+    rt = WhisperRuntime("random:large-v3", LARGE_DEC_LAYER, device="cuda")
+    mels = next(iter(AudioBatchPipeline(str(wav_dir), TRANSCRIBE_BATCH, rt.dims.n_mels,
+                                        device="cuda")))[0]
+    encoded = rt.encode(mels)
+    prompt, n_prompt = rt._prompt(encoded)
+    plain = rt._decode(encoded, prompt, n_prompt)[0]
+    tap = (16, _raw_steer_tap, (torch.tensor(7, device="cuda"),
+                                torch.tensor(1.0, device="cuda")))
+    steered = rt._decode(encoded, prompt, n_prompt, decoder_tap=tap)[0]
+    print(f"random:large-v3 raw-channel tap at factor 1 on block 16: tokens equal to the "
+          f"unsteered decode: {np.array_equal(plain, steered)} ({plain.shape})")
+    assert np.array_equal(plain, steered)
+    del rt, mels, encoded
+    free_device_memory(torch)
+    return {"rtfx": stats["rtfx"], "elapsed_s": stats["elapsed_s"],
+            "decode_ms_a_step": ms_a_step(decodes), "peak_gib": peak, "launches": got}
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -1792,6 +2309,38 @@ def main() -> int:
         assert np.isfinite(vals).all() and (vals >= 0).all()
         assert idx.min() >= 0 and idx.max() < N_DICT
 
+        # phase 14 — decoder-layer collection at tiny width (the whole
+        # encoder, a 224-token greedy decode and a teacher-forced capture a
+        # batch), .mlp.1, and with phase 5's TopK SAE attached
+        tiny_counters = {"log_mel": log_mel_spectrogram_cuda,
+                         "fused_qkv_attention": fused_qkv_attention,
+                         "whisper_attention": whisper_attention,
+                         "topk_thresholds_fired": topk_thresholds_fired}
+        dec_runs = decoder_collections(torch, tmp, config, clips, ckpts / "bestval.pth",
+                                       card, tiny_counters)
+        dec_store = str(tmp / "dec_0")
+
+        # phase 15 — training on the decoder store, its validation
+        # transcripts steered online; through the cache; L1; fly mode
+        dec_train = decoder_training(torch, tmp, dec_store, audio_dir, card)
+
+        # phase 16 — decoder capture and steering on the card against the CPU
+        decoder_card_vs_cpu(torch, device, [p for p, _ in clips[:2]],
+                            ckpts / "bestval.pth", card)
+        free_device_memory(torch)
+        launches["decoder_log_mel"] = (sum(r["launches"]["log_mel"] for r in dec_runs.values())
+                                       + dec_train["fly"]["launches"]["log_mel"])
+        launches["decoder_fused_qkv_attention"] = (
+            sum(r["launches"]["fused_qkv_attention"] for r in dec_runs.values())
+            + dec_train["fly"]["launches"]["fused_qkv_attention"])
+        launches["decoder_topk_sae_forward"] = (
+            sum(r["launches"] for k, r in dec_train.items() if k != "fly")
+            + dec_train["fly"]["launches"]["topk_sae_forward"])
+        launches["decoder_topk_thresholds_fired"] = (
+            sum(r["launches"]["topk_thresholds_fired"] for r in dec_runs.values())
+            + sum(r["launches_thresholds"] for k, r in dec_train.items() if k != "fly")
+            + dec_train["fly"]["launches"]["topk_thresholds_fired"])
+
         # phase 8 — collection at large width, from the repo's large configs
         large_launches = {"log_mel": 0, "whisper_attention": 0}
         large_batches = 0
@@ -1986,6 +2535,12 @@ def main() -> int:
         for rec in large_runs.values():
             assert len(rec["result"]) == TRANSCRIBE_LONG
 
+        # phase 17 — decoder-layer collection at large-v3 width over phase
+        # 13's 8 clips, and a raw-channel tap at factor 1
+        large_dec = large_decoder(torch, tmp, ldir, card, large_counters)
+        launches["decoder_log_mel"] += large_dec["launches"]["log_mel"]
+        launches["decoder_whisper_attention"] = large_dec["launches"]["whisper_attention"]
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -1995,28 +2550,33 @@ def main() -> int:
          "source": "freud_tpu_torch/csrc/mel.cu",
          "replaces": "freud_tpu/ops/mel_pallas.py:162",
          "launches": launches["log_mel"], **unit("log_mel"),
-         "launches_transcribe": launches["transcribe_log_mel"], **mel_rec},
+         "launches_transcribe": launches["transcribe_log_mel"],
+         "launches_decoder": launches["decoder_log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
          "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"),
-         "launches_transcribe": launches["transcribe_fused_qkv_attention"], **attn_rec},
+         "launches_transcribe": launches["transcribe_fused_qkv_attention"],
+         "launches_decoder": launches["decoder_fused_qkv_attention"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
          "launches": large_launches["whisper_attention"], **unit("whisper_attention"),
-         "launches_transcribe": launches["transcribe_whisper_attention"], **wattn_rec},
+         "launches_transcribe": launches["transcribe_whisper_attention"],
+         "launches_decoder": launches["decoder_whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",
          "launches": launches["topk_sae_forward"], **unit("topk_sae_forward"),
          "launches_cache_path": launches["cache_topk_sae_forward"],
+         "launches_decoder": launches["decoder_topk_sae_forward"],
          "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"], **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_threshold.cu",
          "replaces": "freud_tpu/ops/topk_threshold.py:225",
          "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"),
-         "launches_cache_path": launches["cache_topk_thresholds_fired"], **thresh_rec},
+         "launches_cache_path": launches["cache_topk_thresholds_fired"],
+         "launches_decoder": launches["decoder_topk_thresholds_fired"], **thresh_rec},
     ]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])

@@ -2,11 +2,15 @@
 
 The port of ``freud_tpu/data/loaders.py``:
 
-* ``FlyActivationLoader`` (encoder layers): audio batches stream through the
-  native decoder → on-device mel → one encoder forward that stops after the
-  captured layer → with an attached SAE, its encode on the same device.
+* ``FlyActivationLoader``: audio batches stream through the native decoder
+  → on-device mel → for an encoder layer one encoder forward that stops
+  after the captured layer, for a ``decoder.*`` layer the runtime's
+  ``decode_capture`` (greedy decode, then a teacher-forced captured pass)
+  → with an attached SAE, its encode on the same device.
   ``iter_with_lengths`` yields (activations, filenames, n_frames); an L1 SAE
   yields its dense latent, a TopK SAE the pair (top_acts, top_indices).
+  A decoder layer's n_frames are the positions each clip's decode
+  processed, computed on the device and fetched with the batch.
 * ``MemoryMappedActivationLoader``: shuffled batches gathered from a
   collected store, the order a pure function of (seed, epoch), so a step
   count is a resume position. Framework-free, as in the JAX package.
@@ -111,7 +115,7 @@ class DeviceFetch:
 
 
 class FlyActivationLoader:
-    """Compute Whisper encoder activations on the fly."""
+    """Compute Whisper (and optionally SAE) activations on the fly."""
 
     def __init__(
         self,
@@ -127,11 +131,16 @@ class FlyActivationLoader:
         fetch_dtype: torch.dtype | None = None,
         device: torch.device | str = "cpu",
         drop_last: bool = False,
+        max_new_tokens: int = 224,
     ):
+        """``max_new_tokens`` sizes a decoder layer's capture buffer
+        (n_prompt + max_new_tokens rows a file); encoder layers ignore it."""
         self.device = torch.device(device)
         self.runtime = WhisperRuntime(whisper_model, layer_name,
                                       compute_dtype=compute_dtype,
+                                      max_new_tokens=max_new_tokens,
                                       device=self.device)
+        self._decoder_layer = layer_name.startswith("decoder.")
         self.batch_size = batch_size
         self.fetch_dtype = fetch_dtype
         self.pipeline = AudioBatchPipeline(
@@ -174,9 +183,12 @@ class FlyActivationLoader:
             # the tail as it is.
             mels = torch.cat([mels, mels.new_zeros((pad, *mels.shape[1:]))])
         with profiling.span("encoder_capture"):
-            acts = self.runtime.activations(mels)
+            acts, n_valid = self.runtime.activations_with_lengths(mels)
             with torch.inference_mode():
                 outs = _sae_tail(acts, self.sae)
+        if self._decoder_layer:
+            # the decode's valid positions ride with the batch's fetch
+            outs = (*outs, n_valid)
         fetched = []
         for o in outs:
             if pad:
@@ -223,6 +235,12 @@ class FlyActivationLoader:
             outs = tuple(np.asarray(o)[ok] for o in outs)
             filenames = [f for f, good in zip(filenames, ok) if good]
             lengths = lengths[ok]
+        if self._decoder_layer:
+            # a decoder layer's true length is the positions its decode
+            # processed (the last output): the audio length says nothing of
+            # the transcript's
+            *outs, n_valid = outs
+            return (*outs, filenames, np.asarray(n_valid, np.int64))
         n_frames = np.asarray(
             [activation_length_from_samples(int(n)) for n in lengths],
             np.int64)
@@ -327,7 +345,9 @@ def init_dataloader(
     device: torch.device | str = "cpu",
 ):
     """(loader, feat_dim, dataset_len). ``seed`` drives the shuffle stream;
-    ``device`` is where a fly loader computes."""
+    ``device`` is where a fly loader computes. ``resample_padding`` replaces
+    a decoder store's EOT-padding rows (mmap loader; fly-mode training
+    resamples its own, see ``train``)."""
     if from_disk:
         loader = MemoryMappedActivationLoader(
             data_path, layer_name, batch_size,

@@ -9,6 +9,12 @@ generation, post-EOT positions are EOT and every statistic freezes once a
 row has finished. ``_decode_step`` takes its position as a device scalar and
 reads nothing on the host, so a later change can capture it as a CUDA graph.
 
+``sample_decode`` and ``greedy_decode`` take ``decoder_tap=(layer, fn,
+fn_params)``, online steering of a decoder block: the step applies
+``fn(fn_params, x)`` to the block's output at every position, before the
+later blocks read it (``_decode_step``); the SAE taps are in
+``analysis/features.py``. Beam search takes none, as in JAX.
+
 Three decoders share the rules (SuppressTokens, SuppressBlank,
 ApplyTimestampRules — ``_apply_rules``): ``greedy_decode``;
 ``sample_decode`` (a temperature, and the sum-logprob / length /
@@ -68,11 +74,17 @@ EXIT_EVERY = 8  # steps between early-exit tests (each a device → host read)
 Tensors = tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]
 
 
-def _check_tap(decoder_tap) -> None:
-    if decoder_tap is not None:
-        raise NotImplementedError(
-            "decoder_tap (online decoder-layer steering) is not ported to "
-            "freud_tpu_torch yet (ROADMAP Queue 1 #9)")
+def _unpack_tap(dims: WhisperDims, decoder_tap) -> tuple:
+    """``decoder_tap`` → (tap_layer, tap_fn, tap_params), the layer checked
+    here, once a decode: an out-of-range layer would make the tap a silent
+    no-op (e.g. an SAE trained on decoder.blocks.5 served against a 4-layer
+    model)."""
+    tap_layer, tap_fn, tap_params = decoder_tap or (None, None, None)
+    if tap_layer is not None and not (0 <= tap_layer < dims.n_text_layer):
+        raise ValueError(
+            f"decoder_tap layer {tap_layer} out of range for a model with "
+            f"{dims.n_text_layer} decoder layers")
+    return tap_layer, tap_fn, tap_params
 
 
 def _cast_decode_inputs(decoder: TextDecoder, encoded: torch.Tensor,
@@ -123,7 +135,9 @@ def _decode_step(decoder: TextDecoder, dims: WhisperDims, token: torch.Tensor,
                  pos: torch.Tensor, self_k: torch.Tensor, self_v: torch.Tensor,
                  cross_kv: tuple[torch.Tensor, torch.Tensor],
                  start: Optional[torch.Tensor] = None,
-                 vocab: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 vocab: Optional[torch.Tensor] = None,
+                 tap_layer: Optional[int] = None, tap_fn=None,
+                 tap_params=None) -> torch.Tensor:
     """One decoder step at position ``pos`` (a 0-dim int64 tensor on the
     decode's device): (N,) tokens → (N, vocab) f32 logits. This position's
     self-attention k and v are written into ``self_k``/``self_v``
@@ -138,7 +152,14 @@ def _decode_step(decoder: TextDecoder, dims: WhisperDims, token: torch.Tensor,
     embedding is taken at ``pos − start`` — one buffer shape serves every
     prompt length. A step may always attend to itself, also inside the pad
     region: a fully masked softmax row would be NaN and poison the next
-    layers' K/V through 0·NaN."""
+    layers' K/V through 0·NaN.
+
+    ``tap_layer``/``tap_fn``/``tap_params`` (optional): online steering.
+    After block ``tap_layer`` adds its MLP residual, ``x ← tap_fn(tap_params,
+    x)`` (x (N, 1, d), the result cast back to x's dtype), before the later
+    blocks read x, so the tapped value enters their K/V buffers at this
+    position — the step-by-step form of ``decoder_forward`` with the tapped
+    block's output substituted. The tap must read nothing on the host."""
     heads = dims.n_text_head
     d = dims.n_text_state
     scale = (d // heads) ** -0.25
@@ -175,6 +196,8 @@ def _decode_step(decoder: TextDecoder, dims: WhisperDims, token: torch.Tensor,
         x = x + c.out(o)
 
         x = x + block.mlp(block.mlp_ln(x))
+        if tap_fn is not None and i == tap_layer:
+            x = tap_fn(tap_params, x).to(x.dtype)
     x = decoder.ln(x)
     if vocab is None:
         vocab = decoder.token_embedding.weight.float()
@@ -321,9 +344,11 @@ def sample_decode(
     mass of <|nospeech|> at the SOT step. ``start`` ((b,) int, optional)
     marks where each row's prompt begins inside a left-padded prompt (see
     ``_decode_step``). ``early_exit=False`` runs the whole budget; the
-    output is the same. ``decoder_tap`` (online decoder steering) raises:
-    it comes with ROADMAP Queue 1 #9."""
-    _check_tap(decoder_tap)
+    output is the same. ``decoder_tap=(layer_idx, fn, fn_params)`` applies
+    ``fn(fn_params, x)`` to block ``layer_idx``'s output at every position,
+    online (see ``_decode_step``); ``fn_params`` holds device tensors, read
+    afresh at every step."""
+    tap_layer, tap_fn, tap_params = _unpack_tap(dims, decoder_tap)
     st = special_tokens(dims.n_vocab)
     b = encoded.shape[0]
     ctx = n_prompt + max_new
@@ -353,7 +378,8 @@ def sample_decode(
                 break
             sample_decode.steps += 1
             logits = _decode_step(dec, dims, token, pos, self_k, self_v, cross_kv,
-                                  start=start, vocab=vocab)
+                                  start=start, vocab=vocab, tap_layer=tap_layer,
+                                  tap_fn=tap_fn, tap_params=tap_params)
             # no_speech from the RAW logits at the SOT step (keyed on the
             # token: a conditioned prompt puts SOT after its history)
             nsp = torch.where(token == st.sot,
@@ -398,7 +424,8 @@ def greedy_decode(
     compute_dtype: torch.dtype = torch.float32,
     decoder_tap: tuple | None = None,
 ) -> torch.Tensor:
-    """Greedy-decode token ids: (b, n_prompt + max_new), EOT-padded."""
+    """Greedy-decode token ids: (b, n_prompt + max_new), EOT-padded;
+    ``decoder_tap`` as in ``sample_decode``."""
     return sample_decode(decoder, dims, encoded, prompt, n_prompt, max_new,
                          compute_dtype=compute_dtype, decoder_tap=decoder_tap)[0]
 
@@ -549,17 +576,27 @@ beam_decode.steps = 0
 
 def decision_margins(decoder: TextDecoder, dims: WhisperDims, encoded: torch.Tensor,
                      tokens: torch.Tensor, n_prompt: int,
-                     compute_dtype: torch.dtype = torch.float32) -> np.ndarray:
+                     compute_dtype: torch.dtype = torch.float32,
+                     decoder_tap: tuple | None = None) -> np.ndarray:
     """(b, T) top-two margins of the post-rules logits that chose each
     token of decoded rows (teacher-forced along ``tokens``, rows decoded
     without ``start``); inf at the prompt's positions, after a row's first
     EOT and where only one token was allowed. Where two decodes of the same
     rows (two devices, two packages) first differ, a small margin says the
-    flip was a near-tie, not a fault."""
+    flip was a near-tie, not a fault. With ``decoder_tap`` the rows were
+    steered: the margins are those of the teacher-forced oracle, the tapped
+    block's output substituted back."""
     st = special_tokens(dims.n_vocab)
     with torch.inference_mode():
         tokens = torch.as_tensor(tokens).to(encoded.device, torch.int64)
-        logits, _ = decoder_forward(decoder, dims, tokens, encoded, compute_dtype)
+        args = (decoder, dims, tokens, encoded, compute_dtype)
+        substitute = None
+        if decoder_tap is not None:
+            layer, fn, fn_params = _unpack_tap(dims, decoder_tap)
+            name = f"decoder.blocks.{layer}"
+            _, caps = decoder_forward(*args, capture=(name,))
+            substitute = {name: fn(fn_params, caps[name])}
+        logits, _ = decoder_forward(*args, substitute=substitute)
         suppress, blank = _suppress_tables(dims, encoded.device)
         rows = tokens.cpu().numpy()
         out = np.full(rows.shape, np.inf)

@@ -34,13 +34,19 @@ would run the convs in TF32.
 The text decoder (``TextDecoder``: ``token_embedding``,
 ``positional_embedding``, ``blocks.N.{attn_ln, attn, cross_attn_ln,
 cross_attn, mlp_ln, mlp}``, ``ln``, OpenAI's names) has no kernel of its
-own, as in the JAX package: its attention is plain matmuls, with JAX's
-numerics — q and k each scaled by dh^-¼ before the product, scores and
-vocabulary logits f32 products of the compute-dtype operands (the operands
-are upcast, so a bf16 decode rounds as ``preferred_element_type=f32``
-does), the softmax in f32. ``decoder_forward`` is the teacher-forced
-full-sequence pass (causal mask); the KV-cached step is
-``decoding._decode_step``.
+own, as in the JAX package: an attention with a mask or a cross-attention
+source is plain matmuls (``attend``), with JAX's numerics — q and k each
+scaled by dh^-¼ before the product, scores and vocabulary logits f32
+products of the compute-dtype operands (the operands are upcast, so a bf16
+decode rounds as ``preferred_element_type=f32`` does), the softmax in f32.
+``decoder_forward`` is the teacher-forced full-sequence pass (causal mask)
+through the same ``ResidualAttentionBlock`` as the encoder, with the same
+taps under ``decoder.blocks.N`` and one more:
+
+  decoder.blocks.N.cross_attn.weights   post-softmax cross-attention
+                                        weights (b, h, T, S), capture only
+
+The KV-cached step is ``decoding._decode_step``.
 """
 
 from __future__ import annotations
@@ -101,6 +107,48 @@ def sinusoids(length: int, channels: int, max_timescale: float = 10000.0) -> np.
     return np.concatenate([np.sin(scaled), np.cos(scaled)], axis=1).astype(np.float32)
 
 
+def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
+    """(b, s, d) → a (b, h, s, dh) view."""
+    b, s, d = t.shape
+    return t.view(b, s, heads, d // heads).transpose(1, 2)
+
+
+def merge_heads(t: torch.Tensor) -> torch.Tensor:
+    """(b, h, s, dh) → (b, s, h·dh)."""
+    b, h, s, dh = t.shape
+    return t.transpose(1, 2).reshape(b, s, h * dh)
+
+
+def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+           keep: Optional[torch.Tensor] = None, weights_tap=None) -> torch.Tensor:
+    """Softmax attention with the JAX decoder's numerics: ``q`` (…, g, dh)
+    and ``k`` (…, s, dh), each already scaled by dh^-¼; the scores are the
+    f32 product of the (upcast) operands, ``keep`` (bool, broadcast to the
+    scores) masks to -inf, the softmax runs in f32 and its weights are cast
+    to ``v``'s dtype before the product with ``v``. ``weights_tap`` (a
+    callback) sees those weights."""
+    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
+    if keep is not None:
+        scores = scores.masked_fill(~keep, float("-inf"))
+    weights = torch.softmax(scores, dim=-1).to(v.dtype)
+    if weights_tap is not None:
+        weights_tap(weights)
+    return torch.matmul(weights, v)
+
+
+def _tapper(capture: frozenset, substitute: Mapping, store: Captures):
+    """The capture/substitution callback of one forward: ``tap(name, x)``
+    replaces x by ``substitute[name]`` (cast to x's device and dtype) and
+    records the result in ``store`` when ``name`` is captured."""
+    def tap(name: str, x: torch.Tensor) -> torch.Tensor:
+        if name in substitute:
+            x = torch.as_tensor(substitute[name]).to(x.device, x.dtype)
+        if name in capture:
+            store[name] = x
+        return x
+    return tap
+
+
 class MultiHeadAttention(nn.Module):
     def __init__(self, n_state: int, n_head: int):
         super().__init__()
@@ -110,8 +158,22 @@ class MultiHeadAttention(nn.Module):
         self.value = nn.Linear(n_state, n_state)
         self.out = nn.Linear(n_state, n_state)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, xa: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None, weights_tap=None) -> torch.Tensor:
+        """Self-attention of ``x``, or with ``xa`` cross-attention to it;
+        ``mask`` (bool, True = attend) is broadcast to the scores. Full
+        self-attention (no mask, no ``xa``: the encoder) takes its
+        ``attention_route``; the decoder's attention takes ``attend``, as
+        the JAX package never routes a masked or cross attention to a
+        kernel. ``weights_tap`` sees ``attend``'s softmax weights."""
         b, s, d = x.shape
+        if xa is not None or mask is not None:
+            scale = (d // self.n_head) ** -0.25
+            src = x if xa is None else xa
+            q = split_heads(self.query(x), self.n_head) * scale
+            k = split_heads(self.key(src), self.n_head) * scale
+            v = split_heads(self.value(src), self.n_head)
+            return self.out(merge_heads(attend(q, k, v, mask, weights_tap)))
         route = attention_route(d, x.device.type)
         if route == "fused":
             # nn.Linear weights are (out, in); the kernel takes (in, out)
@@ -146,9 +208,18 @@ class ResidualAttentionBlock(nn.Module):
         )
         self.mlp_ln = nn.LayerNorm(n_state)
 
-    def forward(self, x, prefix: str, tap) -> torch.Tensor:
+    def forward(self, x, prefix: str, tap, xa: Optional[torch.Tensor] = None,
+                mask: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """One block under the tap names of the module docstring; ``xa``
+        (the decoder's blocks) adds the cross-attention branch, ``mask`` the
+        self-attention's causal mask."""
         h = tap(f"{prefix}.attn_ln", self.attn_ln(x))
-        x = x + tap(f"{prefix}.attn.out", self.attn(h))
+        x = x + tap(f"{prefix}.attn.out", self.attn(h, mask=mask))
+        if xa is not None:
+            def weights(w):  # capture only, as JAX's wtap: its result is dropped
+                tap(f"{prefix}.cross_attn.weights", w)
+
+            x = x + self.cross_attn(self.cross_attn_ln(x), xa=xa, weights_tap=weights)
         h = tap(f"{prefix}.mlp_ln", self.mlp_ln(x))
         h = tap(f"{prefix}.mlp.0", self.mlp[0](h))
         h = tap(f"{prefix}.mlp.1", self.mlp[1](h))
@@ -184,15 +255,8 @@ class AudioEncoder(nn.Module):
         stop_after_capture: bool = False,
     ) -> tuple[Optional[torch.Tensor], Captures]:
         capture = frozenset(capture)
-        substitute = substitute or {}
         store: Captures = {}
-
-        def tap(name: str, x: torch.Tensor) -> torch.Tensor:
-            if name in substitute:
-                x = torch.as_tensor(substitute[name]).to(x.device, x.dtype)
-            if name in capture:
-                store[name] = x
-            return x
+        tap = _tapper(capture, substitute or {}, store)
 
         def done() -> bool:
             return stop_after_capture and len(store) == len(capture)
@@ -272,31 +336,6 @@ def init_encoder(dims: WhisperDims, seed: int = 0,
 # ---------------------------------------------------------------- decoder
 
 
-def split_heads(t: torch.Tensor, heads: int) -> torch.Tensor:
-    """(b, s, d) → a (b, h, s, dh) view."""
-    b, s, d = t.shape
-    return t.view(b, s, heads, d // heads).transpose(1, 2)
-
-
-def merge_heads(t: torch.Tensor) -> torch.Tensor:
-    """(b, h, s, dh) → (b, s, h·dh)."""
-    b, h, s, dh = t.shape
-    return t.transpose(1, 2).reshape(b, s, h * dh)
-
-
-def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-           keep: Optional[torch.Tensor] = None) -> torch.Tensor:
-    """Softmax attention with the JAX decoder's numerics: ``q`` (…, g, dh)
-    and ``k`` (…, s, dh), each already scaled by dh^-¼; the scores are the
-    f32 product of the (upcast) operands, ``keep`` (bool, broadcast to the
-    scores) masks to -inf, the softmax runs in f32 and its weights are cast
-    to ``v``'s dtype before the product with ``v``."""
-    scores = torch.matmul(q.float(), k.float().transpose(-1, -2))
-    if keep is not None:
-        scores = scores.masked_fill(~keep, float("-inf"))
-    return torch.matmul(torch.softmax(scores, dim=-1).to(v.dtype), v)
-
-
 class TextDecoder(nn.Module):
     """Whisper's text decoder: (b, T) tokens and (b, 1500, d) encoded audio
     → (b, T, n_vocab) logits (``decoder_forward``)."""
@@ -313,6 +352,26 @@ class TextDecoder(nn.Module):
         )
         self.ln = nn.LayerNorm(d)
 
+    def forward(
+        self,
+        tokens: torch.Tensor,
+        xa: torch.Tensor,
+        capture: Sequence[str] = (),
+        substitute: Optional[Mapping[str, torch.Tensor]] = None,
+    ) -> tuple[torch.Tensor, Captures]:
+        """(b, T) tokens attending to (b, S, d) encoded audio, causal →
+        ((b, T, n_vocab) f32 logits, captures)."""
+        store: Captures = {}
+        tap = _tapper(frozenset(capture), substitute or {}, store)
+        t = tokens.shape[-1]
+        x = self.token_embedding(tokens) + self.positional_embedding[:t]
+        xa = xa.to(x.dtype)
+        causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
+        for i, block in enumerate(self.blocks):
+            x = block(x, f"decoder.blocks.{i}", tap, xa=xa, mask=causal)
+        x = self.ln(x)
+        return torch.matmul(x.float(), self.token_embedding.weight.float().T), store
+
 
 def cast_module(module: nn.Module, dtype: torch.dtype) -> nn.Module:
     """``module`` itself when its parameters are ``dtype``, else a cast copy
@@ -328,38 +387,21 @@ def decoder_forward(
     tokens: torch.Tensor,
     encoded: torch.Tensor,
     compute_dtype: torch.dtype = torch.float32,
+    *,
+    capture: Sequence[str] = (),
+    substitute: Mapping[str, torch.Tensor] | None = None,
 ) -> tuple[torch.Tensor, Captures]:
     """Teacher-forced full-sequence decoder with a causal mask: (b, T)
     tokens → ((b, T, n_vocab) f32 logits, captures) — the counterpart of
     ``freud_tpu.models.whisper.model.decoder_forward`` and the oracle of the
     KV-cached step. Weights and ``encoded`` run in ``compute_dtype`` (a
-    cast copy when the module differs). Decoder capture and substitution
-    names come with decoder-layer capture (ROADMAP Queue 1 #9); the
-    captures are empty until then."""
+    cast copy when the module differs). ``capture``/``substitute`` keys are
+    the ``decoder.blocks.N…`` names of the module docstring (keywords here:
+    ``compute_dtype`` keeps its place as the fifth argument)."""
     if dims != module.dims:
         raise ValueError(f"dims {dims} do not match the module's {module.dims}")
     dec = cast_module(module, compute_dtype)
-    heads = dims.n_text_head
-    scale = (dims.n_text_state // heads) ** -0.25
-    t = tokens.shape[-1]
-    xa = encoded.to(compute_dtype)
-    x = dec.token_embedding(tokens) + dec.positional_embedding[:t]
-    causal = torch.ones((t, t), dtype=torch.bool, device=x.device).tril()
-    for block in dec.blocks:
-        a = block.attn
-        h = block.attn_ln(x)
-        q = split_heads(a.query(h), heads) * scale
-        k = split_heads(a.key(h), heads) * scale
-        x = x + a.out(merge_heads(attend(q, k, split_heads(a.value(h), heads), causal)))
-        c = block.cross_attn
-        h = block.cross_attn_ln(x)
-        q = split_heads(c.query(h), heads) * scale
-        k = split_heads(c.key(xa), heads) * scale
-        x = x + c.out(merge_heads(attend(q, k, split_heads(c.value(xa), heads))))
-        x = x + block.mlp(block.mlp_ln(x))
-    x = dec.ln(x)
-    logits = torch.matmul(x.float(), dec.token_embedding.weight.float().T)
-    return logits, {}
+    return dec(tokens, encoded.to(compute_dtype), capture, substitute)
 
 
 def init_decoder(dims: WhisperDims, seed: int = 0,

@@ -4,14 +4,20 @@ The port of ``freud_tpu``'s ``WhisperRuntime``. One runtime object owns the
 model on its device (the card unless the caller passes ``device="cpu"``)
 and at most one capture layer:
 
-* ``activations(mels)`` — one encoder forward that stops after the captured
-  layer; collection never touches the decoder, which is built only when a
-  transcription first needs it.
-* ``transcribe(mels, substitute_layer=..., substitute_value=...)`` — the
-  encoder (optionally with one encoder layer's output replaced) and the
-  KV-cached greedy decoder (``decoding.py``); ``transcribe_with_fallback``
-  is whisper.transcribe's temperature ladder (one decode a rung, beam
-  search on the t = 0 rung when ``beam_size`` is given).
+* ``activations(mels)`` — for an encoder layer one encoder forward that
+  stops after the captured layer: collection never touches the decoder,
+  which is built only when a decode first needs it. For a ``decoder.*``
+  layer ``decode_capture``: the whole encoder, a greedy decode, then one
+  teacher-forced ``decoder_forward`` that captures every decode position
+  (``activations_with_decode`` also returns the tokens and the valid
+  positions).
+* ``transcribe(mels, substitute_layer=..., substitute_value=...,
+  decoder_tap=...)`` — the encoder (optionally with one encoder layer's
+  output replaced) and the KV-cached greedy decoder (``decoding.py``),
+  optionally steered online at a decoder block (``decoder_tap``);
+  ``transcribe_with_fallback`` is whisper.transcribe's temperature ladder
+  (one decode a rung, beam search on the t = 0 rung when ``beam_size`` is
+  given).
 
 The log-mel on the card: the transcribe CLI's ``AudioBatchPipeline`` runs
 the log-mel kernel (#1), as the JAX pipeline runs its Pallas kernel on the
@@ -21,10 +27,8 @@ are held within #1's gate on the card. The differential tests run on the
 CPU, where both packages take their plain paths.
 
 Not ported yet, each raising ``NotImplementedError`` that names the slice
-that brings it: ``decoder.*`` capture layers, ``decode_capture`` and the
-online ``decoder_tap`` (ROADMAP Queue 1 #9); word timestamps
-(``transcribe_with_word_timestamps``, ``align_words``) and long-form audio
-(``transcribe_long``) (#11).
+that brings it: word timestamps (``transcribe_with_word_timestamps``,
+``align_words``) and long-form audio (``transcribe_long``) (#11).
 """
 
 from __future__ import annotations
@@ -37,14 +41,10 @@ import torch
 
 from ... import profiling
 from ...device import resolve_device
-from .decoding import (
-    _check_tap,
-    beam_decode,
-    detect_language,
-    sample_decode,
-)
+from .config import WhisperDims
+from .decoding import beam_decode, detect_language, sample_decode
 from .load import load_decoder, load_model
-from .model import TextDecoder, encoder_forward
+from .model import AudioEncoder, TextDecoder, decoder_forward, encoder_forward
 from .tokenizer import decode_text, language_index, special_tokens
 
 FALLBACK_TEMPERATURES = (0.0, 0.2, 0.4, 0.6, 0.8, 1.0)
@@ -87,12 +87,52 @@ def fallback_accepts(text, sum_lp, n_text, no_speech_prob,
 
 def _check_encoder_layer(layer_name: str, what: str) -> None:
     """Tensor substitution splices the encoder forward only: a ``decoder.*``
-    name would never match a tap and silently do nothing."""
+    name would never match a tap and silently do nothing. A decoder layer
+    is steered online instead (``transcribe(decoder_tap=…)``): a fixed
+    tensor cannot replace positions an autoregressive decode has not made
+    yet."""
     if layer_name.startswith("decoder."):
         raise ValueError(
-            f"{what} supports encoder layers only, got {layer_name!r}; "
-            "decoder-layer capture and steering are not ported to "
-            "freud_tpu_torch yet (ROADMAP Queue 1 #9)")
+            f"{what} supports encoder layers only, got {layer_name!r} — "
+            "decoder-layer capture works via activations(); for decoder-"
+            "layer steering pass decoder_tap=(layer_idx, fn, fn_params) "
+            "(an online per-position transform) instead of a tensor")
+
+
+def decode_capture(encoder: AudioEncoder, decoder: TextDecoder, dims: WhisperDims,
+                   mels: torch.Tensor, layer_name: str, *, sot_seq: tuple,
+                   lang_detect: bool, lang_base: int, max_new: int,
+                   compute_dtype: torch.dtype = torch.float32, early_exit: bool = True
+                   ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Decoder-layer activation capture for one mel batch, the counterpart
+    of ``freud_tpu.models.whisper.runtime.decode_capture``: the whole
+    encoder, language detection when ``lang_detect``, a greedy decode, then
+    ONE teacher-forced ``decoder_forward`` over the decoded tokens that
+    captures ``layer_name`` at every position (causal masking makes
+    position i's activation the one the step that processed token i made,
+    up to summation order).
+
+    → ``(acts (b, n_prompt + max_new, width), tokens, n_valid (b,) int32)``
+    on the device, where ``n_valid = n_prompt + n_text`` counts the positions
+    the decode processed; rows from ``n_valid`` on are EOT padding, which
+    a store masks by its per-file ``n_frames``. The weights are in
+    ``compute_dtype`` already (``WhisperRuntime`` casts them once)."""
+    with torch.inference_mode():
+        encoded, _ = encoder_forward(encoder, dims, mels, compute_dtype=compute_dtype)
+        b = encoded.shape[0]
+        prompt = torch.tensor(sot_seq, dtype=torch.int64,
+                              device=encoded.device).repeat(b, 1)
+        if lang_detect:
+            prompt[:, 1] = lang_base + detect_language(decoder, dims, encoded,
+                                                       compute_dtype=compute_dtype)
+        n_prompt = len(sot_seq)
+        tokens, _, n_text, _ = sample_decode(
+            decoder, dims, encoded, prompt, n_prompt, max_new=max_new,
+            compute_dtype=compute_dtype, early_exit=early_exit)
+        _, caps = decoder_forward(decoder, dims, tokens, encoded, compute_dtype,
+                                  capture=(layer_name,))
+        n_valid = (n_prompt + n_text).to(torch.int32)
+    return caps[layer_name], tokens, n_valid
 
 
 def _not_ported(what: str, slice_no: int):
@@ -121,9 +161,7 @@ class WhisperRuntime:
         ``device`` None means the card. ``early_exit=False`` makes every
         decode run its whole ``max_new_tokens`` budget (the same output; a
         benchmark's fixed yardstick)."""
-        if layer_name is not None and layer_name.startswith("decoder."):
-            _not_ported(f"decoder-layer capture ({layer_name!r})", 9)
-        if layer_name is not None and not layer_name.startswith("encoder."):
+        if layer_name is not None and not layer_name.startswith(("encoder.", "decoder.")):
             raise ValueError(f"unknown capture layer {layer_name!r}")
         if task not in ("transcribe", "translate"):
             raise ValueError(f"task must be transcribe|translate, got {task!r}")
@@ -142,6 +180,8 @@ class WhisperRuntime:
         # cast once here; encoder_forward then runs the module as it is
         self.encoder = encoder.to(compute_dtype).eval()
         self._decoder: Optional[TextDecoder] = None
+        if self._decoder_layer:
+            self.decoder  # a decoder capture decodes: build it with the model
         self._st = special_tokens(self.dims.n_vocab)
         if task == "translate" and not self._st.multilingual:
             raise ValueError(
@@ -158,12 +198,30 @@ class WhisperRuntime:
 
     # -- capture ------------------------------------------------------------
 
+    @property
+    def _decoder_layer(self) -> bool:
+        return (self.layer_name or "").startswith("decoder.")
+
     def activations(self, mels: torch.Tensor) -> torch.Tensor:
         """Captured activations at ``layer_name`` for (b, n_mels, 3000) mels
-        (or one (n_mels, 3000) clip): one captured encoder forward,
-        (b, 1500, width)."""
+        (or one (n_mels, 3000) clip). Encoder layers: one captured encoder
+        forward, (b, 1500, width). Decoder layers: ``decode_capture``,
+        (b, n_prompt + max_new_tokens, width), EOT-padded (see
+        ``activations_with_lengths`` for the valid positions)."""
+        return self.activations_with_lengths(mels)[0]
+
+    def activations_with_lengths(
+        self, mels: torch.Tensor
+    ) -> tuple[torch.Tensor, torch.Tensor]:
+        """→ (activations, n_valid (b,) int32): the valid leading positions
+        of each clip. Encoder layers: the full frame axis, on the host
+        (callers with audio lengths refine it, see loaders); decoder
+        layers: the positions the greedy decode processed, on the device."""
         if self.layer_name is None:
             raise ValueError("runtime was built without a capture layer")
+        if self._decoder_layer:
+            acts, n_valid, _ = self.activations_with_decode(mels)
+            return acts, n_valid
         # eager PyTorch runs every layer it is given: stop after the
         # captured block (XLA dropped the unused tail of the JAX collection
         # program, whose encoded output it discards)
@@ -172,19 +230,41 @@ class WhisperRuntime:
                 self.encoder, self.dims, self._batch(mels),
                 capture=(self.layer_name,), compute_dtype=self.compute_dtype,
                 stop_after_capture=True)
-        return caps[self.layer_name]
+        acts = caps[self.layer_name]
+        return acts, torch.full((acts.shape[0],), acts.shape[1], dtype=torch.int32)
 
-    def activations_with_lengths(
+    def activations_with_decode(
         self, mels: torch.Tensor
-    ) -> tuple[torch.Tensor, torch.Tensor]:
-        """→ (activations, n_valid (b,) int32) — n_valid is the full frame
-        axis (callers with audio lengths refine it, see loaders)."""
-        acts = self.activations(mels)
-        n_valid = torch.full((acts.shape[0],), acts.shape[1], dtype=torch.int32)
-        return acts, n_valid
+    ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+        """Decoder layers only: → (activations, n_valid, tokens), where
+        ``tokens`` (b, n_prompt + max_new) are the greedy ids the capture
+        ran over, decoded with ``transcribe``'s settings (the same SOT
+        sequence, language handling, max_new and greedy sampling): a caller
+        that also wants the baseline transcript renders these
+        (``decode_tokens_text``) instead of decoding again."""
+        if not self._decoder_layer:
+            raise ValueError(
+                "activations_with_decode needs a decoder.* capture layer, "
+                f"got {self.layer_name!r}")
+        with profiling.span("decode_capture"):
+            acts, tokens, n_valid = decode_capture(
+                self.encoder, self.decoder, self.dims, self._batch(mels),
+                self.layer_name, early_exit=self.early_exit,
+                **self._decode_capture_statics())
+        return acts, n_valid, tokens
 
-    def decode_capture(self, mels):
-        _not_ported("decoder-layer capture (decode_capture)", 9)
+    def _decode_capture_statics(self) -> dict:
+        """``decode_capture``'s settings: a pinned ``language`` goes into
+        the SOT sequence; otherwise a multilingual model detects per clip."""
+        st = self._st
+        lang_detect = st.multilingual and self.language is None
+        lang = (language_index(self.language, self.dims.n_vocab)
+                if (st.multilingual and self.language) else 0)
+        sot_seq = st.sot_sequence(
+            lang_index=lang, task_translate=self.task == "translate", timestamps=True)
+        return dict(sot_seq=tuple(sot_seq), lang_detect=lang_detect,
+                    lang_base=st.lang_base, max_new=self.max_new_tokens,
+                    compute_dtype=self.compute_dtype)
 
     # -- transcription ------------------------------------------------------
 
@@ -226,7 +306,8 @@ class WhisperRuntime:
 
     def _decode(self, encoded: torch.Tensor, prompt: torch.Tensor, n_prompt: int,
                 temperature: float = 0.0, beam_size: Optional[int] = None,
-                generator: Optional[torch.Generator] = None) -> tuple[np.ndarray, ...]:
+                generator: Optional[torch.Generator] = None,
+                decoder_tap: Optional[tuple] = None) -> tuple[np.ndarray, ...]:
         """One decode of the batch → (tokens, sum_logprob, n_text,
         no_speech_prob) as numpy arrays. The ``decode`` span covers the
         device work: it ends with the results on the host."""
@@ -239,7 +320,7 @@ class WhisperRuntime:
                 out = sample_decode(self.decoder, self.dims, encoded, prompt, n_prompt,
                                     max_new=self.max_new_tokens, temperature=temperature,
                                     generator=generator, compute_dtype=self.compute_dtype,
-                                    early_exit=self.early_exit)
+                                    early_exit=self.early_exit, decoder_tap=decoder_tap)
             return tuple(t.cpu().numpy() for t in out)
 
     def transcribe(self, mels: torch.Tensor, substitute_layer: Optional[str] = None,
@@ -247,12 +328,14 @@ class WhisperRuntime:
         """Greedy transcripts of (b, n_mels, 3000) mels; with
         ``substitute_layer``, that encoder layer's output is replaced by
         ``substitute_value`` for the encode (the reference's
-        ``WhisperSubbedActivation``). ``decoder_tap`` raises until
-        decoder-layer steering is ported (ROADMAP Queue 1 #9)."""
-        _check_tap(decoder_tap)
+        ``WhisperSubbedActivation``). ``decoder_tap=(layer_idx, fn,
+        fn_params)`` steers DECODER block ``layer_idx`` online:
+        ``fn(fn_params, x)`` replaces the block's output at every decode
+        position as it is generated (``decoding._decode_step``)."""
         encoded = self.encode(mels, substitute_layer, substitute_value)
         prompt, n_prompt = self._prompt(encoded)
-        return self.decode_tokens_text(self._decode(encoded, prompt, n_prompt)[0])
+        return self.decode_tokens_text(
+            self._decode(encoded, prompt, n_prompt, decoder_tap=decoder_tap)[0])
 
     def transcribe_one(self, mels, **kw) -> str:
         return self.transcribe(mels, **kw)[0]
@@ -336,13 +419,17 @@ class WhisperRuntime:
     @property
     def activation_width(self) -> int:
         """Feature dimension at the capture layer (d_model or 4·d_model)."""
+        d = self.dims.n_text_state if self._decoder_layer else self.dims.n_audio_state
         if (self.layer_name or "").endswith((".mlp.0", ".mlp.1")):
-            return 4 * self.dims.n_audio_state
-        return self.dims.n_audio_state
+            return 4 * d
+        return d
 
     @property
     def activation_frames(self) -> int:
-        """Padded frame-axis length of ``activations()`` rows reported in the
-        store metadata: n_audio_ctx (1500) for encoder layers, as in the JAX
-        package."""
+        """Padded frame-axis length of ``activations()`` rows, reported in
+        the store metadata as the JAX package reports it: encoder layers
+        n_audio_ctx (1500), decoder layers the decode's buffer (n_prompt +
+        max_new_tokens)."""
+        if self._decoder_layer:
+            return len(self._decode_capture_statics()["sot_seq"]) + self.max_new_tokens
         return self.dims.n_audio_ctx

@@ -3,12 +3,18 @@
 The config schema and output artifacts of ``freud_tpu.scripts.collect_activations``
 (keys data_path / layer_name / whisper_model / sae_model / batch_size /
 device / out_folder / dl_max_workers / collect_max / precision / store_dtype /
-resume; outputs ``{layer}_metadata.json`` + ``{layer}_tensors.npy``). The
-pipeline: native batched decode → pinned host buffer → CUDA log-mel kernel →
-encoder forward up to the captured layer (the fused q/k/v attention kernel
-for d ≤ 768, the blocked attention kernel for medium and large) →
-asynchronous device→host copy → streamed append to the memory-mappable
-store on a write-behind thread.
+resume / max_new_tokens; outputs ``{layer}_metadata.json`` +
+``{layer}_tensors.npy``). The pipeline: native batched decode → pinned host
+buffer → CUDA log-mel kernel → encoder forward up to the captured layer (the
+fused q/k/v attention kernel for d ≤ 768, the blocked attention kernel for
+medium and large) → asynchronous device→host copy → streamed append to the
+memory-mappable store on a write-behind thread.
+
+A ``decoder.*`` layer runs the whole encoder, a greedy decode of
+``max_new_tokens`` (default 224) and one teacher-forced decoder pass that
+captures every position: each file stores n_prompt + max_new_tokens rows,
+and its ``n_frames`` is the positions its decode processed (the rows after
+are EOT padding).
 
 With ``sae_model`` (a trainer checkpoint) the SAE encodes each batch on
 the device: an L1 SAE stores its dense latents, a TopK SAE an indexed store
@@ -63,13 +69,16 @@ def get_activations(
     flush_every_s: float = 30.0,
     store_dtype: str = "float32",
     device: Optional[str] = "cuda",
+    max_new_tokens: int = 224,
 ) -> dict:
     """``precision="bfloat16"`` runs the encoder in bf16; the default keeps
     f32 (on CUDA the attention kernel's products are bf16 either way).
     ``resume=True`` continues an interrupted collection: already-stored
     files are skipped, new activations append, and the store is flushed
     crash-consistently every ``flush_every_s`` seconds.
-    ``store_dtype="float16"`` halves store size and read IO."""
+    ``store_dtype="float16"`` halves store size and read IO.
+    ``max_new_tokens`` sizes a decoder layer's decode (encoder layers
+    ignore it)."""
     if data_parallel:
         raise NotImplementedError(
             "data_parallel collection is not ported to freud_tpu_torch yet "
@@ -112,6 +121,7 @@ def get_activations(
         exclude=exclude,
         fetch_dtype=torch.float16 if store_dtype == "float16" else None,
         device=dev,
+        max_new_tokens=max_new_tokens,
     )
 
     # Write-behind store thread: batch k writes to disk while batch k+1
@@ -242,6 +252,7 @@ def main(argv=None):
         resume=bool(args.resume or config.get("resume", False)),
         store_dtype=config.get("store_dtype", "float32"),
         device=config.get("device"),
+        max_new_tokens=int(config.get("max_new_tokens", 224)),
     )
     print(json.dumps(stats))
 

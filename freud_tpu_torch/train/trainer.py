@@ -17,16 +17,24 @@ from the device-resident shuffle cache (``data/device_cache.py``), where
 replay of a captured CUDA graph (``train/graph.py``), on the CPU as a loop
 of the same body. ``DeviceValSet`` keeps the validation set resident.
 
-Validation transcripts (``enable_transcripts``, encoder-layer stores): the
-first ``N_TRANSCRIPTS`` validation files are transcribed with the layer's
-output replaced by the SAE's reconstruction, and (once) as they are, in one
+Validation transcripts (``enable_transcripts``): the first
+``N_TRANSCRIPTS`` validation files are transcribed with the layer's output
+replaced by the SAE's reconstruction, and (once) as they are, in one
 batched decode each (``WhisperRuntime.transcribe``), and logged as
-``val/transcripts/reconstructed_i`` / ``base_i``.
+``val/transcripts/reconstructed_i`` / ``base_i``. An encoder layer's
+reconstruction is spliced into the encode as rows; a ``decoder.blocks.N``
+store's is made online inside the decode (``decoder_tap``, the SAE
+roundtrip of ``analysis/features.py``) from the live SAE parameters, so
+validation fetches no rows for it. A decoder sub-module layer has no
+steering point: transcripts are off for it, as in JAX.
+
+Decoder-layer stores are EOT-padded past each file's decode: the mmap
+loader and the device cache resample the padding rows from valid ones
+(``resample_padding_rows``), and so does fly-mode training, keyed on the
+file name.
 
 Not in this port yet: pod/mesh training and ``shard_dict`` (the pod chunk
-and sampler raise), and the transcripts of ``decoder.*`` stores, which
-need the online decoder steering of ROADMAP Queue 1 #9 (``enable_transcripts``
-prints that they are off and goes on).
+and sampler raise).
 """
 
 from __future__ import annotations
@@ -35,7 +43,9 @@ import json
 import math
 import os
 import random
+import re
 import time
+import zlib
 from pathlib import Path
 from types import SimpleNamespace
 from typing import Optional
@@ -44,11 +54,12 @@ import numpy as np
 import torch
 
 from .. import profiling
+from ..analysis.features import sae_roundtrip_tap_params, sae_steer_fn
 from ..audio.decode import load_audio
 from ..audio.mel import mels_from_array
 from ..constants import get_n_mels
 from ..data.device_cache import DeviceShuffleCache, sample_rows
-from ..data.loaders import init_dataloader
+from ..data.loaders import init_dataloader, resample_padding_rows
 from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
 from ..models.sae import config as sae_config
@@ -441,6 +452,7 @@ def validate(
     transcriber=None,
     loader=None,
     device_set: Optional[DeviceValSet] = None,
+    substitute_rows: bool = True,
 ):
     """Reference ``validate`` semantics: per-file losses and MSE
     (batch-size-1 math), per-feature magnitude maxes and stds, and the
@@ -456,7 +468,9 @@ def validate(
     replacement rows; the slots are padded to N_TRANSCRIPTS so every
     validation decodes one shape. The rows are the bf16 transport head of
     the batch (``validate_files``), or the f32 reconstruction past it, as
-    the JAX package fetches them.
+    the JAX package fetches them. ``substitute_rows=False`` (decoder-layer
+    online steering): the transcriber rebuilds the reconstruction itself,
+    so no row is fetched and ``substitute_values`` is a bare ``True``.
 
     → (losses, subbed_transcripts, base_transcripts, base_filenames,
        magnitude maxes, magnitude stds)."""
@@ -483,21 +497,22 @@ def validate(
         # the JAX package fetches the transport head for a resident batch
         # while the slots could remain assuming every offered file loads,
         # and for a streamed batch while slots remain
+        want_slots = transcriber is not None and len(pending) < N_TRANSCRIPTS
         if resident:
             head_wanted = transcriber is not None and budget < N_TRANSCRIPTS
             budget += n_valid
         else:
-            head_wanted = transcriber is not None and len(pending) < N_TRANSCRIPTS
-        want_rows = transcriber is not None and len(pending) < N_TRANSCRIPTS
+            head_wanted = want_slots
+        want_rows = want_slots and substitute_rows
         out = trainer.validate_files(x, sae_out=want_rows)
         for key in ("recon", "l1", "fvu", "auxk_loss", "multi_topk_fvu", "mse"):
             if key in out:
                 sums[key] = sums.get(key, 0.0) + float(np.sum(out[key]))
         counts += n_valid
         mags.append(out["mag"])
-        if not want_rows:
+        if not want_slots:
             continue
-        head = out["sae_out_head"] if head_wanted else None
+        head = out["sae_out_head"] if want_rows and head_wanted else None
         for j in range(n_valid):
             if len(pending) >= N_TRANSCRIPTS:
                 break
@@ -506,7 +521,12 @@ def validate(
             except RuntimeError:
                 continue  # a file that does not load takes no slot
             mel = mels_from_array(audio, get_n_mels(whisper_model), device=trainer.device)
-            row = head[j] if head is not None and j < head.shape[0] else out["sae_out"][j]
+            if not substitute_rows:
+                row = None
+            elif head is not None and j < head.shape[0]:
+                row = head[j]
+            else:
+                row = out["sae_out"][j]
             pending.append((mel, row, filenames[j]))
 
     subbed: list[str] = []
@@ -516,7 +536,7 @@ def validate(
         n_real = len(pending)
         padded = pending + [pending[-1]] * (N_TRANSCRIPTS - n_real)
         mels = torch.stack([p[0] for p in padded])
-        subs = np.stack([p[1] for p in padded])
+        subs = np.stack([p[1] for p in padded]) if substitute_rows else True
         with profiling.span("val_transcripts"):
             subbed = list(transcriber(mels, substitute_values=subs))[:n_real]
             if log_base_transcripts:
@@ -659,23 +679,45 @@ def train(
             loader.set_position(trainer.step)
 
     transcriber = None
+    decoder_steer_layer = None
     if enable_transcripts and decoder_store:
-        if verbose:
-            print("transcript logging disabled: the transcripts of decoder-layer "
-                  "stores steer the decode online (decoder_tap), which is not "
-                  "ported to freud_tpu_torch yet (ROADMAP Queue 1 #9)")
-    elif enable_transcripts:
+        m = re.fullmatch(r"decoder\.blocks\.(\d+)", layer_name)
+        if m is None:
+            # a decoder sub-module (mlp.0, attn_ln, …) has no online
+            # steering point in the decode, and tensor substitution splices
+            # the encoder only
+            enable_transcripts = False
+            if verbose:
+                print("transcript logging disabled: decoder-layer "
+                      "transcripts steer block outputs (decoder.blocks.N) "
+                      f"only, got {layer_name!r}")
+        else:
+            decoder_steer_layer = int(m.group(1))
+    if enable_transcripts:
         try:
             rt = WhisperRuntime(whisper_model, layer_name,
                                 max_new_tokens=max_transcript_tokens, device=dev)
+            if decoder_steer_layer is not None:
+                steer_fn = sae_steer_fn(trainer.variant, trainer.cfg)
 
-            def transcriber(mels, substitute_values=None):
-                # batched: mels (B, n_mels, T), substitute_values (B, s, d)
-                # or None → B transcripts
-                if substitute_values is None:
-                    return rt.transcribe(mels)
-                return rt.transcribe(mels, substitute_layer=layer_name,
-                                     substitute_value=substitute_values)
+                def transcriber(mels, substitute_values=None):
+                    # decoder stores: the reconstruction is spliced in
+                    # ONLINE, position by position, from the SAE's live
+                    # parameters (updated in place by the steps, also under
+                    # graph replay); substitute_values is only a flag here
+                    if substitute_values is None:
+                        return rt.transcribe(mels)
+                    tp = sae_roundtrip_tap_params(trainer.variant, trainer.params)
+                    return rt.transcribe(
+                        mels, decoder_tap=(decoder_steer_layer, steer_fn, tp))
+            else:
+                def transcriber(mels, substitute_values=None):
+                    # batched: mels (B, n_mels, T), substitute_values
+                    # (B, s, d) or None → B transcripts
+                    if substitute_values is None:
+                        return rt.transcribe(mels)
+                    return rt.transcribe(mels, substitute_layer=layer_name,
+                                         substitute_value=substitute_values)
         except (FileNotFoundError, ValueError) as e:
             if verbose:
                 print(f"transcript logging disabled: {e}")
@@ -714,10 +756,24 @@ def train(
                         "on chunk boundaries)")
             fused = fused_steps
 
+    def host_batches():
+        if decoder_store and not from_disk:
+            # fly-mode decoder training: the capture EOT-pads each file's
+            # rows past its decode (n_frames, the last element): resample
+            # them from valid rows as the disk loaders do, keyed on the file
+            # name
+            for b in loader.iter_with_lengths():
+                x = np.asarray(b[0], np.float32)
+                ids = [zlib.crc32(str(n).encode()) for n in b[-2]]
+                yield resample_padding_rows(x, ids, b[-1], seed)
+        else:
+            for b in loader:
+                yield np.asarray(b[0], np.float32)
+
     def batch_stream():
         while True:
-            for b in loader:
-                x = torch.from_numpy(np.asarray(b[0], np.float32))
+            for b in host_batches():
+                x = torch.from_numpy(b)
                 # on the card, stage the batch in pinned memory here, on the
                 # prefetch thread, so the step's host→device copy is async
                 yield x.pin_memory() if cuda else x
@@ -795,7 +851,8 @@ def train(
                         trainer, val_folder, layer_name, whisper_model,
                         from_disk, not logged_base_transcripts,
                         transcriber=transcriber, loader=val_loader,
-                        device_set=val_set)
+                        device_set=val_set,
+                        substitute_rows=decoder_steer_layer is None)
                 logged_base_transcripts = True
                 val_keys = (("recon", "l1") if autoencoder_variant == "l1"
                             else ("fvu", "auxk_loss", "multi_topk_fvu"))

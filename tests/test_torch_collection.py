@@ -178,7 +178,6 @@ def test_sae_attached_stores_match_jax(setup, monkeypatch, variant):
 
 @pytest.mark.parametrize("change", [
     {"layer_name": [LAYER, "encoder.blocks.0"]},
-    {"layer_name": "decoder.blocks.0"},
     {"data_parallel": True},
     {"build_index": True},
 ])
@@ -191,6 +190,28 @@ def test_unported_options_raise(setup, tmp_path, change):
     path.write_text(json.dumps(cfg))
     with pytest.raises(NotImplementedError):
         tcollect.main(["--config", str(path)])
+
+
+def test_decoder_layer_collects(setup, tmp_path, monkeypatch):
+    """A ``decoder.blocks.0`` config through the CLI: each file stores
+    n_prompt + max_new_tokens rows (3 + 8 on this multilingual vocabulary),
+    and ``n_frames`` counts the positions its greedy decode processed
+    (tests/test_torch_decoder_capture.py holds it to JAX's)."""
+    _, wdir, audio = setup
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
+    layer = "decoder.blocks.0"
+    out = tmp_path / "out"
+    cfg = {"whisper_model": "tiny", "layer_name": layer, "batch_size": 2,
+           "data_path": str(audio), "device": "cpu", "out_folder": str(out),
+           "max_new_tokens": 8}
+    path = tmp_path / "cfg.json"
+    path.write_text(json.dumps(cfg))
+    tcollect.main(["--config", str(path)])
+    meta = json.loads((out / f"{layer}_metadata.json").read_text())
+    rows = np.load(out / f"{layer}_tensors.npy")
+    assert meta["tensor_shape"] == meta["activation_shape"] == [11, 64]
+    assert rows.shape == (3, 11 * 64) and np.isfinite(rows).all()
+    assert len(meta["n_frames"]) == 3 and all(4 <= n <= 11 for n in meta["n_frames"])
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])

@@ -538,3 +538,78 @@ def test_decode_on_card_matches_cpu(cuda, beam):
         np.testing.assert_array_equal(got[0][r, :close[r]].cpu().numpy(),
                                       want[0][r, :close[r]].numpy())
     assert torch.isfinite(got[1]).all() and got[0].shape == want[0].shape
+
+
+# ---------------------------------------------------- decoder capture, steering
+
+
+def test_tapped_step_on_card_matches_oracle(cuda):
+    """The KV-cached step with an affine tap at block 0 on the card, against
+    the teacher-forced oracle (the tapped block output substituted back) on
+    the card, 2e-3 as on the CPU, and against the CPU's tapped step within
+    1e-4 of max."""
+    from freud_tpu_torch.models.whisper import decoder_forward
+    from freud_tpu_torch.models.whisper import decoding as dec_mod
+
+    dims, dec, encoded, prompt = _decoder_inputs(cuda)
+    tokens = torch.cat([prompt, torch.randint(0, 50000, (2, 5),
+                                              generator=torch.Generator().manual_seed(2))], 1)
+    t = tokens.shape[1]
+
+    def affine(tp, x):
+        return x * tp[0] + tp[1]
+
+    def steps(module, device):
+        tp = (torch.tensor(0.9, device=device), torch.tensor(0.03, device=device))
+        enc = encoded.to(device)
+        cross = dec_mod._cross_kv_stacks(module, dims, enc)
+        sk, sv = dec_mod._self_kv(dims, 2, t, torch.float32, device)
+        pos = torch.zeros((), dtype=torch.int64, device=device)
+        rows = []
+        for p in range(t):
+            rows.append(dec_mod._decode_step(module, dims, tokens[:, p].to(device), pos, sk,
+                                             sv, cross, tap_layer=0, tap_fn=affine,
+                                             tap_params=tp))
+            pos += 1
+        return torch.stack(rows, 1), tp
+
+    with torch.inference_mode():
+        want, _ = steps(dec, torch.device("cpu"))
+        card = dec.to(cuda)
+        got, tp = steps(card, cuda)
+        name = "decoder.blocks.0"
+        args = (card, dims, tokens.to(cuda), encoded.to(cuda))
+        _, caps = decoder_forward(*args, capture=(name,))
+        oracle, _ = decoder_forward(*args, substitute={name: affine(tp, caps[name])})
+    torch.testing.assert_close(got, oracle, atol=2e-3, rtol=2e-3)
+    assert ((got.cpu() - want).abs().max() / want.abs().max()).item() < 1e-4
+
+
+def test_decode_capture_on_card_matches_cpu(cuda, monkeypatch):
+    """``activations_with_decode`` at test:tiny (decoder block 1) on the
+    card against the CPU: tokens and valid positions equal up to the first
+    CPU close call, activations within 1e-4 of max there (f32, TF32 off;
+    the encoder's attention takes the plain f32 path on the card too, as
+    kernel #2's bf16 products alone move the encoding by more than that)."""
+    from freud_tpu_torch.models.whisper import decoding as dec_mod
+    from freud_tpu_torch.models.whisper import model as model_mod
+
+    monkeypatch.setattr(model_mod, "ATTENTION_IMPL", "einsum")
+    mels = torch.from_numpy(
+        (np.random.default_rng(3).standard_normal((2, 80, 3000)) * 0.4).astype(np.float32))
+    rts = {d: WhisperRuntime("test:tiny", "decoder.blocks.1", max_new_tokens=12, device=d)
+           for d in ("cpu", "cuda")}
+    want = rts["cpu"].activations_with_decode(mels)
+    got = rts["cuda"].activations_with_decode(mels.to(cuda))
+    assert got[0].is_cuda and tuple(got[0].shape) == (2, 15, 384)
+    cpu_rt = rts["cpu"]
+    encoded = cpu_rt.encode(mels)
+    margins = dec_mod.decision_margins(cpu_rt.decoder, cpu_rt.dims, encoded, want[2], 3)
+    for r in range(2):
+        close = margins[r] < DECODE_CLOSE_CALL
+        upto = int(np.argmax(close)) if close.any() else 15
+        assert torch.equal(got[2][r, :upto].cpu(), want[2][r, :upto])
+        err = (got[0][r, :upto].cpu() - want[0][r, :upto]).abs().max()
+        assert (err / want[0].abs().max()).item() < 1e-4
+        if upto == 15:
+            assert int(got[1][r]) == int(want[1][r])

@@ -337,7 +337,7 @@ def scripted(monkeypatch):
         return _script(pos, token, token.shape[0], jnp), self_k, self_v
 
     def torch_stub(decoder, dims, token, pos, self_k, self_v, cross_kv, start=None,
-                   vocab=None):
+                   vocab=None, **tap):
         return _script(pos, token, token.shape[0], torch)
 
     jdec._sample_decode_impl.clear_cache()
@@ -477,9 +477,11 @@ def test_bf16_against_port_f32(m):
 
 
 def test_decoder_tap_raises(m):
-    with pytest.raises(NotImplementedError, match="#9"):
+    """A tap on a layer the decoder does not have raises, as JAX's does
+    (tests/test_torch_steering.py holds the taps themselves)."""
+    with pytest.raises(ValueError, match="out of range"):
         tdec.greedy_decode(m.decoder, DIMS, _t(m.encoded), _t(m.prompt), m.n_prompt,
-                           max_new=4, decoder_tap=(0, None, None))
+                           max_new=4, decoder_tap=(DIMS.n_text_layer, lambda p, x: x, None))
     with pytest.raises(ValueError, match="positions"):
         tdec.greedy_decode(m.decoder, DIMS, _t(m.encoded), _t(m.prompt), m.n_prompt,
                            max_new=DIMS.n_text_ctx)

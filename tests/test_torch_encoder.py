@@ -125,8 +125,11 @@ def test_random_models_and_runtime():
 
 
 def test_unported_paths_raise():
-    with pytest.raises(NotImplementedError):
-        WhisperRuntime("test:tiny", "decoder.blocks.0")
+    """Decoder layers are capture layers now (their frames the decode's
+    buffer, their width the decoder's); an unknown layer and an unknown
+    model still raise."""
+    rt = WhisperRuntime("test:tiny", "decoder.blocks.0", max_new_tokens=5, device="cpu")
+    assert (rt.activation_frames, rt.activation_width) == (3 + 5, 384)
     with pytest.raises(ValueError):
         WhisperRuntime("test:tiny", "blocks.0")
     with pytest.raises(ValueError):
