@@ -113,6 +113,38 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      8 30-s WAVs at batch 8: store (8, 227, 1280), #5 32 times a batch, ms
      a decode step and peak memory; a raw-channel tap at factor 1 gives
      the unsteered decode's tokens.
+ 18. (after phase 16) the feature-major index and search: the index CLI
+     (``python -m freud_tpu_torch.scripts.index_activations``, in-process)
+     over phase 3's dense store and phase 7's indexed one (MB/s), and
+     ``top_activations`` on both for 3 features, plain and abs-magnitude:
+     the fast path equals the scan and the CPU's answer bit for bit (ms a
+     query each path); then a collection with ``build_index`` over the
+     first batch of files and a resumed one over the rest: the index grows
+     a segment and stays current;
+ 19. the GUI server (``freud_tpu_torch.server.app``) on the card in this
+     process on port 0, random:tiny: from disk over phase 3's store (no
+     SAE), over phase 7's store with phase 5's TopK checkpoint, fly mode
+     over the WAVs with the tiny_l1 checkpoint, and from disk over phase
+     14's ``decoder.blocks.2`` store. Requests: /status, /top_files (scan,
+     and the fast path where indexed), /audio with a Range (206, the
+     file's bytes), /top_features, /manipulate_feature (factor 8; factor 1
+     too without an SAE, giving three equal texts), /transcribe; each
+     timed (median of 3, of 2 for the decode-bound ones) with its
+     launches: #1 once an upload, #2 three times a capture to block 2 (4
+     before a decoder capture) and 4 times a decode's encoder; a fly
+     search #1 once and #2 three times a batch; one profiled request of
+     each endpoint (device-busy share). Card against CPU on 2 clips
+     (``files_to_search`` 2): /top_files bodies identical, /top_features
+     traces within CARD_VS_CPU_TOL. In each setup an out-of-range index
+     answers 400 and the next request 200;
+ 20. (after phase 17) large width: the index CLI and search over phase 8's
+     random:large-v1 store (35 × 1500 × 1280), then the server from disk
+     over it with phase 10's large_v1_audioset checkpoint: /status,
+     /top_files on both paths (equal bodies), /top_features and
+     /manipulate_feature at factor 8 (median of 2), #5 17 times a capture
+     and 32 times a decode's encoder. The server's decode budget is cut
+     to LARGE_SERVER_MAX_NEW (64) tokens a transcript to stay within the
+     time limit.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
@@ -120,8 +152,11 @@ record (per kernel: ms, plain_ms, bound_ms and what bounds it,
 library_ms or null with the reason, launches in the main path's run and
 per collection batch or train step; #1, #2 and #5 also their launches in
 the transcription runs, #3 and #4 in the cache runs, every kernel in the
-decoder runs of phases 14–17, #4 the graph-against-eager difference) and
-the device JSON.
+decoder runs of phases 14–17 and #1, #2 and #5 in the server phases
+19–20, #4 the graph-against-eager difference) and the device JSON. Before
+them, one JSON line records phases 18–20: index-build MB/s, ms a query on
+each search path, ms a request an endpoint with its launches, device-busy
+shares.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
@@ -200,6 +235,8 @@ DECODE_CLOSE_CALL = 1e-3  # a post-rules top-two margin below this may flip
 # rows are the multilingual SOT sequence (3) and the decode's 224 tokens
 DEC_LAYER, LARGE_DEC_LAYER, DEC_FRAMES = "decoder.blocks.2", "decoder.blocks.16", 3 + 224
 STEER_FACTOR = 8.0
+# the large server's decode budget a transcript (three a /manipulate_feature)
+LARGE_SERVER_MAX_NEW = 64
 # --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
 # f32 files, in four modes (name, steps, config keys)
 TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
@@ -633,7 +670,7 @@ def profiled_ms(torch, fn, name: str, reps: int = 3) -> float:
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
             fn()
         torch.cuda.synchronize()
@@ -1675,8 +1712,8 @@ def count_batches(loader_cls, counters: dict):
     seen: list[dict] = []
     last = {k: fn.launches for k, fn in counters.items()}
 
-    def spy(self, mels, n):
-        out = real(self, mels, n)
+    def spy(self, mels, n, **kw):
+        out = real(self, mels, n, **kw)
         now = {k: fn.launches for k, fn in counters.items()}
         seen.append({"rows": n, **{k: now[k] - last[k] for k in now}})
         last.update(now)
@@ -2045,6 +2082,445 @@ def large_decoder(torch, tmp: Path, wav_dir: Path, card: str, counters: dict) ->
             "decode_ms_a_step": ms_a_step(decodes), "peak_gib": peak, "launches": got}
 
 
+# ------------------------------------------------------ analytics and serving
+
+
+def run_index_cli(tmp: Path, folder: Path, layer: str) -> float:
+    """``python -m freud_tpu_torch.scripts.index_activations --config ...``
+    in this process over ``folder``'s ``layer`` store → its seconds."""
+    from freud_tpu_torch.scripts import index_activations
+
+    cfg_path = tmp / f"index_{folder.name}.json"
+    cfg_path.write_text(json.dumps({"out_folder": str(folder), "layer_name": layer}))
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(io.StringIO()):
+        index_activations.main(["--config", str(cfg_path)])
+    return time.perf_counter() - t0
+
+
+def store_mb(folder: Path, layer: str) -> float:
+    """The store's array bytes (dense rows, or values and indices), in MB."""
+    names = (f"{layer}_tensors.npy", f"{layer}_activation_values.npy",
+             f"{layer}_feature_indices.npy")
+    return sum((folder / n).stat().st_size for n in names if (folder / n).exists()) / 1e6
+
+
+@contextlib.contextmanager
+def hidden_index(folder: Path, layer: str):
+    """Move ``layer``'s feature-major index out of ``folder`` while the block
+    runs, so search scans the store."""
+    away = folder.parent / f"{folder.name}_index_away"
+    away.mkdir(exist_ok=True)
+    moved = list(folder.glob(f"{layer}_feature_major*"))
+    for p in moved:
+        p.rename(away / p.name)
+    try:
+        yield
+    finally:
+        for p in moved:
+            (away / p.name).rename(p)
+
+
+def same_search(a, b) -> None:
+    """Two ``top_activations`` results: the same files in the same order,
+    equal values and times, bit-equal traces and per-file maxima."""
+    assert [(f, v, t) for f, _, v, t in a[0]] == [(f, v, t) for f, _, v, t in b[0]]
+    for (_, x, _, _), (_, y, _, _) in zip(a[0], b[0]):
+        assert np.array_equal(x, y)
+    assert a[1] == b[1]
+
+
+def timed(torch, fn, repeats: int) -> tuple[float, list[float], object]:
+    """Median ms of ``repeats`` synchronised calls, every ms, the last result."""
+    walls = []
+    out = None
+    for _ in range(repeats):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    return statistics.median(walls), walls, out
+
+
+def search_store(torch, tmp: Path, folder: Path, layer: str, feats: list[int], card: str,
+                 cpu_check: bool = True) -> dict:
+    """Index ``folder``'s store with the index CLI (MB/s), then search it
+    for each of ``feats`` (top 10, plain and abs-magnitude) on the card's
+    fast path and scan, and the fast path on the CPU: all equal. → ms a
+    query for each path (median of 3) and the build's MB/s."""
+    from freud_tpu_torch.analysis.search import top_activations
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
+
+    secs = run_index_cli(tmp, folder, layer)
+    mb = store_mb(folder, layer)
+    loader = MemoryMappedActivationLoader(str(folder), layer, batch_size=BATCH)
+    for feat in feats:
+        for absolute in (False, True):
+            fast = top_activations(loader, feat, 10, absolute_magnitude=absolute)
+            with hidden_index(folder, layer):
+                scan = top_activations(loader, feat, 10, absolute_magnitude=absolute)
+            same_search(fast, scan)
+            if cpu_check:
+                same_search(fast, top_activations(loader, feat, 10, device="cpu",
+                                                  absolute_magnitude=absolute))
+    fast_ms, fast_all, _ = timed(torch, lambda: top_activations(loader, feats[0], 10), 3)
+    with hidden_index(folder, layer):
+        scan_ms, scan_all, _ = timed(torch, lambda: top_activations(loader, feats[0], 10), 3)
+    rec = {"files": len(loader.reader), "store_mb": mb, "index_build_s": secs,
+           "index_build_mb_per_s": mb / secs, "fast_ms": fast_ms, "scan_ms": scan_ms,
+           "fast_ms_all": fast_all, "scan_ms_all": scan_all}
+    print(f"search over {folder.name} ({layer}, {rec['files']} files, {mb:.1f} MB): index "
+          f"build {secs:.3f} s ({rec['index_build_mb_per_s']:.1f} MB/s); /top_files fast "
+          f"path {fast_ms:.3f} ms, scan {scan_ms:.3f} ms a query on {card}; fast == scan "
+          f"== CPU for features {feats}")
+    return rec
+
+
+def index_and_search(torch, tmp: Path, config: dict, card: str) -> dict:
+    """Phase 18: the index CLI over phase 3's dense store and phase 7's
+    indexed one, searched on the fast path and by scan on the card and on
+    the CPU (equal); then a collection with ``build_index`` over one batch
+    of files and a resumed one over all of them: the second adds a segment,
+    and search stays on the fast path."""
+    from freud_tpu_torch.analysis.search import top_activations
+    from freud_tpu_torch.data import feature_store as fs
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
+
+    recs = {"dense": search_store(torch, tmp, tmp / "card", LAYER, [0, 7, 383], card),
+            "indexed": search_store(torch, tmp, tmp / "sae", LAYER, [0, 11, 6143], card)}
+    grow = tmp / "grow"
+    first = config["batch_size"]
+    gcfg = {**config, "out_folder": str(grow), "collect_max": first, "build_index": True}
+    collect(gcfg, tmp / "grow.json")
+    assert len(fs.segment_paths(grow, LAYER)) == 1 and fs.index_is_current(grow, LAYER, first)
+    stats = collect({**gcfg, "collect_max": None, "build_index": False, "resume": True},
+                    tmp / "grow.json")
+    n = first + stats["n_files"]
+    assert len(fs.segment_paths(grow, LAYER)) == 2 and fs.index_is_current(grow, LAYER, n)
+    loader = MemoryMappedActivationLoader(str(grow), LAYER, batch_size=BATCH)
+    fast = top_activations(loader, 5, 10)
+    with hidden_index(grow, LAYER):
+        same_search(fast, top_activations(loader, 5, 10))
+    print(f"collection with build_index over {first} files, then resumed to {n}: the index "
+          f"grew a segment and search stays on its fast path")
+    return recs
+
+
+def start_server(config: dict, from_disk: bool, **kw):
+    """The port's GUI server in this process on port 0 → (server, state)."""
+    import threading
+
+    from freud_tpu_torch.server.app import GuiState, create_server
+
+    state = GuiState(config, from_disk=from_disk, **kw)
+    server = create_server(state, host="127.0.0.1", port=0)
+    threading.Thread(target=server.serve_forever, daemon=True).start()
+    return server, state
+
+
+def stop_server(server) -> None:
+    server.shutdown()
+    server.server_close()
+
+
+def http_request(server, method: str, path: str, body: bytes | None = None,
+         headers: dict | None = None) -> tuple[int, dict, bytes]:
+    import http.client
+
+    conn = http.client.HTTPConnection("127.0.0.1", server.server_address[1], timeout=600)
+    try:
+        conn.request(method, path, body=body, headers=headers or {})
+        r = conn.getresponse()
+        return r.status, dict(r.getheaders()), r.read()
+    finally:
+        conn.close()
+
+
+def multipart(data: bytes) -> tuple[bytes, dict]:
+    body = (b'--b42\r\nContent-Disposition: form-data; name="audio"; filename="u.wav"\r\n'
+            b"Content-Type: audio/wav\r\n\r\n" + data + b"\r\n--b42--\r\n")
+    return body, {"Content-Type": "multipart/form-data; boundary=b42"}
+
+
+def serve_requests(torch, server, requests: list[tuple], counters: dict, repeats: int,
+                   card: str, label: str) -> dict:
+    """Each (name, method, path, upload bytes or None, headers) request
+    ``repeats`` times on the host's clock (the answer is on the host when
+    it returns): its status, median ms and each kernel's launches in its
+    first run. → {name: record}, bodies under "body"."""
+    out = {}
+    for name, method, path, data, headers in requests:
+        body, hdrs = (multipart(data) if data is not None else (None, {}))
+        walls, launches, last = [], None, None
+        for _ in range(repeats):
+            before = {k: fn.launches for k, fn in counters.items()}
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            last = http_request(server, method, path, body, {**hdrs, **(headers or {})})
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t0))
+            if launches is None:
+                launches = {k: fn.launches - before[k] for k, fn in counters.items()}
+        assert last[0] in (200, 206), (label, name, last[0], last[2][:300])
+        out[name] = {"status": last[0], "ms": statistics.median(walls), "ms_all": walls,
+                     "launches": launches, "body": last[2]}
+        print(f"  {label} {name}: {last[0]}, {out[name]['ms']:.3f} ms a request "
+              f"(median of {repeats}: {[round(w, 3) for w in walls]}) on {card}; "
+              f"launches {launches}")
+    return out
+
+
+def device_share(torch, server, method: str, path: str, data: bytes | None) -> dict:
+    """One request under torch.profiler (its CUDA activity holds every
+    thread's kernels, the server's included): the kernels' ms, the wall
+    and the device-busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    body, hdrs = multipart(data) if data is not None else (None, {})
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        http_request(server, method, path, body, hdrs)
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernel_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    return {"wall_ms": wall, "kernel_ms": kernel_ms, "device_busy": kernel_ms / wall}
+
+
+def top_features_split(torch, state, upload: bytes) -> dict:
+    """Where a /top_features request's time goes, in this thread (median ms
+    of 3): the upload's decode (a temporary file read through ``wave``),
+    the analyzer (log-mel, capture, SAE, sort; synchronised) and the JSON
+    encoding of its answer."""
+    from freud_tpu_torch.server.app import decode_uploaded_audio
+
+    decode_ms, _, audio = timed(torch, lambda: decode_uploaded_audio(upload, "u.wav"), 3)
+
+    def analyze():
+        with torch.inference_mode():
+            return state.analyzer.top_features_for_audio(audio, 32)
+
+    analyzer_ms, _, (idx, traces) = timed(torch, analyze, 3)
+    json_ms, _, _ = timed(torch, lambda: json.dumps(
+        {"top_indices": idx,
+         "top_activations": [np.asarray(t).tolist() for t in traces]}).encode(), 3)
+    return {"decode_upload_ms": decode_ms, "analyzer_ms": analyzer_ms, "json_ms": json_ms}
+
+
+def check_out_of_range(server, n_features: int, upload: bytes) -> None:
+    """Out-of-range indices answer 400 before any device work (a
+    device-side assert would poison the CUDA context), and the next
+    request still answers 200."""
+    for bad in (f"/top_files?feature_idx={n_features}",):
+        assert http_request(server, "GET", bad)[0] == 400, bad
+        assert http_request(server, "GET", "/top_files?feature_idx=1&n_files=1")[0] == 200
+    for bad in (f"/manipulate_feature?feat_idx={n_features}",
+                f"/top_features?top_n={n_features + 1}"):
+        assert http_request(server, "POST", bad, *multipart(upload))[0] == 400, bad
+        assert http_request(server, "POST", "/top_features?top_n=2", *multipart(upload))[0] == 200
+
+
+def serving_tiny(torch, tmp: Path, config: dict, clips, audio_dir: Path, counters: dict,
+                 card: str) -> dict:
+    """Phase 19: the port's GUI server on the card, in this process on port
+    0, at random:tiny width: from disk over phase 3's store (no SAE), over
+    phase 7's indexed store with phase 5's TopK checkpoint, in fly mode over
+    the WAVs with the tiny_l1 checkpoint, and from disk over phase 14's
+    decoder.blocks.2 store. Each request timed (median of 3) with its
+    kernel launches; one profiled request an endpoint; no SAE at factor 1
+    gives three equal texts; card against CPU on 2 clips; an out-of-range
+    request answers 400 and the next one 200."""
+    upload = Path(clips[0][0]).read_bytes()  # a 30-s clip
+    audio_path = "/audio" + clips[1][0]
+    topk_ckpt = tmp / "run_topk" / "checkpoints" / "bestval.pth"
+    l1_ckpt = tmp / "run_l1" / "checkpoints" / "step4.pth"
+    setups = [
+        ("disk", {**config, "out_folder": str(tmp / "card")}, True, ["scan", "indexed"]),
+        ("disk_topk", {**config, "out_folder": str(tmp / "sae"),
+                       "sae_model": str(topk_ckpt)}, True, ["scan", "indexed"]),
+        ("fly_l1", {**config, "sae_model": str(l1_ckpt)}, False, ["scan"]),
+        ("disk_decoder", {**config, "layer_name": DEC_LAYER,
+                          "out_folder": str(tmp / "dec_0")}, True, ["scan"]),
+    ]
+    recs = {}
+    for label, cfg, from_disk, searches in setups:
+        t0 = time.perf_counter()
+        server, state = start_server(cfg, from_disk)
+        state.runtime.decoder  # built at first use: with the server, not in a request
+        init_s = time.perf_counter() - t0
+        assert state.device.type == "cuda" and state.runtime.device.type == "cuda"
+        n = state.n_features
+        feat = 5
+        # decode-bound requests twice, the rest three times; factor 1 (the
+        # three-equal-texts check) and /transcribe on the first setup only
+        requests = [("status", "GET", "/status", None, None, 3)]
+        for kind in searches:
+            requests.append((f"top_files_{kind}", "GET",
+                             f"/top_files?feature_idx={feat}&n_files=10", None, None, 3))
+        if label == "disk":
+            requests.append(("audio_range", "GET", audio_path, None,
+                             {"Range": "bytes=0-65535"}, 3))
+        requests.append(("top_features", "POST", "/top_features?top_n=32", upload, None, 3))
+        for factor in ((1, 8) if label == "disk" else (8,)):
+            requests.append((f"manipulate_x{factor}", "POST",
+                             f"/manipulate_feature?feat_idx={feat}&manipulation_factor={factor}",
+                             upload, None, 2))
+        if label == "disk":
+            requests.append(("transcribe", "POST", "/transcribe", upload, None, 2))
+        rec = {}
+        for name, method, path, data, headers, repeats in requests:
+            ctx = (hidden_index(Path(cfg["out_folder"]), cfg["layer_name"])
+                   if name == "top_files_scan" and from_disk else contextlib.nullcontext())
+            with ctx:
+                rec.update(serve_requests(torch, server, [(name, method, path, data, headers)],
+                                          counters, repeats, card, label))
+        status = json.loads(rec["status"]["body"])
+        assert status["n_features"] == n and status["layer_name"] == cfg["layer_name"]
+        if "top_files_indexed" in rec:
+            assert rec["top_files_indexed"]["body"] == rec["top_files_scan"]["body"]
+        if label == "disk":
+            assert rec["audio_range"]["status"] == 206
+            assert rec["audio_range"]["body"] == Path(clips[1][0]).read_bytes()[:65536]
+            texts = json.loads(rec["manipulate_x1"]["body"])
+            three = {texts[k] for k in ("baseline_text", "manipulated_text", "standard_text")}
+            print(f"  disk, no SAE, factor 1: three equal texts: {len(three) == 1}")
+            assert len(three) == 1, three
+        # the upload's log-mel is kernel #1 on the card, once a request; #2
+        # runs 3 times a capture to block 2 (the whole encoder, 4, before a
+        # decoder capture) and 4 times a decode's encoder, substituted or not
+        decoder = label == "disk_decoder"
+        capture = 4 if decoder else 3
+        want = {"top_features": capture, "transcribe": 4,
+                "manipulate_x1": capture + 4 * (2 if decoder else 3)}
+        want["manipulate_x8"] = want["manipulate_x1"]
+        for name, n_attn in want.items():
+            if name in rec:
+                got = rec[name]["launches"]
+                assert got == {"log_mel": 1, "fused_qkv_attention": n_attn,
+                               "whisper_attention": 0}, (label, name, got)
+        if label == "fly_l1":
+            n_batches = -(-len(clips) // cfg["batch_size"])
+            got = rec["top_files_scan"]["launches"]
+            assert got["log_mel"] == n_batches and \
+                got["fused_qkv_attention"] == 3 * n_batches, got
+        shares = {}
+        if label == "disk":
+            with hidden_index(Path(cfg["out_folder"]), cfg["layer_name"]):
+                shares = {name: device_share(torch, server, method, path, data)
+                          for name, method, path, data, _, _ in requests
+                          if name in ("top_files_scan", "top_features", "manipulate_x8",
+                                      "transcribe")}
+            shares["top_features_split"] = top_features_split(torch, state, upload)
+            print(f"  {label} device busy a request: "
+                  f"{ {k: round(v['device_busy'], 4) for k, v in shares.items() if 'device_busy' in v} }"
+                  f"; /top_features split {shares['top_features_split']}")
+        check_out_of_range(server, n, upload)
+        stop_server(server)
+        recs[label] = {"init_s": init_s, "device_share": shares,
+                       **{k: {kk: vv for kk, vv in v.items() if kk != "body"}
+                          for k, v in rec.items()}}
+        del state
+        free_device_memory(torch)
+
+    # card against CPU on 2 clips: /top_files payloads identical (the
+    # store's values), /top_features traces within the store gate
+    cmp = {}
+    for dev in ("cuda", "cpu"):
+        server, _ = start_server({**config, "out_folder": str(tmp / "card"), "device": dev},
+                                 True, files_to_search=2)
+        files = http_request(server, "GET", "/top_files?feature_idx=7&n_files=2")
+        feats = [json.loads(http_request(server, "POST", "/top_features?top_n=32",
+                                 *multipart(Path(p).read_bytes()))[2]) for p, _ in clips[:2]]
+        cmp[dev] = (files, feats)
+        stop_server(server)
+    assert cmp["cuda"][0][0] == cmp["cpu"][0][0] == 200
+    assert cmp["cuda"][0][2] == cmp["cpu"][0][2], "card and CPU /top_files differ"
+    worst = 0.0
+    for got, want in zip(cmp["cuda"][1], cmp["cpu"][1]):
+        scale = max(np.abs(np.asarray(want["top_activations"])).max(), 1e-30)
+        common = [i for i in got["top_indices"] if i in want["top_indices"]]
+        assert len(common) >= 16, (got["top_indices"], want["top_indices"])
+        for i in common:
+            a = np.asarray(got["top_activations"][got["top_indices"].index(i)])
+            b = np.asarray(want["top_activations"][want["top_indices"].index(i)])
+            worst = max(worst, float(np.abs(a - b).max() / scale))
+    print(f"server card vs CPU, 2 clips: /top_files identical; /top_features traces "
+          f"max|Δ|/max|cpu| {worst:.3e} (bound {CARD_VS_CPU_TOL})")
+    assert worst < CARD_VS_CPU_TOL, worst
+    recs["card_vs_cpu_top_features_rel"] = worst
+    free_device_memory(torch)
+    return recs
+
+
+def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
+                  counters: dict, card: str, model: str = "random:large-v1") -> dict:
+    """Phase 20: the index CLI and search over phase 8's random:large-v1
+    store (block 16), then the GUI server from disk over it with phase 10's
+    large_v1_audioset TopK checkpoint: /status, /top_files on both paths,
+    one /top_features and one /manipulate_feature (median of 2), kernel #5
+    launched 17 times a capture and 32 times a decode's encoder. The
+    server's decode budget is cut to LARGE_SERVER_MAX_NEW tokens to stay
+    within the time limit."""
+    width = json.loads((store / f"{LARGE_LAYER}_metadata.json").read_text())[
+        "activation_shape"][-1]
+    feat = width // 2
+    search = search_store(torch, tmp, store, LARGE_LAYER, [0, feat, width - 1], card,
+                          cpu_check=False)
+    cfg = {**json.loads((REPO / "configs/features/large_v1_block_16_audioset_train.json")
+                        .read_text()),
+           "whisper_model": model, "layer_name": LARGE_LAYER, "out_folder": str(store),
+           "sae_model": str(ckpt)}
+    t0 = time.perf_counter()
+    server, state = start_server(cfg, True)
+    state.runtime.decoder  # built at first use: with the server, not in a request
+    init_s = time.perf_counter() - t0
+    state.runtime.max_new_tokens = LARGE_SERVER_MAX_NEW
+    upload = (wav_dir / "clip000.wav").read_bytes()
+    rec = serve_requests(torch, server, [("status", "GET", "/status", None, None),
+                                         ("top_files_indexed", "GET",
+                                          f"/top_files?feature_idx={feat}&n_files=10", None, None)],
+                         counters, 3, card, "large")
+    with hidden_index(store, LARGE_LAYER):
+        rec.update(serve_requests(torch, server, [
+            ("top_files_scan", "GET", f"/top_files?feature_idx={feat}&n_files=10", None, None)],
+            counters, 3, card, "large"))
+    assert rec["top_files_scan"]["body"] == rec["top_files_indexed"]["body"]
+    rec.update(serve_requests(torch, server, [
+        ("top_features", "POST", "/top_features?top_n=32", upload, None),
+        ("manipulate_x8", "POST", f"/manipulate_feature?feat_idx={feat}&manipulation_factor=8",
+         upload, None)], counters, 2, card, "large"))
+    # #5 once a block: to block 16 for a capture, all 32 for a decode's encoder
+    capture = int(LARGE_LAYER.rsplit(".", 1)[-1]) + 1
+    whole = state.runtime.dims.n_audio_layer
+    assert rec["top_features"]["launches"] == {
+        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture}, rec
+    assert rec["manipulate_x8"]["launches"] == {
+        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture + 3 * whole}, rec
+    feats = json.loads(rec["top_features"]["body"])
+    assert len(feats["top_indices"]) == 32
+    assert all(np.isfinite(t).all() and len(t) == 1500 for t in feats["top_activations"])
+    m = json.loads(rec["manipulate_x8"]["body"])
+    assert np.allclose(np.asarray(m["manipulated_activations"]),
+                       8 * np.asarray(m["standard_activations"]), rtol=1e-6)
+    shares = {"manipulate_x8": device_share(torch, server, "POST",
+                                            f"/manipulate_feature?feat_idx={feat}&"
+                                            "manipulation_factor=8", upload),
+              "top_features": device_share(torch, server, "POST", "/top_features?top_n=32",
+                                           upload),
+              "top_features_split": top_features_split(torch, state, upload)}
+    print(f"  large device busy a request: "
+          f"{ {k: round(v['device_busy'], 4) for k, v in shares.items() if 'device_busy' in v} }"
+          f"; /top_features split {shares['top_features_split']}")
+    stop_server(server)
+    del state
+    free_device_memory(torch)
+    return {"search": search, "init_s": init_s, "max_new_tokens": LARGE_SERVER_MAX_NEW,
+            "device_share": shares,
+            **{k: {kk: vv for kk, vv in v.items() if kk != "body"} for k, v in rec.items()}}
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -2341,6 +2817,21 @@ def main() -> int:
             + sum(r["launches_thresholds"] for k, r in dec_train.items() if k != "fly")
             + dec_train["fly"]["launches"]["topk_thresholds_fired"])
 
+        # phase 18 — the feature-major index and search at tiny width
+        search_recs = index_and_search(torch, tmp, config, card)
+        free_device_memory(torch)
+
+        # phase 19 — the GUI server on the card at tiny width: from disk
+        # (no SAE, TopK), fly mode (L1), a decoder-layer store
+        server_counters = {"log_mel": log_mel_spectrogram_cuda,
+                           "fused_qkv_attention": fused_qkv_attention,
+                           "whisper_attention": whisper_attention}
+        for fn in server_counters.values():
+            fn.launches = 0
+        server_tiny = serving_tiny(torch, tmp, config, clips, audio_dir, server_counters, card)
+        for k, fn in server_counters.items():
+            launches[f"server_{k}"] = fn.launches
+
         # phase 8 — collection at large width, from the repo's large configs
         large_launches = {"log_mel": 0, "whisper_attention": 0}
         large_batches = 0
@@ -2541,6 +3032,20 @@ def main() -> int:
         launches["decoder_log_mel"] += large_dec["launches"]["log_mel"]
         launches["decoder_whisper_attention"] = large_dec["launches"]["whisper_attention"]
 
+        # phase 20 — index, search and the GUI server at large-v1 width
+        for fn in server_counters.values():
+            fn.launches = 0
+        server_large = serving_large(
+            torch, tmp, large_stores["large-v1"][0], large_stores["large-v1"][2],
+            tmp / "run_large_topk" / "checkpoints" / "bestval.pth", server_counters, card)
+        for k, fn in server_counters.items():
+            launches[f"server_{k}"] += fn.launches
+        print(f"launches in the server phases 19-20: "
+              f"{ {k: launches[f'server_{k}'] for k in server_counters} }")
+        assert all(launches[f"server_{k}"] > 0 for k in server_counters), launches
+        print(json.dumps({"serving": {"search_tiny": search_recs, "tiny": server_tiny,
+                                      "large": server_large, "card": card}}))
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -2551,19 +3056,22 @@ def main() -> int:
          "replaces": "freud_tpu/ops/mel_pallas.py:162",
          "launches": launches["log_mel"], **unit("log_mel"),
          "launches_transcribe": launches["transcribe_log_mel"],
-         "launches_decoder": launches["decoder_log_mel"], **mel_rec},
+         "launches_decoder": launches["decoder_log_mel"],
+         "launches_server": launches["server_log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
          "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"),
          "launches_transcribe": launches["transcribe_fused_qkv_attention"],
-         "launches_decoder": launches["decoder_fused_qkv_attention"], **attn_rec},
+         "launches_decoder": launches["decoder_fused_qkv_attention"],
+         "launches_server": launches["server_fused_qkv_attention"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
          "launches": large_launches["whisper_attention"], **unit("whisper_attention"),
          "launches_transcribe": launches["transcribe_whisper_attention"],
-         "launches_decoder": launches["decoder_whisper_attention"], **wattn_rec},
+         "launches_decoder": launches["decoder_whisper_attention"],
+         "launches_server": launches["server_whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",

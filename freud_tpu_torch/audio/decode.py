@@ -4,7 +4,8 @@ The same decoder and fallback chain as ``freud_tpu/audio/decode.py``: the
 in-process native decoder ``libfreud_audio.so`` (libavformat demux +
 libavcodec decode + libswresample mono/16 kHz resample, with a threaded batch
 API that fills one contiguous float32 buffer per batch), then stdlib ``wave``
-for PCM WAV files, then the ffmpeg CLI if present.
+for PCM WAV files, then the ffmpeg CLI if present; ``audio_duration_s``
+reads a file's duration from its header.
 
 The native library is built from the port's copy of the decoder sources
 (``freud_tpu_torch/audio/native/``) into ``freud_tpu_torch/_build/`` — see
@@ -69,6 +70,8 @@ def _load_native() -> Optional[ctypes.CDLL]:
         ctypes.POINTER(ctypes.c_int64),
     ]
     lib.fa_free.argtypes = [ctypes.POINTER(ctypes.c_float)]
+    lib.fa_duration.restype = ctypes.c_double
+    lib.fa_duration.argtypes = [ctypes.c_char_p]
     lib.fa_decode_batch.restype = ctypes.c_int
     lib.fa_decode_batch.argtypes = [
         ctypes.POINTER(ctypes.c_char_p),
@@ -216,3 +219,19 @@ def load_audio_batch(
         m = min(frame_len, len(audio))
         buf[i, :m] = audio[:m]
     return buf, lengths
+
+
+def audio_duration_s(file: str) -> float:
+    """Duration in seconds from container metadata, without a full decode
+    (the native library's ``fa_duration``); a PCM WAV's header through
+    ``wave`` where the library is absent, else a full decode. Search reads
+    it only for a store without ``n_frames``."""
+    lib = native_lib()
+    if lib is not None:
+        dur = lib.fa_duration(os.fsencode(file))
+        if dur >= 0:
+            return float(dur)
+    if file.lower().endswith(".wav"):
+        with wave.open(file, "rb") as w:
+            return w.getnframes() / w.getframerate()
+    return len(load_audio(file)) / SAMPLE_RATE

@@ -142,6 +142,9 @@ class FlyActivationLoader:
                                       device=self.device)
         self._decoder_layer = layer_name.startswith("decoder.")
         self.batch_size = batch_size
+        # the sequential-scan guard of analysis/search.py reads both
+        self.shuffle = False
+        self.drop_last = drop_last
         self.fetch_dtype = fetch_dtype
         self.pipeline = AudioBatchPipeline(
             data_path,
@@ -174,7 +177,10 @@ class FlyActivationLoader:
     def __len__(self) -> int:
         return len(self.pipeline)
 
-    def _compute(self, mels: torch.Tensor, n: int):
+    def _compute(self, mels: torch.Tensor, n: int, fetch: bool = True):
+        """The batch's outputs; with ``fetch`` False they stay on the
+        device as tensors (floats in f32) instead of starting their host
+        copies."""
         pad = self.batch_size - n if mels.is_cuda else 0
         if pad:
             # on the card, pad the ragged tail to the batch shape so every
@@ -193,6 +199,9 @@ class FlyActivationLoader:
         for o in outs:
             if pad:
                 o = o[:n]
+            if not fetch:
+                fetched.append(o.to(torch.float32) if o.is_floating_point() else o)
+                continue
             if o.is_floating_point():
                 if self.fetch_dtype is not None:
                     # cast on the device before the host fetch: a float16
@@ -211,9 +220,11 @@ class FlyActivationLoader:
         for *outs, filenames, _ in self.iter_with_lengths():
             yield (*(np.asarray(o) for o in outs), filenames)
 
-    def iter_with_lengths(self) -> Iterator[tuple]:
+    def iter_with_lengths(self, fetch: bool = True) -> Iterator[tuple]:
         """Yields (activations, filenames, n_frames): per-file true
-        activation frame counts beside each batch.
+        activation frame counts beside each batch. ``fetch=False`` yields
+        the activations as device tensors (search reduces them where they
+        are).
 
         Files the decoder could not read (length < 0) are dropped from the
         batch. The loop runs one batch ahead: batch k+1's mel and encode are
@@ -222,7 +233,7 @@ class FlyActivationLoader:
         k's device→host copy and writes the store."""
         pending = None
         for mels, filenames, lengths in self.pipeline:
-            outs = self._compute(mels, len(filenames))
+            outs = self._compute(mels, len(filenames), fetch=fetch)
             if pending is not None:
                 yield self._finalize(*pending)
             pending = (outs, filenames, lengths)
@@ -232,7 +243,9 @@ class FlyActivationLoader:
     def _finalize(self, outs, filenames, lengths):
         ok = decodable_mask(lengths, filenames)
         if not ok.all():
-            outs = tuple(np.asarray(o)[ok] for o in outs)
+            outs = tuple(o[torch.from_numpy(ok).to(o.device)]
+                         if isinstance(o, torch.Tensor) else np.asarray(o)[ok]
+                         for o in outs)
             filenames = [f for f, good in zip(filenames, ok) if good]
             lengths = lengths[ok]
         if self._decoder_layer:
@@ -240,6 +253,8 @@ class FlyActivationLoader:
             # processed (the last output): the audio length says nothing of
             # the transcript's
             *outs, n_valid = outs
+            if isinstance(n_valid, torch.Tensor):
+                n_valid = n_valid.cpu()
             return (*outs, filenames, np.asarray(n_valid, np.int64))
         n_frames = np.asarray(
             [activation_length_from_samples(int(n)) for n in lengths],

@@ -23,10 +23,14 @@ of ``(top_acts, top_indices)`` (``{layer}_activation_values.npy`` and
 
 ``device`` is honoured when it is ``cpu`` or ``cuda[:N]``; any other value
 (the repo's configs say ``"tpu"``) means ``cuda``. A CUDA device without a
-card raises — the run never carries on on the CPU. Not in this port yet (each
-raises): ``data_parallel``, a list of layers, and ``build_index``; and
-because it cannot extend a feature-major index, a collection into a folder
-that holds one for the layer raises before it reads or writes anything.
+card raises — the run never carries on on the CPU.
+
+At the end of a run the feature-major search index (``data/feature_store.py``)
+is built when ``build_index`` is set and extended whenever one already
+exists, as in the JAX package: a dense store gets the transposed-plane
+index, an indexed (TopK) store the CSR-by-feature one. Not in this port
+yet (each raises, ROADMAP Queue 1 #12): ``data_parallel`` and a list of
+layers.
 
 Usage: python -m freud_tpu_torch.scripts.collect_activations --config cfg.json
 """
@@ -46,7 +50,7 @@ import torch
 
 from .. import profiling
 from ..constants import CHUNK_LENGTH
-from ..data.feature_index import existing_index
+from ..data import feature_store as fs
 from ..data.loaders import FlyActivationLoader
 from ..data.store import ActivationStoreWriter
 from ..device import resolve_device
@@ -78,25 +82,12 @@ def get_activations(
     crash-consistently every ``flush_every_s`` seconds.
     ``store_dtype="float16"`` halves store size and read IO.
     ``max_new_tokens`` sizes a decoder layer's decode (encoder layers
-    ignore it)."""
+    ignore it). ``build_index`` builds the feature-major search index at
+    the end of the run; an existing one is extended whatever it says."""
     if data_parallel:
         raise NotImplementedError(
             "data_parallel collection is not ported to freud_tpu_torch yet "
-            "(one card per run)")
-    if build_index:
-        raise NotImplementedError(
-            "build_index (feature-store indexing) is not ported to "
-            "freud_tpu_torch yet; index the store with freud_tpu's "
-            "index_activations")
-    index = existing_index(out_folder, layer_name)
-    if index is not None:
-        raise ValueError(
-            f"{out_folder!r} holds a feature-major index of {layer_name} "
-            f"({index}), which this collection would leave stale: "
-            "freud_tpu_torch does not extend indexes yet. Collect into a "
-            "folder without the index, then rebuild it with freud_tpu's "
-            "index_activations (python -m freud_tpu.scripts.index_activations "
-            "--config <feature config>)")
+            "(one card per run; ROADMAP Queue 1 #12)")
     dev = resolve_device(device)
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
 
@@ -212,6 +203,15 @@ def get_activations(
         raise werr[0]
     if writer is not None:
         writer.close()
+        # keep an existing index current after every run (a grown store must
+        # never silently degrade search to a full scan); build fresh only
+        # when asked
+        if writer.indexed:
+            if build_index or fs.SparseFeatureMajorReader.exists(out_folder, layer_name):
+                fs.extend_sparse_feature_major_index(out_folder, layer_name,
+                                                     verbose=verbose)
+        elif build_index or fs.FeatureMajorReader.exists(out_folder, layer_name):
+            fs.extend_feature_major_index(out_folder, layer_name, verbose=verbose)
     elapsed = time.perf_counter() - t0
     if verbose:
         print()
@@ -236,7 +236,8 @@ def main(argv=None):
     if isinstance(config["layer_name"], list):
         raise NotImplementedError(
             "multi-layer collection (a list of layers) is not ported to "
-            "freud_tpu_torch yet; collect one layer per run")
+            "freud_tpu_torch yet (ROADMAP Queue 1 #12); collect one layer "
+            "per run")
     stats = get_activations(
         data_path=config["data_path"],
         layer_name=config["layer_name"],

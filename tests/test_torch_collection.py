@@ -179,7 +179,6 @@ def test_sae_attached_stores_match_jax(setup, monkeypatch, variant):
 @pytest.mark.parametrize("change", [
     {"layer_name": [LAYER, "encoder.blocks.0"]},
     {"data_parallel": True},
-    {"build_index": True},
 ])
 def test_unported_options_raise(setup, tmp_path, change):
     _, _, audio = setup
@@ -215,40 +214,63 @@ def test_decoder_layer_collects(setup, tmp_path, monkeypatch):
 
 
 @pytest.mark.parametrize("kind", ["dense", "sparse"])
-def test_collection_refuses_an_indexed_folder(setup, tmp_path, monkeypatch, kind):
-    """A folder that freud_tpu collected and indexed (the dense index, or
-    the sparse one of a TopK store): the port's collection into it raises
-    before it writes anything, naming the index file, and every file of the
-    folder stays byte-identical."""
+def test_collection_extends_an_indexed_folder(setup, tmp_path, monkeypatch, kind):
+    """A folder that freud_tpu collected (2 of the 3 files) and indexed:
+    the dense index, or the sparse one of a TopK store. Resuming the
+    collection into it extends the index by one segment for the third
+    file, as freud_tpu's own resumed collection does in a copy of the
+    folder: the same index files, the base segment untouched, byte-identical
+    meta JSON, and the port's fast path equal to its scan, bit for bit."""
+    import shutil
+
     from freud_tpu.data import feature_store as fs
+    from freud_tpu_torch.analysis.search import top_activations
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
 
     root, wdir, audio = setup
     monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
-    folder = tmp_path / "indexed"
-    common = dict(data_path=str(audio), layer_name=LAYER, whisper_model="tiny",
-                  batch_size=2, verbose=False)
-    if kind == "dense":
-        jax_collect(out_folder=str(folder), sae_model=None, **common)
-        index = fs.build_feature_major_index(folder, LAYER, verbose=False)
-    else:
-        # a TopK store's sparse index, written from a hand-made indexed store
-        from freud_tpu.data.store import ActivationStoreWriter
+    sae = None
+    if kind == "sparse":
+        from freud_tpu.models.sae import init_topk, state_dict_from_params
+        from freud_tpu.models.sae.config import config_for_variant
 
-        rng = np.random.default_rng(3)
-        w = ActivationStoreWriter(str(folder), LAYER, tensor_shape=(1500, 4),
-                                  activation_shape=(1500, 32), indexed=True)
-        for i in range(3):
-            w.append_batch([f"clip{i}.wav"],
-                           rng.random((1, 1500, 4), dtype=np.float32),
-                           rng.integers(0, 32, (1, 1500, 4)).astype(np.int32),
-                           n_frames=[1500])
-        w.close()
-        index = fs.build_sparse_feature_major_index(folder, LAYER, verbose=False)
-    before = {p.name: p.read_bytes() for p in folder.iterdir()}
-    assert any("feature_major" in name for name in before)
-    with pytest.raises(ValueError, match="index_activations") as err:
-        tcollect.get_activations(out_folder=str(folder), sae_model=None, device="cpu",
-                                 **common)
-    assert "feature_major" in str(err.value)
-    assert {p.name: p.read_bytes() for p in folder.iterdir()} == before
-    assert index is not None
+        raw = {"expansion_factor": 2, "k": 8}
+        sd = state_dict_from_params("topk", init_topk(64, config_for_variant("topk", raw),
+                                                      seed=4))
+        sae = str(tmp_path / "topk.pth")
+        torch.save({"model": sd, "hparams": {"autoencoder_variant": "topk",
+                                             "autoencoder_config": raw,
+                                             "activation_size": 64}}, sae)
+    common = dict(data_path=str(audio), layer_name=LAYER, whisper_model="tiny",
+                  sae_model=sae, batch_size=2, verbose=False)
+    jdir, tdir = tmp_path / "jax", tmp_path / "torch"
+    jax_collect(out_folder=str(jdir), collect_max=2, build_index=True, **common)
+    shutil.copytree(jdir, tdir)
+    before = {p.name: p.read_bytes() for p in tdir.iterdir() if "feature_major" in p.name}
+    assert before
+    jax_collect(out_folder=str(jdir), resume=True, **common)
+    tcollect.get_activations(out_folder=str(tdir), resume=True, device="cpu", **common)
+
+    names = sorted(p.name for p in jdir.iterdir() if "feature_major" in p.name)
+    assert sorted(p.name for p in tdir.iterdir() if "feature_major" in p.name) == names
+    assert len(names) == len(before) + (1 if kind == "dense" else 5)
+    meta = f"{LAYER}_feature_major.meta.json"
+    assert (tdir / meta).read_bytes() == (jdir / meta).read_bytes()
+    assert json.loads((tdir / meta).read_text())["covered"] == 3
+    for name, data in before.items():
+        if name != meta:
+            assert (tdir / name).read_bytes() == data, name
+    current = fs.index_is_current if kind == "dense" else fs.sparse_index_is_current
+    assert current(tdir, LAYER, 3)
+    loader = MemoryMappedActivationLoader(str(tdir), LAYER, batch_size=2)
+    for feat in (0, 5, 63):
+        fast = top_activations(loader, feat, 3, device="cpu")
+        for p in tdir.glob(f"{LAYER}_feature_major*"):
+            p.rename(tmp_path / p.name)
+        scan = top_activations(loader, feat, 3, device="cpu")
+        for p in tmp_path.glob(f"{LAYER}_feature_major*"):
+            p.rename(tdir / p.name)
+        assert [(f, v, t) for f, _, v, t in fast[0]] == [(f, v, t) for f, _, v, t in scan[0]]
+        for (_, a, _, _), (_, b, _, _) in zip(fast[0], scan[0]):
+            np.testing.assert_array_equal(a, b)
+        assert fast[1] == scan[1]

@@ -161,7 +161,8 @@ def test_port_never_imports_jax_or_freud_tpu():
 
 
 def test_port_package_data_patterns_match():
-    """pyproject ships the CUDA and decoder sources the port builds from."""
+    """pyproject ships the CUDA and decoder sources the port builds from,
+    and the server's static page."""
     import tomllib
 
     cfg = tomllib.loads((PORT_DIR.parent / "pyproject.toml").read_text())
@@ -169,10 +170,10 @@ def test_port_package_data_patterns_match():
     assert "freud_tpu*" in setuptools_cfg["packages"]["find"]["include"]
     patterns = setuptools_cfg["package-data"]["freud_tpu_torch"]
     assert sorted(patterns) == ["audio/native/Makefile", "audio/native/decoder.cpp",
-                                "csrc/*.cu", "csrc/*.cuh"]
+                                "csrc/*.cu", "csrc/*.cuh", "server/static/*"]
     shipped = {p.name for pat in patterns for p in PORT_DIR.glob(pat)}
     assert {"mel.cu", "attention.cu", "common.cuh", "hopper.cuh", "Makefile",
-            "decoder.cpp"} <= shipped
+            "decoder.cpp", "index.html"} <= shipped
 
 
 def test_decoder_builds_from_the_ports_copy(tmp_path, monkeypatch):
@@ -222,21 +223,21 @@ def _index_layouts(root: Path, layer: str):
 
 
 def test_feature_index_checks_equal_feature_store(tmp_path):
-    """The port's copy of feature_store's index path rules answers as
-    freud_tpu does on every folder layout."""
+    """The port's feature_store finds the index files freud_tpu's does on
+    every folder layout: the same paths, segments and groups."""
     from freud_tpu.data import feature_store as fs
-    from freud_tpu_torch.data import feature_index as fi
+    from freud_tpu_torch.data import feature_store as tfs
 
     layer = "encoder.blocks.2"
-    assert fi.SPARSE_PARTS == fs.SPARSE_PARTS
+    assert tfs.SPARSE_PARTS == fs.SPARSE_PARTS
     for folder in _index_layouts(tmp_path, layer):
-        assert fi.index_path(folder, layer) == fs.index_path(folder, layer)
-        assert fi.sparse_segment_groups(folder, layer) == fs.sparse_segment_groups(folder, layer)
-        dense = fs.FeatureMajorReader.exists(folder, layer)
-        sparse = fs.SparseFeatureMajorReader.exists(folder, layer)
-        assert fi.dense_index_exists(folder, layer) == dense, folder.name
-        assert fi.sparse_index_exists(folder, layer) == sparse, folder.name
-        assert (fi.existing_index(folder, layer) is not None) == (dense or sparse), folder.name
+        assert tfs.index_path(folder, layer) == fs.index_path(folder, layer)
+        assert tfs.segment_paths(folder, layer) == fs.segment_paths(folder, layer)
+        assert tfs.sparse_segment_groups(folder, layer) == fs.sparse_segment_groups(folder, layer)
+        assert tfs.FeatureMajorReader.exists(folder, layer) == \
+            fs.FeatureMajorReader.exists(folder, layer), folder.name
+        assert tfs.SparseFeatureMajorReader.exists(folder, layer) == \
+            fs.SparseFeatureMajorReader.exists(folder, layer), folder.name
 
 
 # ------------------------------------------------------------- tokenizer
