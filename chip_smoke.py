@@ -145,6 +145,26 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      and 32 times a decode's encoder. The server's decode budget is cut
      to LARGE_SERVER_MAX_NEW (64) tokens a transcript to stay within the
      time limit.
+ 21. (after phase 20) long-form transcription: the transcribe CLI with
+     ``--long --word_timestamps --output_format srt`` and the full
+     temperature ladder, random:tiny (decode budget 48 a window) over a 75-s
+     and a 45-s clip: every decoded row under whisper's rules, segments
+     timed inside each recording, an srt with cues a file, kernel #1 never
+     (``full_log_mel`` is plain torch: its floor is global) and #2 four
+     times a window; windows, rungs a window, ms a decode step, ms an
+     alignment pass, RTFx;
+ 22. random:tiny long-form on the card against the CPU over the 45-s clip
+     at t = 0 with word timestamps: ``full_log_mel`` within the log-mel gate
+     (and its ms a minute of audio), each window's tokens equal up to the
+     first CPU post-rules margin under 1e-3, the words equal on the windows
+     whose tokens are equal; one profiled window: the device-busy share;
+ 23. random:large-v3 long-form in bf16 (decode budget 24; the alignment
+     pass on its f32 decoder) over the 45-s clip through the CLI as in 21:
+     #5 32 times a window, #1 and #2 never;
+ 24. the GUI server (random:tiny from disk, decode budget 48) on port 0:
+     ``/transcribe?long=1&word_timestamps=1&format=srt`` and the 45-s upload
+     without ``long``, twice each, timed, #1 never and #2 four times a
+     window.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
@@ -152,11 +172,14 @@ record (per kernel: ms, plain_ms, bound_ms and what bounds it,
 library_ms or null with the reason, launches in the main path's run and
 per collection batch or train step; #1, #2 and #5 also their launches in
 the transcription runs, #3 and #4 in the cache runs, every kernel in the
-decoder runs of phases 14–17 and #1, #2 and #5 in the server phases
-19–20, #4 the graph-against-eager difference) and the device JSON. Before
-them, one JSON line records phases 18–20: index-build MB/s, ms a query on
-each search path, ms a request an endpoint with its launches, device-busy
-shares.
+decoder runs of phases 14–17, #1, #2 and #5 in the server phases 19–20
+and in the long-form phases 21–24, #4 the graph-against-eager difference)
+and the device JSON. Before them, one JSON line records phases 18–20:
+index-build MB/s, ms a query on each search path, ms a request an endpoint
+with its launches, device-busy shares; and one phases 21–24: windows,
+rungs a window, ms a decode step, alignment ms a window, RTFx,
+``full_log_mel`` ms a minute, the card-vs-CPU windows, the profiled call's
+device-busy share and the server's ms a request.
 
 ``--bench`` measures instead of checking: after the build it times the
 five kernels through their wrappers at the main paths' shapes (kernel #1
@@ -237,6 +260,12 @@ DEC_LAYER, LARGE_DEC_LAYER, DEC_FRAMES = "decoder.blocks.2", "decoder.blocks.16"
 STEER_FACTOR = 8.0
 # the large server's decode budget a transcript (three a /manipulate_feature)
 LARGE_SERVER_MAX_NEW = 64
+# long-form: the clips (s) of the tiny CLI run, the decode budgets a window
+# (random weights never emit EOT: every decode runs its budget) and the
+# tiny card-vs-CPU run's
+LONG_CLIPS_S = (75.0, 45.0)
+LONG_MAX_NEW_TINY, LONG_MAX_NEW_LARGE, LONG_CV_MAX_NEW = 48, 24, 32
+WORD_PROB_REL = 2e-3  # word probabilities card against CPU, relative (|logit| ≤ 10)
 # --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
 # f32 files, in four modes (name, steps, config keys)
 TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
@@ -1521,13 +1550,13 @@ def graph_against_eager(torch, store_dir: str, variant: str, batch: int,
     return {"bit_equal": bit_equal, "max_rel_diff": worst, "replay_launches": replay_launches}
 
 
-def run_transcribe(torch, args: list[str], out: Path) -> dict:
+def run_transcribe(torch, args: list[str], out: Path, warm_align: bool = False) -> dict:
     """``python -m freud_tpu_torch.scripts.transcribe <args> --out <out>``,
     in this process (so the launch counters are readable). → {"result": the
     JSON it wrote, "decodes": each decode's token rows, steps and
     synchronised seconds (the runtime's ``_decode`` returns host arrays),
     "seconds": the run's wall after the runtime was built (its model init
-    excluded)}."""
+    excluded; with ``warm_align`` the alignment pass's decoder too)}."""
     from freud_tpu_torch.models.whisper import decoding, runtime
 
     cls = runtime.WhisperRuntime
@@ -1537,6 +1566,8 @@ def run_transcribe(torch, args: list[str], out: Path) -> dict:
     def init_spy(self, *a, **k):
         real_init(self, *a, **k)
         self.decoder  # build the decoder here too, outside the timed run
+        if warm_align:
+            self.align_decoder
         torch.cuda.synchronize()
         rec["ready"], rec["n_vocab"] = time.perf_counter(), self.dims.n_vocab
 
@@ -2521,6 +2552,253 @@ def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
             **{k: {kk: vv for kk, vv in v.items() if kk != "body"} for k, v in rec.items()}}
 
 
+# ---------------------------------------------------------------- long form
+
+
+def mel_gate(got, want) -> tuple[float, float]:
+    """The log-mel gate: max |Δ| < 2e-3 and fewer than 1e-5 of the bins off
+    by more than 3e-4. → (max |Δ|, share of bins off by more than 3e-4)."""
+    d = np.abs(got - want)
+    worst, share = float(d.max()), float((d > 3e-4).mean())
+    assert worst < 2e-3 and share < 1e-5, (worst, share)
+    return worst, share
+
+
+def long_form_record(torch, rec: dict, stats: dict, launches: dict, audio_s: float,
+                     expect: dict, name: str, card: str) -> dict:
+    """One long-form CLI run's numbers: windows (``window_encode`` spans),
+    rungs a window (decodes ÷ windows), ms a decode step, ms an alignment
+    pass, RTFx after model init; the launches asserted against ``expect``
+    ({counter: launches a window}); whisper's rules on every decoded row;
+    every file's segments timed inside the recording and its 30-s tail."""
+    from freud_tpu_torch.models.whisper import special_tokens
+
+    windows = stats["window_encode"]["count"]
+    decodes = rec["decodes"]
+    assert windows > 0 and len(decodes) == stats["decode"]["count"] >= windows
+    for k, per_window in expect.items():
+        assert launches[k] == per_window * windows, (name, k, launches, windows)
+    st = special_tokens(rec["n_vocab"])
+    for d in decodes:
+        check_token_rows(d["tokens"], d["n_prompt"], st)
+    n_segments = n_words = 0
+    for f, res in rec["result"].items():
+        assert isinstance(res, dict) and set(res) == {"text", "segments", "language"}, f
+        for seg in res["segments"]:
+            assert 0.0 <= seg["start"] <= seg["end"] <= audio_s + 30.0, seg
+            n_words += len(seg.get("words", []))
+        n_segments += len(res["segments"])
+    assert n_segments > 0, name
+    out = {"windows": windows, "rungs_per_window": len(decodes) / windows,
+           "ms_per_step": statistics.median(1e3 * d["seconds"] / d["steps"] for d in decodes),
+           "steps_per_decode": statistics.median(d["steps"] for d in decodes),
+           "align_ms_per_window": stats.get("align", {}).get("mean_ms"),
+           "rtfx": audio_s / rec["seconds"], "seconds": rec["seconds"], "audio_s": audio_s,
+           "segments": n_segments, "words": n_words, "launches": launches,
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+    print(f"long-form {name}: {audio_s:.1f} s of audio in {rec['seconds']:.3f} s after model "
+          f"init (RTFx {out['rtfx']:.2f}), {windows} windows, "
+          f"{out['rungs_per_window']:.2f} rungs a window, median {out['ms_per_step']:.3f} ms "
+          f"a decode step ({out['steps_per_decode']} steps a decode), alignment "
+          f"{out['align_ms_per_window']} ms a window, {n_segments} segments, {n_words} "
+          f"words, launches {launches}, peak {out['peak_gib']:.3f} GiB on {card}")
+    return out
+
+
+def long_form_cli(torch, tmp: Path, wav_dir: Path, audio_s: float, model: str, extra: list,
+                  counters: dict, expect: dict, name: str, card: str) -> dict:
+    """The transcribe CLI's ``--long --word_timestamps --output_format srt``
+    over ``wav_dir`` with the full temperature ladder, the counters set to 0
+    just before and read just after; every file's srt written and holding
+    cues."""
+    from freud_tpu_torch import profiling
+
+    srt_dir = tmp / f"srt_{name.replace(' ', '_')}"
+    args = ["--data_path", str(wav_dir), "--model", model, "--long", "--word_timestamps",
+            "--output_format", "srt", "--output_dir", str(srt_dir), *extra]
+    for fn in counters.values():
+        fn.launches = 0
+    profiling.reset()
+    torch.cuda.reset_peak_memory_stats()
+    rec = run_transcribe(torch, args, tmp / "long.json", warm_align=True)
+    launches = {k: fn.launches for k, fn in counters.items()}
+    out = long_form_record(torch, rec, profiling.stats(), launches, audio_s, expect, name, card)
+    for f in rec["result"]:
+        assert "-->" in (srt_dir / (Path(f).stem + ".srt")).read_text(encoding="utf-8"), f
+    free_device_memory(torch)
+    return out
+
+
+def long_form_card_vs_cpu(torch, device, wav: str, card: str) -> dict:
+    """Phase 22: random:tiny on the card and on the CPU over one 45-s clip
+    at t = 0 with word timestamps, conditioned on the previous windows'
+    text (the left-padded prompt with ``start``): ``full_log_mel`` within
+    the log-mel gate; each window's prompt equal and its tokens equal up to
+    the first CPU post-rules top-two margin under DECODE_CLOSE_CALL (the
+    left-padded row cut at ``start``, which decodes as the unpadded prompt);
+    the word lists equal on the windows whose tokens are wholly equal (times
+    exactly, probabilities within WORD_PROB_REL relative). Then one window's
+    work on the card under torch.profiler: the device-busy share."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from freud_tpu_torch.audio.decode import load_audio
+    from freud_tpu_torch.models.whisper import WhisperRuntime, decoding
+    from freud_tpu_torch.models.whisper import long_audio as la
+
+    audio = load_audio(wav)
+    t0 = time.perf_counter()
+    mel_card = la.full_log_mel(audio, 80, device)
+    torch.cuda.synchronize()
+    mel_s = time.perf_counter() - t0
+    worst, share = mel_gate(mel_card.cpu().numpy(), la.full_log_mel(audio, 80, "cpu").numpy())
+    mel_ms = cuda_ms(lambda: la.full_log_mel(audio, 80, device), warmup=2, reps=10)
+    minutes = len(audio) / 16000 / 60
+    print(f"full_log_mel card vs CPU, {len(audio) / 16000:.1f} s: max|Δ| {worst:.3e}, "
+          f"share over 3e-4 {share:.3e} (gate 2e-3, 1e-5); {mel_ms:.3f} ms "
+          f"({mel_ms / minutes:.3f} ms a minute of audio; first call {1e3 * mel_s:.1f} ms "
+          f"with the host's framing) on {card}")
+
+    rts = {dev: WhisperRuntime("random:tiny", max_new_tokens=LONG_CV_MAX_NEW, device=dev)
+           for dev in (device, torch.device("cpu"))}
+    windows = {dev: [] for dev in rts}
+    real = la._decode_window_with_fallback
+
+    def spy(runtime, encoded, prompt, n_prompt, start, *a, key_base, **k):
+        out = real(runtime, encoded, prompt, n_prompt, start, *a, key_base=key_base, **k)
+        windows[runtime.device].append({
+            "seek": key_base, "encoded": encoded.cpu(), "n_prompt": n_prompt,
+            "start": 0 if start is None else int(start[0]), "tokens": out[0][0]})
+        return out
+
+    kw = dict(temperatures=(0.0,), word_timestamps=True)
+    la._decode_window_with_fallback = spy
+    try:
+        res = {dev: rt.transcribe_long(audio, **kw) for dev, rt in rts.items()}
+    finally:
+        la._decode_window_with_fallback = real
+    cpu_dev = torch.device("cpu")
+    got_w, want_w = windows[device], windows[cpu_dev]
+    equal_seeks, close_at = set(), None
+    for i, (g, w) in enumerate(zip(got_w, want_w)):
+        if (g["seek"], g["n_prompt"], g["start"]) != (w["seek"], w["n_prompt"], w["start"]):
+            break  # an earlier window's close call moved this one
+        assert np.array_equal(g["tokens"][:w["n_prompt"]], w["tokens"][:w["n_prompt"]]), i
+        row = torch.from_numpy(w["tokens"][w["start"]:])[None]
+        margins = decoding.decision_margins(rts[cpu_dev].decoder, rts[cpu_dev].dims,
+                                            w["encoded"], row, w["n_prompt"] - w["start"])[0]
+        close = np.flatnonzero(margins < DECODE_CLOSE_CALL)
+        upto = w["start"] + (int(close[0]) if len(close) else row.shape[1])
+        assert np.array_equal(g["tokens"][:upto], w["tokens"][:upto]), (i, upto)
+        if not np.array_equal(g["tokens"], w["tokens"]):
+            close_at = (i, upto)
+            break
+        equal_seeks.add(w["seek"])
+    n_words, prob_rel = 0, 0.0
+    for g, w in zip(res[device]["segments"], res[cpu_dev]["segments"]):
+        if w["seek"] not in equal_seeks:
+            continue
+        assert (g["seek"], g["start"], g["end"], g["tokens"]) == \
+            (w["seek"], w["start"], w["end"], w["tokens"])
+        assert [(x["word"], x["start"], x["end"]) for x in g["words"]] == \
+            [(x["word"], x["start"], x["end"]) for x in w["words"]], w["seek"]
+        for x, y in zip(g["words"], w["words"]):
+            prob_rel = max(prob_rel, abs(x["probability"] / y["probability"] - 1))
+        n_words += len(w["words"])
+    # a word's probability is the mean of softmax probabilities of the f32
+    # teacher-forced logits, which the card holds within 1e-4 of max |logit|
+    # of the CPU's (phase 12b): a log-probability moves by up to twice that
+    assert prob_rel < WORD_PROB_REL, prob_rel
+    assert equal_seeks or close_at, "no window compared"
+    print(f"long-form card vs CPU, 45 s at t = 0: {len(want_w)} windows on the CPU, "
+          f"{len(got_w)} on the card, {len(equal_seeks)} wholly equal (their {n_words} words "
+          f"equal, probabilities within {prob_rel:.3e} relative, bound {WORD_PROB_REL}), "
+          f"first close call (margin < {DECODE_CLOSE_CALL}) at "
+          f"{close_at if close_at else 'none'} on {card}")
+
+    rt = rts[device]
+    st = rt._st
+
+    def one_window():
+        """The first window's work as ``transcribe_long`` does it: encode,
+        prompt, the ladder's t = 0 rung, the alignment pass."""
+        encoded = rt.encode(mel_card[None, :, :3000])
+        prompt, n_prompt = rt._prompt(encoded)
+        tokens = la._decode_window_with_fallback(
+            rt, encoded, prompt, n_prompt, None, (0.0,), None, 2.4, -1.0, 0.6, st,
+            key_base=0)[0]
+        rt.align_words(encoded, [int(t) for t in tokens[0, n_prompt:] if t < st.eot],
+                       num_frames=1500)
+
+    one_window()  # warm
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        one_window()
+        torch.cuda.synchronize()
+        wall = 1e3 * (time.perf_counter() - t0)
+    kernel_ms = sum(e.device_time_total for e in prof.key_averages()
+                    if e.device_type == DeviceType.CUDA) / 1e3
+    share = {"wall_ms": wall, "kernel_ms": kernel_ms, "device_busy": kernel_ms / wall}
+    print(f"long-form profiled window (t = 0, word timestamps): {wall:.3f} ms wall, "
+          f"{kernel_ms:.3f} ms of kernels, device busy {100 * kernel_ms / wall:.1f}% "
+          f"on {card}")
+    del rts
+    free_device_memory(torch)
+    return {"full_log_mel_ms": mel_ms, "full_log_mel_ms_per_minute": mel_ms / minutes,
+            "mel_max_abs_diff": worst, "windows_cpu": len(want_w), "windows_card": len(got_w),
+            "windows_equal": len(equal_seeks), "close_call": close_at,
+            "words_equal": n_words, "word_prob_max_rel_diff": prob_rel,
+            "profiled_window": share}
+
+
+def serving_long(torch, tmp: Path, config: dict, upload: bytes, counters: dict,
+                 card: str) -> dict:
+    """Phase 24: the GUI server on the card (random:tiny from disk over
+    phase 3's store, decode budget LONG_MAX_NEW_TINY) on port 0:
+    ``/transcribe?long=1&word_timestamps=1&format=srt`` and the same 45-s
+    upload without ``long`` (routed to the seek loop by its length), twice
+    each: status 200, an srt body and a JSON body with timed segments,
+    launches #1 0 and #2 four a window."""
+    from freud_tpu_torch import profiling
+
+    server, state = start_server({**config, "out_folder": str(tmp / "card")}, True)
+    try:
+        state.runtime.max_new_tokens = LONG_MAX_NEW_TINY
+        state.runtime.decoder
+        body, hdrs = multipart(upload)
+        out = {}
+        for name, path in (("long_srt", "/transcribe?long=1&word_timestamps=1&format=srt"),
+                           ("over_30s", "/transcribe")):
+            walls = []
+            for fn in counters.values():
+                fn.launches = 0
+            profiling.reset()
+            for _ in range(2):
+                t0 = time.perf_counter()
+                code, headers, answer = http_request(server, "POST", path, body, hdrs)
+                walls.append(1e3 * (time.perf_counter() - t0))
+                assert code == 200, (name, code, answer[:300])
+            windows = profiling.stats()["window_encode"]["count"]
+            launches = {k: fn.launches for k, fn in counters.items()}
+            assert launches == {"log_mel": 0, "fused_qkv_attention": 4 * windows,
+                                "whisper_attention": 0}, (name, launches, windows)
+            if name == "long_srt":
+                assert headers["Content-Type"].startswith("text/plain")
+                assert "-->" in answer.decode("utf-8")
+            else:
+                res = json.loads(answer)
+                assert set(res) == {"text", "segments", "language"} and res["segments"]
+            out[name] = {"ms": statistics.median(walls), "ms_all": walls,
+                         "windows_per_request": windows / 2, "launches": launches}
+            print(f"  server long-form {name}: 200, {out[name]['ms']:.3f} ms a request "
+                  f"({[round(w, 3) for w in walls]}), {windows / 2:g} windows a request, "
+                  f"launches {launches} on {card}")
+    finally:
+        stop_server(server)
+    free_device_memory(torch)
+    return out
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -3046,6 +3324,50 @@ def main() -> int:
         print(json.dumps({"serving": {"search_tiny": search_recs, "tiny": server_tiny,
                                       "large": server_large, "card": card}}))
 
+        # phase 21 — long-form transcription at tiny width: the CLI's --long
+        # --word_timestamps --output_format srt over a 75-s and a 45-s clip
+        # with the full temperature ladder
+        long_dir = tmp / "audio_long"
+        long_dir.mkdir()
+        long_wavs = write_wavs(long_dir, [int(16000 * t) for t in LONG_CLIPS_S],
+                               seed=SEED + 11)
+        long_counters = {"log_mel": log_mel_spectrogram_cuda,
+                         "fused_qkv_attention": fused_qkv_attention,
+                         "whisper_attention": whisper_attention}
+        long_recs = {"tiny": long_form_cli(
+            torch, tmp, long_dir, sum(LONG_CLIPS_S), "random:tiny",
+            ["--max_new_tokens", str(LONG_MAX_NEW_TINY)], long_counters,
+            {"log_mel": 0, "fused_qkv_attention": 4, "whisper_attention": 0}, "tiny", card)}
+        launches_long = dict(long_recs["tiny"]["launches"])
+
+        # phase 22 — tiny long-form on the card against the CPU, 45 s at t = 0
+        long_recs["tiny_card_vs_cpu"] = long_form_card_vs_cpu(
+            torch, device, long_wavs[1][0], card)
+
+        # phase 23 — random:large-v3 long-form in bf16 over the 45-s clip
+        large_long_dir = tmp / "audio_long_large"
+        large_long_dir.mkdir()
+        (large_long_dir / "clip45.wav").write_bytes(Path(long_wavs[1][0]).read_bytes())
+        long_recs["large_v3_bf16"] = long_form_cli(
+            torch, tmp, large_long_dir, LONG_CLIPS_S[1], "random:large-v3",
+            ["--max_new_tokens", str(LONG_MAX_NEW_LARGE), "--precision", "bfloat16"],
+            long_counters, {"log_mel": 0, "fused_qkv_attention": 0, "whisper_attention": 32},
+            "large-v3 bf16", card)
+        for k, v in long_recs["large_v3_bf16"]["launches"].items():
+            launches_long[k] += v
+
+        # phase 24 — the GUI server's long /transcribe forms at tiny width
+        long_recs["server"] = serving_long(
+            torch, tmp, config, Path(long_wavs[1][0]).read_bytes(), long_counters, card)
+        for rec in long_recs["server"].values():
+            for k, v in rec["launches"].items():
+                launches_long[k] += v
+        print(f"launches in the long-form phases 21-24: {launches_long}")
+        assert launches_long["log_mel"] == 0, launches_long
+        assert launches_long["fused_qkv_attention"] > 0, launches_long
+        assert launches_long["whisper_attention"] > 0, launches_long
+        print(json.dumps({"long_form": {**long_recs, "card": card}}))
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -3057,21 +3379,24 @@ def main() -> int:
          "launches": launches["log_mel"], **unit("log_mel"),
          "launches_transcribe": launches["transcribe_log_mel"],
          "launches_decoder": launches["decoder_log_mel"],
-         "launches_server": launches["server_log_mel"], **mel_rec},
+         "launches_server": launches["server_log_mel"],
+         "launches_long": launches_long["log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
          "launches": launches["fused_qkv_attention"], **unit("fused_qkv_attention"),
          "launches_transcribe": launches["transcribe_fused_qkv_attention"],
          "launches_decoder": launches["decoder_fused_qkv_attention"],
-         "launches_server": launches["server_fused_qkv_attention"], **attn_rec},
+         "launches_server": launches["server_fused_qkv_attention"],
+         "launches_long": launches_long["fused_qkv_attention"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
          "launches": large_launches["whisper_attention"], **unit("whisper_attention"),
          "launches_transcribe": launches["transcribe_whisper_attention"],
          "launches_decoder": launches["decoder_whisper_attention"],
-         "launches_server": launches["server_whisper_attention"], **wattn_rec},
+         "launches_server": launches["server_whisper_attention"],
+         "launches_long": launches_long["whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",

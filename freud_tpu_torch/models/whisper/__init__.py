@@ -1,3 +1,13 @@
+"""Whisper in PyTorch: the encoder and decoder modules, their loaders, the
+runtime (capture, steering, transcription, word timestamps, long-form
+audio) and the tokenizer.
+
+The exports follow ``freud_tpu.models.whisper``'s, with one difference:
+JAX's ``init_params`` builds a JAX parameter tree of the whole model; the
+port's counterparts are ``init_encoder`` and ``init_decoder``, which build
+the two ``nn.Module`` halves from a seed.
+"""
+
 from .config import MODEL_DIMS, WhisperDims, dims_for
 from .load import (
     load_decoder,
@@ -14,8 +24,8 @@ from .model import (
     init_decoder,
     init_encoder,
 )
-from .runtime import WhisperRuntime
-from .tokenizer import special_tokens
+from .runtime import WhisperRuntime, init_runtime
+from .tokenizer import decode_text, special_tokens, tokenizer_available
 
 __all__ = [
     "MODEL_DIMS",
@@ -33,5 +43,8 @@ __all__ = [
     "init_decoder",
     "init_encoder",
     "WhisperRuntime",
+    "init_runtime",
+    "decode_text",
     "special_tokens",
+    "tokenizer_available",
 ]

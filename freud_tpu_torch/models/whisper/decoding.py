@@ -42,6 +42,12 @@ Beam search attends the (b·beam) queries to the (b, …) cross K/V planes
 JAX package repeats the planes per beam (≈ 20 GB at large-v3, batch 8,
 beam 5, f32).
 
+A left-padded prompt (``start``) begins its step loop at the first
+position any row reads, ``min(start)`` (``_pad_skip``): the positions
+before it are masked out of every later step's attention, so skipping them
+changes no output, and a long-form window's fixed prompt buffer costs only
+the steps of its real prompt.
+
 The early-exit test (``all(finished)``, or beam search's full pools) is a
 device → host read, so it runs every ``EXIT_EVERY`` steps; the tokens and
 statistics after a row finished are fixed by the contract, so the output is
@@ -304,6 +310,23 @@ def _top_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return x.gather(-1, pick), pick
 
 
+def _pad_skip(prompt: torch.Tensor, start: Optional[torch.Tensor], ts0: int
+              ) -> tuple[int, torch.Tensor, torch.Tensor]:
+    """Where a decode's step loop begins: ``s0 = min(start)`` (0 without
+    ``start``). → (s0, the token before position s0 (zeros at s0 = 0), the
+    largest timestamp token among prompt positions 1..s0 (0 for none)), the
+    state the loop would hold after stepping through positions < s0, whose
+    K/V no later step reads (they are below every row's ``start``)."""
+    b = prompt.shape[0]
+    s0 = 0 if start is None else int(torch.as_tensor(start).min())
+    zeros = torch.zeros((b,), dtype=torch.int64, device=prompt.device)
+    if s0 == 0:
+        return 0, zeros, zeros
+    forced = prompt[:, 1:s0 + 1]
+    max_ts = torch.where(forced >= ts0, forced, 0).amax(dim=1)
+    return s0, prompt[:, s0 - 1].clone(), max_ts
+
+
 def _prepare(decoder, dims, encoded, prompt, n_prompt, max_new, compute_dtype):
     if n_prompt + max_new > dims.n_text_ctx:
         raise ValueError(
@@ -362,18 +385,17 @@ def sample_decode(
         if start is not None:
             start = torch.as_tensor(start).to(dev, torch.int64)
         self_k, self_v = _self_kv(dims, b, ctx, encoded.dtype, dev)
+        s0, prev, max_ts = _pad_skip(prompt, start, st.timestamp_begin)
         tokens = torch.full((b, ctx), st.eot, dtype=torch.int64, device=dev)
-        tokens[:, 0] = prompt[:, 0]
-        token = prompt[:, 0].clone()
-        prev = torch.zeros((b,), dtype=torch.int64, device=dev)
-        max_ts = torch.zeros((b,), dtype=torch.int64, device=dev)  # < ts0: none yet
+        tokens[:, :s0 + 1] = prompt[:, :s0 + 1]
+        token = prompt[:, s0].clone()
         finished = torch.zeros((b,), dtype=torch.bool, device=dev)
         sum_lp = torch.zeros((b,), dtype=torch.float32, device=dev)
         n_text = torch.zeros((b,), dtype=torch.int32, device=dev)
         nsp = torch.zeros((b,), dtype=torch.float32, device=dev)
-        pos = torch.zeros((), dtype=torch.int64, device=dev)
+        pos = torch.full((), s0, dtype=torch.int64, device=dev)
         tiny = torch.finfo(torch.float32).tiny
-        for step in range(ctx - 1):
+        for step in range(s0, ctx - 1):
             if early_exit and step % EXIT_EVERY == 0 and step and bool(finished.all()):
                 break
             sample_decode.steps += 1
@@ -478,20 +500,21 @@ def beam_decode(
         def gather_beam(t, idx):  # (b, n, …) by (b, k) indices along axis 1
             return torch.take_along_dim(t, idx.view(*idx.shape, *[1] * (t.ndim - 2)), dim=1)
 
-        token = prompt[:, :1].expand(b, bs).clone()
-        prev = torch.zeros((b, bs), **i64)
-        max_ts = torch.zeros((b, bs), **i64)
+        s0, prev, max_ts = _pad_skip(prompt, start, ts0)
+        token = prompt[:, s0:s0 + 1].expand(b, bs).clone()
+        prev = prev[:, None].expand(b, bs).clone()
+        max_ts = max_ts[:, None].expand(b, bs).clone()
         cum = torch.where(beam_iota == 0, 0.0, NEG_INF).to(torch.float32)
         n_text = torch.zeros((b, bs), dtype=torch.int32, device=dev)
         seq = torch.full((b, bs, ctx), eot, **i64)
-        seq[:, :, 0] = prompt[:, :1]
+        seq[:, :, :s0 + 1] = prompt[:, None, :s0 + 1]
         fin_key = torch.full((b, bs), float("inf"), device=dev)
         fin_score = torch.full((b, bs), NEG_INF, device=dev)
         fin_ntext = torch.zeros((b, bs), dtype=torch.int32, device=dev)
         fin_seq = torch.full((b, bs, ctx), eot, **i64)
         nsp = torch.zeros((b,), dtype=torch.float32, device=dev)
-        pos = torch.zeros((), **i64)
-        for step in range(ctx - 1):
+        pos = torch.full((), s0, **i64)
+        for step in range(s0, ctx - 1):
             if (step % EXIT_EVERY == 0 and step
                     and bool((torch.isfinite(fin_key).sum(dim=1) == bs).all())):
                 break  # every pool is full: the result cannot change

@@ -26,9 +26,12 @@ transcripts) runs #1 too, where the JAX package's runs its XLA path. Both
 are held within #1's gate on the card. The differential tests run on the
 CPU, where both packages take their plain paths.
 
-Not ported yet, each raising ``NotImplementedError`` that names the slice
-that brings it: word timestamps (``transcribe_with_word_timestamps``,
-``align_words``) and long-form audio (``transcribe_long``) (#11).
+Word timestamps: ``transcribe_with_word_timestamps`` (a batch of 30-s
+windows) and ``align_words`` (one window of the long-form loop) run one
+teacher-forced f32 ``decoder_forward`` that captures the alignment heads'
+cross-attention, then DTW on the host (``timing.py``). Long-form audio:
+``transcribe_long`` (``long_audio.py``), whose whole-recording log-mel is
+plain torch on the runtime's device, not kernel #1 (its floor is global).
 """
 
 from __future__ import annotations
@@ -135,11 +138,6 @@ def decode_capture(encoder: AudioEncoder, decoder: TextDecoder, dims: WhisperDim
     return caps[layer_name], tokens, n_valid
 
 
-def _not_ported(what: str, slice_no: int):
-    raise NotImplementedError(f"{what} is not ported to freud_tpu_torch yet "
-                              f"(ROADMAP Queue 1 #{slice_no})")
-
-
 class WhisperRuntime:
     """Encoder capture and transcription for one model + capture layer on
     one device."""
@@ -180,6 +178,7 @@ class WhisperRuntime:
         # cast once here; encoder_forward then runs the module as it is
         self.encoder = encoder.to(compute_dtype).eval()
         self._decoder: Optional[TextDecoder] = None
+        self._align_decoder: Optional[TextDecoder] = None
         if self._decoder_layer:
             self.decoder  # a decoder capture decodes: build it with the model
         self._st = special_tokens(self.dims.n_vocab)
@@ -307,19 +306,23 @@ class WhisperRuntime:
     def _decode(self, encoded: torch.Tensor, prompt: torch.Tensor, n_prompt: int,
                 temperature: float = 0.0, beam_size: Optional[int] = None,
                 generator: Optional[torch.Generator] = None,
-                decoder_tap: Optional[tuple] = None) -> tuple[np.ndarray, ...]:
+                decoder_tap: Optional[tuple] = None,
+                start: Optional[torch.Tensor] = None) -> tuple[np.ndarray, ...]:
         """One decode of the batch → (tokens, sum_logprob, n_text,
-        no_speech_prob) as numpy arrays. The ``decode`` span covers the
-        device work: it ends with the results on the host."""
+        no_speech_prob) as numpy arrays; ``start`` ((b,) int) left-crops a
+        left-padded prompt buffer (``decoding._decode_step``). The
+        ``decode`` span covers the device work: it ends with the results on
+        the host."""
         with profiling.span("decode"):
             if beam_size:
                 out = beam_decode(self.decoder, self.dims, encoded, prompt, n_prompt,
                                   max_new=self.max_new_tokens, beam_size=beam_size,
-                                  compute_dtype=self.compute_dtype)
+                                  start=start, compute_dtype=self.compute_dtype)
             else:
                 out = sample_decode(self.decoder, self.dims, encoded, prompt, n_prompt,
                                     max_new=self.max_new_tokens, temperature=temperature,
-                                    generator=generator, compute_dtype=self.compute_dtype,
+                                    generator=generator, start=start,
+                                    compute_dtype=self.compute_dtype,
                                     early_exit=self.early_exit, decoder_tap=decoder_tap)
             return tuple(t.cpu().numpy() for t in out)
 
@@ -388,14 +391,125 @@ class WhisperRuntime:
         """Render decoded token rows to transcripts (``decode_text``)."""
         return [decode_text(row, self.dims.n_vocab) for row in np.asarray(tokens)]
 
-    def transcribe_with_word_timestamps(self, mels, num_frames=None):
-        _not_ported("word timestamps (transcribe_with_word_timestamps)", 11)
+    # -- word timestamps and long-form audio -----------------------------------
 
-    def align_words(self, encoded, text_tokens, lang_idx=0, num_frames=None):
-        _not_ported("word alignment (align_words)", 11)
+    @property
+    def align_decoder(self) -> TextDecoder:
+        """The decoder the alignment pass runs: f32 weights whatever
+        ``compute_dtype`` is, as the JAX package's alignment pass runs its
+        f32 parameters at f32 (a bf16 runtime loads a second, f32 copy at
+        first use)."""
+        if self.compute_dtype == torch.float32:
+            return self.decoder
+        if self._align_decoder is None:
+            decoder, _ = load_decoder(self.model_name, device=self.device)
+            self._align_decoder = decoder.eval()
+        return self._align_decoder
 
-    def transcribe_long(self, audio, verbose=False, **kw):
-        _not_ported("long-form transcription (transcribe_long)", 11)
+    def _alignment_forward(self, tokens: torch.Tensor, encoded: torch.Tensor
+                           ) -> tuple[np.ndarray, np.ndarray]:
+        """One teacher-forced f32 ``decoder_forward`` over (b, T) ``tokens``
+        that captures the alignment layers' cross-attention weights →
+        (weights (b, n_pairs, T, frames) in the curated (layer, head) order,
+        next-token probabilities (b, T − 1): row r's probability of token
+        r + 1, whisper find_alignment's text_token_probs), both f32 numpy.
+        The (layer, head) planes are picked on the device and come back to
+        the host with the probabilities in one copy. The pairs are resolved
+        from the asset dirs at every call (``timing.load_alignment_heads``),
+        so a table that appears mid-process takes effect at once."""
+        from . import timing
+
+        pairs = tuple(timing.load_alignment_heads(
+            self.model_name, self.dims.n_text_layer, self.dims.n_text_head))
+        names = {l: f"decoder.blocks.{l}.cross_attn.weights" for l, _ in pairs}
+        with profiling.span("align"), torch.inference_mode():
+            tokens = tokens.to(self.device, torch.int64)
+            logits, caps = decoder_forward(self.align_decoder, self.dims, tokens,
+                                           encoded, torch.float32,
+                                           capture=tuple(sorted(set(names.values()))))
+            w = torch.stack([caps[names[l]][:, h] for l, h in pairs], dim=1)
+            probs = torch.softmax(logits.float(), dim=-1)[:, :-1].gather(
+                -1, tokens[:, 1:, None])[..., 0]
+            flat = torch.cat([w.reshape(-1), probs.reshape(-1)]).cpu().numpy()
+        return (flat[:w.numel()].reshape(w.shape),
+                flat[w.numel():].reshape(probs.shape))
+
+    def transcribe_with_word_timestamps(
+        self, mels: torch.Tensor, num_frames: Optional[np.ndarray] = None
+    ) -> tuple[list[str], list[list[dict]]]:
+        """→ (texts, per-clip word lists ``[{"word", "start", "end",
+        "probability"}, …]``): a greedy decode of the batch, ONE alignment
+        pass over the decoded rows, then host-side DTW (``timing.py``).
+        ``num_frames`` optionally gives each clip's real encoder-frame
+        count (mel frames / 2) to trim the padded window. As in the JAX
+        package, the alignment runs over the timestamp-mode tokens with the
+        timestamp tokens' rows dropped, not a re-decode without
+        timestamps."""
+        from . import timing
+        from .tokenizer import token_pieces
+
+        encoded = self.encode(mels)
+        prompt, n_prompt = self._prompt(encoded)
+        tokens = self._decode(encoded, prompt, n_prompt)[0]
+        # (b, n_pairs, T, frames) over the curated (layer, head) pairs
+        w, tok_probs = self._alignment_forward(torch.from_numpy(tokens), encoded)
+        eot = self._st.eot
+        texts, words = [], []
+        for i in range(tokens.shape[0]):
+            pos = [p for p in range(n_prompt, tokens.shape[1]) if tokens[i, p] < eot]
+            pieces = token_pieces(tokens[i, pos], self.dims.n_vocab)
+            nf = int(num_frames[i]) if num_frames is not None else None
+            # row p-1 is the query that PREDICTS token p (whisper
+            # find_alignment's convention)
+            rows = [p - 1 for p in pos]
+            starts, ends = timing.token_times(w[i], rows, nf)
+            texts.append(decode_text(tokens[i], self.dims.n_vocab))
+            words.append(timing.merge_punctuations(timing.group_words(
+                pieces, starts, ends, probs=tok_probs[i][rows])))
+        return texts, words
+
+    def align_words(
+        self,
+        encoded: torch.Tensor,  # (1, frames, d)
+        text_tokens: list[int],
+        lang_idx: int = 0,
+        num_frames: Optional[int] = None,
+    ) -> tuple[np.ndarray, np.ndarray, list[str], np.ndarray]:
+        """→ (starts, ends, pieces, token_probs) for ``text_tokens`` against
+        one window. whisper timing.py ``find_alignment``: the alignment row
+        is the clean ``sot_sequence + <|notimestamps|> + text + <|eot|>``,
+        whatever prompt and timestamps the window was decoded with, padded
+        with EOT to one fixed length, ``len(base) + max_new_tokens + 1``."""
+        from . import timing
+        from .tokenizer import token_pieces
+
+        st = self._st
+        base = st.sot_sequence(lang_index=lang_idx,
+                               task_translate=self.task == "translate",
+                               timestamps=False)
+        cap = self.max_new_tokens
+        text_tokens = list(text_tokens)[:cap]
+        if not text_tokens:  # timestamp-only window: nothing to align
+            return np.zeros(0), np.zeros(0), [], np.zeros(0)
+        row = base + text_tokens + [st.eot]
+        row = row + [st.eot] * (len(base) + cap + 1 - len(row))
+        w, tok_probs = self._alignment_forward(torch.tensor([row]), encoded)
+        n = len(text_tokens)
+        # rows B-1 .. B+n-1 predict text[0..n-1]; row B+n-1 (the last text
+        # token's own row) predicts EOT and rides along as whisper's extra
+        # DTW target anchoring the final word's end
+        rows = list(range(len(base) - 1, len(base) + n))
+        pieces = token_pieces(np.asarray(text_tokens), self.dims.n_vocab)
+        starts, ends = timing.token_times(w[0], rows, num_frames)
+        return starts[:n], ends[:n], pieces, tok_probs[0][rows[:n]]
+
+    def transcribe_long(self, audio: np.ndarray, verbose: bool = False, **kw) -> dict:
+        """Arbitrary-length transcription: whisper.transcribe's 30-s seek
+        loop (``long_audio.transcribe_long``, which takes the keywords) →
+        {"text", "segments", "language"}."""
+        from .long_audio import transcribe_long
+
+        return transcribe_long(self, audio, verbose=verbose, **kw)
 
     # -- helpers ------------------------------------------------------------
 
@@ -433,3 +547,7 @@ class WhisperRuntime:
         if self._decoder_layer:
             return len(self._decode_capture_statics()["sot_seq"]) + self.max_new_tokens
         return self.dims.n_audio_ctx
+
+
+def init_runtime(model_name: str, layer_name: Optional[str] = None, **kw) -> WhisperRuntime:
+    return WhisperRuntime(model_name, layer_name, **kw)

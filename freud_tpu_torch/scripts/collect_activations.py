@@ -8,7 +8,10 @@ resume / max_new_tokens; outputs ``{layer}_metadata.json`` +
 buffer → CUDA log-mel kernel → encoder forward up to the captured layer (the
 fused q/k/v attention kernel for d ≤ 768, the blocked attention kernel for
 medium and large) → asynchronous device→host copy → streamed append to the
-memory-mappable store on a write-behind thread.
+memory-mappable store on a write-behind thread. An undecodable file is
+left out of the store; a batch whose files all fail to decode is skipped
+(the JAX package's collection raises on it), and a run with no decodable
+file writes nothing and says so.
 
 A ``decoder.*`` layer runs the whole encoder, a greedy decode of
 ``max_new_tokens`` (default 224) and one teacher-forced decoder pass that
@@ -40,6 +43,7 @@ from __future__ import annotations
 import argparse
 import json
 import queue
+import sys
 import threading
 import time
 from pathlib import Path
@@ -161,6 +165,11 @@ def get_activations(
     try:
         for batch in loader.iter_with_lengths():
             *arrays, filenames, n_frames = batch
+            if not filenames:
+                # every file of the batch failed to decode: the loader
+                # dropped their rows, and a zero-row batch has nothing to
+                # fetch or store (the writer cannot take its shape from it)
+                continue
             # waits for this batch's device→host copy only; the next batch's
             # encode is already queued on the device
             with profiling.span("d2h_fetch"):
@@ -201,7 +210,10 @@ def get_activations(
                 wthread.join()
     if werr:
         raise werr[0]
-    if writer is not None:
+    if writer is None:
+        print(f"no decodable audio file under {data_path}: nothing written to "
+              f"{out_folder}", file=sys.stderr)
+    else:
         writer.close()
         # keep an existing index current after every run (a grown store must
         # never silently degrade search to a full scan); build fresh only

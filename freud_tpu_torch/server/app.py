@@ -15,7 +15,10 @@ unchanged:
        ?feat_idx&manipulation_factor
                                 "standard_text", "standard_activations",
                                 "manipulated_activations"}
-  POST /transcribe             {"text"}
+  POST /transcribe             {"text"}; with ?long=1 (or a clip over
+       ?long&word_timestamps     30 s) {"text", "segments", "language"};
+       &fallback&format          ?format=txt|srt|vtt|tsv renders the result
+                                 as text (models/whisper/writers.py)
 
 Implementation is stdlib ``http.server`` (threaded) with permissive CORS.
 Device work is serialized behind one lock, and runs under
@@ -28,9 +31,10 @@ poisons the process's CUDA context for every later request.
 ``/audio/<path>`` serves only paths that resolve inside the configured
 dataset roots unless ``allow_any_audio_path`` is set.
 
-Not ported yet (ROADMAP Queue 1 #11): ``/transcribe`` with ``long=1``,
-``word_timestamps=1``, a clip over 30 s, or a ``format`` other than
-``json`` answers 501 with the runtime's ``NotImplementedError`` message.
+``/transcribe`` routes ``long=1`` and any upload over 30 s through the
+long-form seek loop (``WhisperRuntime.transcribe_long``, word times with
+``word_timestamps=1``), as the JAX server does; its query parameters are
+checked on the host before any device work, and a bad one answers 400.
 """
 
 from __future__ import annotations
@@ -58,7 +62,7 @@ from ..constants import N_SAMPLES
 from ..data.loaders import FlyActivationLoader, MemoryMappedActivationLoader, load_sae
 from ..device import resolve_device
 from ..models.whisper import WhisperRuntime
-from ..models.whisper.runtime import _not_ported
+from ..models.whisper.writers import get_writer
 
 _MIME = {
     ".flac": "audio/flac",
@@ -149,18 +153,14 @@ class GuiState:
         }
 
     def transcribe(self, audio: np.ndarray, long_mode: bool, fallback: bool,
-                   word_timestamps: bool, fmt: str) -> dict:
-        """``/transcribe``'s JSON: greedy, or the temperature ladder with
-        ``fallback``, on one 30-s window. Long-form audio, word timestamps
-        and server-side formats raise ``NotImplementedError`` (#11) before
-        any device work."""
+                   word_timestamps: bool) -> dict:
+        """``/transcribe``'s result: with ``long_mode`` or more than 30 s of
+        audio the long-form seek loop ({"text", "segments", "language"},
+        words with ``word_timestamps``); else {"text"} of one 30-s window,
+        greedy or through the temperature ladder with ``fallback``."""
         rt = self.runtime
         if long_mode or len(audio) > N_SAMPLES:
-            rt.transcribe_long(audio, word_timestamps=word_timestamps)
-        if word_timestamps:
-            _not_ported("word timestamps (word_timestamps=1)", 11)
-        if fmt != "json":
-            _not_ported(f"server-side transcript rendering (format={fmt})", 11)
+            return rt.transcribe_long(audio, word_timestamps=word_timestamps)
         mel = mels_from_array(audio, rt.dims.n_mels, device=rt.device)
         if fallback:
             return {"text": rt.transcribe_with_fallback(mel)[0]}
@@ -205,6 +205,15 @@ def make_handler(state: GuiState):
             data = json.dumps(obj).encode()
             self.send_response(code)
             self.send_header("Content-Type", "application/json")
+            self.send_header("Access-Control-Allow-Origin", "*")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def _send_text(self, text, mime, code=200):
+            data = text.encode("utf-8")
+            self.send_response(code)
+            self.send_header("Content-Type", f"{mime}; charset=utf-8")
             self.send_header("Access-Control-Allow-Origin", "*")
             self.send_header("Content-Length", str(len(data)))
             self.end_headers()
@@ -371,9 +380,11 @@ def make_handler(state: GuiState):
                 return
 
             if path == "/transcribe":
-                # multipart ``audio`` → {"text"}; ``?fallback=1`` walks the
-                # temperature ladder on the 30-s window; the decode precision
-                # is the server runtime's compute_dtype
+                # multipart ``audio`` → transcript JSON; ``?long=1`` (or a
+                # clip over 30 s) takes the seek loop with the per-window
+                # ladder, ``&word_timestamps=1`` adds word times;
+                # ``?fallback=1`` walks the ladder on one 30-s window. The
+                # decode precision is the server runtime's compute_dtype
                 truthy = ("1", "true", "yes")
                 long_mode = q.get("long", "0").lower() in truthy
                 fallback = q.get("fallback", "0").lower() in truthy
@@ -390,13 +401,30 @@ def make_handler(state: GuiState):
                                   "pass long=1"}, 400)
                     return
                 wts = q.get("word_timestamps", "0").lower() in truthy
-                try:
-                    with state.lock, torch.inference_mode():
-                        result = state.transcribe(audio, long_mode, fallback, wts, fmt)
-                except NotImplementedError as e:
-                    self._send_json({"error": str(e)}, 501)
-                    return
-                self._send_json(result)
+                # whisper's subtitle options ride query params on the srt/vtt
+                # forms (word-boundary cues need word_timestamps=1)
+                opts = {}
+                if fmt in ("srt", "vtt"):
+                    for key in ("max_line_width", "max_line_count"):
+                        if not q.get(key):
+                            continue
+                        try:
+                            opts[key] = int(q[key])
+                        except ValueError:
+                            self._send_json({"error": f"{key} must be an integer, "
+                                                      f"got {q[key]!r}"}, 400)
+                            return
+                    if q.get("highlight_words", "0").lower() in truthy:
+                        opts["highlight_words"] = True
+                with state.lock, torch.inference_mode():
+                    result = state.transcribe(audio, long_mode, fallback, wts)
+                if fmt == "json":
+                    self._send_json(result)
+                else:
+                    mime = ("text/vtt" if fmt == "vtt" else
+                            "text/tab-separated-values" if fmt == "tsv" else
+                            "text/plain")
+                    self._send_text(get_writer(fmt)(result, **opts), mime)
             elif path == "/top_features":
                 top_n = int(q.get("top_n", 32))
                 if not (1 <= top_n <= state.n_features):

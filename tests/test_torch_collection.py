@@ -274,3 +274,48 @@ def test_collection_extends_an_indexed_folder(setup, tmp_path, monkeypatch, kind
         for (_, a, _, _), (_, b, _, _) in zip(fast[0], scan[0]):
             np.testing.assert_array_equal(a, b)
         assert fast[1] == scan[1]
+
+
+def test_all_undecodable_batch_is_skipped(setup, tmp_path, monkeypatch):
+    """Two good WAVs and a broken one at batch 2, sorted so that the second
+    batch is the broken file alone: the port's collection skips the empty
+    batch and writes the metadata JAX writes for the two good files alone.
+    JAX's collection over the same folder raises on the zero-row batch (its
+    store writer reshapes it): a known divergence (ROADMAP Queue 3)."""
+    _, wdir, audio = setup
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
+    folder = tmp_path / "mixed"
+    folder.mkdir()
+    (folder / "a.wav").write_bytes((audio / "clip0.wav").read_bytes())
+    (folder / "b.wav").write_bytes((audio / "clip1.wav").read_bytes())
+    common = dict(data_path=str(folder), layer_name=LAYER, whisper_model="tiny",
+                  sae_model=None, batch_size=2, verbose=False)
+    jax_collect(out_folder=str(tmp_path / "jax"), **common)
+    (folder / "c.wav").write_bytes(b"RIFF, but not a wav file")
+    stats = tcollect.get_activations(out_folder=str(tmp_path / "torch"),
+                                     device="cpu", **common)
+    assert stats["n_files"] == 2
+    jmeta, jt = _read(tmp_path / "jax")
+    tmeta, tt = _read(tmp_path / "torch")
+    assert tmeta == jmeta
+    assert json.loads(tmeta)["filenames"] == [str(folder / "a.wav"), str(folder / "b.wav")]
+    assert np.max(np.abs(tt - jt)) / np.max(np.abs(jt)) < 1e-4
+    with pytest.raises(ValueError):
+        jax_collect(out_folder=str(tmp_path / "jax_all"), **common)
+
+
+def test_no_decodable_file_writes_nothing(setup, tmp_path, monkeypatch, capsys):
+    _, wdir, _ = setup
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(wdir))
+    folder = tmp_path / "broken"
+    folder.mkdir()
+    for name in ("a.wav", "b.wav", "c.wav"):
+        (folder / name).write_bytes(b"RIFF, but not a wav file")
+    out = tmp_path / "out"
+    stats = tcollect.get_activations(
+        data_path=str(folder), layer_name=LAYER, whisper_model="tiny",
+        sae_model=None, batch_size=2, out_folder=str(out), verbose=False,
+        device="cpu")
+    assert stats["n_files"] == 0
+    assert not (out / f"{LAYER}_metadata.json").exists()
+    assert "nothing written" in capsys.readouterr().err

@@ -240,6 +240,54 @@ def test_feature_index_checks_equal_feature_store(tmp_path):
             fs.SparseFeatureMajorReader.exists(folder, layer), folder.name
 
 
+# -------------------------------------------- framework-free copies
+
+
+@pytest.mark.parametrize("rel", ["models/whisper/timing.py", "models/whisper/writers.py",
+                                 "analysis/wer.py"])
+def test_framework_free_copies_byte_identical(rel):
+    """The port keeps its own copies of the JAX package's numpy-only
+    modules: word timing (DTW, alignment heads), the subtitle writers and
+    the word error rate, byte-identical to their originals."""
+    assert (PORT_DIR / rel).read_bytes() == \
+        (PORT_DIR.parent / "freud_tpu" / rel).read_bytes(), rel
+
+
+def test_alignment_heads_search_the_port_assets(tmp_path, monkeypatch):
+    """``load_alignment_heads`` reads ``alignment_heads.json`` from
+    $FREUD_WHISPER_DIR, then $FREUD_TOKENIZER_DIR, then the port's own
+    ``models/whisper/assets``; without a table ``random:``/``test:`` models
+    take the upper half of the decoder layers, as JAX's copy does."""
+    from freud_tpu.models.whisper import timing as jt
+    from freud_tpu_torch.models.whisper import timing as tt
+
+    monkeypatch.delenv("FREUD_WHISPER_DIR", raising=False)
+    monkeypatch.delenv("FREUD_TOKENIZER_DIR", raising=False)
+    for name in ("random:tiny", "test:large-v3", "tiny"):
+        assert tt.load_alignment_heads(name, 4, 6) == jt.load_alignment_heads(name, 4, 6) \
+            == [(l, h) for l in (2, 3) for h in range(6)]
+    read = []
+    real_exists = Path.exists
+
+    def spy(self):
+        if self.name == "alignment_heads.json":
+            read.append(self.parent)
+        return real_exists(self)
+
+    monkeypatch.setattr(Path, "exists", spy)
+    (tmp_path / "w").mkdir()
+    (tmp_path / "t").mkdir()
+    (tmp_path / "t" / "alignment_heads.json").write_text(json.dumps({"tiny": [[0, 1]]}))
+    monkeypatch.setenv("FREUD_WHISPER_DIR", str(tmp_path / "w"))
+    monkeypatch.setenv("FREUD_TOKENIZER_DIR", str(tmp_path / "t"))
+    assert tt.load_alignment_heads("random:tiny", 4, 6) == [(0, 1)]
+    assert read == [tmp_path / "w", tmp_path / "t"]
+    read.clear()
+    monkeypatch.delenv("FREUD_TOKENIZER_DIR")
+    tt.load_alignment_heads("tiny", 4, 6)
+    assert read == [tmp_path / "w", PORT_DIR / "models" / "whisper" / "assets"]
+
+
 # ------------------------------------------------------------- tokenizer
 
 

@@ -9,9 +9,11 @@ path. Fly mode: the same files in the same order, values within
 FLY_TOL of the largest |value|. Every endpoint answers the same keys and
 types; the upload endpoints' indices are equal and traces within FLY_TOL;
 transcripts equal. Error codes (400, 403, 404, 413, 416, a JSON 500),
-``Range`` answers, CORS and the static page are the same; ``/transcribe``
-forms that need long-form transcription answer 501 naming ROADMAP Queue 1
-#11; an out-of-range request is followed by a good one."""
+``Range`` answers, CORS and the static page are the same; ``/transcribe``'s
+long forms (``long=1``, ``word_timestamps=1``, ``format=txt|srt|vtt|tsv``,
+an upload over 30 s) answer as JAX's with both seek loops pinned to t = 0
+(srt, vtt, tsv and txt byte for byte, JSON up to the statistics' 1e-4);
+an out-of-range request is followed by a good one."""
 
 import http.client
 import io
@@ -66,6 +68,7 @@ def _serve(app, config, from_disk, **kw):
     state = app.GuiState(config, from_disk=from_disk, **kw)
     state.runtime.max_new_tokens = 3
     server = app.create_server(state, host="127.0.0.1", port=0)
+    server.state = state
     threading.Thread(target=server.serve_forever, daemon=True).start()
     return server
 
@@ -232,10 +235,43 @@ def test_upload_endpoints_match(env, mode):
             assert len({tm["baseline_text"], tm["manipulated_text"], tm["standard_text"]}) == 1
 
 
-def test_transcribe(env):
+@pytest.fixture()
+def t0_long(monkeypatch):
+    """Both packages' seek loops at t = 0 with 8 history slots: the server
+    takes transcribe_long's default ladder, whose sampled rungs draw from
+    different generators in the two packages."""
+    import functools
+
+    from freud_tpu.models.whisper import long_audio as jla
+    from freud_tpu_torch.models.whisper import long_audio as tla
+
+    for mod in (jla, tla):
+        monkeypatch.setattr(mod, "transcribe_long", functools.partial(
+            mod.transcribe_long, temperatures=(0.0,), history_budget=8))
+
+
+def _json_close(got, want):
+    if isinstance(want, float):
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want)), (got, want)
+    elif isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _json_close(got[k], want[k])
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _json_close(g, w)
+    else:
+        assert got == want
+
+
+def test_transcribe(env, t0_long):
     """Plain and fallback requests on a clip of 30 s or less answer as
     JAX's (plain: equal text; the ladder's sampled rungs draw from other
-    generators, so only its form); the long-form forms answer 501."""
+    generators, so only its form); the long forms answer as JAX's: JSON
+    with ``long=1``, ``word_timestamps=1`` on a short clip (text only),
+    ``format=txt`` and a 31-s upload without ``long``; a bad format or a
+    subtitle format without timed segments answers JAX's 400."""
     _, _, _, servers = env
     pair = servers["fly"]
     data = _wav_bytes(1.0, seed=6)
@@ -246,13 +282,50 @@ def test_transcribe(env):
     for path, payload in (("/transcribe?long=1", data), ("/transcribe?word_timestamps=1", data),
                           ("/transcribe?format=txt", data),
                           ("/transcribe", _wav_bytes(31.0, seed=6))):
-        code, headers, body = post_audio(pair[1], path, payload)
-        err = json.loads(body)["error"]
-        assert code == 501 and "ROADMAP Queue 1 #11" in err, (path, err)
-        assert headers["Content-Type"] == "application/json"
+        (jc, jh, jb), (tc, th, tb) = both(pair, "POST", path, data=payload)
+        assert jc == tc == 200, (path, tb)
+        assert th["Content-Type"] == jh["Content-Type"], path
+        if "format=txt" in path:
+            assert tb == jb
+        else:
+            _json_close(json.loads(tb), json.loads(jb))
     for path in ("/transcribe?format=xml", "/transcribe?format=srt"):
         (jc, _, jb), (tc, _, tb) = both(pair, "POST", path, data=data)
         assert jc == tc == 400 and tb == jb, path
+
+
+@pytest.mark.parametrize("path", [
+    "/transcribe?long=1&word_timestamps=1",
+    "/transcribe?long=1&word_timestamps=1&format=srt&max_line_width=10&max_line_count=2",
+    "/transcribe?long=1&format=vtt&word_timestamps=1&highlight_words=1",
+    "/transcribe?long=1&format=tsv",
+    "/transcribe"])
+def test_long_transcribe_matches_jax(env, t0_long, path):
+    """A 45-s upload: JSON (with words), srt (split on word boundaries),
+    vtt (one cue a word), tsv, and without ``long`` (routed to the seek loop
+    by its length) — each JAX's answer."""
+    _, _, _, servers = env
+    data = _wav_bytes(45.0, seed=7)
+    (jc, jh, jb), (tc, th, tb) = both(servers["disk"], "POST", path, data=data)
+    assert jc == tc == 200, tb
+    assert th["Content-Type"] == jh["Content-Type"]
+    if "format=" in path:
+        assert tb == jb and tb.strip()
+    else:
+        got = json.loads(tb)
+        _json_close(got, json.loads(jb))
+        assert set(got) == {"text", "segments", "language"} and got["segments"]
+        assert all(s["start"] >= 30.0 for s in got["segments"] if s["seek"] >= 3000)
+
+
+def test_bad_subtitle_option_is_refused_before_device_work(env, monkeypatch):
+    _, _, _, servers = env
+    state = servers["disk"][1].state
+    monkeypatch.setattr(state, "transcribe", lambda *a: pytest.fail("device work"))
+    code, _, body = post_audio(servers["disk"][1],
+                               "/transcribe?long=1&format=srt&max_line_width=wide",
+                               _wav_bytes(1.0))
+    assert code == 400 and "max_line_width" in json.loads(body)["error"]
 
 
 def test_error_codes_match(env, monkeypatch):

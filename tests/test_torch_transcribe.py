@@ -6,10 +6,12 @@ freud_tpu's, on one set of weights (the JAX package's ``init_params`` at
 tests/test_torch_collection.py) and one folder of seeded WAVs, f32 on the
 CPU, where both packages take their plain log-mel paths.
 
-Held equal: ``transcribe_folder``'s JSON (greedy, and beam search on the
-t = 0 rung), the t = 0 fallback rung, ``fallback_accepts`` on a grid, and
-the 4 + 4 validation transcripts of an encoder-layer store (streamed and
-resident). Without tokenizer assets both packages render text as
+Held equal: ``transcribe_folder``'s JSON (greedy, beam search on the
+t = 0 rung, and word timestamps with their probabilities within 1e-4), the
+t = 0 fallback rung, ``fallback_accepts`` on a grid, the 4 + 4 validation
+transcripts of an encoder-layer store (streamed and resident), and the
+``--long`` CLI's txt, srt, vtt and tsv files byte for byte (its json up to
+the statistics' 1e-4) with both seek loops pinned to t = 0. Without tokenizer assets both packages render text as
 ``<tok:N>``, so equal text is equal tokens."""
 
 import dataclasses
@@ -224,18 +226,21 @@ def test_runtime_runs_on_the_card_unless_asked(monkeypatch):
 
 def test_unported_surfaces_raise(env):
     """A decoder layer is steered online (an identity tap changes nothing),
-    never by a tensor substitution, which raises pointing to decoder_tap;
-    the long-form surfaces still raise."""
+    never by a tensor substitution, which raises pointing to decoder_tap.
+    The long-form surfaces answer (they raised until they were ported): a
+    second of audio has one window, word timestamps give a word list a
+    clip, and an empty text list aligns nothing."""
     rt = WhisperRuntime("test:tiny", "decoder.blocks.0", max_new_tokens=4, device="cpu")
     mels = torch.zeros(1, 80, 3000)
     assert rt.transcribe(mels, decoder_tap=(0, lambda p, x: x, None)) == rt.transcribe(mels)
     with pytest.raises(ValueError, match="decoder_tap"):
         rt.transcribe(mels, substitute_layer="decoder.blocks.0", substitute_value=mels)
-    for call in (lambda: rt.transcribe_long(np.zeros(16000)),
-                 lambda: rt.transcribe_with_word_timestamps(mels),
-                 lambda: rt.align_words(None, [1])):
-        with pytest.raises(NotImplementedError, match="#11"):
-            call()
+    out = rt.transcribe_long(np.zeros(16000, np.float32), temperatures=(0.0,))
+    assert set(out) == {"text", "segments", "language"}
+    assert {s["seek"] for s in out["segments"]} <= {0}
+    texts, words = rt.transcribe_with_word_timestamps(mels)
+    assert len(texts) == len(words) == 1
+    assert [len(x) for x in rt.align_words(rt.encode(mels), [])] == [0, 0, 0, 0]
     with pytest.raises(ValueError, match="English-only"):
         WhisperRuntime("test:tiny.en", task="translate", device="cpu")
     with pytest.raises(ValueError):
@@ -250,7 +255,121 @@ def test_cli_main(env, tmp_path, capsys):
     result = json.loads(out.read_text())
     assert sorted(result) == sorted(str(p) for p in env.audio.iterdir())
     assert result[str(env.audio / "bad.wav")] == "<decode-failed>"
-    for flag in (["--long"], ["--word_timestamps"], ["--output_format", "srt"]):
-        with pytest.raises(SystemExit):
-            tcli.main(["--data_path", str(env.audio), "--device", "cpu", *flag])
-        assert "#11" in capsys.readouterr().err
+    # the subtitle formats need --long's timed segments (JAX's refusal)
+    with pytest.raises(SystemExit):
+        tcli.main(["--data_path", str(env.audio), "--device", "cpu",
+                   "--output_format", "srt"])
+    assert "needs the timed segments of --long" in capsys.readouterr().err
+    # batch word timestamps and --output_format txt
+    tcli.main(["--data_path", str(env.audio), "--model", "tiny", "--batch_size", "2",
+               "--max_new_tokens", "4", "--device", "cpu", "--word_timestamps",
+               "--output_format", "txt", "--output_dir", str(tmp_path / "txt"),
+               "--out", str(out)])
+    result = json.loads(out.read_text())
+    assert set(result[str(env.audio / "a0.wav")]) == {"text", "words"}
+    text = result[str(env.audio / "a0.wav")]["text"]
+    assert (tmp_path / "txt" / "a0.txt").read_text() == text.strip() + "\n"
+
+
+# --------------------------------------------------------------- long form
+
+
+@pytest.fixture(scope="module")
+def long_audio_dir(env):
+    folder = env.root / "long"
+    folder.mkdir()
+    _write_wav(folder / "l20.wav", 20.0, 20)
+    _write_wav(folder / "l45.wav", 45.0, 45)
+    return folder
+
+
+@pytest.fixture()
+def t0_long(monkeypatch):
+    """Both packages' seek loops at t = 0 with 8 history slots: the CLI and
+    the server take transcribe_long's defaults, whose sampled rungs draw
+    from different generators in the two packages."""
+    import functools
+
+    from freud_tpu.models.whisper import long_audio as jla
+    from freud_tpu_torch.models.whisper import long_audio as tla
+
+    for mod in (jla, tla):
+        monkeypatch.setattr(mod, "transcribe_long", functools.partial(
+            mod.transcribe_long, temperatures=(0.0,), history_budget=8))
+
+
+def _json_close(got, want):
+    """Equal structure, strings and ints; floats within 1e-4 (the decode's
+    statistics are sums in another order)."""
+    if isinstance(want, float):
+        assert abs(got - want) <= 1e-4 * max(1.0, abs(want)), (got, want)
+    elif isinstance(want, dict):
+        assert set(got) == set(want)
+        for k in want:
+            _json_close(got[k], want[k])
+    elif isinstance(want, list):
+        assert len(got) == len(want)
+        for g, w in zip(got, want):
+            _json_close(g, w)
+    else:
+        assert got == want
+
+
+@pytest.mark.parametrize("fmt, extra", [
+    ("txt", []), ("srt", ["--word_timestamps", "--max_line_width", "12"]),
+    ("vtt", ["--word_timestamps", "--highlight_words"]), ("tsv", []),
+    ("json", ["--word_timestamps"])])
+def test_cli_long_output_formats_match_jax(env, long_audio_dir, t0_long, tmp_path,
+                                           monkeypatch, fmt, extra):
+    """``--long --output_format``: the txt, srt, vtt and tsv files are
+    byte-identical to JAX's CLI's; the json file (and ``--out``) equal up to
+    the statistics' float tolerance."""
+    import sys
+
+    from freud_tpu.scripts import transcribe as jcli
+
+    args = ["--data_path", str(long_audio_dir), "--model", "tiny", "--long",
+            "--max_new_tokens", "6", "--output_format", fmt, *extra]
+    monkeypatch.setattr(sys, "argv", ["transcribe", *args, "--output_dir",
+                                      str(tmp_path / "jax"), "--out", str(tmp_path / "j.json")])
+    jcli.main()
+    tcli.main([*args, "--device", "cpu", "--output_dir", str(tmp_path / "torch"),
+               "--out", str(tmp_path / "t.json")])
+    want = json.loads((tmp_path / "j.json").read_text())
+    got = json.loads((tmp_path / "t.json").read_text())
+    _json_close(got, want)
+    assert len(got[str(long_audio_dir / "l45.wav")]["segments"]) >= 2
+    for stem in ("l20", "l45"):
+        tfile = (tmp_path / "torch" / f"{stem}.{fmt}").read_text(encoding="utf-8")
+        jfile = (tmp_path / "jax" / f"{stem}.{fmt}").read_text(encoding="utf-8")
+        if fmt == "json":
+            _json_close(json.loads(tfile), json.loads(jfile))
+        else:
+            assert tfile == jfile, stem
+
+
+def test_transcribe_folder_long_decode_failed(env, tmp_path):
+    from freud_tpu.scripts.transcribe import transcribe_folder_long as jax_long
+
+    folder = tmp_path / "bad"
+    folder.mkdir()
+    (folder / "x.wav").write_bytes(b"RIFF, but not a wav file")
+    kw = dict(model="tiny", max_new_tokens=MAX_NEW, verbose=False)
+    assert tcli.transcribe_folder_long(str(folder), device="cpu", **kw) == \
+        jax_long(str(folder), **kw) == {str(folder / "x.wav"): "<decode-failed>"}
+
+
+def test_transcribe_folder_word_timestamps_matches_jax(env):
+    """Batch ``word_timestamps`` at batch 3 (a padded tail batch): the same
+    texts and words (times equal, probabilities within 1e-4); combined with
+    beam search or the ladder it is refused, as in JAX."""
+    kw = dict(model="tiny", batch_size=3, max_new_tokens=MAX_NEW, verbose=False,
+              word_timestamps=True)
+    want = jax_transcribe_folder(str(env.audio), **kw)
+    got = tcli.transcribe_folder(str(env.audio), device="cpu", **kw)
+    _json_close(got, want)
+    assert got[str(env.audio / "bad.wav")] == "<decode-failed>"
+    assert any(v["words"] for f, v in got.items() if not f.endswith("bad.wav"))
+    for bad in (dict(beam_size=2), dict(fallback=True)):
+        with pytest.raises(SystemExit, match="word_timestamps"):
+            tcli.transcribe_folder(str(env.audio), device="cpu", **kw, **bad)
