@@ -165,6 +165,32 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      ``/transcribe?long=1&word_timestamps=1&format=srt`` and the 45-s upload
      without ``long``, twice each, timed, #1 never and #2 four times a
      window.
+ 25. (after phase 24) Whisper small (``random:small``, d 768, 12 heads):
+     kernel #2 at (16, 1500, 768), its widest width, against its plain
+     versions and timed beside its bound and library yardstick; then the
+     collection CLI with a list of four layers (blocks 2, 5, 8 and 11, one
+     encoder pass a batch) over 36 30-s WAVs and an undecodable one at
+     batch 16 (a ragged tail), ``build_index`` on: #1 once and #2 12 times
+     a batch (the wrappers' counts, and by kernel name in a profiled
+     one-batch run), stores (36, 1500, 768) without the broken file, blocks
+     11 and 2 equal to their single-layer collections (1e-6 of max) and
+     within CARD_VS_CPU_TOL of the CPU on 2 files; RTFx and ms a batch;
+ 26. kernel #4 at the sweeps' step shape, (12,000, 768) → 12,288, at k 32
+     and at the grid's k 16, and kernel #3 at the multi_topk sweep's
+     (12,000, 12,288) in f32 and bf16 (k 32, k_aux 384, k_multi 128, bit-equal),
+     each against its plain version and timed beside its bound; then the sweep CLI
+     (``python -m freud_tpu_torch.scripts.sweep``, in-process) per layer
+     over phase 25's four stores: TopK 20 steps at batch 8 (#4 four times
+     a step, AuxK active), L1 10 steps, a 2-step multi_topk sweep (#3 four
+     times a step); the ``<layer>.pth`` checkpoints load; members 0 and 3
+     equal solo trainers with their seeds after 5 steps (1e-5 of max); the
+     synchronised sweep step against a solo step, peak memory;
+ 27. the grid sweep CLI (k × auxk_alpha × lr, 8 members in 2 k-groups) on
+     the block-11 store through a 24-file device cache, 25 steps: 2 chunks
+     of 10 as CUDA graphs and a 5-step tail, every k-group on the same
+     index tensor of each chunk and the same tail batch, #4 once a member
+     a step (and the captures' warm-ups), 8 checkpoints with JAX's tags;
+     one k-group's replayed chunk against the same steps run eagerly.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
@@ -174,7 +200,14 @@ per collection batch or train step; #1, #2 and #5 also their launches in
 the transcription runs, #3 and #4 in the cache runs, every kernel in the
 decoder runs of phases 14–17, #1, #2 and #5 in the server phases 19–20
 and in the long-form phases 21–24, #4 the graph-against-eager difference)
-and the device JSON. Before them, one JSON line records phases 18–20:
+and the device JSON (#1, #2 and #5 also their launches in phase 25, #3
+and #4 in phases 26–27, #2, #3 and #4 their records at phases 25–26's
+shapes).
+Before them, one JSON line records phases 25–27: the collection's RTFx, ms
+a batch, launches, the store differences and the profiled batch; the
+sweeps' launches, steps, the member differences, the sweep step against a
+solo step, the grid's chunk times and its graph against eager. Before
+that, one JSON line records phases 18–20:
 index-build MB/s, ms a query on each search path, ms a request an endpoint
 with its launches, device-busy shares; and one phases 21–24: windows,
 rungs a window, ms a decode step, alignment ms a window, RTFx,
@@ -276,6 +309,19 @@ TRAIN_BENCH_MODES = (
     ("cache_fused_bf16", 300, {"device_cache_files": 512, "fused_steps": None,
                                "device_cache_dtype": "bfloat16"}),
 )
+# phases 25-27: Whisper small (d 768, 12 heads): four layers from one encoder
+# pass over 36 30-s clips at batch 16, then sweeps at tiny_topk's dictionary
+# (expansion 16: n_dict 12,288) and batch 8 files (12,000 rows a step)
+SMALL_LAYERS = ["encoder.blocks.2", "encoder.blocks.5", "encoder.blocks.8",
+                "encoder.blocks.11"]
+SMALL_D, SMALL_HEADS, SMALL_BATCH, SMALL_FILES = 768, 12, 16, 36
+SMALL_N_DICT = 16 * SMALL_D
+SWEEP_BATCH = 8
+SWEEP_ROWS = SWEEP_BATCH * 1500
+SWEEP_TOPK_STEPS, SWEEP_L1_STEPS = 20, 10
+GRID_LAYER = "encoder.blocks.11"
+GRID = {"k": [16, 32], "auxk_alpha": [0.03125, 0.0625], "lr": [1e-4, 4e-4]}
+GRID_STEPS, GRID_CHUNK, GRID_CACHE_FILES = 25, 10, 24
 
 
 def card_line() -> str:
@@ -2799,6 +2845,532 @@ def serving_long(torch, tmp: Path, config: dict, upload: bytes, counters: dict,
     return out
 
 
+# ---------------------------------------------------------------------------
+# phases 25-27: Whisper small, four layers from one encoder pass, sweeps
+
+
+def check_attention_small(torch, device, card) -> dict:
+    """Kernel #2 at Whisper small's width, its widest (d 768, 12 heads) and
+    the multi-layer collection's batch (16, 1500): against its f32 plain
+    version (2e-2 of max) and the bf16-rounded one (ATTN_BF16_GATE), two
+    launches bit-equal, timed beside its bound and library yardstick."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.attention import (
+        ATTN_BF16_GATE,
+        fused_qkv_attention,
+        fused_qkv_attention_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 13)
+    d, heads, b, s = SMALL_D, SMALL_HEADS, SMALL_BATCH, 1500
+    w = [(torch.randn((d, d), generator=gen) * d ** -0.5).to(device) for _ in range(3)]
+    w_model = [t.T.contiguous().T for t in w]
+    bq, bv = ((torch.randn((d,), generator=gen) * 0.1).to(device) for _ in range(2))
+    x = torch.randn((b, s, d), generator=gen).to(device)
+    args = (x, w_model[0], bq, w_model[1], w_model[2], bv, heads)
+    got = fused_qkv_attention(*args)
+    again = fused_qkv_attention(*args)
+    want = fused_qkv_attention_plain(*args)
+    want_bf16 = fused_qkv_attention_plain(*args, matmul_dtype=torch.bfloat16)
+    torch.cuda.synchronize()
+    max_err = (got - want).abs().max().item()
+    rel = max_err / want.abs().max().item()
+    rel_bf16 = ((got - want_bf16).abs().max() / want_bf16.abs().max()).item()
+    assert got.shape == x.shape and torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    assert rel < 2e-2 and rel_bf16 < ATTN_BF16_GATE[torch.float32], (rel, rel_bf16)
+    del got, again, want, want_bf16
+    ms = cuda_ms(lambda: fused_qkv_attention(*args))
+    plain_ms = cuda_ms(lambda: fused_qkv_attention_plain(*args), warmup=1, reps=5)
+    lib_ms = cuda_ms(lambda: fused_library_call(torch, x, w, bq, bv, heads))
+    core_ms = cuda_ms(fused_library_core(torch, x, w, heads))
+    bound = flops.fused_qkv_attention_bound(b, s, d, heads)
+    print(f"attention b={b} s={s} d={d} h={heads} f32 x: max|Δ|/max|ref| {rel:.3e} (bound "
+          f"2e-2), against the bf16-rounded plain {rel_bf16:.3e} (bound "
+          f"{ATTN_BF16_GATE[torch.float32]}), two launches bit-equal; kernel {ms:.4f} ms, "
+          f"plain {plain_ms:.4f} ms, library {lib_ms:.4f} ms (its core alone {core_ms:.4f}), "
+          f"bound {bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+    assert ms >= bound.bound_ms, (ms, bound.bound_ms)
+    torch.cuda.empty_cache()
+    return dict(shape=[b, s, d, heads], max_abs_err=max_err, ms=ms, plain_ms=plain_ms,
+                max_rel_err_bf16_plain=rel_bf16, library_core_ms=core_ms,
+                **yardsticks(bound, lib_ms, "F.linear + scaled_dot_product_attention on "
+                             "kernel #2's own f32 inputs, as at tiny width"))
+
+
+def check_topk_fused_small(torch, device, card, k: int = K) -> dict:
+    """Kernel #4 at the sweep's step shape, d_in 768 → n_dict 12,288 over
+    12,000 rows (8 files), a third of the latents dead, at ``k`` (32 in the
+    per-layer sweeps; the grid also runs 16): acts within one
+    bf16 ulp on < 1e-3 of entries, thresholds and ``fired`` bit-equal to
+    the plain selection on the kernel's own acts, decodes within 1e-3 of
+    max, two launches bit-equal; timed beside its bound."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired_plain
+
+    gen = torch.Generator().manual_seed(SEED + 14)
+    m, d_in, n_dict, k_aux = SWEEP_ROWS, SMALL_D, SMALL_N_DICT, SMALL_D // 2
+    x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen, d_in, n_dict)
+    dead = (torch.rand((n_dict,), generator=gen) < 1 / 3).to(device)
+    args = (x, w_enc.T, b_enc, b_dec, w_dec, dead.float(), k, k_aux)
+    got = topk_sae_forward(*args)
+    again = topk_sae_forward(*args)
+    want = topk_sae_forward_plain(*args)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    share, max_ulp = _acts_agreement(got[0], want[0], x, w_enc, b_dec)
+    tm, ta, _, fired = topk_thresholds_fired_plain(got[0], dead, k, k_aux)
+    assert torch.equal(got[3], tm) and torch.equal(got[4], ta) and torch.equal(got[5], fired)
+    af = got[0].float()
+    wb = w_dec.to(torch.bfloat16).float()
+    y_main = torch.where(af >= tm, af, 0.0) @ wb
+    y_aux = torch.where((af >= ta) & dead, af, 0.0) @ wb
+    abs_err = max((got[1] - y_main).abs().max().item(), (got[2] - y_aux).abs().max().item())
+    err = abs_err / max(y_main.abs().max().item(), y_aux.abs().max().item())
+    selected = _selected(af, tm, ta, dead)
+    assert max_ulp <= 1 and share < 1e-3, (share, max_ulp)
+    assert err < 1e-3, err
+    del got, again, want, af, y_main, y_aux
+    ms = cuda_ms(lambda: topk_sae_forward(*args), reps=10)
+    plain_ms = cuda_ms(lambda: topk_sae_forward_plain(*args), warmup=1, reps=5)
+    bound = flops.topk_sae_forward_bound(m, d_in, n_dict, k, k_aux, selected)
+    print(f"topk_sae_forward m={m} d_in={d_in} n_dict={n_dict} k={k}: acts differ on "
+          f"{share:.2e} (bound 1e-3) by at most {max_ulp:.3f} ulp (bound 1), thresholds/fired "
+          f"bit-equal, two launches bit-equal, decode max|Δ|/max|plain| {err:.3e} (bound "
+          f"1e-3); kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound {bound.bound_ms:.4f} "
+          f"ms ({bound.bound_by}; {selected} selected entries) on {card}")
+    assert ms >= bound.bound_ms, (ms, bound.bound_ms)
+    torch.cuda.empty_cache()
+    return dict(shape=[m, d_in, n_dict, k, k_aux], max_abs_err=abs_err, ms=ms,
+                plain_ms=plain_ms, **yardsticks(bound, None, "none: no one PyTorch call "
+                                                "encodes, selects per row and decodes"))
+
+
+def check_topk_threshold_small(torch, device, card) -> dict:
+    """Kernel #3 at the multi_topk sweep's step shape: (12,000, 12,288)
+    acts in f32 (the sweep's route) and bf16, a third of the latents dead
+    and none dead, k 32, k_aux 384, k_multi 128. Thresholds and ``fired``
+    bit-equal to the plain selection, two launches bit-equal; each dtype
+    timed beside its plain version and its bound."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.topk_threshold import (
+        topk_thresholds_fired,
+        topk_thresholds_fired_plain,
+    )
+
+    gen = torch.Generator().manual_seed(SEED + 16)
+    m, n_dict, k_aux = SWEEP_ROWS, SMALL_N_DICT, SMALL_D // 2
+    kw = dict(k_multi=4 * K)
+    a = torch.relu(torch.randn((m, n_dict), generator=gen)).to(device)
+    a[5] = 0.0  # silent row
+    a[6] = 0.5  # one tie across the row
+    dead = (torch.rand((n_dict,), generator=gen) < 1 / 3).to(device)
+    record: dict = {"shape": [m, n_dict, K, k_aux, 4 * K]}
+    err = 0.0
+    for name, acts in (("f32", a), ("bf16", a.to(torch.bfloat16))):
+        for dname, dm in (("a third dead", dead), ("none dead", torch.zeros_like(dead))):
+            got = topk_thresholds_fired(acts, dm, K, k_aux, **kw)
+            again = topk_thresholds_fired(acts, dm, K, k_aux, **kw)
+            want = topk_thresholds_fired_plain(acts, dm, K, k_aux, **kw)
+            torch.cuda.synchronize()
+            for g, g2, w in zip(got, again, want):
+                assert torch.equal(g, w) and torch.equal(g, g2), (name, dname)
+            err = max(err, _threshold_err(got, want))
+            del got, again, want
+        ms = cuda_ms(lambda: topk_thresholds_fired(acts, dead, K, k_aux, **kw), reps=10)
+        plain_ms = cuda_ms(lambda: topk_thresholds_fired_plain(acts, dead, K, k_aux, **kw),
+                           warmup=1, reps=3)
+        bound = flops.topk_thresholds_bound(m, n_dict, in_bytes=acts.element_size())
+        assert ms >= bound.bound_ms, (name, ms, bound.bound_ms)
+        record[name] = dict(ms=ms, plain_ms=plain_ms, bound_ms=bound.bound_ms,
+                            bound_by=bound.bound_by)
+        print(f"topk_thresholds_fired {name} m={m} n_dict={n_dict} k={K} k_aux={k_aux} "
+              f"k_multi={4 * K} (a third dead / none dead): thresholds and fired bit-equal "
+              f"to plain, two launches bit-equal; kernel {ms:.4f} ms, plain "
+              f"{plain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+    record.update(max_abs_err=err, **record["f32"], library_ms=None,
+                  library="none: torch.topk gives t_main and t_multi only; t_aux and "
+                  "fired are further calls")
+    del a
+    torch.cuda.empty_cache()
+    return record
+
+
+def rel_diff(a: np.ndarray, b: np.ndarray) -> float:
+    return float(np.abs(np.asarray(a, np.float64) - b).max() / np.abs(b).max())
+
+
+def multilayer_collection(torch, tmp: Path, card: str, counters: dict) -> dict:
+    """Phase 25: the collection CLI with four ``random:small`` layers (one
+    encoder pass a batch: kernel #1 once, #2 12 times) over 36 30-s WAVs and
+    an undecodable one at batch 16, ``build_index`` on. Each store against
+    single-layer collections of blocks 11 and 2 on the card (1e-6 of max)
+    and against the CPU on 2 files (CARD_VS_CPU_TOL); the launches counted
+    by the wrappers and, in a profiled one-batch run, by kernel name."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from freud_tpu_torch.data import multilayer
+    from freud_tpu_torch.data.feature_store import FeatureMajorReader
+
+    wav_dir = tmp / "audio_small"
+    wav_dir.mkdir()
+    clips = write_wavs(wav_dir, [480000] * SMALL_FILES, broken=True, seed=SEED + 12)
+    n_batches = -(-(len(clips) + 1) // SMALL_BATCH)
+    out = tmp / "small_multi"
+    config = {"whisper_model": "random:small", "layer_name": SMALL_LAYERS,
+              "batch_size": SMALL_BATCH, "data_path": str(wav_dir), "out_folder": str(out),
+              "build_index": True}
+    cls = multilayer.MultiLayerActivationLoader
+    real_init, real_index = cls.__init__, multilayer.extend_feature_major_index
+    marks: dict[str, float] = {}
+
+    def init_spy(self, *a, **k):  # the collection's clock starts after model init
+        real_init(self, *a, **k)
+        torch.cuda.synchronize()
+        marks["ready"] = time.perf_counter()
+
+    def index_spy(*a, **k):  # ... and stops at the index build
+        marks.setdefault("index", time.perf_counter())
+        return real_index(*a, **k)
+
+    for fn in counters.values():
+        fn.launches = 0
+    cls.__init__, multilayer.extend_feature_major_index = init_spy, index_spy
+    try:
+        stats = collect(config, tmp / "small_multi.json")
+        torch.cuda.synchronize()
+        end = time.perf_counter()
+    finally:
+        cls.__init__, multilayer.extend_feature_major_index = real_init, real_index
+    launches = {k: fn.launches for k, fn in counters.items()}
+    seconds = marks["index"] - marks["ready"]
+    rec = {"n_files": stats["n_files"], "batches": n_batches, "seconds": seconds,
+           "ms_per_batch": 1e3 * seconds / n_batches, "rtfx": SMALL_FILES * 30.0 / seconds,
+           "index_s": end - marks["index"], "launches": launches}
+    print(f"multi-layer collection, random:small {SMALL_LAYERS} at batch {SMALL_BATCH}: "
+          f"{stats['n_files']} files × 4 layers in {seconds:.3f} s after model init "
+          f"({rec['ms_per_batch']:.1f} ms a batch, RTFx {rec['rtfx']:.1f}), then the 4 "
+          f"indexes in {rec['index_s']:.3f} s; launches {launches} ({n_batches} "
+          f"batches) on {card}")
+    assert stats == {"n_files": SMALL_FILES, "layers": SMALL_LAYERS}, stats
+    assert launches == {"log_mel": n_batches, "fused_qkv_attention": 12 * n_batches,
+                        "whisper_attention": 0}, launches
+    stores = {}
+    for layer in SMALL_LAYERS:
+        meta, rows = read_store(out, layer)
+        assert rows.shape == (SMALL_FILES, 1500, SMALL_D), (layer, rows.shape)
+        assert np.isfinite(rows).all(), layer
+        assert meta["filenames"] == [p for p, _ in clips], layer  # the broken file absent
+        assert meta["n_frames"] == [1500] * SMALL_FILES
+        assert FeatureMajorReader.exists(out, layer), layer
+        stores[layer] = rows
+    # each layer against a single-layer collection of it on the card
+    rec["single_layer_rel_diff"] = {}
+    for layer in ("encoder.blocks.11", "encoder.blocks.2"):
+        single = tmp / f"small_single_{layer}"
+        collect({**config, "layer_name": layer, "out_folder": str(single),
+                 "build_index": False}, tmp / "small_single.json")
+        smeta, srows = read_store(single, layer)
+        assert smeta["filenames"] == [p for p, _ in clips]
+        diff = rel_diff(stores[layer], srows)
+        rec["single_layer_rel_diff"][layer] = diff
+        print(f"multi-layer {layer} against its single-layer collection: max|Δ|/max "
+              f"{diff:.3e} (bound 1e-6)")
+        assert diff <= 1e-6, (layer, diff)
+        del srows
+        free_device_memory(torch)
+    # the card against the CPU plain path, 2 files
+    cpu_layers = ["encoder.blocks.2", "encoder.blocks.11"]
+    collect({**config, "layer_name": cpu_layers, "device": "cpu", "collect_max": 2,
+             "out_folder": str(tmp / "small_cpu"), "build_index": False},
+            tmp / "small_cpu.json")
+    rec["card_vs_cpu"] = {}
+    for layer in cpu_layers:
+        cmeta, crows = read_store(tmp / "small_cpu", layer)
+        assert cmeta["filenames"] == [p for p, _ in clips[:2]]
+        diff = rel_diff(stores[layer][:2], crows)
+        rec["card_vs_cpu"][layer] = diff
+        print(f"card vs CPU plain path, random:small {layer}, 2 files: max|Δ|/max|cpu| "
+              f"{diff:.3e} (bound {CARD_VS_CPU_TOL})")
+        assert diff < CARD_VS_CPU_TOL, (layer, diff)
+    # one batch under the profiler: the launches by kernel name, device ms
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        collect({**config, "collect_max": SMALL_BATCH, "out_folder": str(tmp / "small_prof"),
+                 "build_index": False}, tmp / "small_prof.json")
+        torch.cuda.synchronize()
+    by_name = {name: sum(e.count for e in prof.key_averages() if name in e.key
+                         and e.device_time_total > 0)
+               for name in ("log10_mel_kernel", "qkv_projection_kernel")}
+    kernels, busy, copies = device_ms_by_kernel(prof, 1)
+    rec.update(profiled_launches=by_name, device_ms_per_batch=busy, copy_ms_per_batch=copies,
+               device_ms_by_kernel=kernels)
+    print(f"profiled one-batch run: launches by kernel name {by_name}; device {busy:.3f} ms "
+          f"a batch of {SMALL_BATCH} (copies {copies:.3f} ms), top kernels "
+          f"{ {k: round(v, 3) for k, v in list(kernels.items())[:5]} } on {card}")
+    assert by_name == {"log10_mel_kernel": 1, "qkv_projection_kernel": 12}, by_name
+    del stores
+    free_device_memory(torch)
+    return rec
+
+
+def sweep_config(store_dir: str, out_dir: Path, **over) -> dict:
+    """The sweeps' TopK recipe (tiny_topk's dictionary and k at Whisper
+    small's width), AuxK active from step 2."""
+    return {"data_path": store_dir, "variant": "topk",
+            "autoencoder_config": {"expansion_factor": 16, "k": K, "auxk_alpha": 0.03125,
+                                   "dead_feature_threshold": SWEEP_ROWS // 2},
+            "batch_size": SWEEP_BATCH, "out_dir": str(out_dir), "lr": 1e-4,
+            "optimizer": "adam", "scheduler": "linear",
+            "scheduler_params": {"num_warmup_steps": 2}, "verbose": False, **over}
+
+
+def sweep_cli(torch, tmp: Path, config: dict, name: str, counters: dict) -> tuple[dict, dict]:
+    """The sweep CLI in this process; → (its stats, the kernels' launches
+    in the run)."""
+    for fn in counters.values():
+        fn.launches = 0
+    stats = run_cli("freud_tpu_torch.scripts.sweep", config, tmp / f"{name}.json")
+    torch.cuda.synchronize()
+    return stats, {k: fn.launches for k, fn in counters.items()}
+
+
+def sweep_per_layer(torch, device, tmp: Path, store_dir: str, card: str,
+                    counters: dict) -> dict:
+    """Phase 26: per-layer sweeps over phase 25's four stores through the
+    sweep CLI (TopK 20 steps: kernel #4 four times a step; L1 10 steps; a
+    2-step multi_topk sweep: kernel #3 four times a step); the checkpoints;
+    members 0 and 3 against solo trainers with their seeds on the same
+    batches; the synchronised sweep step against a solo step."""
+    from freud_tpu_torch.models.sae import sae_from_checkpoint
+    from freud_tpu_torch.train.sweep import SAESweepTrainer
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    rec: dict = {}
+    out = tmp / "sweep_topk"
+    cfg = sweep_config(store_dir, out, layer_names=SMALL_LAYERS, steps=SWEEP_TOPK_STEPS)
+    t0 = time.perf_counter()
+    stats, launches = sweep_cli(torch, tmp, cfg, "sweep_topk", counters)
+    rec["topk"] = {"steps": stats["steps"], "seconds": time.perf_counter() - t0,
+                   "final_loss": stats["final"]["loss"], "launches": launches}
+    print(f"per-layer TopK sweep, 4 members at d_in {SMALL_D} → {SMALL_N_DICT}, batch "
+          f"{SWEEP_BATCH} files: {stats['steps']} steps in {rec['topk']['seconds']:.3f} s "
+          f"(CLI, incl. init and checkpoints), final losses {stats['final']['loss']}; "
+          f"launches {launches} on {card}")
+    assert stats["steps"] == SWEEP_TOPK_STEPS and np.isfinite(stats["final"]["loss"]).all()
+    assert launches["topk_sae_forward"] == 4 * SWEEP_TOPK_STEPS, launches
+    assert launches["topk_thresholds_fired"] == 0, launches
+    for layer in SMALL_LAYERS:
+        variant, cfg_, act, params = sae_from_checkpoint(str(out / f"{layer}.pth"), "cpu")
+        assert variant == "topk" and act == SMALL_D and cfg_.k == K, layer
+        assert tuple(params.encoder_weight.shape) == (SMALL_N_DICT, SMALL_D)
+        assert all(torch.isfinite(p).all() for p in params.parameters()), layer
+    free_device_memory(torch)
+
+    lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
+    cfg = {**sweep_config(store_dir, tmp / "sweep_l1", layer_names=SMALL_LAYERS,
+                          steps=SWEEP_L1_STEPS),
+           "variant": "l1", "autoencoder_config": lbase["autoencoder_config"],
+           "optimizer": lbase["optimizer"], "scheduler": lbase["scheduler"],
+           "lr": lbase["lr"], "scheduler_params": {}}
+    stats, launches = sweep_cli(torch, tmp, cfg, "sweep_l1", counters)
+    rec["l1"] = {"steps": stats["steps"], "final_loss": stats["final"]["loss"],
+                 "launches": launches}
+    print(f"per-layer L1 sweep ({lbase['autoencoder_config']}): {stats['steps']} steps, "
+          f"final losses {stats['final']['loss']}; launches {launches}")
+    assert stats["steps"] == SWEEP_L1_STEPS and np.isfinite(stats["final"]["loss"]).all()
+    free_device_memory(torch)
+
+    cfg = sweep_config(store_dir, tmp / "sweep_multi", layer_names=SMALL_LAYERS, steps=2)
+    cfg["autoencoder_config"]["multi_topk"] = True
+    stats, launches = sweep_cli(torch, tmp, cfg, "sweep_multi", counters)
+    rec["multi_topk"] = {"steps": stats["steps"], "launches": launches}
+    print(f"per-layer multi_topk sweep: {stats['steps']} steps; launches {launches}")
+    assert stats["steps"] == 2 and np.isfinite(stats["final"]["loss"]).all()
+    assert launches["topk_thresholds_fired"] == 4 * 2, launches
+    free_device_memory(torch)
+
+    # members against solo trainers on the same batches, then the step's time
+    ae = sweep_config(store_dir, out)["autoencoder_config"]
+    kw = dict(optimizer="adam", scheduler="linear", scheduler_params={"num_warmup_steps": 2},
+              lr=1e-4, steps=100)
+    rows = [read_store(Path(store_dir), layer)[1] for layer in SMALL_LAYERS]
+    batches = [torch.from_numpy(np.stack([np.asarray(r[j * SWEEP_BATCH:(j + 1) * SWEEP_BATCH])
+                                          for r in rows])).to(device)
+               for j in range(SMALL_FILES // SWEEP_BATCH)]
+    del rows
+    sweep = SAESweepTrainer("topk", ae, SMALL_D, 4, seed=SEED, device="cuda", **kw)
+    for s in range(5):
+        sweep.train_step(batches[s % len(batches)])
+    diffs = {}
+    for i in (0, 3):
+        solo = SAETrainer("topk", ae, SMALL_D, seed=SEED + i, device="cuda", **kw)
+        for s in range(5):
+            solo.train_step(batches[s % len(batches)][i])
+        diffs[i] = max(float((a.detach().double() - b.detach().double()).abs().max()
+                             / b.detach().double().abs().max().clamp(min=1e-30))
+                       for a, b in zip(sweep.members[i]._state(), solo._state()))
+    print(f"sweep members 0 and 3 against solo trainers after 5 steps: max|Δ|/max {diffs} "
+          "(bound 1e-5; bit-equal expected)")
+    assert max(diffs.values()) <= 1e-5, diffs
+    rec["member_vs_solo_max_rel_diff"] = diffs
+
+    def timed_steps(step, n: int = 8) -> float:
+        times = []
+        for s in range(n):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            step(s)
+            torch.cuda.synchronize()
+            times.append(1e3 * (time.perf_counter() - t))
+        return statistics.median(times)
+
+    torch.cuda.reset_peak_memory_stats()
+    sweep_ms = timed_steps(lambda s: sweep.train_step(batches[s % len(batches)]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    solo_ms = timed_steps(lambda s: solo.train_step(batches[s % len(batches)][3]))
+    rec.update(sweep_step_ms=sweep_ms, solo_step_ms=solo_ms, sweep_over_4_solo=sweep_ms /
+               (4 * solo_ms), peak_gib=peak)
+    print(f"per-layer TopK sweep step (4 members, synchronised, median of 8): "
+          f"{sweep_ms:.3f} ms against a solo step {solo_ms:.3f} ms (ratio to 4 solo "
+          f"steps {rec['sweep_over_4_solo']:.3f}), peak device memory {peak:.3f} GiB on {card}")
+    del sweep, solo, batches
+    free_device_memory(torch)
+    return rec
+
+
+def grid_graph_against_eager(torch, store_dir: str, hps: list, n_steps: int = 5) -> dict:
+    """One k-group of the grid (its members' own lr and auxk_alpha) as a
+    CUDA-graph chunk of ``n_steps`` against the same steps run eagerly from
+    the same state on the same window rows: every member's parameters,
+    moments, count, counters and the last step's metrics. A second replay
+    repeats the first and launches kernel #4 once a member a step."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.train.sweep import SAESweepTrainer
+
+    ae = sweep_config(store_dir, Path("."))["autoencoder_config"]
+    tr = SAESweepTrainer("topk", ae, SMALL_D, len(hps), optimizer="adam", scheduler="linear",
+                         scheduler_params={"num_warmup_steps": 2}, lr=1e-4, steps=100,
+                         seed=SEED, model_hparams=hps, device="cuda")
+    cache = DeviceShuffleCache(store_dir, GRID_LAYER, 10 ** 6, refresh_files=0, seed=SEED,
+                               device="cuda")
+    try:
+        tr.train_step_shared(cache.next_batch(SWEEP_BATCH))  # dead latents: AuxK runs
+        gen = torch.Generator(device="cuda").manual_seed(SEED + 15)
+        idx = torch.randint(0, cache.capacity, (n_steps, SWEEP_BATCH), generator=gen,
+                            device="cuda")
+        start = [t.clone() for t in tr._state()]
+
+        def restore():
+            with torch.no_grad():
+                for t, s in zip(tr._state(), start):
+                    t.copy_(s)
+
+        runs = []
+        for _ in range(2):  # the first call captures (after its warm-up step)
+            restore()
+            before = topk_sae_forward.launches
+            m = tr.train_chunk_shared(cache.sample_state()[0], idx)
+            torch.cuda.synchronize()
+            runs.append(([t.clone() for t in tr._state()], m,
+                         topk_sae_forward.launches - before))
+        restore()
+        for i in range(n_steps):
+            eager_m = tr._step_all(sample_rows(cache.cache, idx[i]), shared=True)
+        eager_state = [t.clone() for t in tr._state()]
+    finally:
+        cache.close()
+    (g_state, g_m, _), (r_state, r_m, replay_launches) = runs
+    worst = 0.0
+    for g, r, e in zip(g_state, r_state, eager_state):
+        assert torch.equal(g, r), "two replays differ"
+        g, e = g.detach().double(), e.detach().double()
+        worst = max(worst, float((g - e).abs().max() / e.abs().max().clamp(min=1e-30)))
+    for k in eager_m:
+        assert torch.equal(g_m[k], r_m[k]), k
+        worst = max(worst, float((g_m[k].double() - eager_m[k].double()).abs().max()
+                                 / eager_m[k].double().abs().max().clamp(min=1e-30)))
+    print(f"grid group k={hps[0]['k']} ({len(hps)} members) chunk of {n_steps} at batch "
+          f"{SWEEP_BATCH}: graph vs eager {'bit-equal' if worst == 0 else f'{worst:.3e}'} "
+          f"(bound 1e-6); kernel #4 launches a replay {replay_launches}")
+    assert worst <= 1e-6, worst
+    assert replay_launches == len(hps) * n_steps, replay_launches
+    del tr
+    return {"bit_equal": worst == 0.0, "max_rel_diff": worst, "replay_launches": replay_launches}
+
+
+def sweep_grid(torch, tmp: Path, store_dir: str, card: str, counters: dict) -> dict:
+    """Phase 27: the grid sweep CLI on the ``encoder.blocks.11`` store
+    through a 24-file device cache: 2 k-groups of 4 members, 2 chunks of 10
+    (CUDA graphs) and a 5-step tail; both groups read the identical index
+    tensor of each chunk and the same tail batch; 8 checkpoints with JAX's
+    tags; one group's chunk against eager steps."""
+    from freud_tpu_torch.models.sae import sae_from_checkpoint
+    from freud_tpu_torch.train import sweep as sweep_mod
+
+    cls = sweep_mod.SAESweepTrainer
+    real_chunk, real_step = cls.train_chunk_shared, cls.train_step_shared
+    calls: dict = {"chunk": [], "step": []}
+
+    def chunk_spy(self, window, indices):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        got = real_chunk(self, window, indices)
+        torch.cuda.synchronize()
+        calls["chunk"].append((self.cfg.k, indices,
+                               1e3 * (time.perf_counter() - t) / indices.shape[0]))
+        return got
+
+    def step_spy(self, batch):
+        calls["step"].append((self.cfg.k, batch))
+        return real_step(self, batch)
+
+    out = tmp / "sweep_grid"
+    cfg = sweep_config(store_dir, out, layer_name=GRID_LAYER, grid=GRID, steps=GRID_STEPS,
+                       device_cache_files=GRID_CACHE_FILES, fused_steps=GRID_CHUNK)
+    cls.train_chunk_shared, cls.train_step_shared = chunk_spy, step_spy
+    try:
+        stats, launches = sweep_cli(torch, tmp, cfg, "sweep_grid", counters)
+    finally:
+        cls.train_chunk_shared, cls.train_step_shared = real_chunk, real_step
+    hps = sweep_mod.expand_grid(GRID)
+    ks = sorted({hp["k"] for hp in hps})
+    n_chunks, tail = GRID_STEPS // GRID_CHUNK, GRID_STEPS % GRID_CHUNK
+    per_group = len(hps) // len(ks)
+    ms_chunk_step = {k: [round(ms, 3) for kk, _, ms in calls["chunk"] if kk == k] for k in ks}
+    rec = {"steps": stats["steps"], "models": stats["models"], "launches": launches,
+           "ms_per_chunk_step": ms_chunk_step}
+    print(f"grid sweep {GRID} through a {GRID_CACHE_FILES}-file cache: {stats['steps']} "
+          f"steps; ms a step in each chunk (synchronised; the first captures) by k "
+          f"{ms_chunk_step}; launches {launches} on {card}")
+    assert stats["steps"] == GRID_STEPS and len(stats["models"]) == len(hps)
+    assert all(np.isfinite(m["final_loss"]) for m in stats["models"])
+    assert [k for k, _, _ in calls["chunk"]] == ks * n_chunks, calls["chunk"]
+    for c in range(n_chunks):  # one index tensor a chunk, read by every group
+        group = calls["chunk"][c * len(ks):(c + 1) * len(ks)]
+        assert all(idx is group[0][1] for _, idx, _ in group[1:])
+    assert [k for k, _ in calls["step"]] == ks * tail
+    for s in range(tail):
+        group = calls["step"][s * len(ks):(s + 1) * len(ks)]
+        assert all(b is group[0][1] for _, b in group[1:])
+    # a capture's warm-up step, then one a member a replayed or tail step
+    assert launches["topk_sae_forward"] == len(ks) * per_group * (1 + GRID_STEPS), launches
+    tags = sorted(f"{sweep_mod._hp_tag(hp)}.pth" for hp in hps)
+    assert sorted(p.name for p in out.glob("*.pth")) == tags
+    for m in stats["models"]:
+        ck = torch.load(out / f"{m['tag']}.pth", map_location="cpu", weights_only=True)
+        assert ck["hparams"]["lr"] == m["lr"] and ck["step"] == GRID_STEPS
+        variant, cfg_, act, _ = sae_from_checkpoint(str(out / f"{m['tag']}.pth"), "cpu")
+        assert (variant, act, cfg_.k, cfg_.auxk_alpha) == ("topk", SMALL_D, m["k"],
+                                                           m["auxk_alpha"]), m
+    free_device_memory(torch)
+    rec["graph_vs_eager"] = grid_graph_against_eager(
+        torch, store_dir, [hp for hp in hps if hp["k"] == K])
+    free_device_memory(torch)
+    return rec
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -3368,6 +3940,34 @@ def main() -> int:
         assert launches_long["whisper_attention"] > 0, launches_long
         print(json.dumps({"long_form": {**long_recs, "card": card}}))
 
+        # phase 25 — multi-layer collection at Whisper small width: kernel #2
+        # at d 768, then four layers from one encoder pass a batch
+        small_recs = {"attention_d768": check_attention_small(torch, device, card)}
+        small_recs["collection"] = multilayer_collection(
+            torch, tmp, card, {"log_mel": log_mel_spectrogram_cuda,
+                               "fused_qkv_attention": fused_qkv_attention,
+                               "whisper_attention": whisper_attention})
+
+        # phase 26 — per-layer sweeps over phase 25's four stores
+        sweep_counters = {"topk_sae_forward": topk_sae_forward,
+                          "topk_thresholds_fired": topk_thresholds_fired}
+        small_recs["topk_sae_forward_d768"] = check_topk_fused_small(torch, device, card)
+        small_recs["topk_sae_forward_d768_k16"] = check_topk_fused_small(torch, device, card,
+                                                                         k=16)
+        small_recs["topk_thresholds_fired_d768"] = check_topk_threshold_small(
+            torch, device, card)
+        small_store = str(tmp / "small_multi")
+        small_recs["per_layer"] = sweep_per_layer(torch, device, tmp, small_store, card,
+                                                  sweep_counters)
+
+        # phase 27 — the grid sweep through the device cache
+        small_recs["grid"] = sweep_grid(torch, tmp, small_store, card, sweep_counters)
+        launches_sweep = {k: sum(small_recs["per_layer"][run]["launches"][k]
+                                 for run in ("topk", "l1", "multi_topk"))
+                          + small_recs["grid"]["launches"][k] for k in sweep_counters}
+        print(f"launches in the sweep phases 26-27: {launches_sweep}")
+        print(json.dumps({"multilayer_sweeps": {**small_recs, "card": card}}))
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -3380,7 +3980,8 @@ def main() -> int:
          "launches_transcribe": launches["transcribe_log_mel"],
          "launches_decoder": launches["decoder_log_mel"],
          "launches_server": launches["server_log_mel"],
-         "launches_long": launches_long["log_mel"], **mel_rec},
+         "launches_long": launches_long["log_mel"],
+         "launches_multilayer": small_recs["collection"]["launches"]["log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
@@ -3388,7 +3989,9 @@ def main() -> int:
          "launches_transcribe": launches["transcribe_fused_qkv_attention"],
          "launches_decoder": launches["decoder_fused_qkv_attention"],
          "launches_server": launches["server_fused_qkv_attention"],
-         "launches_long": launches_long["fused_qkv_attention"], **attn_rec},
+         "launches_long": launches_long["fused_qkv_attention"],
+         "launches_multilayer": small_recs["collection"]["launches"]["fused_qkv_attention"],
+         "d768": small_recs["attention_d768"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:144",
@@ -3396,20 +3999,27 @@ def main() -> int:
          "launches_transcribe": launches["transcribe_whisper_attention"],
          "launches_decoder": launches["decoder_whisper_attention"],
          "launches_server": launches["server_whisper_attention"],
-         "launches_long": launches_long["whisper_attention"], **wattn_rec},
+         "launches_long": launches_long["whisper_attention"],
+         "launches_multilayer": small_recs["collection"]["launches"]["whisper_attention"],
+         **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",
          "launches": launches["topk_sae_forward"], **unit("topk_sae_forward"),
          "launches_cache_path": launches["cache_topk_sae_forward"],
          "launches_decoder": launches["decoder_topk_sae_forward"],
-         "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"], **fused_rec},
+         "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"],
+         "launches_sweep": launches_sweep["topk_sae_forward"],
+         "d768": small_recs["topk_sae_forward_d768"],
+         "d768_k16": small_recs["topk_sae_forward_d768_k16"], **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_threshold.cu",
          "replaces": "freud_tpu/ops/topk_threshold.py:225",
          "launches": launches["topk_thresholds_fired"], **unit("topk_thresholds_fired"),
          "launches_cache_path": launches["cache_topk_thresholds_fired"],
-         "launches_decoder": launches["decoder_topk_thresholds_fired"], **thresh_rec},
+         "launches_decoder": launches["decoder_topk_thresholds_fired"],
+         "launches_sweep": launches_sweep["topk_thresholds_fired"],
+         "d768": small_recs["topk_thresholds_fired_d768"], **thresh_rec},
     ]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])

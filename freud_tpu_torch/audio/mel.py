@@ -65,6 +65,12 @@ def frame_signal(padded: torch.Tensor, n_frames: int) -> torch.Tensor:
     return padded.unfold(-1, N_FFT, HOP_LENGTH)[..., :n_frames, :]
 
 
+def power_spectrogram(audio: torch.Tensor, n_frames: int) -> torch.Tensor:
+    """|STFT|^2 of a (…, samples) waveform → (…, n_frames, N_FREQS)."""
+    frames = frame_signal(reflect_pad_center(audio), n_frames)
+    return framed_power(frames)
+
+
 def framed_power(frames: torch.Tensor) -> torch.Tensor:
     """|DFT|² of already-framed (…, T, N_FFT) windows → (…, T, N_FREQS)."""
     basis = torch.tensor(_dft_basis(), device=frames.device)
@@ -106,6 +112,13 @@ def pad_or_trim(array: np.ndarray, length: int = N_SAMPLES, *, axis: int = -1):
         widths[axis] = (0, length - n)
         array = np.pad(array, widths)
     return array
+
+
+def trim_audio(
+    array: np.ndarray, start_time: float, end_time: float, sample_rate: int = 16_000
+) -> np.ndarray:
+    """Slice a waveform to a [start, end] second range."""
+    return array[int(sample_rate * start_time) : int(sample_rate * end_time)]
 
 
 def batched_log_mel(audio: torch.Tensor, n_mels: int) -> torch.Tensor:

@@ -59,6 +59,15 @@ def device_peaks() -> dict[str, float] | None:
     return peaks_for_name(torch.cuda.get_device_name(0))
 
 
+def mfu_pct(total_flops: float, elapsed_s: float) -> float | None:
+    """Model FLOPs utilization (percent) against card 0's bf16 peak, the
+    JAX package's convention; None without a card the table holds."""
+    peaks = device_peaks()
+    if peaks is None or elapsed_s <= 0:
+        return None
+    return 100.0 * total_flops / elapsed_s / peaks["bf16"]
+
+
 # -- whisper encoder ---------------------------------------------------------
 
 def mel_flops(n_mels: int, n_frames_in: int = 3000) -> float:

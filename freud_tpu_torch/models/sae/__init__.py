@@ -12,6 +12,7 @@ from .serialize import (
     params_from_state_dict,
     sae_from_checkpoint,
     state_dict_from_params,
+    sweep_params_from_jax,
 )
 from .topk import TopKEncoderOutput, TopKForwardOutput, TopKParams, TopKSAE, init_topk
 
@@ -36,5 +37,6 @@ __all__ = [
     "state_dict_from_params",
     "params_from_state_dict",
     "params_from_jax",
+    "sweep_params_from_jax",
     "sae_from_checkpoint",
 ]

@@ -8,7 +8,8 @@ so a checkpoint written by either package loads in the other.
 
 ``params_from_jax`` carries JAX parameters, given as numpy arrays, into the
 port's modules, as ``models/whisper/load.py::state_dict_from_jax`` does for
-Whisper.
+Whisper; ``sweep_params_from_jax`` does so for a JAX sweep's stacked (K, …)
+parameters, one module a member.
 """
 
 from __future__ import annotations
@@ -75,6 +76,24 @@ def params_from_jax(variant: str, np_params, device="cpu"):
         return L1SAE(t("W"), t("encoder_bias")).to(device)
     return TopKSAE(t("encoder_weight"), t("encoder_bias"), t("W_dec"),
                    t("b_dec")).to(device)
+
+
+def sweep_params_from_jax(variant: str, stacked_np, device="cpu") -> list:
+    """The K members' SAE modules from a JAX sweep's stacked parameters
+    (``SAESweepTrainer.params``: each field carries a leading model axis),
+    given as numpy: member i's module holds row i of every field."""
+    _check_variant(variant)
+    get = (stacked_np.__getitem__ if isinstance(stacked_np, Mapping)
+           else lambda k: getattr(stacked_np, k))
+    names = (("W", "encoder_bias") if variant == "l1"
+             else ("encoder_weight", "encoder_bias", "W_dec", "b_dec"))
+    fields = {n: np.asarray(get(n)) for n in names}
+    n_models = {v.shape[0] for v in fields.values()}
+    if len(n_models) != 1:
+        raise ValueError(f"stacked fields disagree on the model axis: "
+                         f"{ {n: v.shape for n, v in fields.items()} }")
+    return [params_from_jax(variant, {n: v[i] for n, v in fields.items()}, device)
+            for i in range(n_models.pop())]
 
 
 def save_checkpoint(path: str, state: dict) -> None:

@@ -83,6 +83,14 @@ def set_decoder_norm_to_unit_norm(W_dec: torch.Tensor) -> torch.Tensor:
     return W_dec / (norm + torch.finfo(W_dec.dtype).eps)
 
 
+def remove_gradient_parallel_to_decoder_directions(
+    W_dec: torch.Tensor, W_dec_grad: torch.Tensor
+) -> torch.Tensor:
+    """Project out the gradient component parallel to each decoder row."""
+    parallel = torch.sum(W_dec_grad * W_dec, dim=1, keepdim=True)
+    return W_dec_grad - parallel * W_dec
+
+
 def _dot_f32(a: torch.Tensor, b: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     """a @ b with operands rounded to ``matmul_dtype`` and f32 sums and
     result — JAX's ``dot(..., preferred_element_type=f32)``; differentiable."""

@@ -9,6 +9,11 @@ Nsight) when a CUDA build of PyTorch is running. Same table and report as
 
 Spans time the host: a span around asynchronous CUDA work measures the
 enqueue unless the stage itself waits for the device (``d2h_fetch`` does).
+
+``trace(logdir)`` (or ``start_trace``/``stop_trace``) captures a
+``torch.profiler`` trace of the host and, with a card, of CUDA into
+``logdir`` (TensorBoard's trace layout), where the JAX package captures a
+``jax.profiler`` one; a ``None`` logdir is a no-op.
 """
 
 from __future__ import annotations
@@ -17,7 +22,7 @@ import contextlib
 import threading
 import time
 from collections import defaultdict
-from typing import Iterator
+from typing import Iterator, Optional
 
 import torch
 
@@ -28,6 +33,7 @@ _durations: dict[str, list[float]] = defaultdict(list)
 # Per-call samples kept per span, enough to decompose low-cadence stages
 # without unbounded growth on per-batch spans.
 _MAX_CALLS_KEPT = 2048
+_trace = None  # the running torch.profiler.profile of start_trace
 
 
 def _annotation(name: str):
@@ -82,3 +88,36 @@ def report() -> str:
     for k, v in sorted(stats().items(), key=lambda kv: -kv[1]["total_s"]):
         lines.append(f"{k:<24} {v['total_s']:8.2f} {v['count']:7d} {v['mean_ms']:9.2f}")
     return "\n".join(lines)
+
+
+def start_trace(logdir: str) -> None:
+    global _trace
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    prof = torch.profiler.profile(
+        activities=activities,
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+    prof.start()
+    _trace = prof
+
+
+def stop_trace() -> None:
+    global _trace
+    prof, _trace = _trace, None
+    if prof is None:
+        raise RuntimeError("stop_trace without a running trace (start_trace)")
+    prof.stop()
+
+
+@contextlib.contextmanager
+def trace(logdir: Optional[str]) -> Iterator[None]:
+    """Capture a profiler trace into ``logdir`` (no-op when None)."""
+    if logdir is None:
+        yield
+        return
+    start_trace(logdir)
+    try:
+        yield
+    finally:
+        stop_trace()

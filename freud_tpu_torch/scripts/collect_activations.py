@@ -32,8 +32,12 @@ At the end of a run the feature-major search index (``data/feature_store.py``)
 is built when ``build_index`` is set and extended whenever one already
 exists, as in the JAX package: a dense store gets the transposed-plane
 index, an indexed (TopK) store the CSR-by-feature one. Not in this port
-yet (each raises, ROADMAP Queue 1 #12): ``data_parallel`` and a list of
-layers.
+yet (it raises, ROADMAP Queue 1 #12): ``data_parallel``.
+
+A list of encoder layers as ``layer_name`` collects them all from one
+encoder pass a batch, one store a layer (``data/multilayer.py``); it
+refuses ``sae_model``, ``--resume`` and ``decoder.*`` names, as the JAX
+package does.
 
 Usage: python -m freud_tpu_torch.scripts.collect_activations --config cfg.json
 """
@@ -56,6 +60,7 @@ from .. import profiling
 from ..constants import CHUNK_LENGTH
 from ..data import feature_store as fs
 from ..data.loaders import FlyActivationLoader
+from ..data.multilayer import collect_multilayer
 from ..data.store import ActivationStoreWriter
 from ..device import resolve_device
 
@@ -246,10 +251,32 @@ def main(argv=None):
     with open(args.config) as f:
         config = json.load(f)
     if isinstance(config["layer_name"], list):
-        raise NotImplementedError(
-            "multi-layer collection (a list of layers) is not ported to "
-            "freud_tpu_torch yet (ROADMAP Queue 1 #12); collect one layer "
-            "per run")
+        if args.resume or config.get("resume"):
+            raise SystemExit("--resume is not supported for multi-layer "
+                             "collection yet; re-collect or collect the "
+                             "missing layers individually")
+        # multi-layer: one encoder pass, one store per layer
+        if config.get("sae_model"):
+            raise SystemExit(
+                "multi-layer collection does not support sae_model — "
+                "collect raw activations per layer, then train per-layer "
+                "SAEs (train/sweep.py)"
+            )
+        stats = collect_multilayer(
+            data_path=config["data_path"],
+            layer_names=config["layer_name"],
+            whisper_model=config["whisper_model"],
+            batch_size=config["batch_size"],
+            out_folder=config["out_folder"],
+            collect_max=config.get("collect_max"),
+            data_parallel=bool(config.get("data_parallel", False)),
+            precision=config.get("precision", "float32"),
+            build_index=bool(config.get("build_index", False)),
+            store_dtype=config.get("store_dtype", "float32"),
+            device=config.get("device"),
+        )
+        print(json.dumps(stats))
+        return
     stats = get_activations(
         data_path=config["data_path"],
         layer_name=config["layer_name"],

@@ -27,6 +27,8 @@ from typing import Callable
 
 import torch
 
+from ..data.device_cache import sample_rows
+
 
 class CapturedChunk:
     def __init__(self, graph: torch.cuda.CUDAGraph, out: dict, launches: dict):
@@ -84,3 +86,28 @@ def capture_chunk(step: Callable[[int], dict], n_steps: int, state: list,
             "fall back to eager steps (set fused_steps to 0 to train per step)"
         ) from e
     return CapturedChunk(graph, out, {fn: fn.captured - before[fn] for fn in counted})
+
+
+def run_chunk(chunks: dict, step: Callable[[torch.Tensor], dict], window: torch.Tensor,
+              indices: torch.Tensor, state: list, counted: tuple, what: str) -> dict:
+    """``step`` (a (B, T, d) device batch → a dict of metric tensors) on the
+    window rows ``indices[i]`` for each of the (n_steps, B) index block's
+    rows. On a CUDA window the steps run as one replay of a graph captured
+    once per (n_steps, B) and window, kept in ``chunks``; the graph reads
+    the window and its own index buffer in place, so ``indices`` is copied
+    in before each replay. On the CPU they run as a loop of the same body.
+    → the per-step metric stack, each metric with a leading n_steps axis."""
+    n_steps = indices.shape[0]
+    if window.device.type != "cuda":
+        stack = [step(sample_rows(window, indices[i])) for i in range(n_steps)]
+        return {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
+    key = tuple(indices.shape)
+    captured = chunks.get(key)
+    if captured is None or captured[0] is not window:
+        idx = torch.zeros(key, dtype=torch.int64, device=window.device)
+        chunk = capture_chunk(lambda i: step(sample_rows(window, idx[i])), n_steps,
+                              state, counted, what)
+        captured = chunks[key] = (window, idx, chunk)
+    _, idx, chunk = captured
+    idx.copy_(indices)
+    return chunk.replay()

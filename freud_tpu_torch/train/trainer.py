@@ -58,7 +58,7 @@ from ..analysis.features import sae_roundtrip_tap_params, sae_steer_fn
 from ..audio.decode import load_audio
 from ..audio.mel import mels_from_array
 from ..constants import get_n_mels
-from ..data.device_cache import DeviceShuffleCache, sample_rows
+from ..data.device_cache import DeviceShuffleCache
 from ..data.loaders import init_dataloader, resample_padding_rows
 from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
@@ -74,7 +74,7 @@ from .checkpoint import (
     load_trainer_checkpoint,
     save_trainer_checkpoint,
 )
-from .graph import capture_chunk
+from .graph import run_chunk
 from .optim import make_optimizer
 
 # the kernel wrappers a train step can launch (their launches are counted
@@ -214,22 +214,8 @@ class SAETrainer:
         if tuple(indices.shape) != (n_steps, batch_size):
             raise ValueError(f"indices {tuple(indices.shape)} must be "
                              f"({n_steps}, {batch_size})")
-        if self.device.type != "cuda":
-            stack = [self._step(sample_rows(window, indices[i])) for i in range(n_steps)]
-            metrics = {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
-        else:
-            captured = self._chunks.get((n_steps, batch_size))
-            if captured is None or captured[0] is not window:
-                # the graph reads the window and this index buffer in place
-                idx = torch.zeros((n_steps, batch_size), dtype=torch.int64,
-                                  device=self.device)
-                chunk = capture_chunk(
-                    lambda i: self._step(sample_rows(window, idx[i])), n_steps,
-                    self._state(), STEP_KERNELS, f"train_chunk ({self.variant})")
-                captured = self._chunks[(n_steps, batch_size)] = (window, idx, chunk)
-            _, idx, chunk = captured
-            idx.copy_(indices)
-            metrics = chunk.replay()
+        metrics = run_chunk(self._chunks, self._step, window, indices, self._state(),
+                            STEP_KERNELS, f"train_chunk ({self.variant})")
         self.step += n_steps
         return metrics
 

@@ -177,7 +177,9 @@ def test_sae_attached_stores_match_jax(setup, monkeypatch, variant):
 
 
 @pytest.mark.parametrize("change", [
-    {"layer_name": [LAYER, "encoder.blocks.0"]},
+    # a list of layers is ported (tests/test_torch_multilayer.py); its
+    # data_parallel is not
+    {"layer_name": [LAYER, "encoder.blocks.0"], "data_parallel": True},
     {"data_parallel": True},
 ])
 def test_unported_options_raise(setup, tmp_path, change):

@@ -51,6 +51,19 @@ def test_peaks_keyed_by_card_name():
     assert flops.peaks_for_name("") is None
 
 
+def test_mfu_pct_against_the_cards_bf16_peak(monkeypatch):
+    """JAX's formula (percent of the bf16 peak); None without a card the
+    table holds, as JAX's is off a TPU, and for a non-positive time."""
+    assert flops.mfu_pct(1e12, 1.0) is None
+    assert jflops.mfu_pct(1e12, 1.0) is None
+    monkeypatch.setattr(flops, "device_peaks", lambda: flops.H100)
+    monkeypatch.setattr(jflops, "device_peak_flops", lambda: flops.H100["bf16"])
+    for total, secs in ((1e12, 1.0), (3.3e15, 7.25)):
+        assert flops.mfu_pct(total, secs) == jflops.mfu_pct(total, secs)
+    assert flops.mfu_pct(989e12, 2.0) == pytest.approx(50.0)
+    assert flops.mfu_pct(1e12, 0.0) is None
+
+
 # (bound, ops, bytes, bound ms rounded to 4 places, bound_by) at the main
 # paths' shapes, as PERF.md's kernel table states them
 MAIN_PATH = [
@@ -70,6 +83,11 @@ MAIN_PATH = [
     (flops.whisper_attention_bound(16, 20, 1500), 184.32e9, 491.52e6, 0.1864, "operations"),
     (flops.whisper_attention_bound(16, 20, 1500, in_bytes=2), 184.32e9, 245.76e6, 0.1864,
      "operations"),
+    # Whisper small's multi-layer collection and the sweeps' TopK step
+    (flops.fused_qkv_attention_bound(16, 1500, 768, 12), 195.526656e9, 154.540032e6,
+     0.1977, "operations"),
+    (flops.topk_sae_forward_bound(12000, 768, 12288, 32, 384), 234.160128e9,
+     481.174272e6, 0.2368, "operations"),
 ]
 
 

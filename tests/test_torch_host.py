@@ -145,6 +145,33 @@ def _imports(tree: ast.AST, module_parts: list[str]) -> list[str]:
     return names
 
 
+def test_profiler_trace_helpers(tmp_path):
+    """``trace``/``start_trace``/``stop_trace`` keep JAX's signatures; a
+    None logdir is a no-op, a folder receives a torch.profiler trace."""
+    import inspect
+
+    import torch
+
+    from freud_tpu import profiling as jprof
+    from freud_tpu_torch import profiling as tprof
+
+    for name in ("trace", "start_trace", "stop_trace"):
+        assert str(inspect.signature(getattr(tprof, name))) == \
+            str(inspect.signature(getattr(jprof, name))), name
+    with tprof.trace(None):
+        pass
+    assert tprof._trace is None
+    with tprof.trace(str(tmp_path / "tb")):
+        torch.ones(64, 64) @ torch.ones(64, 64)
+    assert tprof._trace is None
+    assert list((tmp_path / "tb").glob("*.pt.trace.json"))
+    tprof.start_trace(str(tmp_path / "tb2"))
+    tprof.stop_trace()
+    assert list((tmp_path / "tb2").glob("*.pt.trace.json"))
+    with pytest.raises(RuntimeError, match="start_trace"):
+        tprof.stop_trace()
+
+
 def test_port_never_imports_jax_or_freud_tpu():
     files = sorted(PORT_DIR.rglob("*.py"))
     assert len(files) > 15

@@ -215,6 +215,21 @@ def test_topk_pieces_match_jax():
     assert ttopk.param_count(tp) == jtopk.param_count(jp)
 
 
+def test_remove_gradient_parallel_to_decoder_directions_matches_jax():
+    """The public helper against JAX's, at the reference test's
+    tolerance; the result is orthogonal to each (unit) decoder row."""
+    rng = np.random.default_rng(12)
+    w = rng.standard_normal((N, D)).astype(np.float32)
+    w /= np.linalg.norm(w, axis=1, keepdims=True)
+    grad = rng.standard_normal((N, D)).astype(np.float32)
+    got = ttopk.remove_gradient_parallel_to_decoder_directions(
+        torch.from_numpy(w), torch.from_numpy(grad)).numpy()
+    want = np.asarray(jtopk.remove_gradient_parallel_to_decoder_directions(
+        jnp.asarray(w), jnp.asarray(grad)))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+    assert np.abs(np.sum(got * w, axis=1)).max() < 1e-5
+
+
 def test_dead_counters_match_jax():
     rng = np.random.default_rng(11)
     counter = rng.integers(0, 2 ** 30, N).astype(np.int32)
