@@ -191,6 +191,37 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      index tensor of each chunk and the same tail batch, #4 once a member
      a step (and the captures' warm-ups), 8 checkpoints with JAX's tags;
      one k-group's replayed chunk against the same steps run eagerly.
+ 28. (after phase 27) two ranks on one card. First two processes ask
+     NCCL for a group on cuda:0 and report whether it takes them, with
+     NCCL's own words (``NCCL_DEBUG=WARN``). Then ONE spawned pair of this
+     script (``--pod-rank``), gloo named, both on cuda:0, reporting to the
+     parent as JSON. tiny_topk at
+     full width, global batch 50 (25 files a rank, ``host_bounds``), 10
+     steps with AuxK from step 2: each step against one process from the
+     pod's state on rank 0 (metrics within 1e-4 relative, dead counters
+     equal, step-1 parameters within 1e-6 of max), the ranks' counters
+     equal, kernel #4 once a step a rank; a free-running one-process run
+     beside it (its drift reported); 5 more steps timed without the
+     comparison (two ranks SHARING one card: not a scaling number); the
+     rank-0 checkpoint loads with weights_only=True into a one-card
+     trainer; 2 multi_topk steps (kernel #3 once a step a rank) and 4
+     tiny_l1 steps through ``train(mesh=)`` (artifacts on rank 0 only);
+     the pod cache (``process_shard=(rank, 2)`` over 24 files) and one
+     ``train_chunk_pod`` of 5 (eager under gloo) bit-equal to the same
+     steps run one by one; ``top_activations(mesh=)`` over phase 3's store,
+     3 features, index and scan, bit-equal to the one-rank answer; a
+     2-member sweep step over two of phase 25's stores within 1e-6 of max
+     of one process.
+ 29. NCCL at world size 1 in this process: ``train(mesh=)`` 10 steps,
+     checkpoint tensors bit-equal to ``train()`` without a process group;
+     one pod chunk of 5 captured with its NCCL collectives and replayed as
+     a CUDA graph against its eager steps.
+ 30. (the pair of 28) ``data_parallel`` collection over phase 3's WAVs and
+     the broken one at batch 32: ``shard0``/``shard1`` merged by
+     ``merge_stores`` equal phase 3's store within 1e-6 of max, file order
+     and metadata identical, kernel #1 once and #2 three times a batch a
+     rank; a two-layer collection of 8 files (blocks 1 and 2) merged
+     against the one-rank stores.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
@@ -202,8 +233,10 @@ decoder runs of phases 14–17, #1, #2 and #5 in the server phases 19–20
 and in the long-form phases 21–24, #4 the graph-against-eager difference)
 and the device JSON (#1, #2 and #5 also their launches in phase 25, #3
 and #4 in phases 26–27, #2, #3 and #4 their records at phases 25–26's
-shapes).
-Before them, one JSON line records phases 25–27: the collection's RTFx, ms
+shapes, every kernel its launches in phases 28–30 as ``launches_pod``).
+Before them, one JSON line records phases 28–30 (``{"pod": …}``): the
+comparisons, the ms a step, the chunk, the sweep, the merged stores and the
+launches by rank; before that, one phases 25–27: the collection's RTFx, ms
 a batch, launches, the store differences and the profiled batch; the
 sweeps' launches, steps, the member differences, the sweep step against a
 solo step, the grid's chunk times and its graph against eager. Before
@@ -242,7 +275,11 @@ the trainer, whose interfaces are those of every checkout that holds all
 five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
 code: run parent, change, change, parent in one call to compare two trees.
 
-Usage: python3 chip_smoke.py [--bench]   (needs one CUDA card)
+``--pod-only`` runs phases 28–30 alone (after the build) on the stores
+they read, made first: phase 3's collection and its index, and 12 files
+of Whisper small's blocks 2 and 5.
+
+Usage: python3 chip_smoke.py [--bench | --pod-only]   (needs one CUDA card)
 """
 
 from __future__ import annotations
@@ -252,6 +289,7 @@ import contextlib
 import gc
 import io
 import json
+import os
 import runpy
 import statistics
 import subprocess
@@ -322,6 +360,12 @@ SWEEP_TOPK_STEPS, SWEEP_L1_STEPS = 20, 10
 GRID_LAYER = "encoder.blocks.11"
 GRID = {"k": [16, 32], "auxk_alpha": [0.03125, 0.0625], "lr": [1e-4, 4e-4]}
 GRID_STEPS, GRID_CHUNK, GRID_CACHE_FILES = 25, 10, 24
+# phases 28-30: two gloo ranks on one card, then NCCL at world size 1:
+# tiny_topk's global batch (25 files a rank), its steps, the pod cache's
+# files and chunk, and the two-layer data_parallel collection
+POD_BATCH, POD_STEPS, POD_CACHE_FILES, POD_CHUNK = 50, 10, 24, 5
+POD_LAYERS, POD_ML_BATCH, POD_ML_FILES = ["encoder.blocks.1", "encoder.blocks.2"], 4, 8
+POD_TIMED_STEPS, POD_TIMEOUT_S = 5, 420
 
 
 def card_line() -> str:
@@ -3371,6 +3415,659 @@ def sweep_grid(torch, tmp: Path, store_dir: str, card: str, counters: dict) -> d
     return rec
 
 
+# ---------------------------------------------------------------------------
+# phases 28-30: more than one rank. The card machine has one H100, so two
+# gloo ranks share cuda:0 (NCCL refuses two ranks on one card) and NCCL runs
+# at world size 1: the pod code paths with the real kernels, not a scaling
+# measurement.
+
+
+def pod_spawn(torch, spec: dict, timeout_s: int = POD_TIMEOUT_S) -> list[dict]:
+    """Phases 28 and 30's two ranks: ONE spawned pair of this script
+    (``--pod-rank``) that runs every two-rank check and reports as JSON.
+    → each rank's report; a rank that fails or hangs fails the smoke."""
+    out = Path(spec["out"])
+    out.mkdir(parents=True, exist_ok=True)
+    spec_path = out / "spec.json"
+    spec_path.write_text(json.dumps(spec))
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--pod-rank", str(r),
+         "--pod-port", str(port), "--pod-spec", str(spec_path)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    for r, (p, o) in enumerate(zip(procs, outs)):
+        print("\n".join(f"  [rank {r}] {ln}" for ln in o.strip().splitlines()[-25:]))
+        assert p.returncode == 0, f"pod rank {r} exited {p.returncode}"
+    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+
+
+def nccl_probe_worker(rank: int, port: int) -> int:
+    """One of two ranks asking NCCL for a group on cuda:0 (trap 4). →
+    0 when NCCL takes both ranks (and one all-reduce sums), 3 when it
+    refuses them, with its message printed."""
+    import torch
+
+    from freud_tpu_torch.parallel import distributed as dist_lib
+
+    try:
+        dist_lib.initialize(f"127.0.0.1:{port}", 2, rank, device="cuda:0", timeout_s=60)
+    except Exception as e:  # the refusal under test
+        print(f"NCCL refused: {type(e).__name__}: {e}", flush=True)
+        return 3
+    t = torch.ones(1, device="cuda:0")
+    torch.distributed.all_reduce(t)
+    print(f"NCCL accepted two ranks on one card; all-reduce {float(t)}", flush=True)
+    dist_lib.shutdown()
+    return 0
+
+
+def nccl_two_ranks(timeout_s: int = 180) -> dict:
+    """Whether NCCL takes two ranks on the one card, and NCCL's own words
+    (``NCCL_DEBUG=WARN``). The pod phases use gloo, named, either way."""
+    port = free_port()
+    env = {**os.environ, "NCCL_DEBUG": "WARN"}
+    procs = [subprocess.Popen(
+        [sys.executable, str(Path(__file__).resolve()), "--nccl-probe-rank", str(r),
+         "--pod-port", str(port)], stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True, env=env) for r in range(2)]
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout_s)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    assert set(codes) <= {0, 3}, (codes, outs)
+    words = sorted({ln.strip() for o in outs for ln in o.splitlines()
+                    if "NCCL WARN" in ln or "Duplicate GPU" in ln or "ncclInvalidUsage" in ln
+                    or ln.startswith(("NCCL refused", "NCCL accepted"))})
+    rec = {"refused": codes == [3, 3], "returncodes": codes, "nccl_said": words}
+    print(f"NCCL with two ranks on one card: "
+          f"{'refused' if rec['refused'] else 'accepted'}; NCCL said {words}")
+    return rec
+
+
+def pod_topk_setup(variant: str = "topk", **over) -> tuple[dict, dict]:
+    """tiny_topk's (or tiny_l1's) autoencoder config and trainer keywords,
+    as phase 5 runs them (AuxK from step 2)."""
+    base = json.loads((REPO / f"configs/train/tiny_{variant}.json").read_text())
+    ae = dict(base["autoencoder_config"])
+    if variant == "topk":
+        ae["dead_feature_threshold"] = M_ROWS // 2
+    kw = dict(optimizer=base["optimizer"], scheduler=base["scheduler"],
+              scheduler_params={"num_warmup_steps": 2}, lr=1e-3, steps=POD_STEPS,
+              seed=SEED, **over)
+    return ae, kw
+
+
+def cycle_batches(loader):
+    while True:
+        for b in loader:
+            yield np.asarray(b[0], np.float32)
+
+
+def pod_worker(rank: int, port: int, spec_path: str) -> int:
+    """One rank of phases 28 and 30 (gloo by name, on cuda:0)."""
+    import pickle
+
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    out = Path(spec["out"])
+    from freud_tpu_torch.analysis.search import top_activations
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
+    from freud_tpu_torch.data.multilayer import collect_multilayer
+    from freud_tpu_torch.ops.attention import fused_qkv_attention
+    from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+    from freud_tpu_torch.parallel import distributed as dist_lib
+    from freud_tpu_torch.parallel import mesh as mesh_lib
+    from freud_tpu_torch.scripts.collect_activations import get_activations
+    from freud_tpu_torch.train.sweep import SAESweepTrainer
+    from freud_tpu_torch.train.trainer import SAETrainer, train as train_fn
+
+    dist_lib.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0",
+                        timeout_s=POD_TIMEOUT_S)
+    mesh = mesh_lib.make_mesh()
+    assert (mesh.backend, mesh.size, mesh.rank) == ("gloo", 2, rank), mesh
+    assert mesh.device == torch.device("cuda:0")
+    rec: dict = {"rank": rank}
+    kernels = (log_mel_spectrogram_cuda, fused_qkv_attention, topk_sae_forward,
+               topk_thresholds_fired)
+
+    def zero():
+        for fn in kernels:
+            fn.launches = 0
+
+    def read() -> dict:
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    def host_state(tr) -> dict:
+        return {n: p.detach().cpu().clone() for n, p in tr.params.named_parameters()}
+
+    # 28a: tiny_topk at full width, this rank's 25 files of every 50
+    ae, kw = pod_topk_setup()
+    lo, hi = mesh_lib.host_shard_bounds(POD_BATCH, mesh)
+    rec["bounds"] = [lo, hi]
+    loader = MemoryMappedActivationLoader(spec["store"], LAYER, POD_BATCH, shuffle=True,
+                                          drop_last=True, seed=SEED, host_bounds=(lo, hi))
+    batches = cycle_batches(loader)
+    tr = SAETrainer("topk", ae, D_IN, mesh=mesh, **kw)
+    # rank 0 also runs each step in one process on the whole global batch
+    # from the pod's state before the step (a teacher-forced comparison: a
+    # free-running one-process run drifts from the pod's, phase 28's record)
+    shadow = gbatches = None
+    if rank == 0:
+        shadow = SAETrainer("topk", ae, D_IN, device="cuda:0", **kw)
+        gbatches = cycle_batches(MemoryMappedActivationLoader(
+            spec["store"], LAYER, POD_BATCH, shuffle=True, drop_last=True, seed=SEED))
+    metrics, counters, walls, forced = [], [], [], []
+    zero()
+    shadow_launches = 0
+    for i in range(POD_STEPS):
+        x = next(batches)
+        assert x.shape == (POD_BATCH // 2, 1500, D_IN), x.shape
+        if shadow is not None:
+            with torch.no_grad():
+                for d, src in zip(shadow._state(), tr._state()):
+                    d.copy_(src)
+        m = tr.train_step(x, host_local=True)
+        metrics.append({k: float(v) for k, v in m.items()})
+        counters.append(tr.num_frames_since_fired.cpu().clone())
+        if shadow is not None:
+            before = topk_sae_forward.launches
+            sm = shadow.train_step(next(gbatches))
+            torch.cuda.synchronize()
+            shadow_launches += topk_sae_forward.launches - before
+            forced.append({
+                "metric_rel": max(abs(float(sm[k]) - v) / max(abs(float(sm[k])), 1e-30)
+                                  for k, v in metrics[-1].items()),
+                "param_rel": model_rel(host_state(tr), host_state(shadow)),
+                "counters_equal": bool(torch.equal(counters[-1],
+                                                   shadow.num_frames_since_fired.cpu()))})
+        if i == 0:
+            torch.save(host_state(tr), out / f"topk_step1_rank{rank}.pt")
+    torch.save({"params": host_state(tr), "counters": counters},
+               out / f"topk_step{POD_STEPS}_rank{rank}.pt")
+    if rank == 0:
+        tr.save(str(out / "pod_topk.pth"), tr.hparams())
+    # ms a step: more pod steps, without rank 0's one-process shadow
+    for _ in range(POD_TIMED_STEPS):
+        x = next(batches)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        tr.train_step(x, host_local=True)
+        torch.cuda.synchronize()
+        walls.append(1e3 * (time.perf_counter() - t0))
+    launches = read()
+    launches["topk_sae_forward"] -= shadow_launches
+    rec["topk"] = {"metrics": metrics, "launches": launches, "step_ms": walls,
+                   "forced": forced}
+    del shadow, tr
+    # 28b: 2 multi_topk steps (kernel #3) and 4 tiny_l1 steps through train()
+    tr = SAETrainer("topk", {**ae, "multi_topk": True}, D_IN, mesh=mesh, **kw)
+    zero()
+    rec["multi_topk"] = {"metrics": [
+        {k: float(v) for k, v in tr.train_step(next(batches), host_local=True).items()}
+        for _ in range(2)]}
+    rec["multi_topk"]["launches"] = read()
+    del tr
+    lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
+    run_dir = out / f"l1_rank{rank}"
+    stats = train_fn(**{**pod_l1_config(lbase, spec["store"], run_dir), "mesh": mesh})
+    rec["l1"] = {"steps": stats["steps"], "files": sorted(
+        str(p.relative_to(run_dir)) for p in run_dir.rglob("*") if p.is_file())}
+    # 28c: the pod cache (a 12-file stratum of 24) and one chunk of 5,
+    # against the same steps run one by one on the same rows
+    caches = [DeviceShuffleCache(spec["store"], LAYER, POD_CACHE_FILES, refresh_files=0,
+                                 seed=SEED, subset_size=POD_CACHE_FILES,
+                                 process_shard=(rank, 2), mesh=mesh) for _ in range(2)]
+    rec["stratum"] = caches[0]._files.tolist()
+    warm = caches[0].draw(1, POD_BATCH // 2)[0]
+    idx = caches[0].draw(POD_CHUNK, POD_BATCH // 2)
+    runs = []
+    for chunked, cache in zip((True, False), caches):
+        tr = SAETrainer("topk", ae, D_IN, mesh=mesh, **kw)
+        tr.train_step(sample_rows(cache.cache, warm), host_local=True)  # AuxK live
+        zero()
+        if chunked:
+            assert not tr.chunk_is_graph(cache.cache), "a gloo chunk must not be captured"
+            ms = tr.train_chunk_pod(cache, POD_BATCH // 2, POD_CHUNK, indices=idx)
+            last = {k: v[-1] for k, v in ms.items()}
+        else:
+            for i in range(POD_CHUNK):
+                last = tr.train_step(sample_rows(cache.cache, idx[i]), host_local=True)
+        runs.append(([t.detach().clone() for t in tr._state()],
+                     {k: v.clone() for k, v in last.items()}, read()))
+        cache.close()
+        del tr
+    (c_state, c_m, c_launch), (s_state, s_m, _) = runs
+    diffs = [float((a.double() - b.double()).abs().max()) for a, b in zip(c_state, s_state)]
+    diffs += [float((c_m[k].double() - s_m[k].double()).abs().max()) for k in s_m]
+    rec["chunk"] = {"max_abs_diff": max(diffs), "launches": c_launch,
+                    "auxk_loss": float(c_m["auxk_loss"]), "graph": False}
+    assert max(diffs) == 0.0, diffs
+    # 28d: search over the ranks (the index's fast path and the scan)
+    found = {}
+    for where, folder in spec["search"].items():
+        sloader = MemoryMappedActivationLoader(folder, LAYER, batch_size=BATCH)
+        found[where] = [top_activations(sloader, f, 10, absolute_magnitude=a, mesh=mesh)
+                        for f in spec["feats"] for a in (False, True)]
+    (out / f"search_rank{rank}.pkl").write_bytes(pickle.dumps(found))
+    # 28e: a 2-member per-layer sweep step, each member's batch split
+    sae, skw = pod_sweep_setup()
+    sw = SAESweepTrainer("topk", sae, SMALL_D, 2, mesh=mesh, **skw)
+    zero()
+    sw.train_step(pod_sweep_batch(spec["small_store"]))
+    rec["sweep"] = {"launches": read()}
+    torch.save([host_state(m) for m in sw.members], out / f"sweep_rank{rank}.pt")
+    del sw
+    # 30: data_parallel collection, one layer then two
+    zero()
+    get_activations(data_path=spec["audio"], layer_name=LAYER, whisper_model="random:tiny",
+                    sae_model=None, batch_size=BATCH, out_folder=str(out / "dp"),
+                    verbose=False, data_parallel=True, device="cuda:0")
+    rec["collection"] = {"launches": read()}
+    zero()
+    collect_multilayer(spec["audio"], POD_LAYERS, "random:tiny", POD_ML_BATCH,
+                       str(out / "dpm"), collect_max=POD_ML_FILES, verbose=False,
+                       data_parallel=True, device="cuda:0")
+    rec["multilayer"] = {"launches": read()}
+    dist_lib.barrier()
+    dist_lib.shutdown()
+    (out / f"rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def pod_l1_config(lbase: dict, store: str, run_dir: Path) -> dict:
+    """4 tiny_l1 steps at batch 50 (phase 5's), validation at the end."""
+    return {**lbase, "train_folder": store, "val_folder": store, "run_dir": str(run_dir),
+            "steps": 4, "save_every": 4, "val_every": 4, "log_tb_every": 2,
+            "batch_size": POD_BATCH, "enable_transcripts": False, "verbose": False}
+
+
+def pod_sweep_setup() -> tuple[dict, dict]:
+    """The sweep check's recipe: phase 26's TopK dictionary at Whisper
+    small's width, under RAdam and a cosine schedule, whose first update
+    moves the parameters (by lr · g), so one step is a real check."""
+    cfg = sweep_config("", Path("."))
+    return cfg["autoencoder_config"], dict(optimizer="radam", scheduler="cosine", lr=1e-3,
+                                           steps=10, seed=SEED)
+
+
+def pod_sweep_batch(small_store: str) -> np.ndarray:
+    """(2, 8, 1500, 768): the first shuffled batch of blocks 2 and 5."""
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
+
+    return np.stack([next(cycle_batches(MemoryMappedActivationLoader(
+        small_store, layer, SWEEP_BATCH, shuffle=True, drop_last=True, seed=SEED)))
+        for layer in SMALL_LAYERS[:2]])
+
+
+def model_rel(a: dict, b: dict) -> float:
+    """max |a − b| over a parameter set, relative to b's max |param|."""
+    top = max(float(v.abs().max()) for v in b.values())
+    return max(float((a[k].double() - b[k].double()).abs().max()) for k in b) / top
+
+
+def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
+    """Phases 28-30: two gloo ranks on cuda:0, then NCCL at world size 1.
+    → the record, with each kernel's launches in these runs."""
+    import pickle
+
+    from freud_tpu_torch.analysis.search import top_activations
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
+    from freud_tpu_torch.data.multilayer import collect_multilayer
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.parallel import distributed as dist_lib
+    from freud_tpu_torch.parallel import mesh as mesh_lib
+    from freud_tpu_torch.scripts.merge_stores import merge_shards
+    from freud_tpu_torch.train.sweep import SAESweepTrainer
+    from freud_tpu_torch.train.trainer import SAETrainer, train as train_fn
+
+    free_device_memory(torch)
+    t_start = time.perf_counter()
+    store = str(tmp / "card")
+    pod = tmp / "pod"
+    scan = tmp / "card_scan"  # phase 3's store without its index: search scans
+    scan.mkdir()
+    for suffix in ("_metadata.json", "_tensors.npy"):
+        (scan / f"{LAYER}{suffix}").symlink_to(tmp / "card" / f"{LAYER}{suffix}")
+    feats = [0, 7, D_IN - 1]
+    spec = {"out": str(pod), "store": store, "audio": str(tmp / "audio"),
+            "small_store": str(tmp / "small_multi"), "feats": feats,
+            "search": {"fast": store, "scan": str(scan)}}
+    # trap 4 first: NCCL and two ranks on one card
+    nccl = nccl_two_ranks()
+    # the one-rank answers first, while the card is this process's alone
+    sloader = MemoryMappedActivationLoader(store, LAYER, batch_size=BATCH)
+    one_search = [top_activations(sloader, f, 10, absolute_magnitude=a, device=device)
+                  for f in feats for a in (False, True)]
+    t0 = time.perf_counter()
+    ranks = pod_spawn(torch, spec)
+    pair_s = time.perf_counter() - t0
+    rec: dict = {"nccl_two_ranks_one_card": nccl, "pair_seconds": pair_s}
+
+    # 28a against one process on the same global batches
+    ae, kw = pod_topk_setup()
+    loader = MemoryMappedActivationLoader(store, LAYER, POD_BATCH, shuffle=True,
+                                          drop_last=True, seed=SEED)
+    batches = cycle_batches(loader)
+    tr = SAETrainer("topk", ae, D_IN, device=device, **kw)
+    one_metrics, one_counters, one_walls = [], [], []
+    for i in range(POD_STEPS + POD_TIMED_STEPS):
+        x = next(batches)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        m = tr.train_step(x)
+        torch.cuda.synchronize()
+        one_walls.append(1e3 * (time.perf_counter() - t1))
+        if i >= POD_STEPS:
+            continue
+        one_metrics.append({k: float(v) for k, v in m.items()})
+        one_counters.append(tr.num_frames_since_fired.cpu().clone())
+        if i == 0:
+            step1 = {n: p.detach().cpu().clone() for n, p in tr.params.named_parameters()}
+        if i == POD_STEPS - 1:
+            one_final = {n: p.detach().cpu().clone() for n, p in tr.params.named_parameters()}
+    step1_rel = max(model_rel(torch.load(pod / f"topk_step1_rank{r}.pt"), step1)
+                    for r in range(2))
+    finals = [torch.load(pod / f"topk_step{POD_STEPS}_rank{r}.pt") for r in range(2)]
+    for a, b in zip(finals[0]["counters"], finals[1]["counters"]):
+        assert torch.equal(a, b), "the ranks' dead counters differ"
+    assert all(torch.equal(a, b) for a, b in zip(finals[0]["params"].values(),
+                                                  finals[1]["params"].values()))
+    counters_equal = [bool(torch.equal(a, b)) for a, b in zip(finals[0]["counters"],
+                                                              one_counters)]
+    assert counters_equal[0], "the step-1 dead counters differ from one process's"
+    drift = [max(abs(r["topk"]["metrics"][i][k] - v) / max(abs(v), 1e-30)
+                 for r in ranks for k, v in m.items()) for i, m in enumerate(one_metrics)]
+    forced = ranks[0]["topk"]["forced"]
+    metric_rel = max(f["metric_rel"] for f in forced)
+    aux = [m["auxk_loss"] for m in ranks[0]["topk"]["metrics"]]
+    final_rel = model_rel(finals[0]["params"], one_final)
+    step_ms = [statistics.median(r["topk"]["step_ms"]) for r in ranks]  # the timed steps
+    rec["topk"] = {"step1_param_rel": step1_rel, "forced": forced,
+                   "forced_metrics_max_rel": metric_rel,
+                   "free_running_metric_rel_by_step": drift,
+                   "free_running_step10_param_rel": final_rel,
+                   "free_running_counters_equal": counters_equal,
+                   "ms_a_step_two_ranks_sharing_one_card": step_ms,
+                   "ms_a_step_one_process": statistics.median(one_walls[POD_STEPS:]),
+                   "launches": [r["topk"]["launches"] for r in ranks]}
+    print(f"pod tiny_topk, 2 gloo ranks on one card, global batch {POD_BATCH} "
+          f"({POD_BATCH // 2 * 1500} rows a rank), {POD_STEPS} steps: step-1 parameters "
+          f"{step1_rel:.3e} of max from one process (bound 1e-6; the linear warmup's first "
+          f"lr is 0); each step against one process from the pod's state: metrics "
+          f"{metric_rel:.3e} relative (bound 1e-4), parameters after it "
+          f"{[round(f['param_rel'], 9) for f in forced]} of max (reported), dead counters "
+          f"equal {[f['counters_equal'] for f in forced]}; free-running against one process: "
+          f"metrics {[float(f'{d:.2e}') for d in drift]} relative by step, step "
+          f"{POD_STEPS} parameters {final_rel:.3e} of max, counters equal {counters_equal} "
+          f"(reported); the ranks' counters equal every step; AuxK {aux[1]:.3e} at step 2; "
+          f"median ms a step {step_ms} (two ranks SHARING one card: not a scaling number) "
+          f"against {rec['topk']['ms_a_step_one_process']:.3f} ms for one process on "
+          f"{card}; launches {rec['topk']['launches']}")
+    assert step1_rel <= 1e-6 and forced[0]["param_rel"] <= 1e-6, (step1_rel, forced[0])
+    assert metric_rel <= 1e-4, forced
+    assert all(f["counters_equal"] for f in forced), forced
+    assert max(aux[1:]) > 0, aux
+    for r in ranks:
+        pod_steps = POD_STEPS + POD_TIMED_STEPS
+        assert r["topk"]["launches"]["topk_sae_forward"] == pod_steps, r["topk"]["launches"]
+    rank0 = torch.load(pod / "pod_topk.pth", map_location="cpu", weights_only=True)
+    single = SAETrainer("topk", ae, D_IN, device=device, **kw)
+    single.load(str(pod / "pod_topk.pth"))
+    assert single.step == POD_STEPS and rank0["step"] == POD_STEPS
+    assert model_rel({n: p.detach().cpu().clone() for n, p in single.params.named_parameters()},
+                     finals[0]["params"]) == 0.0
+    del tr, single
+    # 28b: multi_topk and tiny_l1 against one process
+    tr = SAETrainer("topk", {**ae, "multi_topk": True}, D_IN, device=device, **kw)
+    one_multi = [{k: float(v) for k, v in tr.train_step(next(batches)).items()}
+                 for _ in range(2)]
+    multi_rel = max(abs(r["multi_topk"]["metrics"][i][k] - v) / max(abs(v), 1e-30)
+                    for r in ranks for i, m in enumerate(one_multi) for k, v in m.items())
+    del tr
+    lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
+    train_fn(**{**pod_l1_config(lbase, store, tmp / "l1_one"), "device": str(device)})
+    l1_pod = torch.load(pod / "l1_rank0" / "checkpoints" / "step4.pth", weights_only=True)
+    l1_one = torch.load(tmp / "l1_one" / "checkpoints" / "step4.pth", weights_only=True)
+    l1_rel = model_rel(l1_pod["model"], l1_one["model"])
+    rec["multi_topk"] = {"metrics_max_rel": multi_rel,
+                         "launches": [r["multi_topk"]["launches"] for r in ranks]}
+    rec["l1"] = {"param_rel": l1_rel, "files": [r["l1"]["files"] for r in ranks]}
+    print(f"pod multi_topk, 2 steps: metrics {multi_rel:.3e} relative to one process "
+          f"(bound 1e-4), launches {rec['multi_topk']['launches']}; pod tiny_l1 through "
+          f"train(mesh=), 4 steps: rank-0 checkpoint {l1_rel:.3e} of max from one process's "
+          f"(bound 1e-3: bf16 products round each rank's partial gradient); rank 0 wrote "
+          f"{len(ranks[0]['l1']['files'])} files, rank 1 {len(ranks[1]['l1']['files'])}")
+    assert multi_rel <= 1e-4 and l1_rel <= 1e-3, (multi_rel, l1_rel)
+    for r in ranks:
+        assert r["multi_topk"]["launches"]["topk_thresholds_fired"] == 2, r["multi_topk"]
+        assert r["l1"]["steps"] == 4
+    assert {"checkpoints/step4.pth", "checkpoints/bestval.pth"} <= set(ranks[0]["l1"]["files"])
+    assert ranks[1]["l1"]["files"] == []
+    # 28c: the strata and the chunk
+    strata = [r["stratum"] for r in ranks]
+    assert sorted(strata[0] + strata[1]) == list(range(POD_CACHE_FILES))
+    assert not set(strata[0]) & set(strata[1])
+    rec["chunk"] = [r["chunk"] for r in ranks]
+    print(f"pod cache: strata {strata[0][:3]}… / {strata[1][:3]}… cover the {POD_CACHE_FILES} "
+          f"files once; a gloo chunk of {POD_CHUNK} (eager: gloo cannot be captured) equals "
+          f"its steps bit for bit, launches {[c['launches'] for c in rec['chunk']]}")
+    for c in rec["chunk"]:
+        assert c["launches"]["topk_sae_forward"] == POD_CHUNK and c["auxk_loss"] > 0, c
+    # 28d: search bit-equal to the one-rank answer
+    for r in range(2):
+        found = pickle.loads((pod / f"search_rank{r}.pkl").read_bytes())
+        for where in ("fast", "scan"):
+            for got, want in zip(found[where], one_search):
+                same_search(got, want)
+    print(f"top_activations(mesh=) on both ranks, fast path and scan, features {feats}: "
+          "bit-equal to the one-rank answer")
+    # 28e: the sweep step against one process
+    sae, skw = pod_sweep_setup()
+    sw = SAESweepTrainer("topk", sae, SMALL_D, 2, device=device, **skw)
+    sw.train_step(pod_sweep_batch(str(tmp / "small_multi")))
+    one_sw = [{n: p.detach().cpu().clone() for n, p in m.params.named_parameters()}
+              for m in sw.members]
+    sweep_rel = max(model_rel(got, want) for r in range(2) for got, want in
+                    zip(torch.load(pod / f"sweep_rank{r}.pt"), one_sw))
+    rec["sweep"] = {"param_rel": sweep_rel, "launches": [r["sweep"]["launches"] for r in ranks]}
+    print(f"pod sweep step, 2 members over {SMALL_LAYERS[:2]} at d {SMALL_D}, batch "
+          f"{SWEEP_BATCH} split over 2 ranks: {sweep_rel:.3e} of max from one process "
+          f"(bound 1e-6), launches {rec['sweep']['launches']}")
+    assert sweep_rel <= 1e-6, sweep_rel
+    for r in ranks:
+        assert r["sweep"]["launches"]["topk_sae_forward"] == 2, r["sweep"]
+    del sw
+    free_device_memory(torch)
+
+    # 30: the ranks' shards merged against phase 3's store
+    for r in range(2):
+        assert (pod / "dp" / f"shard{r}").is_dir()
+    merge_shards(str(pod / "dp"), LAYER, verbose=False)
+    meta, got = read_store(pod / "dp")
+    meta3, want = read_store(tmp / "card")
+    dp_rel = float(np.abs(got - want).max() / np.abs(want).max())
+    assert meta == meta3, "merged metadata differs from phase 3's"
+    assert meta["filenames"] == [p for p, _ in clips]
+    n_batches = [-(-len(clips[r::2]) // BATCH) for r in range(2)]
+    coll = [r["collection"]["launches"] for r in ranks]
+    ml_one = tmp / "ml_one"
+    collect_multilayer(str(tmp / "audio"), POD_LAYERS, "random:tiny", POD_ML_BATCH,
+                       str(ml_one), collect_max=POD_ML_FILES, verbose=False, device=device)
+    ml_rel = 0.0
+    for layer in POD_LAYERS:
+        merge_shards(str(pod / "dpm"), layer, verbose=False)
+        mmeta, mgot = read_store(pod / "dpm", layer)
+        ometa, owant = read_store(ml_one, layer)
+        assert mmeta == ometa, layer
+        ml_rel = max(ml_rel, float(np.abs(mgot - owant).max() / np.abs(owant).max()))
+    mlaunch = [r["multilayer"]["launches"] for r in ranks]
+    rec["collection"] = {"merged_rel": dp_rel, "launches": coll, "multilayer_rel": ml_rel,
+                         "multilayer_launches": mlaunch}
+    print(f"data_parallel collection on 2 ranks (random:tiny to block 2, batch {BATCH}): "
+          f"shard0 and shard1 merged equal phase 3's store within {dp_rel:.3e} of max "
+          f"(bound 1e-6), file order and metadata identical; launches {coll} "
+          f"({n_batches} batches); two-layer collection of {POD_ML_FILES} files (blocks 1 "
+          f"and 2) merged within {ml_rel:.3e} of the one-rank stores, launches {mlaunch}")
+    assert dp_rel <= 1e-6 and ml_rel <= 1e-6, (dp_rel, ml_rel)
+    for r, n in enumerate(n_batches):
+        assert coll[r]["log_mel_spectrogram_cuda"] == n, coll
+        assert coll[r]["fused_qkv_attention"] == 3 * n, coll
+        assert mlaunch[r]["log_mel_spectrogram_cuda"] == 1, mlaunch
+        assert mlaunch[r]["fused_qkv_attention"] == 3, mlaunch
+
+    # 29: NCCL at world size 1 — train(mesh=) bit-equal to train() without a
+    # process group, and one pod chunk replayed as a CUDA graph against its
+    # eager steps
+    tbase = json.loads((REPO / "configs/train/tiny_topk.json").read_text())
+    tcfg = {**tbase, "train_folder": store, "val_folder": store, "steps": POD_STEPS,
+            "batch_size": POD_BATCH,
+            "save_every": POD_STEPS, "val_every": POD_STEPS, "log_tb_every": POD_STEPS,
+            "lr": 1e-3, "scheduler_params": {"num_warmup_steps": 2},
+            "autoencoder_config": ae, "enable_transcripts": False, "verbose": False}
+    train_fn(**{**tcfg, "run_dir": str(tmp / "nopg"), "device": str(device)})
+    dist_lib.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda:0")
+    try:
+        mesh = mesh_lib.make_mesh()
+        assert (mesh.backend, mesh.size) == ("nccl", 1), mesh
+        topk_sae_forward.launches = 0
+        train_fn(**{**tcfg, "run_dir": str(tmp / "nccl1"), "mesh": mesh})
+        torch.cuda.synchronize()
+        nccl_train_launches = topk_sae_forward.launches
+        a = torch.load(tmp / "nopg" / "checkpoints" / f"step{POD_STEPS}.pth", weights_only=True)
+        b = torch.load(tmp / "nccl1" / "checkpoints" / f"step{POD_STEPS}.pth",
+                       weights_only=True)
+        for k in ("model", "optimizer"):
+            for (ka, va), (kb, vb) in zip(sorted(flat_tensors(a[k])), sorted(flat_tensors(b[k]))):
+                assert ka == kb and torch.equal(va, vb), (k, ka)
+        assert torch.equal(a["num_frames_since_fired"], b["num_frames_since_fired"])
+        tr = SAETrainer("topk", ae, D_IN, mesh=mesh, **kw)
+        cache = DeviceShuffleCache(store, LAYER, POD_CACHE_FILES, refresh_files=0, seed=SEED,
+                                   subset_size=POD_CACHE_FILES, mesh=mesh)
+        try:
+            tr.train_step(cache.next_batch(POD_BATCH), host_local=True)  # AuxK live
+            assert tr.chunk_is_graph(cache.cache)
+            gen = torch.Generator(device=device).manual_seed(SEED + 7)
+            idx = torch.randint(0, cache.capacity, (POD_CHUNK, POD_BATCH), generator=gen,
+                                device=device)
+            start = [t.detach().clone() for t in tr._state()]
+            topk_sae_forward.launches = 0
+            gm = tr.train_chunk_pod(cache, POD_BATCH, POD_CHUNK, indices=idx)
+            torch.cuda.synchronize()
+            graph_launches = topk_sae_forward.launches
+            g_state = [t.detach().clone() for t in tr._state()]
+            with torch.no_grad():
+                for t, s in zip(tr._state(), start):
+                    t.copy_(s)
+            eager = [tr._step(sample_rows(cache.cache, idx[i]), mesh) for i in range(POD_CHUNK)]
+            e_state = [t.detach().clone() for t in tr._state()]
+        finally:
+            cache.close()
+        graph_rel = max(float((g.double() - e.double()).abs().max()
+                              / e.double().abs().max().clamp(min=1e-30))
+                        for g, e in zip(g_state, e_state))
+        graph_rel = max([graph_rel] + [
+            float((gm[k].double() - torch.stack([e[k] for e in eager]).double()).abs().max())
+            for k in gm])
+    finally:
+        dist_lib.shutdown()
+    rec["nccl_world1"] = {"train_bit_equal": True, "train_launches": nccl_train_launches,
+                          "graph_vs_eager_max_rel": graph_rel,
+                          "graph_launches": graph_launches}
+    print(f"NCCL at world size 1: train(mesh=) {POD_STEPS} steps, checkpoint tensors "
+          f"bit-equal to train() without a process group (kernel #4 launches "
+          f"{nccl_train_launches}); a pod chunk of {POD_CHUNK} captured with its NCCL "
+          f"collectives and replayed as a CUDA graph: "
+          f"{'bit-equal to' if graph_rel == 0 else f'{graph_rel:.3e} of max from'} its eager "
+          f"steps; kernel #4 launches {graph_launches} (the capture's warm-up step and "
+          f"{POD_CHUNK} replayed)")
+    assert graph_rel <= 1e-6, graph_rel
+    assert nccl_train_launches == POD_STEPS
+    assert graph_launches == POD_CHUNK + 1, graph_launches
+    del tr
+    free_device_memory(torch)
+    rec["seconds"] = time.perf_counter() - t_start
+    rec["launches"] = {
+        "log_mel": sum(c["log_mel_spectrogram_cuda"] for c in coll + mlaunch),
+        "fused_qkv_attention": sum(c["fused_qkv_attention"] for c in coll + mlaunch),
+        "whisper_attention": 0,
+        "topk_sae_forward": (sum(r["topk"]["launches"]["topk_sae_forward"]
+                                 + r["chunk"]["launches"]["topk_sae_forward"]
+                                 + r["sweep"]["launches"]["topk_sae_forward"] for r in ranks)
+                             + nccl_train_launches + graph_launches),
+        "topk_thresholds_fired": sum(r["multi_topk"]["launches"]["topk_thresholds_fired"]
+                                     for r in ranks)}
+    print(f"phases 28-30 in {rec['seconds']:.1f} s (the pair {pair_s:.1f} s) on {card}; "
+          f"launches {rec['launches']}")
+    return rec
+
+
+def pod_only(torch, device, card: str) -> dict:
+    """Phases 28-30 on the stores they read, made here: phase 3's
+    collection and index, and 12 files of Whisper small's blocks 2 and 5
+    (phase 25's layers)."""
+    from freud_tpu_torch.data.multilayer import collect_multilayer
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_pod_") as tmp:
+        tmp = Path(tmp)
+        (tmp / "audio").mkdir()
+        clips = write_wavs(tmp / "audio", [480000] * N_LONG
+                           + [int(16000 * t) for t in N_SHORT_S], broken=True)
+        base = json.loads((REPO / "configs/features/tiny_block_2_test.json").read_text())
+        collect({**base, "whisper_model": "random:tiny", "batch_size": BATCH,
+                 "data_path": str(tmp / "audio"), "out_folder": str(tmp / "card")},
+                tmp / "card.json")
+        run_index_cli(tmp, tmp / "card", LAYER)
+        (tmp / "audio_small").mkdir()
+        write_wavs(tmp / "audio_small", [480000] * 12, seed=SEED + 13)
+        collect_multilayer(str(tmp / "audio_small"), SMALL_LAYERS[:2], "random:small", 12,
+                           str(tmp / "small_multi"), verbose=False, device=str(device))
+        free_device_memory(torch)
+        return pod_phases(torch, device, tmp, clips, card)
+
+
+def free_port() -> int:
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def flat_tensors(tree, prefix: str = ""):
+    """(path, tensor) pairs of a checkpoint's nested dicts and lists."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_tensors(v, f"{prefix}/{k}")
+    elif isinstance(tree, (list, tuple)):
+        for i, v in enumerate(tree):
+            yield from flat_tensors(v, f"{prefix}/{i}")
+    elif hasattr(tree, "shape"):
+        yield prefix, tree
+
+
 def read_store(folder: Path, layer: str = LAYER):
     meta = json.loads((folder / f"{layer}_metadata.json").read_text())
     rows = np.load(folder / f"{layer}_tensors.npy", mmap_mode="r")
@@ -3381,6 +4078,12 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--bench", action="store_true",
                     help="time the kernels and the large paths instead of the smoke")
+    ap.add_argument("--pod-only", action="store_true",
+                    help="phases 28-30 alone, on stores made here (a quick card check)")
+    ap.add_argument("--pod-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--nccl-probe-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-port", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--pod-spec", type=str, default=None, help=argparse.SUPPRESS)
     args = ap.parse_args()
     import torch
 
@@ -3388,6 +4091,10 @@ def main() -> int:
         print("chip_smoke: torch.cuda.is_available() is False — this smoke "
               "test needs a CUDA card", file=sys.stderr)
         return 1
+    if args.pod_rank is not None:  # one rank of phases 28 and 30 (pod_spawn)
+        return pod_worker(args.pod_rank, args.pod_port, args.pod_spec)
+    if args.nccl_probe_rank is not None:  # one rank of nccl_two_ranks
+        return nccl_probe_worker(args.nccl_probe_rank, args.pod_port)
     from freud_tpu_torch import _native, profiling
     from freud_tpu_torch.analysis.features import activation_length_from_samples
     from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
@@ -3420,6 +4127,9 @@ def main() -> int:
                 print(f"  ptxas[{name}] {ln.strip()}")
     if args.bench:
         print(json.dumps(bench(torch, device, card)))
+        return 0
+    if args.pod_only:
+        print(json.dumps({"pod": {**pod_only(torch, device, card), "card": card}}))
         return 0
     from freud_tpu_torch import flops
 
@@ -3968,6 +4678,12 @@ def main() -> int:
         print(f"launches in the sweep phases 26-27: {launches_sweep}")
         print(json.dumps({"multilayer_sweeps": {**small_recs, "card": card}}))
 
+        # phases 28-30 — two gloo ranks on the card (pod training, the pod
+        # cache and chunk, search, a sweep step, data_parallel collection
+        # merged), then NCCL at world size 1
+        pod_rec = pod_phases(torch, device, tmp, clips, card)
+        print(json.dumps({"pod": {**pod_rec, "card": card}}))
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -3981,7 +4697,8 @@ def main() -> int:
          "launches_decoder": launches["decoder_log_mel"],
          "launches_server": launches["server_log_mel"],
          "launches_long": launches_long["log_mel"],
-         "launches_multilayer": small_recs["collection"]["launches"]["log_mel"], **mel_rec},
+         "launches_multilayer": small_recs["collection"]["launches"]["log_mel"],
+         "launches_pod": pod_rec["launches"]["log_mel"], **mel_rec},
         {"name": "fused_qkv_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
          "replaces": "freud_tpu/ops/attention.py:267",
@@ -3991,6 +4708,7 @@ def main() -> int:
          "launches_server": launches["server_fused_qkv_attention"],
          "launches_long": launches_long["fused_qkv_attention"],
          "launches_multilayer": small_recs["collection"]["launches"]["fused_qkv_attention"],
+         "launches_pod": pod_rec["launches"]["fused_qkv_attention"],
          "d768": small_recs["attention_d768"], **attn_rec},
         {"name": "whisper_attention", "route": "cuda",
          "source": "freud_tpu_torch/csrc/attention.cu",
@@ -4001,7 +4719,7 @@ def main() -> int:
          "launches_server": launches["server_whisper_attention"],
          "launches_long": launches_long["whisper_attention"],
          "launches_multilayer": small_recs["collection"]["launches"]["whisper_attention"],
-         **wattn_rec},
+         "launches_pod": pod_rec["launches"]["whisper_attention"], **wattn_rec},
         {"name": "topk_sae_forward", "route": "cuda",
          "source": "freud_tpu_torch/csrc/topk_fused.cu",
          "replaces": "freud_tpu/ops/topk_fused.py:455",
@@ -4010,6 +4728,7 @@ def main() -> int:
          "launches_decoder": launches["decoder_topk_sae_forward"],
          "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"],
          "launches_sweep": launches_sweep["topk_sae_forward"],
+         "launches_pod": pod_rec["launches"]["topk_sae_forward"],
          "d768": small_recs["topk_sae_forward_d768"],
          "d768_k16": small_recs["topk_sae_forward_d768_k16"], **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
@@ -4019,6 +4738,7 @@ def main() -> int:
          "launches_cache_path": launches["cache_topk_thresholds_fired"],
          "launches_decoder": launches["decoder_topk_thresholds_fired"],
          "launches_sweep": launches_sweep["topk_thresholds_fired"],
+         "launches_pod": pod_rec["launches"]["topk_thresholds_fired"],
          "d768": small_recs["topk_thresholds_fired_d768"], **thresh_rec},
     ]
     for k in kernels:  # a time under its bound would mean a wrong bound

@@ -16,6 +16,11 @@ trimmed trace, max value, max time) plus per-file maxima for the histogram.
   (``data/feature_store.py``), a query reads that one feature's (files,
   time) plane instead of scanning the store.
 
+With a ``mesh`` (several ranks) every rank reads the same chunk, reduces
+its contiguous slice of the chunk's files, and the statistics themselves
+(with the traces they are of) are gathered bit for bit, so every rank ranks
+the same values and returns the one-rank answer.
+
 The ranking is the JAX package's, on values that are bit-equal to its own
 for a store-backed search: the maxima are exact, both argmaxes take the
 first maximal frame, and the host keeps Python's stable sort over the same
@@ -35,6 +40,7 @@ from ..audio.decode import audio_duration_s
 from ..constants import TIMESTEP_S
 from ..data.loaders import FlyActivationLoader, MemoryMappedActivationLoader
 from ..device import resolve_device
+from ..parallel import mesh as mesh_lib
 
 _N_STATS = 4  # plain max, plain argmax, abs argmax, signed value at the abs argmax
 
@@ -130,12 +136,11 @@ def top_activations(
     feature's (files, time) plane instead of scanning the whole store.
 
     The reductions run on a fly loader's own device, else on ``device``
-    (None means the card; pass ``"cpu"`` for the CPU). ``mesh`` (sharding
-    the scan over several cards) is not ported yet."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "top_activations(mesh=...) is not ported to freud_tpu_torch yet "
-            "(ROADMAP Queue 1 #12)")
+    (None means the card; pass ``"cpu"`` for the CPU), or on the ``mesh``'s
+    card: over several ranks each rank reduces its slice of every chunk's
+    files and the statistics are gathered, so every rank returns the
+    one-rank answer, bit for bit."""
+    mesh_lib.check_mesh(mesh)
     n_feat = getattr(loader, "activation_shape", (None, None))[-1]
     if n_feat is not None and not (0 <= int(feature_idx) < n_feat):
         # checked on the host before any device work: an out-of-range index
@@ -147,6 +152,8 @@ def top_activations(
     feature_idx = int(feature_idx)
     if isinstance(loader, FlyActivationLoader):
         dev = loader.device
+    elif mesh is not None:
+        dev = mesh.device
     else:
         dev = resolve_device(device, "search", hint='pass device="cpu" to search on the CPU')
 
@@ -167,7 +174,7 @@ def top_activations(
                             subset_size=len(reader))
                 return _top_activations_indexed_plane(
                     loader, reader, feature_idx, n_files, max_val, min_val,
-                    absolute_magnitude, return_max_per_file, fm, dev,
+                    absolute_magnitude, return_max_per_file, fm, dev, mesh,
                 )
             # the store changed under the index (grown, truncated, or
             # re-collected by an external writer — the sidecar filename
@@ -208,23 +215,27 @@ def top_activations(
             *batch, filenames, batch_n_frames = batch
         else:
             *batch, filenames = batch
-        if loader.activation_type == "tensor":
-            (chunk,) = batch
-            trace = _to_device(chunk, dev)[:, :, feature_idx]
-        else:
-            vals, idx = batch
-            idx = idx.to(dev) if isinstance(idx, torch.Tensor) else \
-                torch.from_numpy(np.asarray(idx)).to(dev)
-            trace = _densify_indexed(_to_device(vals, dev), idx, feature_idx)
         if batch_n_frames is not None:
             n_frames = np.asarray(batch_n_frames, np.int32)
         else:
             n_frames = _true_lengths(loader, filenames, offset)
         offset += len(filenames)
+        # with several ranks, each uploads and reduces only its rows
+        lo, hi = mesh_lib.split_bounds(len(filenames), mesh)
+        if loader.activation_type == "tensor":
+            (chunk,) = batch
+            trace = _to_device(chunk[lo:hi], dev)[:, :, feature_idx]
+        else:
+            vals, idx = batch
+            idx = idx[lo:hi]
+            idx = idx.to(dev) if isinstance(idx, torch.Tensor) else \
+                torch.from_numpy(np.asarray(idx)).to(dev)
+            trace = _densify_indexed(_to_device(vals[lo:hi], dev), idx, feature_idx)
 
         # ONE device→host copy a chunk: the stats and the (C, T) trace
-        nf_dev = torch.from_numpy(n_frames).to(dev)
-        host = torch.cat([_dense_stats(trace, nf_dev), trace], dim=1).cpu().numpy()
+        nf_dev = torch.from_numpy(n_frames[lo:hi]).to(dev)
+        host = torch.cat([_dense_stats(trace, nf_dev), trace], dim=1)
+        host = mesh_lib.gather_rows(mesh, host, lo, len(filenames)).cpu().numpy()
         stats, traces = host[:, :_N_STATS], host[:, _N_STATS:]
 
         for j, (value, allowed, max_t, hist) in enumerate(
@@ -246,10 +257,11 @@ def top_activations(
 
 def _top_activations_indexed_plane(
     loader, reader, feature_idx, n_files, max_val, min_val,
-    absolute_magnitude, return_max_per_file, fm, dev,
+    absolute_magnitude, return_max_per_file, fm, dev, mesh=None,
 ):
     """Fast path: one feature plane from the feature-major index. The
-    plane is on the host already, so only the (N, 4) stats come back."""
+    plane is on the host already, so only the (N, 4) stats come back (with
+    a mesh, each rank reduces its slice of the N files)."""
     plane = fm.feature(feature_idx)  # (N, T)
     filenames = reader.filenames
     if reader.n_frames is not None:
@@ -257,8 +269,10 @@ def _top_activations_indexed_plane(
     else:
         n_frames = _true_lengths(loader, filenames, 0)
 
-    stats = _dense_stats(_to_device(plane, dev),
-                         torch.from_numpy(n_frames).to(dev)).cpu().numpy()
+    lo, hi = mesh_lib.split_bounds(plane.shape[0], mesh)
+    stats = _dense_stats(_to_device(plane[lo:hi], dev),
+                         torch.from_numpy(n_frames[lo:hi]).to(dev))
+    stats = mesh_lib.gather_rows(mesh, stats, lo, plane.shape[0]).cpu().numpy()
     max_per_file = []
     entries = []
     for j, (value, allowed, max_t, hist) in enumerate(

@@ -55,13 +55,23 @@ class AudioBatchPipeline:
         exclude: Optional[set] = None,
         device: torch.device | str = "cpu",
         drop_last: bool = False,
+        shard: tuple[int, int] | None = None,
     ):
-        """``exclude``: file paths to skip, applied after ``subset_size`` so
-        a resumed run keeps the original run's universe. ``drop_last``
-        leaves out a last batch shorter than ``batch_size``."""
+        """``shard=(i, n)`` keeps every n-th file starting at i: the pod
+        collection split (every rank walks the same sorted list, so the
+        shards are disjoint and exhaustive; ``subset_size`` applies to the
+        full list first so the ranks agree on the universe). ``exclude``:
+        file paths to skip, applied after ``subset_size`` and ``shard`` so a
+        resumed run keeps the original run's universe and split.
+        ``drop_last`` leaves out a last batch shorter than ``batch_size``."""
         self.files = list_audio_files(folder)
         if subset_size is not None:
             self.files = self.files[:subset_size]
+        if shard is not None:
+            idx, count = shard
+            if not (0 <= idx < count):
+                raise ValueError(f"bad shard {shard}")
+            self.files = self.files[idx::count]
         if exclude:
             self.files = [f for f in self.files if f not in exclude]
         self.batch_size = batch_size

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_lib
 from .loaders import MemoryMappedActivationLoader, resample_padding_rows
 
 CACHE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
@@ -71,7 +72,7 @@ class DeviceShuffleCache:
         process_shard: Optional[tuple] = None,
         mesh=None,
         cache_dtype: str = "float32",
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         reserve_bytes: int = 0,
     ):
         """``start_step``: fold the resume position into the file order and
@@ -89,11 +90,19 @@ class DeviceShuffleCache:
         staging; else a ValueError names the largest ``capacity_files``
         that fits. The window is never shrunk silently.
 
-        ``process_shard`` and ``mesh`` (pod placement) are not ported."""
-        if process_shard is not None or mesh is not None:
-            raise NotImplementedError(
-                "pod placement of the device cache (process_shard, mesh) is not "
-                "ported to freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+        ``process_shard=(i, n)``: the pod mode. This rank caches and samples
+        only its strided file stratum (every n-th store file from i), with
+        its fill order and generator seeded from (seed, start_step, i) as
+        JAX's per-host PRNGs are; the global batch is every rank's sample
+        (``SAETrainer.train_chunk_pod``). Each rank's memory, reads and
+        refresh traffic stay constant as the pod grows.
+
+        ``mesh``: the window lives on the rank's card (``device`` defaults
+        to the mesh's). JAX replicates the window over a single process's
+        chips; a rank has one card, so the placement is the card."""
+        mesh_lib.check_mesh(mesh)
+        if device is None:
+            device = mesh.device if mesh is not None else "cpu"
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(
                 f"cache_dtype must be float32 or bfloat16, got {cache_dtype}")
@@ -112,13 +121,21 @@ class DeviceShuffleCache:
         self._resample = (layer_name.startswith("decoder.")
                           and self.loader.reader.n_frames is not None)
         self._store_seed = seed
-        self._files = np.arange(self.loader.dataset_length)
+        n_store = self.loader.dataset_length
+        if process_shard is not None:
+            pi, pc = process_shard
+            if not (0 <= pi < pc):
+                raise ValueError(f"bad process_shard {process_shard}")
+            self._files = np.arange(n_store)[pi::pc]
+            seed_tuple = (seed, start_step, pi)
+        else:
+            self._files = np.arange(n_store)
+            seed_tuple = (seed, start_step)
         n = len(self._files)
         if n == 0:
             raise ValueError("device cache shard holds no files")
         self.capacity = min(capacity_files, n)
         self.refresh_files = refresh_files if n > self.capacity else 0
-        seed_tuple = (seed, start_step)
         self._rng = np.random.default_rng(seed_tuple)
         self.generator = torch.Generator(device=self.device)
         self.generator.manual_seed(int(

@@ -14,6 +14,12 @@ The port of ``freud_tpu/data/loaders.py``:
 * ``MemoryMappedActivationLoader``: shuffled batches gathered from a
   collected store, the order a pure function of (seed, epoch), so a step
   count is a resume position. Framework-free, as in the JAX package.
+
+Over several ranks (``parallel/mesh.py``): ``host_bounds`` makes the mmap
+loader read only this rank's rows of every global batch, and the fly
+loader takes ``shard`` (every n-th file, a pod collection's split) and
+``mesh`` (each rank encodes its slice of every batch, and the batch is
+gathered whole on every rank, as JAX's sharded batch is one global array).
 """
 
 from __future__ import annotations
@@ -30,6 +36,7 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import serialize as sae_serialize
 from ..models.sae import topk as topk_mod
 from ..models.whisper import WhisperRuntime
+from ..parallel import mesh as mesh_lib
 from .audio_dataset import AudioBatchPipeline
 from .store import ActivationStoreReader
 
@@ -129,13 +136,34 @@ class FlyActivationLoader:
         decode_threads: int | None = None,
         exclude: set | None = None,
         fetch_dtype: torch.dtype | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
         drop_last: bool = False,
         max_new_tokens: int = 224,
+        mesh=None,
+        shard: tuple[int, int] | None = None,
     ):
         """``max_new_tokens`` sizes a decoder layer's capture buffer
-        (n_prompt + max_new_tokens rows a file); encoder layers ignore it."""
+        (n_prompt + max_new_tokens rows a file); encoder layers ignore it.
+        ``device``: default the mesh's card, else the CPU.
+
+        ``mesh``: split the encoder's work over the ranks: every rank
+        decodes and runs the log-mel on the whole batch, encodes its
+        contiguous slice of it (the batch padded to ``batch_size``, which
+        must divide by the ranks) and the slices are gathered, so every
+        rank yields the whole batch. ``shard=(i, n)``: process only every
+        n-th file starting at i, the pod collection's split (merge the
+        per-rank stores with ``scripts/merge_stores.py``)."""
+        self.mesh = mesh_lib.check_mesh(mesh)
+        if device is None:
+            device = mesh.device if mesh is not None else "cpu"
         self.device = torch.device(device)
+        if mesh is not None:
+            if self.device != mesh.device:
+                raise ValueError(f"device {self.device} is not the mesh's {mesh.device}")
+            if batch_size % mesh.size:
+                raise ValueError(
+                    f"batch_size {batch_size} not divisible by the mesh's data "
+                    f"axis ({mesh.size})")
         self.runtime = WhisperRuntime(whisper_model, layer_name,
                                       compute_dtype=compute_dtype,
                                       max_new_tokens=max_new_tokens,
@@ -155,6 +183,7 @@ class FlyActivationLoader:
             exclude=exclude,
             device=self.device,
             drop_last=drop_last,
+            shard=shard,
         )
         self.sae = None
         self.activation_type = "tensor"
@@ -181,8 +210,13 @@ class FlyActivationLoader:
         """The batch's outputs; with ``fetch`` False they stay on the
         device as tensors (floats in f32) instead of starting their host
         copies."""
+        split = mesh_lib.is_multiprocess(self.mesh)
         pad = self.batch_size - n if mels.is_cuda else 0
-        if pad:
+        if split:
+            # this rank's slice of the batch padded to its shape
+            lo, _ = mesh_lib.host_shard_bounds(self.batch_size, self.mesh)
+            mels = mesh_lib.pad_and_shard(self.mesh, mels, self.batch_size)
+        elif pad:
             # on the card, pad the ragged tail to the batch shape so every
             # batch runs the same kernel shapes (one shape for a CUDA graph
             # to capture later); padded rows trim below. The CPU path runs
@@ -195,9 +229,13 @@ class FlyActivationLoader:
         if self._decoder_layer:
             # the decode's valid positions ride with the batch's fetch
             outs = (*outs, n_valid)
+        if split:
+            # every rank's slice, bit for bit, on every rank
+            outs = tuple(mesh_lib.gather_rows(self.mesh, o, lo, self.batch_size)
+                         for o in outs)
         fetched = []
         for o in outs:
-            if pad:
+            if pad or split:
                 o = o[:n]
             if not fetch:
                 fetched.append(o.to(torch.float32) if o.is_floating_point() else o)
@@ -275,10 +313,27 @@ class MemoryMappedActivationLoader:
         drop_last: bool = False,
         seed: int = 0,
         resample_padding: bool = False,
+        host_bounds: Optional[tuple] = None,
     ):
         """``resample_padding``: replace EOT-padding rows of decoder-layer
         stores with per-file-deterministic draws from the valid rows (see
-        ``resample_padding_rows``)."""
+        ``resample_padding_rows``).
+
+        ``host_bounds=(lo, hi)``: the pod input path. Every rank computes
+        the SAME (seed, epoch) order, and this loader yields only rows
+        [lo, hi) of each global batch (``parallel.mesh.host_shard_bounds``).
+        It needs ``drop_last``, so every global batch is full; ``len`` and
+        the position count global batches, one a train step."""
+        if host_bounds is not None:
+            lo, hi = host_bounds
+            if not (0 <= lo < hi <= batch_size):
+                raise ValueError(f"host_bounds {host_bounds} outside the "
+                                 f"global batch of {batch_size}")
+            if not drop_last:
+                raise ValueError(
+                    "host_bounds requires drop_last=True (a ragged global "
+                    "tail would misalign the per-host slices)")
+        self.host_bounds = host_bounds
         self.reader = ActivationStoreReader(data_path, layer_name, subset_size)
         self.batch_size = batch_size
         self.shuffle = shuffle
@@ -332,6 +387,8 @@ class MemoryMappedActivationLoader:
             # mid-epoch (the train loop breaking at `steps`), a later iter()
             # resumes at the next unseen batch instead of re-yielding this one
             self.cursor += 1
+            if self.host_bounds is not None:
+                idx = idx[self.host_bounds[0]:self.host_bounds[1]]
             with profiling.span("mmap_batch"):
                 batch = self.reader.batch(idx)
             if self.resample_padding:
@@ -358,16 +415,18 @@ def init_dataloader(
     seed: int = 0,
     resample_padding: bool = False,
     device: torch.device | str = "cpu",
+    host_bounds: Optional[tuple] = None,
 ):
     """(loader, feat_dim, dataset_len). ``seed`` drives the shuffle stream;
     ``device`` is where a fly loader computes. ``resample_padding`` replaces
     a decoder store's EOT-padding rows (mmap loader; fly-mode training
-    resamples its own, see ``train``)."""
+    resamples its own, see ``train``). ``host_bounds``: the mmap loader's
+    pod slice of every global batch."""
     if from_disk:
         loader = MemoryMappedActivationLoader(
             data_path, layer_name, batch_size,
             subset_size=subset_size, shuffle=shuffle, drop_last=drop_last,
-            seed=seed, resample_padding=resample_padding,
+            seed=seed, resample_padding=resample_padding, host_bounds=host_bounds,
         )
     else:
         loader = FlyActivationLoader(

@@ -7,8 +7,12 @@ collection streams each layer to its own reference-format store. On the
 card the batch runs kernel #1 (log-mel) once and the encoder's attention
 kernel once a block up to the deepest layer.
 
-Not in this port yet (each raises, ROADMAP Queue 1 #12): ``mesh`` and
-``shard`` (the loader's pod arguments) and ``data_parallel`` collection.
+Over several ranks the loader takes ``shard`` (every n-th file) and
+``mesh`` (each rank encodes its slice of every batch, gathered whole on
+every rank), as ``FlyActivationLoader`` does, and ``data_parallel``
+collection writes ``<out_folder>/shard<rank>`` stores for every layer
+(``collection_shard_setup``; merge each layer with
+``scripts/merge_stores.py``).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from .. import profiling
 from ..analysis.features import activation_length_from_samples
 from ..device import resolve_device
 from ..models.whisper import WhisperRuntime, encoder_forward
+from ..parallel import mesh as mesh_lib
 from .audio_dataset import AudioBatchPipeline
 from .feature_store import FeatureMajorReader, extend_feature_major_index
 from .loaders import DeviceFetch, decodable_mask
@@ -44,13 +49,11 @@ class MultiLayerActivationLoader:
         device: torch.device | str | None = "cuda",
         fetch_dtype: torch.dtype | None = None,
     ):
-        """``device``: ``cpu`` / ``cuda[:N]``; anything else means cuda.
-        ``fetch_dtype`` casts each layer on the device before its host copy
-        (a float16 store then moves half the bytes)."""
-        if mesh is not None or shard is not None:
-            raise NotImplementedError(
-                "mesh and shard (pod) multi-layer collection are not ported to "
-                "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+        """``device``: ``cpu`` / ``cuda[:N]``; anything else means cuda (with
+        a ``mesh``, its card). ``fetch_dtype`` casts each layer on the device
+        before its host copy (a float16 store then moves half the bytes).
+        ``mesh`` and ``shard`` as ``FlyActivationLoader``'s."""
+        self.mesh = mesh_lib.check_mesh(mesh)
         self.layer_names = tuple(layer_names)
         bad = [n for n in self.layer_names if n.startswith("decoder.")]
         if bad:
@@ -60,14 +63,17 @@ class MultiLayerActivationLoader:
                 "collect them one at a time (single-layer collection "
                 "supports decoder.* names)"
             )
-        self.device = resolve_device(device)
+        self.device = mesh.device if mesh is not None else resolve_device(device)
+        if mesh is not None and batch_size % mesh.size:
+            raise ValueError(f"batch_size {batch_size} not divisible by the mesh's "
+                             f"data axis ({mesh.size})")
         self.runtime = WhisperRuntime(whisper_model, None, compute_dtype=compute_dtype,
                                       device=self.device)
         self.batch_size = batch_size
         self.fetch_dtype = fetch_dtype
         self.pipeline = AudioBatchPipeline(
             data_path, batch_size, self.runtime.dims.n_mels,
-            subset_size=subset_size, device=self.device,
+            subset_size=subset_size, device=self.device, shard=shard,
         )
 
     @property
@@ -77,8 +83,13 @@ class MultiLayerActivationLoader:
     def _compute(self, mels: torch.Tensor, n: int) -> dict:
         """One captured encoder pass → {layer: host array, or its
         device→host copy in flight on the card}."""
+        split = mesh_lib.is_multiprocess(self.mesh)
         pad = self.batch_size - n if mels.is_cuda else 0
-        if pad:
+        if split:
+            # this rank's slice of the batch padded to its shape
+            lo, _ = mesh_lib.host_shard_bounds(self.batch_size, self.mesh)
+            mels = mesh_lib.pad_and_shard(self.mesh, mels, self.batch_size)
+        elif pad:
             # on the card, pad the ragged tail to the batch shape (every
             # batch runs the same kernel shapes); padded rows trim below
             mels = torch.cat([mels, mels.new_zeros((pad, *mels.shape[1:]))])
@@ -90,7 +101,10 @@ class MultiLayerActivationLoader:
                     compute_dtype=rt.compute_dtype, stop_after_capture=True)
         out = {}
         for layer in self.layer_names:
-            o = caps[layer][:n]
+            o = caps[layer]
+            if split:
+                o = mesh_lib.gather_rows(self.mesh, o, lo, self.batch_size)
+            o = o[:n]
             if self.fetch_dtype is not None:
                 o = o.to(self.fetch_dtype)
             elif o.dtype == torch.bfloat16:
@@ -148,16 +162,18 @@ def collect_multilayer(
 
     A batch whose files all fail to decode is skipped (the JAX package's
     store writer raises on it), as the port's single-layer collection does.
-    ``device`` as in ``get_activations``."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data_parallel collection is not ported to freud_tpu_torch yet "
-            "(one card per run; ROADMAP Queue 1 #12)")
+    ``device`` as in ``get_activations``. ``data_parallel`` over several
+    ranks: each writes ``<out_folder>/shard<rank>`` stores for every layer
+    (``collection_shard_setup``, the single-layer policy), unindexed."""
+    from ..scripts.collect_activations import collection_shard_setup
+
+    mesh, shard, out_folder = collection_shard_setup(out_folder, data_parallel, device)
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
     loader = MultiLayerActivationLoader(
         data_path, whisper_model, layer_names, batch_size,
         subset_size=collect_max, compute_dtype=compute_dtype, device=device,
         fetch_dtype=torch.float16 if store_dtype == "float16" else None,
+        mesh=mesh, shard=shard,
     )
     writers: dict[str, ActivationStoreWriter] = {}
     n_files = 0
@@ -181,7 +197,7 @@ def collect_multilayer(
                   f"x {len(loader.layer_names)} layers", end="", flush=True)
     for w in writers.values():
         w.close()
-    for layer in writers:
+    for layer in writers if shard is None else ():
         if build_index or FeatureMajorReader.exists(out_folder, layer):
             extend_feature_major_index(out_folder, layer, verbose=verbose)
     if verbose:

@@ -10,6 +10,11 @@ Under ``matmul_dtype=torch.bfloat16`` both products take and return bf16,
 as JAX's default-precision matmuls do (``l1.py:81-90``); the losses reduce
 in f32. L1 has no kernel: the fused L1 kernel was removed from the JAX
 package because XLA beat it (COMPONENTS.md).
+
+With a ``mesh`` (data parallelism, each rank a slice of the files) both
+normalisers are the whole batch's: the masked MSE divides by Σmask summed
+over the ranks, and the L1 mean is over every rank's frames. Each rank's
+losses are then its part of the global loss.
 """
 
 from __future__ import annotations
@@ -19,6 +24,7 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ...parallel.mesh import all_reduce
 from .config import L1AutoEncoderConfig, get_n_dict_components
 
 
@@ -90,23 +96,30 @@ def decode(params, latent: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     return latent @ W.T
 
 
-def masked_mse(pred: torch.Tensor, target: torch.Tensor, ignored_value: float = -1.0):
-    """MSE over elements where target != ignored_value (reference mse_loss)."""
+def masked_mse(pred: torch.Tensor, target: torch.Tensor, ignored_value: float = -1.0,
+               mesh=None):
+    """MSE over elements where target != ignored_value (reference mse_loss);
+    with a ``mesh``, this rank's part of the MSE over every rank's
+    elements."""
     mask = target != ignored_value
     se = torch.where(mask, (pred - target) ** 2, torch.zeros((), dtype=pred.dtype,
                                                              device=pred.device))
-    return torch.sum(se) / torch.clamp(torch.sum(mask), min=1)
+    return torch.sum(se) / torch.clamp(all_reduce(mesh, torch.sum(mask)), min=1)
 
 
 def forward(params, x: torch.Tensor, cfg: L1AutoEncoderConfig, *,
-            pre_normalized: bool = False, matmul_dtype=None) -> L1ForwardOutput:
+            pre_normalized: bool = False, matmul_dtype=None, mesh=None) -> L1ForwardOutput:
     if not pre_normalized:
         params = normalize_columns(params)
     c = encode(params, x, pre_normalized=True, matmul_dtype=matmul_dtype).latent
     x_hat = decode(params, c, matmul_dtype=matmul_dtype).to(x.dtype)
     # losses in f32 (matmuls reduced, reductions full)
     l1 = torch.mean(torch.sum(torch.abs(c.to(torch.float32)), dim=-1))
-    recon = cfg.recon_alpha * masked_mse(x_hat, x)
+    if mesh is not None:
+        # this rank's share of the mean over every rank's frames (equal
+        # slices; · 1 exactly with one rank)
+        l1 = l1 * (1.0 / mesh.size)
+    recon = cfg.recon_alpha * masked_mse(x_hat, x, mesh=mesh)
     return L1ForwardOutput(sae_out=x_hat, encoded=L1EncoderOutput(c), l1_loss=l1,
                            reconstruction_loss=recon)
 

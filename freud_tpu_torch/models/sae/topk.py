@@ -12,7 +12,15 @@ normalised by the total variance Σ(x − mean₀(x))² over the file axis:
   multi_topk_fvu = FVU of a 4k-sparse decode
 
 ``forward``/``forward_with_fired`` are the validation path (``torch.topk``
-by a stable sort, no kernel). ``training_losses`` is the train step, routed
+by a stable sort, no kernel).
+
+Data parallelism (``mesh``, ``parallel/mesh.py``): each rank holds a slice
+of the batch's files. The total variance is a statistic of the WHOLE batch
+(its mean over files and its sum), so it is reduced across the ranks before
+it divides anything; each rank's terms are then its part of the global
+loss (their sum over the ranks is the one-process loss), and ``fired`` is
+ORed across the ranks. Kernels #4 and #3 run per rank on the rank's rows.
+With one rank every value equals the one-process path's bit for bit. ``training_losses`` is the train step, routed
 as JAX routes it (``topk.py:310-329``): multi_topk and n_dict ≥ 2¹⁵ take an
 autograd formulation over kernel #3 (``ops/topk_threshold``); otherwise a
 ``torch.autograd.Function`` whose forward is kernel #4 (``ops/topk_fused``)
@@ -30,6 +38,7 @@ from torch import nn
 
 from ...ops.topk_fused import topk_sae_forward
 from ...ops.topk_threshold import bisect_kth, topk_thresholds_fired
+from ...parallel.mesh import all_reduce
 from .config import TopKAutoEncoderConfig, get_n_dict_components
 
 
@@ -175,10 +184,26 @@ def _masked_dense_decode(params, acts, threshold, matmul_dtype, select_mask=None
     return _dot_f32(dense, params.W_dec, matmul_dtype) + params.b_dec
 
 
-def _total_variance(x: torch.Tensor) -> torch.Tensor:
-    """Σ(x − mean over the leading (file) axis)²; 1 where it is 0."""
-    tv = torch.sum((x - x.mean(dim=0)) ** 2)
+def _total_variance(x: torch.Tensor, mesh=None) -> torch.Tensor:
+    """Σ(x − mean over the leading (file) axis)²; 1 where it is 0. With a
+    ``mesh`` the file axis is every rank's files (equal slices): the mean
+    and then the sum are reduced across the ranks."""
+    if mesh is None:
+        tv = torch.sum((x - x.mean(dim=0)) ** 2)
+    else:
+        # each rank's mean weighted by its share of the files; · 1 exactly
+        # with one rank
+        mu = all_reduce(mesh, x.mean(dim=0) * (1.0 / mesh.size))
+        tv = all_reduce(mesh, torch.sum((x - mu) ** 2))
     return torch.where(tv == 0, torch.ones_like(tv), tv)
+
+
+def _or_across(mesh, fired: torch.Tensor) -> torch.Tensor:
+    """A fired mask ORed over the ranks (JAX's max of ``fired`` over the data
+    axis)."""
+    if mesh is None:
+        return fired
+    return all_reduce(mesh, fired.to(torch.int32), "max").bool()
 
 
 def forward(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
@@ -231,35 +256,46 @@ def _forward_impl(params, x, cfg, dead_mask, matmul_dtype):
 
 
 def training_losses(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
-                    dead_mask: torch.Tensor, matmul_dtype=None):
+                    dead_mask: torch.Tensor, matmul_dtype=None, mesh=None):
     """Loss terms and the fired mask for the TRAIN step:
     → ({fvu, auxk_loss, multi_topk_fvu}, fired). Differentiable in the
-    parameters (and in x)."""
+    parameters (and in x). With a ``mesh``, ``x`` is this rank's files: the
+    terms are this rank's part of the global loss (normalised by the global
+    total variance) and ``fired`` is the whole batch's."""
     if cfg.multi_topk or params.W_dec.shape[0] >= 2 ** 15:
-        return _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype)
+        tv = None if mesh is None else _total_variance(x.detach(), mesh)
+        terms, fired = _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype, tv)
+        return terms, _or_across(mesh, fired)
     # JAX also sends recipes whose bf16 W_enc + W_dec exceed 64 MB to the
     # formulation above (KERNEL_RESIDENT_BUDGET, topk.py:41-46): that is the
     # TPU kernel's VMEM arena. The CUDA kernel keeps no weights resident, so
     # every size goes to it; the selection is the same exact bf16 selection.
     bf16 = matmul_dtype == torch.bfloat16
-    fvu, auxk_loss, fired = _FusedLosses.apply(
-        x, params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec,
-        dead_mask.to(torch.float32), cfg.k, x.shape[-1] // 2,
-        float(cfg.auxk_alpha), bf16)
+    args = (x, params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec,
+            dead_mask.to(torch.float32), cfg.k, x.shape[-1] // 2,
+            float(cfg.auxk_alpha), bf16)
+    if mesh is not None:
+        # the global total variance enters as an input: the backward takes
+        # it as a constant of the parameters
+        args = (*args, _total_variance(x.detach(), mesh))
+    fvu, auxk_loss, fired = _FusedLosses.apply(*args)
     return {
         "fvu": fvu,
         "auxk_loss": auxk_loss,
         "multi_topk_fvu": torch.zeros((), dtype=x.dtype, device=x.device),
-    }, fired
+    }, _or_across(mesh, fired)
 
 
 class _FusedLosses(torch.autograd.Function):
     """Forward: kernel #4 (bf16) or kernel #3 (f32) plus the loss
     reductions. Backward: JAX's ``_fused_losses_bwd``. Thresholds are
-    selection boundaries without gradient."""
+    selection boundaries without gradient. ``tv``: the total variance that
+    normalises the losses (a data-parallel step passes the global one);
+    computed from ``x`` when left out."""
 
     @staticmethod
-    def forward(ctx, x, enc_w, enc_b, W_dec, b_dec, dead_f, k, k_aux, alpha, bf16):
+    def forward(ctx, x, enc_w, enc_b, W_dec, b_dec, dead_f, k, k_aux, alpha, bf16,
+                tv=None):
         d_in = x.shape[-1]
         x2 = x.reshape(-1, d_in)
         if bf16:
@@ -274,7 +310,9 @@ class _FusedLosses(torch.autograd.Function):
             y_aux = torch.where((acts >= t_aux) & dead, acts, zero) @ W_dec
         e = y_main + b_dec - x2  # = sae_out − x
         r = y_aux - y_main + x2  # = ê − e   (b_dec cancels)
-        tv = _total_variance(x)
+        ctx.tv_given = tv is not None
+        if tv is None:
+            tv = _total_variance(x)
         scale = torch.clamp(dead_f.sum() / k_aux, max=1.0)
         fvu = torch.sum(e * e) / tv
         auxk_loss = alpha * scale * torch.sum(r * r) / tv
@@ -320,18 +358,24 @@ class _FusedLosses(torch.autograd.Function):
         db_enc = torch.sum(d_acts, dim=0, dtype=torch.float32)
         db_dec = db_dec - _mm(db_enc[None, :], enc_w, bf16)[0]
 
-        dx = None
+        dx = dtv = None
+        # ∂L/∂tv
+        k_tv = -(c1 * torch.sum(e * e) + c2 * torch.sum(r * r)) / (2.0 * tv)
         if ctx.needs_input_grad[0]:
-            # direct e/r terms, the encode path, and the total variance
-            dx2 = -g_main + _mm(d_acts, enc_w, bf16)
-            k_tv = -(c1 * torch.sum(e * e) + c2 * torch.sum(r * r)) / (2.0 * tv)
-            dx = dx2.reshape(x.shape) + k_tv * 2.0 * (x - x.mean(dim=0))
-        return (dx, dW_enc, db_enc, dW_dec, db_dec, None, None, None, None, None)
+            # direct e/r terms, the encode path, and (tv computed here) the
+            # total variance
+            dx = (-g_main + _mm(d_acts, enc_w, bf16)).reshape(x.shape)
+            if not ctx.tv_given:
+                dx = dx + k_tv * 2.0 * (x - x.mean(dim=0))
+        if ctx.tv_given and ctx.needs_input_grad[10]:
+            dtv = k_tv
+        return (dx, dW_enc, db_enc, dW_dec, db_dec, None, None, None, None, None, dtv)
 
 
-def _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype=None):
+def _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype=None, tv=None):
     """Autograd formulation over kernel #3 (multi_topk; n_dict ≥ 2¹⁵):
-    every threshold and the fired mask from one pass over the latent."""
+    every threshold and the fired mask from one pass over the latent.
+    ``tv``: as ``_FusedLosses``'."""
     acts = pre_acts(params, x, matmul_dtype=matmul_dtype)
     n_dict = acts.shape[-1]
     k_aux = x.shape[-1] // 2
@@ -344,7 +388,8 @@ def _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype=None):
 
     sae_out = _masked_dense_decode(params, acts, t_main, matmul_dtype).to(x.dtype)
     e = sae_out - x
-    tv = _total_variance(x)
+    if tv is None:
+        tv = _total_variance(x)
     fvu = torch.sum(e * e) / tv
 
     scale = torch.clamp(dead_mask.sum() / k_aux, max=1.0)

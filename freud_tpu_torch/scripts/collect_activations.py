@@ -31,8 +31,13 @@ card raises — the run never carries on on the CPU.
 At the end of a run the feature-major search index (``data/feature_store.py``)
 is built when ``build_index`` is set and extended whenever one already
 exists, as in the JAX package: a dense store gets the transposed-plane
-index, an indexed (TopK) store the CSR-by-feature one. Not in this port
-yet (it raises, ROADMAP Queue 1 #12): ``data_parallel``.
+index, an indexed (TopK) store the CSR-by-feature one.
+
+``data_parallel`` over several ranks (after
+``parallel.distributed.initialize()``): rank i collects every n-th file
+from i on its own card into ``<out_folder>/shard<i>`` (no index; merge the
+shards with ``scripts/merge_stores.py``, which restores the file order).
+With one rank it is the one-card collection into ``out_folder``.
 
 A list of encoder layers as ``layer_name`` collects them all from one
 encoder pass a batch, one store a layer (``data/multilayer.py``); it
@@ -63,6 +68,23 @@ from ..data.loaders import FlyActivationLoader
 from ..data.multilayer import collect_multilayer
 from ..data.store import ActivationStoreWriter
 from ..device import resolve_device
+from ..parallel import mesh as mesh_lib
+
+
+def collection_shard_setup(out_folder: str, data_parallel: bool, device=None):
+    """(mesh, shard, out_folder): ONE sharding policy for single- and
+    multi-layer collection. Over several ranks each rank collects a
+    disjoint strided file shard on its own card into
+    ``<out_folder>/shard<rank>``; collection is embarrassingly parallel, so
+    nothing crosses between ranks. One rank: a mesh of this process alone
+    and ``out_folder`` itself."""
+    if not data_parallel:
+        return None, None, out_folder
+    world = mesh_lib.make_mesh(device=resolve_device(device))
+    if mesh_lib.is_multiprocess(world):
+        return (mesh_lib.local_mesh(world), (world.rank, world.size),
+                str(Path(out_folder) / f"shard{world.rank}"))
+    return mesh_lib.local_mesh(world), None, out_folder
 
 
 def get_activations(
@@ -93,10 +115,7 @@ def get_activations(
     ``max_new_tokens`` sizes a decoder layer's decode (encoder layers
     ignore it). ``build_index`` builds the feature-major search index at
     the end of the run; an existing one is extended whatever it says."""
-    if data_parallel:
-        raise NotImplementedError(
-            "data_parallel collection is not ported to freud_tpu_torch yet "
-            "(one card per run; ROADMAP Queue 1 #12)")
+    mesh, shard, out_folder = collection_shard_setup(out_folder, data_parallel, device)
     dev = resolve_device(device)
     compute_dtype = torch.bfloat16 if precision == "bfloat16" else torch.float32
 
@@ -122,6 +141,8 @@ def get_activations(
         fetch_dtype=torch.float16 if store_dtype == "float16" else None,
         device=dev,
         max_new_tokens=max_new_tokens,
+        mesh=mesh,
+        shard=shard,
     )
 
     # Write-behind store thread: batch k writes to disk while batch k+1
@@ -220,9 +241,11 @@ def get_activations(
               f"{out_folder}", file=sys.stderr)
     else:
         writer.close()
+    if writer is not None and shard is None:
         # keep an existing index current after every run (a grown store must
         # never silently degrade search to a full scan); build fresh only
-        # when asked
+        # when asked. A rank's shard store gets none: the merge would orphan
+        # it (merge_stores --build_index indexes the merged store)
         if writer.indexed:
             if build_index or fs.SparseFeatureMajorReader.exists(out_folder, layer_name):
                 fs.extend_sparse_feature_major_index(out_folder, layer_name,

@@ -89,16 +89,20 @@ def capture_chunk(step: Callable[[int], dict], n_steps: int, state: list,
 
 
 def run_chunk(chunks: dict, step: Callable[[torch.Tensor], dict], window: torch.Tensor,
-              indices: torch.Tensor, state: list, counted: tuple, what: str) -> dict:
+              indices: torch.Tensor, state: list, counted: tuple, what: str,
+              graph: bool | None = None) -> dict:
     """``step`` (a (B, T, d) device batch → a dict of metric tensors) on the
     window rows ``indices[i]`` for each of the (n_steps, B) index block's
     rows. On a CUDA window the steps run as one replay of a graph captured
     once per (n_steps, B) and window, kept in ``chunks``; the graph reads
     the window and its own index buffer in place, so ``indices`` is copied
-    in before each replay. On the CPU they run as a loop of the same body.
+    in before each replay. On the CPU, or with ``graph`` False (a step whose
+    collectives cannot be captured), they run as a loop of the same body.
     → the per-step metric stack, each metric with a leading n_steps axis."""
     n_steps = indices.shape[0]
-    if window.device.type != "cuda":
+    if graph is None:
+        graph = window.device.type == "cuda"
+    if not graph:
         stack = [step(sample_rows(window, indices[i])) for i in range(n_steps)]
         return {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
     key = tuple(indices.shape)

@@ -32,7 +32,12 @@ indices once and every k-group trains on that same index tensor (JAX's
 "snapshot once per chunk"); a tail shorter than a chunk runs per step on
 one ``next_batch``.
 
-Not in this port yet: ``mesh`` (it raises, ROADMAP Queue 1 #12b).
+With a ``mesh`` each member is a data-parallel ``SAETrainer`` on the
+mesh: every rank holds the same global batch, steps on its contiguous
+slice of the batch axis (``parallel.mesh.put_batch``'s split), and each
+member's gradient is all-reduced in that member's step, as JAX shards each
+member's batch over the data axis. A chunk's graph policy is the
+trainer's (``SAETrainer.chunk_is_graph``).
 """
 
 from __future__ import annotations
@@ -49,6 +54,7 @@ from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
 from ..models.sae import config as sae_config
 from ..models.sae.serialize import save_checkpoint, state_dict_from_params
+from ..parallel import mesh as mesh_lib
 from .graph import run_chunk
 from .trainer import STEP_KERNELS, SAETrainer
 
@@ -80,11 +86,10 @@ class SAESweepTrainer:
         missing keys inherit the trainer-level value. All models in ONE
         trainer must share ``k`` (it is a selection shape); use
         ``train_hparam_sweep`` to grid over k via k-groups. ``device``:
-        ``cpu`` / ``cuda[:N]``; anything else means cuda."""
+        ``cpu`` / ``cuda[:N]``; anything else means cuda (with a ``mesh``,
+        its card)."""
         assert variant in ("l1", "topk")
-        if mesh is not None:
-            raise NotImplementedError("mesh (pod) sweeps are not ported to "
-                                      "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+        self.mesh = mesh_lib.check_mesh(mesh)
         self.variant = variant
         self.raw_config = dict(autoencoder_config)
         self.cfg = sae_config.config_for_variant(variant, autoencoder_config)
@@ -115,7 +120,8 @@ class SAESweepTrainer:
         self.activation_size = activation_size
         self.n_dict_components = sae_config.get_n_dict_components(
             activation_size, self.cfg.expansion_factor, self.cfg.n_dict_components)
-        self.device = resolve_device(device, what="sweep")
+        self.device = (mesh.device if mesh is not None
+                       else resolve_device(device, what="sweep"))
         alpha_key = "recon_alpha" if variant == "l1" else "auxk_alpha"
         self.members: list[SAETrainer] = []
         for i in range(n_models):
@@ -127,7 +133,8 @@ class SAESweepTrainer:
                 variant, member_config, activation_size, optimizer=optimizer,
                 scheduler=scheduler, scheduler_params=scheduler_params,
                 lr=hp.get("lr", lr), weight_decay=weight_decay, steps=steps,
-                clip_thresh=clip_thresh, seed=seed + i, amp=amp, device=self.device))
+                clip_thresh=clip_thresh, seed=seed + i, amp=amp, device=self.device,
+                mesh=mesh))
         self.step = 0
         # (n_steps, batch_size) → (window, index buffer, CapturedChunk)
         self._chunks: dict = {}
@@ -143,30 +150,45 @@ class SAESweepTrainer:
     def _state(self) -> list:
         return [t for m in self.members for t in m._state()]
 
-    def _step_all(self, x: torch.Tensor, shared: bool) -> dict:
+    def _step_all(self, x: torch.Tensor, shared: bool, mesh=None) -> dict:
         """Every member's step body: on the one (B, T, d) device batch
         ``x`` when ``shared``, else member i on ``x[i]`` → {name: (K,)
-        device tensor}."""
-        outs = [m._step(x if shared else x[i]) for i, m in enumerate(self.members)]
+        device tensor}. With a ``mesh``, ``x`` holds this rank's rows."""
+        outs = [m._step(x if shared else x[i], mesh) for i, m in enumerate(self.members)]
         return {k: torch.stack([o[k] for o in outs]) for k in self.metric_names}
 
-    def _to_device(self, batch) -> torch.Tensor:
-        return torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
+    def _to_device(self, batch, axis: int = 0):
+        """The batch on the device as f32 → (tensor, the mesh its steps
+        reduce over). With a mesh, this rank's slice of the batch axis
+        ``axis``; a batch axis that does not divide by the ranks stays whole
+        and steps without collectives."""
+        mesh = self.mesh
+        if mesh is None:
+            return torch.as_tensor(batch).to(self.device, torch.float32,
+                                             non_blocking=True), None
+        b = int(np.shape(batch)[axis])
+        if not mesh_lib.divisible_batch(b, mesh):
+            return mesh_lib.put_host_batch(mesh, batch).to(torch.float32), None
+        lo, hi = mesh_lib.host_shard_bounds(b, mesh)
+        local = batch[:, lo:hi] if axis == 1 else batch[lo:hi]
+        return mesh_lib.put_host_batch(mesh, local).to(torch.float32), mesh
 
     def train_step(self, batches) -> dict:
         """``batches``: (K, B, T, activation_size), member i's batch at
         row i. → {name: (K,) device tensor} (no host sync)."""
-        x = self._to_device(batches)
-        if x.dim() != 4 or x.shape[0] != self.n_models:
-            raise ValueError(f"batches {tuple(x.shape)} must be ({self.n_models}, B, T, d)")
-        metrics = self._step_all(x, shared=False)
+        if np.ndim(batches) != 4 or np.shape(batches)[0] != self.n_models:
+            raise ValueError(f"batches {tuple(np.shape(batches))} must be "
+                             f"({self.n_models}, B, T, d)")
+        x, mesh = self._to_device(batches, axis=1)
+        metrics = self._step_all(x, shared=False, mesh=mesh)
         self.step += 1
         return metrics
 
     def train_step_shared(self, batch) -> dict:
         """One (B, T, activation_size) batch trains ALL K models (the
         hyperparameter-grid stream): moved to the device once."""
-        metrics = self._step_all(self._to_device(batch), shared=True)
+        x, mesh = self._to_device(batch)
+        metrics = self._step_all(x, shared=True, mesh=mesh)
         self.step += 1
         return metrics
 
@@ -179,10 +201,20 @@ class SAESweepTrainer:
         (n_steps, batch_size); a step that will not capture raises. On the
         CPU they run as a loop of the same body. → the last step's metrics,
         each a (K,) device tensor."""
+        mesh = self.mesh
+        if mesh is not None and mesh.group is not None:
+            # every rank draws the same indices (one seed); each steps on
+            # its slice of every step's rows
+            lo, hi = mesh_lib.host_shard_bounds(indices.shape[1], mesh)
+            indices = indices[:, lo:hi]
+        else:
+            mesh = None
+        lead = self.members[0]
         stack = run_chunk(
-            self._chunks, lambda x: self._step_all(x, shared=True), window, indices,
-            self._state(), STEP_KERNELS,
-            f"train_chunk_shared ({self.variant}, {self.n_models} models)")
+            self._chunks, lambda x: self._step_all(x, shared=True, mesh=mesh), window,
+            indices, self._state(), STEP_KERNELS,
+            f"train_chunk_shared ({self.variant}, {self.n_models} models)",
+            graph=lead.chunk_is_graph(window))
         self.step += indices.shape[0]
         return {k: v[-1] for k, v in stack.items()}
 

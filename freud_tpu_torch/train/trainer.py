@@ -33,8 +33,26 @@ loader and the device cache resample the padding rows from valid ones
 (``resample_padding_rows``), and so does fly-mode training, keyed on the
 file name.
 
-Not in this port yet: pod/mesh training and ``shard_dict`` (the pod chunk
-and sampler raise).
+Data parallelism (``mesh``, ``parallel/mesh.py``): one process drives one
+card, and each rank steps on its slice of every global batch. The
+parameters start equal on every rank (broadcast from rank 0 once); each
+rank differentiates its part of the GLOBAL loss (the losses' normalisers
+are reduced across the ranks first, ``models/sae/{topk,l1}.py``), the
+partial gradients and the logged metrics are summed across the ranks in one
+all-reduce, and the clip and the update run on the summed gradient. The
+dead-feature counters age by the global frame count from the fired mask
+ORed across the ranks, so they stay identical on every rank. With one
+rank every step equals the one-process step bit for bit.
+
+``train(mesh=)`` over several ranks is JAX's pod run: each rank reads its
+rows of every global batch (``host_bounds``), or caches and samples its own
+file stratum (``process_shard``), and validation, checkpoints, TensorBoard
+and transcripts run on rank 0 only. A pod chunk (``train_chunk_pod``) is
+one CUDA graph under NCCL, whose collectives capture; under gloo, whose
+collectives cannot be captured, it runs its steps eagerly.
+
+Not in this port yet: ``shard_dict`` (the model axis, ROADMAP Queue 1
+#12c).
 """
 
 from __future__ import annotations
@@ -58,7 +76,7 @@ from ..analysis.features import sae_roundtrip_tap_params, sae_steer_fn
 from ..audio.decode import load_audio
 from ..audio.mel import mels_from_array
 from ..constants import get_n_mels
-from ..data.device_cache import DeviceShuffleCache
+from ..data.device_cache import DeviceShuffleCache, sample_rows_raw
 from ..data.loaders import init_dataloader, resample_padding_rows
 from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
@@ -69,6 +87,7 @@ from ..models.sae.serialize import params_from_state_dict
 from ..models.whisper.runtime import WhisperRuntime, pin_full_f32
 from ..ops.topk_fused import topk_sae_forward
 from ..ops.topk_threshold import topk_thresholds_fired
+from ..parallel import mesh as mesh_lib
 from .checkpoint import (
     AsyncCheckpointWriter,
     load_trainer_checkpoint,
@@ -99,7 +118,7 @@ def _param_list(variant: str, params) -> list:
 
 class SAETrainer:
     """Owns the SAE, its optimizer and the dead-feature counters on one
-    device."""
+    device (with a ``mesh``, this rank's replica of them)."""
 
     def __init__(
         self,
@@ -115,11 +134,21 @@ class SAETrainer:
         clip_thresh: float = 1.0,
         seed: int = 0,
         amp: bool = True,
-        device: torch.device | str = "cpu",
+        device: torch.device | str | None = None,
+        mesh=None,
+        shard_dict: bool = False,
     ):
+        """``device``: default the mesh's card, else the CPU. ``mesh``: train
+        data-parallel over its ranks (``train_step(..., host_local=True)``
+        takes this rank's rows; the parameters are broadcast from rank 0)."""
         assert variant in ("l1", "topk"), (
             f"Invalid autoencoder variant: {variant}, must be 'l1' or 'topk'"
         )
+        if shard_dict:
+            raise NotImplementedError(mesh_lib.MODEL_AXIS_TODO)
+        self.mesh = mesh_lib.check_mesh(mesh)
+        if device is None:
+            device = mesh.device if mesh is not None else "cpu"
         self.variant = variant
         self.raw_config = dict(autoencoder_config)
         self.cfg = sae_config.config_for_variant(variant, autoencoder_config)
@@ -133,6 +162,11 @@ class SAETrainer:
         pin_full_f32(self.device)  # f32 products mean f32, not TF32
         init = l1_mod.init_l1 if variant == "l1" else topk_mod.init_topk
         self.params = init(activation_size, self.cfg, seed=seed, device=self.device)
+        if mesh is not None:
+            if torch.device(device) != mesh.device:
+                raise ValueError(f"device {device} is not the mesh's {mesh.device}")
+            # every rank starts from rank 0's parameters
+            mesh_lib.broadcast_(mesh, list(self.params.parameters()))
         self.n_dict_components = sae_config.get_n_dict_components(
             activation_size, self.cfg.expansion_factor, self.cfg.n_dict_components)
         self.opt, self.schedule = make_optimizer(
@@ -153,10 +187,11 @@ class SAETrainer:
         return [*_param_list(self.variant, self.params), *self.opt.mu,
                 *self.opt.nu, self.opt.count, self.num_frames_since_fired]
 
-    def _step(self, x: torch.Tensor) -> dict:
+    def _step(self, x: torch.Tensor, mesh=None) -> dict:
         """The step body on a (B, T, d) f32 device batch: → metrics as 0-dim
         device tensors. No host synchronisation, no rebinding: a CUDA graph
-        replays it."""
+        replays it. With a ``mesh``, ``x`` is this rank's slice of the global
+        batch and the step is the data-parallel one (module docstring)."""
         mm = torch.bfloat16 if self.amp else None
         if self.variant == "l1":
             with torch.no_grad():
@@ -167,33 +202,82 @@ class SAETrainer:
         p = SimpleNamespace(**{n: t.detach().requires_grad_()
                                for n, t in self.params.named_parameters()})
         if self.variant == "l1":
-            out = l1_mod.forward(p, x, self.cfg, pre_normalized=True, matmul_dtype=mm)
+            out = l1_mod.forward(p, x, self.cfg, pre_normalized=True, matmul_dtype=mm,
+                                 mesh=mesh)
             loss = out.reconstruction_loss + out.l1_loss
             metrics = {"loss": loss, "loss_recon": out.reconstruction_loss,
                        "loss_l1": out.l1_loss}
         else:
             dead_mask = self.num_frames_since_fired > self.dead_feature_threshold
             terms, fired = topk_mod.training_losses(p, x, self.cfg, dead_mask,
-                                                    matmul_dtype=mm)
+                                                    matmul_dtype=mm, mesh=mesh)
             loss = terms["fvu"] + terms["auxk_loss"] + terms["multi_topk_fvu"] / 8
             metrics = {"loss": loss, "fvu": terms["fvu"],
                        "auxk_loss": terms["auxk_loss"],
                        "multi_topk_fvu": terms["multi_topk_fvu"],
                        "dead_pct": dead_mask.float().mean()}
-        self.opt.update(torch.autograd.grad(loss, _param_list(self.variant, p)))
+        grads = torch.autograd.grad(loss, _param_list(self.variant, p))
+        metrics = {k: v.detach() for k, v in metrics.items()}
+        frames = x.shape[0] * x.shape[1]
+        if mesh is not None:
+            # ONE all-reduce: the partial gradients and this rank's parts of
+            # the logged losses (dead_pct is the same on every rank)
+            names = [k for k in metrics if k != "dead_pct"]
+            *grads, summed = mesh_lib.all_reduce_flat(
+                mesh, [*grads, torch.stack([metrics[k] for k in names])])
+            metrics.update({k: summed[i] for i, k in enumerate(names)})
+            frames *= mesh.size
+        self.opt.update(grads)
         if self.variant == "topk":
             with torch.no_grad():
                 self.num_frames_since_fired.copy_(topk_mod.age_counters(
-                    self.num_frames_since_fired, fired, x.shape[0] * x.shape[1]))
-        return {k: v.detach() for k, v in metrics.items()}
+                    self.num_frames_since_fired, fired, frames))
+        return metrics
 
-    def train_step(self, batch) -> dict:
+    def train_step(self, batch, host_local: bool = False) -> dict:
         """One update on a (B, T, d) batch; → metrics as 0-dim device
-        tensors (no host sync)."""
-        x = torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
-        metrics = self._step(x)
+        tensors (no host sync).
+
+        With a mesh: ``host_local`` marks ``batch`` as this rank's slice of
+        the global batch (the pod input path); otherwise ``batch`` is the
+        global batch and this rank takes its slice (``put_batch``). A global
+        batch that does not divide by the ranks is refused, unless it is
+        smaller than the ranks (then every rank steps on all of it, without
+        collectives)."""
+        mesh = self.mesh
+        if mesh is None:
+            x = torch.as_tensor(batch).to(self.device, torch.float32, non_blocking=True)
+            metrics = self._step(x)
+        elif host_local:
+            x = mesh_lib.put_host_batch(mesh, batch).to(torch.float32)
+            metrics = self._step(x, mesh)
+        else:
+            b = int(np.shape(batch)[0])
+            if mesh.size > 1 and b >= mesh.size and b % mesh.size:
+                raise ValueError(
+                    f"training batch of {b} is not divisible by the mesh's data "
+                    f"axis ({mesh.size}); pick a divisible train batch size "
+                    "(validation tails may be ragged, training batches must not be)")
+            x = mesh_lib.put_batch(mesh, batch).to(torch.float32)
+            metrics = self._step(x, mesh if mesh_lib.divisible_batch(b, mesh) else None)
         self.step += 1
         return metrics
+
+    def _chunk_step(self):
+        """The step body a chunk runs: the data-parallel one under a process
+        group (its collectives at one rank too)."""
+        if self.mesh is None or self.mesh.group is None:
+            return self._step
+        return lambda x: self._step(x, self.mesh)
+
+    def chunk_is_graph(self, window: torch.Tensor) -> bool:
+        """Whether a chunk on ``window`` runs as a CUDA graph: on a CUDA
+        device, unless its step holds gloo collectives (gloo cannot be
+        captured; such a chunk runs its steps eagerly instead). NCCL's
+        collectives capture."""
+        if window.device.type != "cuda":
+            return False
+        return self.mesh is None or self.mesh.group is None or self.mesh.backend == "nccl"
 
     def train_chunk(self, cache: DeviceShuffleCache, batch_size: int, n_steps: int,
                     indices: Optional[torch.Tensor] = None) -> dict:
@@ -208,24 +292,52 @@ class SAETrainer:
         once per (n_steps, batch_size) (``train/graph.py``); a step that
         will not capture raises. On the CPU they run as a loop of the same
         body."""
+        if mesh_lib.is_multiprocess(self.mesh):
+            raise ValueError("a pod's ranks sample their own strata: use "
+                             "train_chunk_pod on a process_shard cache")
+        return self._run_chunk(cache, batch_size, n_steps, indices, "train_chunk")
+
+    def _run_chunk(self, cache, batch_size: int, n_steps: int, indices, what: str) -> dict:
         window, _ = cache.sample_state()
         if indices is None:
             indices = cache.draw(n_steps, batch_size)
         if tuple(indices.shape) != (n_steps, batch_size):
             raise ValueError(f"indices {tuple(indices.shape)} must be "
                              f"({n_steps}, {batch_size})")
-        metrics = run_chunk(self._chunks, self._step, window, indices, self._state(),
-                            STEP_KERNELS, f"train_chunk ({self.variant})")
+        metrics = run_chunk(self._chunks, self._chunk_step(), window, indices,
+                            self._state(), STEP_KERNELS, f"{what} ({self.variant})",
+                            graph=self.chunk_is_graph(window))
         self.step += n_steps
         return metrics
 
-    def train_chunk_pod(self, cache, local_batch: int, n_steps: int) -> dict:
-        raise NotImplementedError("the pod fused chunk is not ported to "
-                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+    def train_chunk_pod(self, cache, local_batch: int, n_steps: int,
+                        indices: Optional[torch.Tensor] = None) -> dict:
+        """The pod counterpart of ``train_chunk``: ``n_steps`` data-parallel
+        steps, each on ``local_batch`` rows this rank samples from its own
+        cache (a ``process_shard`` stratum), the global batch being every
+        rank's rows. → the per-step metric stack (global values).
+
+        As one CUDA graph under NCCL or without a process group; eagerly
+        under gloo, whose collectives cannot be captured
+        (``chunk_is_graph``). Either way the chunk equals its steps run one
+        by one."""
+        if self.mesh is None:
+            raise ValueError("train_chunk_pod needs a mesh (SAETrainer(mesh=...))")
+        return self._run_chunk(cache, local_batch, n_steps, indices, "train_chunk_pod")
 
     def _build_pod_sampler(self, n_steps: int, batch_size: int):
-        raise NotImplementedError("the pod chunk sampler is not ported to "
-                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+        """A host-local sampler: ``(window, generator) → ((n_steps,
+        batch_size, T, d) rows in the window's storage dtype, generator)``,
+        the draw of one ``cache.draw(n_steps, batch_size)`` and its rows (the
+        pod chunk samples inside its graph; this stages the same rows for a
+        caller that wants them on the host side)."""
+
+        def sampler(window: torch.Tensor, generator: torch.Generator):
+            idx = torch.randint(0, window.shape[0], (n_steps, batch_size),
+                                generator=generator, device=window.device)
+            return sample_rows_raw(window, idx), generator
+
+        return sampler
 
     def step_working_bytes(self, batch_rows: int) -> int:
         """An estimate of the device bytes a train step needs at
@@ -360,7 +472,8 @@ class SAETrainer:
 
 
 class _NullTB:
-    """TensorBoard stand-in when the ``tensorboard`` package is missing."""
+    """TensorBoard stand-in when the ``tensorboard`` package is missing, and
+    on every rank but rank 0."""
 
     def _noop(self, *a, **k):
         return None
@@ -400,14 +513,17 @@ class DeviceValSet:
     validation runs on the resident tensors, with no per-call host gather
     or copy. ``ok`` is False when the set exceeds ``max_bytes`` (JAX's
     default 1 GiB) or the store is indexed; callers then stream from the
-    loader. ``mesh`` (sharded placement) is not ported."""
+    loader. ``mesh``: the set lives on the rank's card (``device`` defaults
+    to the mesh's); validation runs on rank 0 alone with its local
+    parameters, as JAX's pod keeps a single-device placement."""
 
-    def __init__(self, loader, device: torch.device | str, val_batch: int = 8,
-                 max_bytes: int = 1 << 30, mesh=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "mesh placement of the validation set is not ported to "
-                "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
+    def __init__(self, loader, device: torch.device | str | None = None,
+                 val_batch: int = 8, max_bytes: int = 1 << 30, mesh=None):
+        mesh_lib.check_mesh(mesh)
+        if device is None:
+            if mesh is None:
+                raise ValueError("DeviceValSet needs a device or a mesh")
+            device = mesh.device
         self.batches = []
         self.ok = False
         if getattr(loader, "activation_type", "tensor") == "indexed":
@@ -591,20 +707,43 @@ def train(
 
     ``val_device_cache``: keep the validation set resident on the device
     (``DeviceValSet``). ``None`` turns it on when the set fits in 1 GiB,
-    ``True`` forces it, ``False`` streams from the loader every call."""
-    if mesh is not None:
-        raise NotImplementedError("mesh (pod) training is not ported to "
-                                  "freud_tpu_torch yet (ROADMAP Queue 1 #12)")
-    dev = resolve_device(device, what="training")
+    ``True`` forces it, ``False`` streams from the loader every call.
+
+    ``mesh`` (``parallel.mesh.make_mesh()`` after
+    ``parallel.distributed.initialize()``): train data-parallel on the
+    mesh's card (``device`` is then not read). Over several ranks each rank
+    reads only its rows of every global batch (``host_shard_bounds``; the
+    (seed, epoch) order is the same on every rank), or with
+    ``device_cache_files`` caches and samples its own file stratum
+    (``batch_size / ranks`` rows a step, in ``train_chunk_pod`` chunks);
+    validation, checkpoints, TensorBoard and transcripts run on rank 0
+    only. Fly-mode pod training is refused, as in JAX. One rank is the
+    one-card run, bit for bit."""
+    mesh = mesh_lib.check_mesh(mesh)
+    dev = mesh.device if mesh is not None else resolve_device(device, what="training")
     set_seeds(seed)
     layer_name = whisper_config["layer_name"]
     whisper_model = whisper_config["model"]
     decoder_store = layer_name.startswith("decoder.")
 
+    # the pod input path: every rank draws the same (seed, epoch) order and
+    # loads only its own contiguous slice of each global batch; host-side
+    # artifacts are rank 0's
+    host_bounds = None
+    multihost = mesh_lib.is_multiprocess(mesh)
+    is_main = mesh is None or mesh.rank == 0
+    if multihost:
+        if not from_disk:
+            raise SystemExit(
+                "multi-host training requires a collected store (from_disk); "
+                "fly-mode pod training is not supported — collect with "
+                "data_parallel + per-host shards first")
+        host_bounds = mesh_lib.host_shard_bounds(batch_size, mesh)
+
     loader, feat_dim, _ = init_dataloader(
         from_disk, train_folder, whisper_model, None, layer_name,
         batch_size=batch_size, shuffle=True, drop_last=True, seed=seed,
-        resample_padding=decoder_store, device=dev,
+        resample_padding=decoder_store, device=dev, host_bounds=host_bounds,
     )
     if len(loader) == 0:
         raise ValueError(
@@ -627,7 +766,7 @@ def train(
         autoencoder_variant, autoencoder_config, feat_dim,
         optimizer=optimizer, scheduler=scheduler, scheduler_params=scheduler_params,
         lr=lr, weight_decay=weight_decay, steps=steps, clip_thresh=clip_thresh,
-        seed=seed, device=dev,
+        seed=seed, device=dev, mesh=mesh,
     )
 
     hparam_dict = {
@@ -647,10 +786,13 @@ def train(
         "scheduler_params": scheduler_params,
     }
 
-    os.makedirs(run_dir, exist_ok=True)
     ckpt_dir = Path(run_dir) / "checkpoints"
-    ckpt_dir.mkdir(parents=True, exist_ok=True)
-    tb = _summary_writer(run_dir, verbose)
+    verbose = verbose and is_main
+    if is_main:
+        ckpt_dir.mkdir(parents=True, exist_ok=True)
+        tb = _summary_writer(run_dir, verbose)
+    else:
+        tb = _NullTB()  # the other ranks write no host-side artifacts
     tb.add_text("hparams", json.dumps(hparam_dict, indent=4))
     if verbose:
         print("Model: %.2fM" % (trainer.param_count() / 1e6))
@@ -666,7 +808,7 @@ def train(
 
     transcriber = None
     decoder_steer_layer = None
-    if enable_transcripts and decoder_store:
+    if enable_transcripts and is_main and decoder_store:
         m = re.fullmatch(r"decoder\.blocks\.(\d+)", layer_name)
         if m is None:
             # a decoder sub-module (mlp.0, attn_ln, …) has no online
@@ -679,7 +821,7 @@ def train(
                       f"only, got {layer_name!r}")
         else:
             decoder_steer_layer = int(m.group(1))
-    if enable_transcripts:
+    if enable_transcripts and is_main:
         try:
             rt = WhisperRuntime(whisper_model, layer_name,
                                 max_new_tokens=max_transcript_tokens, device=dev)
@@ -716,15 +858,21 @@ def train(
     cuda = dev.type == "cuda"
 
     cache = None
+    cache_batch = batch_size
     fused = 0
     if device_cache_files and from_disk:
         rows = batch_size * loader.activation_shape[0]
+        if multihost:  # host_shard_bounds checked that the ranks divide it
+            cache_batch = batch_size // mesh.size
         cache = DeviceShuffleCache(
             train_folder, layer_name, device_cache_files, seed=seed,
             start_step=trainer.step, cache_dtype=device_cache_dtype, device=dev,
+            # a pod rank caches and samples its own strided file stratum
+            process_shard=(mesh.rank, mesh.size) if multihost else None,
             # the graph's private pool and the per-step path's pool each
             # hold a step's working set
-            reserve_bytes=2 * trainer.step_working_bytes(rows))
+            reserve_bytes=2 * trainer.step_working_bytes(
+                rows // (mesh.size if multihost else 1)))
         # save/val events run host code against the trainer state, so they
         # must land on chunk boundaries; TB logs interior steps from the
         # chunk's stack. The auto chunk stays a DIVISOR of the cadence gcd
@@ -791,7 +939,9 @@ def train(
                 # train_chunk_wait: the chunk through its synchronisation
                 with profiling.span("train_chunk_wait"):
                     with profiling.span("train_chunk"):
-                        metrics = trainer.train_chunk(cache, batch_size, fused)
+                        metrics = (trainer.train_chunk_pod(cache, cache_batch, fused)
+                                   if multihost
+                                   else trainer.train_chunk(cache, batch_size, fused))
                     if cuda:
                         torch.cuda.synchronize(dev)
                 log_steps = [s for s in range(first, trainer.step + 1)
@@ -804,9 +954,10 @@ def train(
                         log_train({k: float(stack[j, s - first])
                                    for j, k in enumerate(names)}, s)
             else:
-                x = cache.next_batch(batch_size) if cache is not None else next(stream)
+                x = cache.next_batch(cache_batch) if cache is not None else next(stream)
                 with profiling.span("train_step"):
-                    metrics = trainer.train_step(x)
+                    metrics = (trainer.train_step(x, host_local=True) if multihost
+                               else trainer.train_step(x))
                     if cuda:
                         # the span covers the step's device work, not its
                         # enqueue
@@ -815,10 +966,10 @@ def train(
                     log_train({k: float(v) for k, v in metrics.items()}, trainer.step)
 
             ckpt_paths: list[str] = []
-            if trainer.step % save_every == 0:
+            if trainer.step % save_every == 0 and is_main:
                 ckpt_paths.append(str(ckpt_dir / f"step{trainer.step}.pth"))
 
-            if trainer.step % val_every == 0:
+            if trainer.step % val_every == 0 and is_main:
                 if val_loader is None:
                     val_loader, _, _ = init_dataloader(
                         from_disk, val_folder, whisper_model, None,
@@ -884,7 +1035,8 @@ def train(
         ckpt_writer.close()
         if cache is not None:
             cache.close()
-    trainer.save(str(ckpt_dir / f"step{trainer.step}.pth"), hparam_dict)
+    if is_main:
+        trainer.save(str(ckpt_dir / f"step{trainer.step}.pth"), hparam_dict)
     elapsed = time.perf_counter() - t_start
     done = trainer.step - steps_done_at_start
     tb.close()

@@ -177,20 +177,37 @@ def test_sae_attached_stores_match_jax(setup, monkeypatch, variant):
 
 
 @pytest.mark.parametrize("change", [
-    # a list of layers is ported (tests/test_torch_multilayer.py); its
-    # data_parallel is not
     {"layer_name": [LAYER, "encoder.blocks.0"], "data_parallel": True},
     {"data_parallel": True},
 ])
 def test_unported_options_raise(setup, tmp_path, change):
+    """``data_parallel`` (single- and multi-layer) is ported: with one
+    process and no process group it is the one-card collection into
+    ``out_folder`` itself, bit for bit (the ranks' shards are
+    tests/test_torch_distributed.py's); a loader given something that is
+    not a mesh refuses it."""
     _, _, audio = setup
-    cfg = {"whisper_model": "random:tiny", "layer_name": LAYER, "batch_size": 2,
-           "data_path": str(audio), "device": "cpu",
-           "out_folder": str(tmp_path / "out"), **change}
-    path = tmp_path / "cfg.json"
-    path.write_text(json.dumps(cfg))
-    with pytest.raises(NotImplementedError):
+    layers = change.get("layer_name", [LAYER])
+    for name, over in (("dp", change), ("plain", {**change, "data_parallel": False})):
+        cfg = {"whisper_model": "random:tiny", "layer_name": LAYER, "batch_size": 2,
+               "data_path": str(audio), "device": "cpu",
+               "out_folder": str(tmp_path / name), **over}
+        path = tmp_path / f"{name}.json"
+        path.write_text(json.dumps(cfg))
         tcollect.main(["--config", str(path)])
+    assert not list((tmp_path / "dp").glob("shard*"))
+    for layer in layers:
+        for suffix in ("_metadata.json", "_tensors.npy"):
+            assert ((tmp_path / "dp" / f"{layer}{suffix}").read_bytes()
+                    == (tmp_path / "plain" / f"{layer}{suffix}").read_bytes())
+    from freud_tpu_torch.data.loaders import FlyActivationLoader
+    from freud_tpu_torch.data.multilayer import MultiLayerActivationLoader
+
+    with pytest.raises(TypeError, match="Mesh"):
+        FlyActivationLoader(str(audio), "random:tiny", None, LAYER, 2, mesh=object())
+    with pytest.raises(TypeError, match="Mesh"):
+        MultiLayerActivationLoader(str(audio), "random:tiny", layers, 2, device="cpu",
+                                   mesh=object())
 
 
 def test_decoder_layer_collects(setup, tmp_path, monkeypatch):

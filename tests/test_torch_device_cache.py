@@ -81,9 +81,17 @@ def test_fill_matches_jax(store, dtype):
         tc.close()
     with pytest.raises(ValueError, match="cache_dtype"):
         DeviceShuffleCache(path, "L", capacity_files=4, cache_dtype="float16")
-    for kw in ({"process_shard": (0, 2)}, {"mesh": object()}):
-        with pytest.raises(NotImplementedError, match="#12"):
-            DeviceShuffleCache(path, "L", capacity_files=4, **kw)
+    # a pod rank's stratum (every 2nd file from 1) fills as JAX's does
+    kw = {**kw, "capacity_files": 6, "process_shard": (1, 2)}
+    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw)
+    try:
+        np.testing.assert_array_equal(tc._files, np.arange(N_FILES)[1::2])
+        np.testing.assert_array_equal(_bits(tc.cache), _bits(jc.cache))
+    finally:
+        jc.close()
+        tc.close()
+    with pytest.raises(TypeError, match="Mesh"):
+        DeviceShuffleCache(path, "L", capacity_files=4, mesh=object())
 
 
 def test_refresh_plan_matches_jax(store):
@@ -286,12 +294,43 @@ def test_train_chunk_matches_jax(store, variant, amp):
                                       np.asarray(jt.num_frames_since_fired))
 
 
-def test_pod_chunk_raises():
-    trainer = SAETrainer("l1", L1_CFG, D)
-    with pytest.raises(NotImplementedError, match="#12"):
-        trainer.train_chunk_pod(None, 4, 2)
-    with pytest.raises(NotImplementedError, match="#12"):
-        trainer._build_pod_sampler(2, 4)
+def test_pod_chunk_raises(store):
+    """The pod chunk is ported: it needs a mesh; on a one-process mesh its
+    steps equal per-step pod steps on the same window rows bit for bit; the
+    pod sampler stages one draw's rows in the window's dtype (the ranks'
+    chunks are tests/test_torch_distributed.py's)."""
+    from freud_tpu_torch.parallel.mesh import Mesh
+
+    path, _ = store
+    with pytest.raises(ValueError, match="mesh"):
+        SAETrainer("l1", L1_CFG, D).train_chunk_pod(None, 4, 2)
+    out = {}
+    for chunked in (False, True):
+        trainer = SAETrainer("topk", TOPK_CFG, D, optimizer="adam", scheduler="linear",
+                             scheduler_params={"num_warmup_steps": 1}, lr=1e-2,
+                             steps=12, seed=3, mesh=Mesh("cpu"))
+        cache = DeviceShuffleCache(path, "L", capacity_files=10, refresh_files=0,
+                                   seed=7, process_shard=(0, 2))
+        idx = torch.from_numpy(np.random.default_rng(0).integers(0, 10, (3, 4)))
+        if chunked:
+            metrics = {k: v[-1] for k, v in trainer.train_chunk_pod(cache, 4, 3, idx).items()}
+        else:
+            for i in range(3):
+                metrics = trainer.train_step(dc.sample_rows(cache.cache, idx[i]),
+                                             host_local=True)
+        assert trainer.step == 3
+        out[chunked] = (trainer._state(), metrics)
+    for a, b in zip(out[False][0], out[True][0]):
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    for k, v in out[False][1].items():
+        torch.testing.assert_close(out[True][1][k], v, rtol=0, atol=0)
+    cache = DeviceShuffleCache(path, "L", capacity_files=10, refresh_files=0, seed=7,
+                               cache_dtype="bfloat16")
+    g = torch.Generator().manual_seed(5)
+    stack, g2 = trainer._build_pod_sampler(3, 4)(cache.cache, g)
+    assert g2 is g and stack.dtype == torch.bfloat16 and stack.shape == (3, 4, T, D)
+    want = torch.randint(0, 10, (3, 4), generator=torch.Generator().manual_seed(5))
+    torch.testing.assert_close(stack, dc.sample_rows_raw(cache.cache, want), rtol=0, atol=0)
 
 
 # ------------------------------------------------------------ validation
@@ -319,7 +358,15 @@ def test_device_val_set_matches_streaming_and_jax(store, variant):
         np.testing.assert_array_equal(resident[i], streamed[i])
         np.testing.assert_allclose(resident[i], want[i], rtol=1e-5, atol=1e-6)
     assert not DeviceValSet(loader, "cpu", max_bytes=8 * T * D * 4 + 1).ok
-    with pytest.raises(NotImplementedError, match="#12"):
+    # a mesh places the set on its card: the same resident batches
+    from freud_tpu_torch.parallel.mesh import Mesh
+
+    on_mesh = DeviceValSet(loader, mesh=Mesh("cpu"))
+    assert on_mesh.ok
+    for (a, na, fa), (b, nb, fb) in zip(on_mesh, vs):
+        assert na == nb and fa == fb
+        torch.testing.assert_close(a, b, rtol=0, atol=0)
+    with pytest.raises(TypeError, match="Mesh"):
         DeviceValSet(loader, "cpu", mesh=object())
 
 

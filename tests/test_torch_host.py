@@ -189,18 +189,21 @@ def test_port_never_imports_jax_or_freud_tpu():
 
 def test_port_package_data_patterns_match():
     """pyproject ships the CUDA and decoder sources the port builds from,
-    and the server's static page."""
+    the server's static page, and the port's copies of the bundled assets
+    (the polysemanticity CSV and the example FLAC)."""
     import tomllib
 
     cfg = tomllib.loads((PORT_DIR.parent / "pyproject.toml").read_text())
     setuptools_cfg = cfg["tool"]["setuptools"]
     assert "freud_tpu*" in setuptools_cfg["packages"]["find"]["include"]
     patterns = setuptools_cfg["package-data"]["freud_tpu_torch"]
-    assert sorted(patterns) == ["audio/native/Makefile", "audio/native/decoder.cpp",
-                                "csrc/*.cu", "csrc/*.cuh", "server/static/*"]
+    assert sorted(patterns) == ["assets/*", "audio/native/Makefile",
+                                "audio/native/decoder.cpp", "csrc/*.cu", "csrc/*.cuh",
+                                "server/static/*"]
     shipped = {p.name for pat in patterns for p in PORT_DIR.glob(pat)}
     assert {"mel.cu", "attention.cu", "common.cuh", "hopper.cuh", "Makefile",
-            "decoder.cpp", "index.html"} <= shipped
+            "decoder.cpp", "index.html", "polyesemantic_count.csv",
+            "example_audio.flac"} <= shipped
 
 
 def test_decoder_builds_from_the_ports_copy(tmp_path, monkeypatch):

@@ -156,13 +156,24 @@ def test_multilayer_refusals(setup, tmp_path):
     cfg_path.write_text(json.dumps(_config(audio, tmp_path / "out")))
     with pytest.raises(SystemExit):
         tcollect.main(["--config", str(cfg_path), "--resume"])
-    with pytest.raises(NotImplementedError, match="#12"):
-        collect_multilayer(str(audio), LAYERS, "random:tiny", 2, str(tmp_path / "o"),
-                           data_parallel=True, device="cpu")
-    for kw in ({"mesh": object()}, {"shard": (0, 2)}):
-        with pytest.raises(NotImplementedError, match="#12"):
-            MultiLayerActivationLoader(str(audio), "random:tiny", LAYERS, 2,
-                                       device="cpu", **kw)
+    # data_parallel without a process group: the one-card collection into
+    # the folder itself (the ranks' shards are test_torch_distributed.py's)
+    collect_multilayer(str(audio), LAYERS[:1], "random:tiny", 2, str(tmp_path / "o"),
+                       data_parallel=True, device="cpu", verbose=False)
+    assert (tmp_path / "o" / f"{LAYERS[0]}_tensors.npy").exists()
+    assert not list((tmp_path / "o").glob("shard*"))
+    with pytest.raises(TypeError, match="Mesh"):
+        MultiLayerActivationLoader(str(audio), "random:tiny", LAYERS, 2,
+                                   device="cpu", mesh=object())
+    # shard=(i, n): every n-th file from i, as JAX's pipeline keeps
+    files = [MultiLayerActivationLoader(str(audio), "random:tiny", LAYERS, 2, device="cpu",
+                                        shard=(i, 2)).pipeline.files for i in (0, 1)]
+    full = MultiLayerActivationLoader(str(audio), "random:tiny", LAYERS, 2,
+                                      device="cpu").pipeline.files
+    assert files == [full[0::2], full[1::2]]
+    with pytest.raises(ValueError, match="bad shard"):
+        MultiLayerActivationLoader(str(audio), "random:tiny", LAYERS, 2, device="cpu",
+                                   shard=(2, 2))
     assert not (tmp_path / "out").exists()
 
 

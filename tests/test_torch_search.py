@@ -113,8 +113,14 @@ def test_bad_requests_raise(tmp_path):
     tail = MemoryMappedActivationLoader(str(tmp_path), LAYER, batch_size=2, drop_last=True)
     with pytest.raises(ValueError, match="drop_last"):
         top_activations(tail, 0, 2, device="cpu")
-    with pytest.raises(NotImplementedError, match="#12"):
+    with pytest.raises(TypeError, match="Mesh"):
         top_activations(loader, 0, 2, mesh=object(), device="cpu")
+    # a one-process mesh is the one-rank search, bit for bit (the ranks'
+    # split is test_torch_distributed.py's)
+    from freud_tpu_torch.parallel.mesh import Mesh
+
+    _same(top_activations(loader, 1, 3, mesh=Mesh("cpu")),
+          top_activations(loader, 1, 3, device="cpu"))
 
 
 def _write_wav(path, seconds, seed):

@@ -179,8 +179,15 @@ def test_grid_refusals():
     with pytest.raises(ValueError, match="hparam dicts"):
         SAESweepTrainer("l1", {"n_dict_components": 4}, D, 2,
                         model_hparams=[{"lr": 1e-3}], device="cpu")
-    with pytest.raises(NotImplementedError, match="#12"):
+    with pytest.raises(TypeError, match="Mesh"):
         SAESweepTrainer("l1", {"n_dict_components": 4}, D, 1, mesh=object(), device="cpu")
+    # a one-process mesh: members on the mesh's card, each a data-parallel
+    # trainer (the ranks' split is test_torch_distributed.py's)
+    from freud_tpu_torch.parallel.mesh import Mesh
+
+    sw = SAESweepTrainer("l1", {"n_dict_components": 4}, D, 2, mesh=Mesh("cpu"),
+                         device="cuda")
+    assert sw.device == torch.device("cpu") and all(m.mesh is sw.mesh for m in sw.members)
 
 
 @pytest.mark.parametrize("variant", ["l1", "topk"])
