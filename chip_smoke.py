@@ -222,6 +222,38 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      and metadata identical, kernel #1 once and #2 three times a batch a
      rank; a two-layer collection of 8 files (blocks 1 and 2) merged
      against the one-rank stores.
+ 31. the model axis (``shard_dict``). (a) In this process, the selection
+     across dictionary shards (``csrc/topk_sharded.cu``: a candidates
+     launch a shard, the gather as a stack, a combine launch a shard) at
+     large_v1_audioset's (48,000 × 20,480), bf16 (exact path) and f32
+     (float path), P = 2 and 4, a third dead, fewer dead than k_aux, a
+     first shard with none, none: thresholds bit-equal to kernel #3 on the
+     whole latent and to the plain version on every shard, the fired bits
+     each shard's columns; both launches timed beside their bounds, their
+     plain versions and ``torch.topk(acts_s, k)``. Kernel #4's encode and
+     decode launches (``csrc/topk_fused.cu``), which a split dictionary's
+     bf16 step runs around that selection, at the shard (48,000 × 1280) →
+     10,240 of a dictionary split in two: acts bit-equal to the whole
+     forward's columns and within one ulp of the plain encode, the
+     thresholds across the shards the whole forward's, each decode within
+     1e-3 of max of its plain version and the shards' sum within 1e-3 of
+     max of the whole forward's; both timed beside their bounds, their
+     plain versions and the bf16 ``torch.mm`` alone. (b) One spawned pair of
+     this script (``--model-axis-rank``), gloo named, both on cuda:0, as a
+     data 1 × model 2 mesh: ``SAETrainer(shard_dict=True)`` at
+     large_v1_audioset's width (batch 16, seeded rows around a fixed
+     mean), 3 steps with AuxK from step 2, each held on rank 0 against the
+     one-process step from the sharded state (metrics within 1e-5
+     relative, counters equal, no row's thresholds differing from kernel
+     #4's, the parameter gap reported), its selection bit-equal to kernel
+     #3 on the ranks' latents gathered, and one launch each of kernel #4's
+     encode and decode, the candidates and the combine a rank a step; 2
+     steps timed (two ranks SHARING one card: not a scaling number); one
+     large_v3_l1 step against one process (metrics within 1e-2: x̂ is
+     rounded to bf16 after the sum over the ranks) and 2 timed. (c) NCCL at world size 1:
+     ``shard_dict`` on a model axis of one bit-equal to the unsharded
+     trainer for 3 steps, and its pod chunk of 5 replayed as a CUDA graph
+     bit-equal to its eager steps.
 
 Every phase asserts; any failure exits nonzero. The last three lines of
 standard output are the card's name and power limit, the kernels' JSON
@@ -233,8 +265,11 @@ decoder runs of phases 14–17, #1, #2 and #5 in the server phases 19–20
 and in the long-form phases 21–24, #4 the graph-against-eager difference)
 and the device JSON (#1, #2 and #5 also their launches in phase 25, #3
 and #4 in phases 26–27, #2, #3 and #4 their records at phases 25–26's
-shapes, every kernel its launches in phases 28–30 as ``launches_pod``).
-Before them, one JSON line records phases 28–30 (``{"pod": …}``): the
+shapes, every kernel its launches in phases 28–30 as ``launches_pod``;
+#3 and #4 also ``launches_model_axis`` and the ``model_axis`` record of
+phase 31's launches). Before them, one JSON line records phase 31
+(``{"model_axis": …}``).
+Before that, one JSON line records phases 28–30 (``{"pod": …}``): the
 comparisons, the ms a step, the chunk, the sweep, the merged stores and the
 launches by rank; before that, one phases 25–27: the collection's RTFx, ms
 a batch, launches, the store differences and the profiled batch; the
@@ -277,9 +312,11 @@ code: run parent, change, change, parent in one call to compare two trees.
 
 ``--pod-only`` runs phases 28–30 alone (after the build) on the stores
 they read, made first: phase 3's collection and its index, and 12 files
-of Whisper small's blocks 2 and 5.
+of Whisper small's blocks 2 and 5. ``--model-axis-only`` runs phase 31
+alone (after the build; it makes its own rows and store).
 
-Usage: python3 chip_smoke.py [--bench | --pod-only]   (needs one CUDA card)
+Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only]
+(needs one CUDA card)
 """
 
 from __future__ import annotations
@@ -366,6 +403,9 @@ GRID_STEPS, GRID_CHUNK, GRID_CACHE_FILES = 25, 10, 24
 POD_BATCH, POD_STEPS, POD_CACHE_FILES, POD_CHUNK = 50, 10, 24, 5
 POD_LAYERS, POD_ML_BATCH, POD_ML_FILES = ["encoder.blocks.1", "encoder.blocks.2"], 4, 8
 POD_TIMED_STEPS, POD_TIMEOUT_S = 5, 420
+# phase 31: large_v1_audioset over a data 1 × model 2 mesh of two gloo ranks
+# on one card (the batch cut from the recipe's 32 files: see PERF.md §4)
+MODEL_AXIS_BATCH, MODEL_AXIS_STEPS, MODEL_AXIS_TIMED_STEPS = 16, 3, 2
 
 
 def card_line() -> str:
@@ -641,6 +681,42 @@ def _acts_agreement(got, want, x, w_enc, b_dec):
     diff = (got.float() - want.float()).abs()
     units = diff / (ulp(z) + ulp(want.float())).clamp_min(1e-38)
     return (diff > 0).float().mean().item(), units.max().item()
+
+
+def _acts_sum_bound(got, want, x, w_enc, b_dec) -> dict:
+    """Kernel #4's acts against the plain encode's under the bound that two
+    f32 summation orders of the same bf16 products obey: each order is
+    within γ_d·Σ|products| of the exact sum (γ_d = d·u / (1 − d·u), u =
+    2⁻²⁴), so the pre-activations differ by at most 2·γ_d·Σ|products|, and
+    the two bf16 roundings after the sum (of z, then of z + b_enc) add at
+    most one ulp each. → the largest |Δ| over that bound (≤ 1 holds) and,
+    at the entry farthest in ``_acts_agreement``'s ulp units, z, Σ|products|
+    and both acts (a cancelling sum shows as Σ|products| ≫ |z|)."""
+    import torch
+
+    bf16 = torch.bfloat16
+    xs = (x - b_dec).to(bf16).float()
+    w = w_enc.to(bf16).float()
+    z = xs @ w.T
+    mag = xs.abs() @ w.abs().T
+    d = x.shape[1]
+    gamma = d * 2.0 ** -24 / (1 - d * 2.0 ** -24)
+    dz = 2 * gamma * mag
+
+    def ulp(v):
+        _, e = torch.frexp(v.abs().to(bf16).float())
+        return torch.where(v == 0, 0.0, torch.ldexp(torch.ones_like(v), e - 8))
+
+    g, wa = got.float(), want.float()
+    diff = (g - wa).abs()
+    bound = dz + ulp(z.abs() + dz) + ulp(torch.maximum(g.abs(), wa.abs()))
+    ratio = (diff / bound.clamp_min(1e-38)).max().item()
+    units = diff / (ulp(z) + ulp(wa)).clamp_min(1e-38)
+    i = int(units.argmax())
+    r, c = divmod(i, z.shape[1])
+    return {"sum_bound_ratio": ratio, "worst": {
+        "z": z[r, c].item(), "sum_abs_products": mag[r, c].item(),
+        "got": g[r, c].item(), "want": wa[r, c].item()}}
 
 
 def _topk_inputs(torch, device, m, gen, d_in=D_IN, n_dict=N_DICT):
@@ -3422,17 +3498,19 @@ def sweep_grid(torch, tmp: Path, store_dir: str, card: str, counters: dict) -> d
 # measurement.
 
 
-def pod_spawn(torch, spec: dict, timeout_s: int = POD_TIMEOUT_S) -> list[dict]:
+def pod_spawn(torch, spec: dict, timeout_s: int = POD_TIMEOUT_S, flag: str = "--pod-rank",
+              report: str = "rank{}.json") -> list[dict]:
     """Phases 28 and 30's two ranks: ONE spawned pair of this script
-    (``--pod-rank``) that runs every two-rank check and reports as JSON.
-    → each rank's report; a rank that fails or hangs fails the smoke."""
+    (``--pod-rank``; phase 31's ``--model-axis-rank``) that runs every
+    two-rank check and reports as JSON. → each rank's report; a rank that
+    fails or hangs fails the smoke."""
     out = Path(spec["out"])
     out.mkdir(parents=True, exist_ok=True)
     spec_path = out / "spec.json"
     spec_path.write_text(json.dumps(spec))
     port = free_port()
     procs = [subprocess.Popen(
-        [sys.executable, str(Path(__file__).resolve()), "--pod-rank", str(r),
+        [sys.executable, str(Path(__file__).resolve()), flag, str(r),
          "--pod-port", str(port), "--pod-spec", str(spec_path)],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for r in range(2)]
     outs = []
@@ -3447,7 +3525,7 @@ def pod_spawn(torch, spec: dict, timeout_s: int = POD_TIMEOUT_S) -> list[dict]:
     for r, (p, o) in enumerate(zip(procs, outs)):
         print("\n".join(f"  [rank {r}] {ln}" for ln in o.strip().splitlines()[-25:]))
         assert p.returncode == 0, f"pod rank {r} exited {p.returncode}"
-    return [json.loads((out / f"rank{r}.json").read_text()) for r in range(2)]
+    return [json.loads((out / report.format(r)).read_text()) for r in range(2)]
 
 
 def nccl_probe_worker(rank: int, port: int) -> int:
@@ -4048,6 +4126,541 @@ def pod_only(torch, device, card: str) -> dict:
         return pod_phases(torch, device, tmp, clips, card)
 
 
+# ------------------------------------------------------------ phase 31
+
+
+def check_topk_sharded(torch, device, card) -> dict:
+    """Phase 31a: kernel #3's selection across dictionary shards at
+    large_v1_audioset's width, in this process: the bf16 (exact path) and
+    f32 (float path) latents of a large batch (48,000 rows × 20,480) split
+    into P = 2 and 4 column shards; each shard's candidates launch, the
+    gather done here (a stack), each shard's combine launch. The
+    thresholds bit-equal on every shard to kernel #3 on the whole latent and
+    to the plain version, the fired bits each shard's columns of the whole
+    mask; then the edge cases (fewer dead latents than k_aux in the whole
+    row, one shard without any, none dead). Both launches timed at P = 2 and
+    4 beside their bounds, with the plain versions and torch.topk(acts_s, k)
+    on the same shard as the library yardstick."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops import topk_sharded as ts
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+
+    gen = torch.Generator().manual_seed(SEED + 31)
+    m, n, k, k_aux, k_multi = LARGE_M_ROWS, LARGE_N_DICT, K, LARGE_K_AUX, 4 * K
+    a = torch.relu(torch.randn((m, n), generator=gen)).to(device)
+    a[5] = 0.0  # a silent row
+    a[6, n // 2 - 40:n // 2 + 40] = 3.5  # a tie across the P = 2 and 4 boundaries
+    third = (torch.rand((n,), generator=gen) < 1 / 3).to(device)
+    few = torch.zeros_like(third)
+    few[torch.randperm(n, generator=gen)[:k_aux // 2].to(device)] = True
+    first_alive = third.clone()
+    first_alive[: n // 4] = False
+    record: dict = {"route": "cuda", "replaces": "freud_tpu/ops/topk_threshold.py:225",
+                    "shape": [m, n], "k": k, "k_aux": k_aux, "k_multi": k_multi}
+
+    def same_candidates(got, want) -> int:
+        """Candidate rows hold a multiset of keys each (the kernel writes
+        them in arrival order): → the largest key difference after sorting
+        each row's regions, the header as it is."""
+        c_main = got.shape[1] - k_aux - ts.HEADER
+        err = 0
+        for lo, hi in ((0, c_main), (c_main, c_main + k_aux)):
+            g = torch.sort(got[:, lo:hi].to(torch.int64) & 0xFFFFFFFF, dim=1).values
+            w = torch.sort(want[:, lo:hi].to(torch.int64) & 0xFFFFFFFF, dim=1).values
+            err = max(err, int((g - w).abs().max()))
+        return max(err, int((got[:, -ts.HEADER:].to(torch.int64)
+                             - want[:, -ts.HEADER:].to(torch.int64)).abs().max()))
+
+    def shards(acts, p):
+        s = n // p
+        return [acts[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
+
+    def run(acts_s, dead_s, kind, plain=False):
+        cand = ts.shard_candidates_plain if plain else ts.shard_candidates
+        comb = ts.combine_shard_thresholds_plain if plain else ts.combine_shard_thresholds
+        g = torch.stack([cand(x, d, k_multi, k_aux, kind) for x, d in zip(acts_s, dead_s)])
+        return [comb(g, x, n, k, k_aux, k_multi, kind) for x in acts_s]
+
+    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
+        acts = a.to(dtype)
+        kind = ts.key_kind(acts, n)
+        assert kind == (ts.EXACT if dtype == torch.bfloat16 else ts.F32)
+        for p in (2, 4):
+            acts_s = shards(acts, p)
+            for dname, dead in (("a third dead", third), ("fewer dead than k_aux", few),
+                                ("first shard none dead", first_alive),
+                                ("none dead", torch.zeros_like(third))):
+                dead_s = list(dead.view(p, -1).unbind(0))
+                cand_err = max(same_candidates(
+                    ts.shard_candidates(x, d, k_multi, k_aux, kind),
+                    ts.shard_candidates_plain(x, d, k_multi, k_aux, kind))
+                    for x, d in zip(acts_s, dead_s))
+                assert cand_err == 0, (name, p, dname, cand_err)
+                want = topk_thresholds_fired(acts, dead, k, k_aux, k_multi=k_multi)
+                got = run(acts_s, dead_s, kind)
+                plain = run(acts_s, dead_s, kind, plain=True)
+                torch.cuda.synchronize()
+                for g, pl in zip(got, plain):
+                    for i in range(3):
+                        assert torch.equal(g[i], want[i]), (name, p, dname, i)
+                        assert torch.equal(pl[i], want[i]), (name, p, dname, i, "plain")
+                assert torch.equal(torch.cat([g[3] for g in got]), want[3]), (name, p, dname)
+                assert torch.equal(torch.cat([g[3] for g in plain]), want[3]), (name, p, dname)
+                err = max(_threshold_err(g, pl) for g, pl in zip(got, plain))
+                record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
+                print(f"sharded selection {name} P={p} ({dname}) {m}×{n}: candidates "
+                      "equal to the plain version's (as key sets), thresholds and fired "
+                      "bit-equal to kernel #3 on the whole latent and to the plain "
+                      "version on every shard")
+            # timing at the main case (a third dead), shard 0
+            dead_s = list(third.view(p, -1).unbind(0))
+            s = n // p
+            width = ts.candidate_width(s, k_multi, k_aux)
+            g = torch.stack([ts.shard_candidates(x, d, k_multi, k_aux, kind)
+                             for x, d in zip(acts_s, dead_s)])
+            cand_ms = cuda_ms(lambda: ts.shard_candidates(acts_s[0], dead_s[0], k_multi,
+                                                          k_aux, kind), reps=10)
+            comb_ms = cuda_ms(lambda: ts.combine_shard_thresholds(
+                g, acts_s[0], n, k, k_aux, k_multi, kind), reps=10)
+            cand_plain = cuda_ms(lambda: ts.shard_candidates_plain(
+                acts_s[0], dead_s[0], k_multi, k_aux, kind), warmup=1, reps=3)
+            comb_plain = cuda_ms(lambda: ts.combine_shard_thresholds_plain(
+                g, acts_s[0], n, k, k_aux, k_multi, kind), warmup=1, reps=3)
+            lib_ms = cuda_ms(lambda: torch.topk(acts_s[0], k, dim=1), reps=10)
+            in_bytes = acts.element_size()
+            cb = flops.topk_shard_candidates_bound(m, s, width, in_bytes)
+            mb = flops.topk_shard_combine_bound(m, s, width, p, in_bytes)
+            assert cand_ms >= cb.bound_ms and comb_ms >= mb.bound_ms
+            record[f"{name}_p{p}"] = {
+                "shard": [m, s], "width": width,
+                "candidates": dict(name="shard_candidates", max_abs_err=0.0, ms=cand_ms,
+                                   plain_ms=cand_plain, **yardsticks(
+                    cb, lib_ms, "torch.topk(acts_s, k): the shard's top k values only")),
+                "combine": dict(name="combine_shard_thresholds",
+                                max_abs_err=record["max_abs_err"], ms=comb_ms,
+                                plain_ms=comb_plain, **yardsticks(
+                    mb, None, "none: no library call merges candidates by kernel #3's "
+                    "rules"))}
+            print(f"sharded selection {name} P={p} shard {m}×{s}: candidates {cand_ms:.4f} ms "
+                  f"(bound {cb.bound_ms:.4f}, plain {cand_plain:.4f}, torch.topk(k) "
+                  f"{lib_ms:.4f}), combine {comb_ms:.4f} ms (bound {mb.bound_ms:.4f}, plain "
+                  f"{comb_plain:.4f}) on {card}")
+            del acts_s, g
+        del acts
+        torch.cuda.empty_cache()
+    del a
+    torch.cuda.empty_cache()
+    return record
+
+
+def check_topk_sharded_fused(torch, device, card) -> dict:
+    """Phase 31a, kernel #4 on a split dictionary: its encode and decode
+    launches at large_v1_audioset's shard of a dictionary split in two
+    ((48,000 × 1280) → 10,240), in this process. Each shard's acts bit-equal
+    to the whole forward's columns and within one ulp of the plain encode
+    (on fewer than 1e-3 of entries); the selection across both shards (the
+    gather a stack) gives the whole forward's thresholds; each shard's
+    decode within 1e-3 of max of the plain decode of its own acts under
+    them, and the shards' decodes summed within 1e-3 of max of the whole
+    forward's; two launches of each bit-equal. Both timed beside their
+    bounds and plain versions, with the bf16 product alone (torch.mm) as
+    the library's core."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops import topk_sharded as ts
+    from freud_tpu_torch.ops.topk_fused import (topk_sae_decode, topk_sae_decode_plain,
+                                                topk_sae_encode, topk_sae_encode_plain,
+                                                topk_sae_forward)
+
+    gen = torch.Generator().manual_seed(SEED + 32)
+    m, n, d, k_aux, p = LARGE_M_ROWS, LARGE_N_DICT, LARGE_D, LARGE_K_AUX, 2
+    x, w_enc, b_enc, b_dec, w_dec = _topk_inputs(torch, device, m, gen, d, n)
+    dead = (torch.rand((n,), generator=gen) < 1 / 3).to(device)
+    dead_f = dead.float()
+    s = n // p
+    cols = [slice(i * s, (i + 1) * s) for i in range(p)]
+    whole = topk_sae_forward(x, w_enc.T, b_enc, b_dec, w_dec, dead_f, K, k_aux)
+
+    def encode(c):
+        return topk_sae_encode(x, w_enc[c].T, b_enc[c], b_dec)
+
+    acts_s = [encode(c) for c in cols]
+    kind = ts.key_kind(acts_s[0], n)
+    g = torch.stack([ts.shard_candidates(a, dead[c], K, k_aux, kind)
+                     for a, c in zip(acts_s, cols)])
+    sel = [ts.combine_shard_thresholds(g, a, n, K, k_aux, 0, kind) for a in acts_s]
+    parts = [topk_sae_decode(a, w_dec[c], dead_f[c], t[0], t[1])
+             for a, c, t in zip(acts_s, cols, sel)]
+    torch.cuda.synchronize()
+    enc_err = dec_err = 0.0
+    agreement = []
+    for a, c, t, part in zip(acts_s, cols, sel, parts):
+        assert torch.equal(a, whole[0][:, c]), "a shard's acts differ from the whole forward's"
+        assert torch.equal(a, encode(c)), "two encode launches differ"
+        assert torch.equal(t[0], whole[3]) and torch.equal(t[1], whole[4])
+        plain = topk_sae_encode_plain(x, w_enc[c].T, b_enc[c], b_dec)
+        share, max_ulp = _acts_agreement(a, plain, x, w_enc[c], b_dec)
+        bound = _acts_sum_bound(a, plain, x, w_enc[c], b_dec)
+        agreement.append(dict(share=share, max_ulp=max_ulp, **bound))
+        # over 48,000 rows a cancelling sum can put the two orders' z more
+        # than one of its ulps apart (phase 2's 3,000 rows stay within
+        # one), so the entries hold to the summation bound
+        assert share < 1e-3 and bound["sum_bound_ratio"] <= 1, agreement[-1]
+        enc_err = max(enc_err, (a.float() - plain.float()).abs().max().item())
+        del plain
+        want = topk_sae_decode_plain(a, w_dec[c], dead_f[c], t[0], t[1])
+        again = topk_sae_decode(a, w_dec[c], dead_f[c], t[0], t[1])
+        for got, w, a2 in zip(part, want, again):
+            assert torch.equal(got, a2), "two decode launches differ"
+            err = (got - w).abs().max().item()
+            assert err <= 1e-3 * max(w.abs().max().item(), 1e-30), err
+            dec_err = max(dec_err, err)
+    sum_rel = max(((parts[0][i] + parts[1][i] - whole[1 + i]).abs().max()
+                   / whole[1 + i].abs().max().clamp_min(1e-30)).item() for i in (0, 1))
+    assert sum_rel < 1e-3, sum_rel
+    # timing on shard 0
+    c0, a0, (t_main, t_aux, _, _) = cols[0], acts_s[0], sel[0]
+    selected = _selected(a0.float(), t_main, t_aux, dead[c0])
+    enc_ms = cuda_ms(lambda: encode(c0), reps=10)
+    enc_plain = cuda_ms(lambda: topk_sae_encode_plain(x, w_enc[c0].T, b_enc[c0], b_dec),
+                        warmup=1, reps=3)
+    xs = (x - b_dec).to(torch.bfloat16)
+    wt = w_enc[c0].to(torch.bfloat16).T
+    enc_core = cuda_ms(lambda: torch.mm(xs, wt), reps=10)
+    dec_args = (a0, w_dec[c0], dead_f[c0], t_main, t_aux)
+    dec_ms = cuda_ms(lambda: topk_sae_decode(*dec_args), reps=10)
+    dec_plain = cuda_ms(lambda: topk_sae_decode_plain(*dec_args), warmup=1, reps=3)
+    wd = w_dec[c0].to(torch.bfloat16)
+    dec_core = cuda_ms(lambda: torch.mm(a0, wd), reps=10)
+    eb = flops.topk_sae_encode_bound(m, d, s)
+    db = flops.topk_sae_decode_bound(m, d, s, selected)
+    assert enc_ms >= eb.bound_ms and dec_ms >= db.bound_ms, (enc_ms, dec_ms)
+    print(f"kernel #4 on a split dictionary, shard {m}×{d}→{s} of {n}: acts bit-equal to the "
+          f"whole forward's columns, against the plain encode {agreement} (share differing "
+          f"< 1e-3, |Δ| within the f32 summation bound), thresholds across the shards equal "
+          f"to its own, the "
+          f"shards' decodes summed within {sum_rel:.2e} of max of its decodes; encode "
+          f"{enc_ms:.4f} ms (bound {eb.bound_ms:.4f}, plain {enc_plain:.4f}, torch.mm alone "
+          f"{enc_core:.4f}), decode {dec_ms:.4f} ms (bound {db.bound_ms:.4f}, {selected} "
+          f"selected entries; plain {dec_plain:.4f}, torch.mm alone {dec_core:.4f}) on {card}")
+    record = {
+        "shape": [m, d, s], "shards": p, "whole_n_dict": n, "summed_decode_rel": sum_rel,
+        "acts_vs_plain": agreement,
+        "encode": dict(name="topk_sae_encode", max_abs_err=enc_err, ms=enc_ms,
+                       plain_ms=enc_plain, library_core_ms=enc_core, **yardsticks(
+            eb, None, "none: no one PyTorch call rounds the product to bf16, adds the "
+            "bf16 bias and applies the ReLU; library_core_ms is torch.mm of the bf16 "
+            "operands alone")),
+        "decode": dict(name="topk_sae_decode", max_abs_err=dec_err, ms=dec_ms,
+                       plain_ms=dec_plain, library_core_ms=dec_core, selected=selected,
+                       **yardsticks(db, None, "none: no one PyTorch call decodes under two "
+                                    "per-row masks; library_core_ms is the dense bf16 "
+                                    "product acts · W_dec alone")),
+    }
+    del x, w_enc, w_dec, whole, acts_s, g, parts, xs, wt, wd
+    torch.cuda.empty_cache()
+    return record
+
+
+def model_axis_setup(variant: str, rows: int) -> tuple[dict, dict]:
+    """large_v1_audioset's (or large_v3_l1's) autoencoder config and trainer
+    keywords for phase 31 (AuxK from step 2; 2 warm-up steps so the first
+    updates move the parameters)."""
+    name = "large_v1_audioset" if variant == "topk" else "large_v3_l1"
+    base = json.loads((REPO / f"configs/train/{name}.json").read_text())
+    ae = dict(base["autoencoder_config"])
+    if variant == "topk":
+        ae["dead_feature_threshold"] = rows // 2
+    kw = dict(optimizer=base["optimizer"], scheduler=base["scheduler"],
+              scheduler_params={"num_warmup_steps": 2}, lr=base["lr"], steps=100,
+              clip_thresh=base["clip_thresh"], seed=SEED)
+    return ae, kw
+
+
+def model_axis_batch(i: int) -> np.ndarray:
+    """Step i's global batch: seeded normal rows at d_in 1280 around a fixed
+    mean of ±3 an entry, as a layer's activations sit off the origin (with
+    isotropic rows every latent fires and AuxK never starts)."""
+    mean = 3.0 * np.sign(np.random.default_rng(SEED + 309).standard_normal(LARGE_D))
+    rng = np.random.default_rng(SEED + 310 + i)
+    x = rng.standard_normal((MODEL_AXIS_BATCH, 1500, LARGE_D), dtype=np.float32)
+    return x + mean.astype(np.float32)
+
+
+def model_axis_worker(rank: int, port: int, spec_path: str) -> int:
+    """One rank of phase 31b: a data 1 × model 2 mesh over two gloo ranks on
+    cuda:0, the dictionary split in two."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    spec = json.loads(Path(spec_path).read_text())
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.ops import topk_sharded as ts
+    from freud_tpu_torch.ops.topk_fused import (topk_sae_decode, topk_sae_encode,
+                                                topk_sae_forward)
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+    from freud_tpu_torch.parallel import distributed as dist_lib
+    from freud_tpu_torch.parallel import mesh as mesh_lib
+    from freud_tpu_torch.train.trainer import SAETrainer, _param_list
+
+    dist_lib.initialize(f"127.0.0.1:{port}", 2, rank, backend="gloo", device="cuda:0",
+                        timeout_s=POD_TIMEOUT_S)
+    mesh = mesh_lib.make_mesh(model_parallel=2)
+    assert mesh.shape == {"data": 1, "model": 2} and mesh.backend == "gloo", mesh
+    kernels = (topk_sae_forward, topk_sae_encode, topk_sae_decode, topk_thresholds_fired,
+               ts.shard_candidates, ts.combine_shard_thresholds)
+    rows = MODEL_AXIS_BATCH * 1500
+
+    def zero():
+        for fn in kernels:
+            fn.launches = 0
+
+    def read() -> dict:
+        torch.cuda.synchronize()
+        return {fn.__name__: fn.launches for fn in kernels}
+
+    # the selection inside the sharded step, and kernel #4's in the shadow's
+    seen: dict = {}
+    sharded_fn, fused_fn = topk_mod.sharded_thresholds_fired, topk_mod.topk_sae_forward
+
+    def sharded_spy(acts, dead, *a, **kw):
+        out = sharded_fn(acts, dead, *a, **kw)
+        seen["sharded"] = (acts, dead, out)
+        return out
+
+    def fused_spy(*a, **kw):
+        out = fused_fn(*a, **kw)
+        seen["fused"] = out
+        return out
+
+    topk_mod.sharded_thresholds_fired = sharded_spy
+    topk_mod.topk_sae_forward = fused_spy
+
+    def load_into(shadow, full):
+        params, leaves, counter = full
+        with torch.no_grad():
+            for d, src in zip(_param_list(shadow.variant, shadow.params),
+                              _param_list(shadow.variant, params)):
+                d.copy_(src)
+        shadow.opt.load_state_leaves(leaves)
+        shadow.num_frames_since_fired.copy_(counter)
+
+    def rel(a, b) -> float:
+        return float((a.double() - b.double()).abs().max() / b.double().abs().max().clamp(
+            min=1e-30))
+
+    rec: dict = {"rank": rank, "rows": rows}
+    launches = {fn.__name__: 0 for fn in kernels}
+    for variant, n_steps in (("topk", MODEL_AXIS_STEPS), ("l1", 1)):
+        ae, kw = model_axis_setup(variant, rows)
+        t0 = time.perf_counter()
+        tr = SAETrainer(variant, ae, LARGE_D, mesh=mesh, shard_dict=True, **kw)
+        init_s = time.perf_counter() - t0
+        shadow = SAETrainer(variant, ae, LARGE_D, device="cuda:0", **kw) if rank == 0 else None
+        steps = []
+        for i in range(n_steps):
+            x = model_axis_batch(i)
+            full = tr._full_state()  # the state before the step, gathered
+            dead_full = full[2] > tr.dead_feature_threshold
+            zero()
+            m = tr.train_step(x)
+            metrics = {k: float(v) for k, v in m.items()}
+            got = read()
+            for key in launches:
+                launches[key] += got[key]
+            step: dict = {"metrics": metrics, "launches": got}
+            if variant == "topk":
+                acts_s, dead_s, (t_main, t_aux, _, fired_s) = seen["sharded"]
+                assert torch.equal(dead_s, dead_full[tr.dict_lo:tr.dict_hi])
+                # kernel #3 on the whole latent: the shards' latents gathered
+                whole = mesh_lib.gather_dict(mesh, acts_s.contiguous(), 1)
+                fired = mesh_lib.gather_dict(mesh, fired_s, 0)
+                w = topk_thresholds_fired(whole, dead_full, ae["k"], LARGE_D // 2)
+                torch.cuda.synchronize()
+                assert torch.equal(t_main, w[0]) and torch.equal(t_aux, w[1]), i
+                assert torch.equal(fired, w[3]), i
+                step["dead"] = int(dead_full.sum())
+                step["selection_bit_equal_to_kernel3"] = True
+                del whole, acts_s
+                seen.pop("sharded")
+            if shadow is not None:
+                load_into(shadow, full)
+                sm = {k: float(v) for k, v in shadow.train_step(x).items()}
+                step["metric_rel"] = {k: abs(sm[k] - v) / max(abs(sm[k]), 1e-30)
+                                      for k, v in metrics.items()}
+                if variant == "topk":
+                    f_main, f_aux = seen.pop("fused")[3:5]
+                    step["rows_t_main_differ"] = int((f_main != t_main).sum())
+                    step["rows_t_aux_differ"] = int((f_aux != t_aux).sum())
+            after = tr._full_state()
+            if shadow is not None:
+                step["param_rel"] = max(rel(a, b) for a, b in zip(
+                    _param_list(variant, after[0]), _param_list(variant, shadow.params)))
+                step["counters_equal"] = bool(torch.equal(after[2],
+                                                          shadow.num_frames_since_fired))
+            steps.append(step)
+            del full, after
+        walls = []  # ms a step: more sharded steps, no shadow
+        zero()
+        for i in range(MODEL_AXIS_TIMED_STEPS):
+            x = model_axis_batch(n_steps + i)
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            tr.train_step(x)
+            torch.cuda.synchronize()
+            walls.append(1e3 * (time.perf_counter() - t1))
+        launches_timed = read()
+        for key in launches:
+            launches[key] += launches_timed[key]
+        rec[variant] = {"steps": steps, "step_ms": walls, "init_s": init_s,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del tr, shadow
+        torch.cuda.empty_cache()
+    rec["launches"] = launches
+    dist_lib.barrier()
+    dist_lib.shutdown()
+    Path(spec["out"], f"model_axis_rank{rank}.json").write_text(json.dumps(rec))
+    return 0
+
+
+def model_axis_nccl_world1(torch, device, tmp: Path) -> dict:
+    """Phase 31c: NCCL at world size 1 in this process, large_v1_audioset at
+    batch 8: ``SAETrainer(shard_dict=True)`` on ``make_mesh(model_parallel=1)``
+    bit-equal to the unsharded trainer for 3 steps, and one pod chunk of 5
+    captured with its NCCL collectives and replayed as a CUDA graph, bit-equal
+    to its steps run eagerly."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
+    from freud_tpu_torch.data.store import ActivationStoreWriter
+    from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.parallel import distributed as dist_lib
+    from freud_tpu_torch.parallel import mesh as mesh_lib
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    batch, rows = 8, 8 * 1500
+    store = tmp / "model_axis_store"
+    rng = np.random.default_rng(SEED + 313)
+    w = ActivationStoreWriter(store, LARGE_LAYER, (1500, LARGE_D), (1500, LARGE_D))
+    w.append_batch([f"f{j:02d}.wav" for j in range(2 * batch)],
+                   rng.standard_normal((2 * batch, 1500, LARGE_D), dtype=np.float32),
+                   n_frames=[1500] * (2 * batch))
+    w.close()
+    ae, kw = model_axis_setup("topk", rows)
+    dist_lib.initialize(f"127.0.0.1:{free_port()}", 1, 0, device="cuda:0")
+    try:
+        mesh = mesh_lib.make_mesh(model_parallel=1)
+        assert (mesh.backend, mesh.size, mesh.shape["model"]) == ("nccl", 1, 1), mesh
+        sharded = SAETrainer("topk", ae, LARGE_D, mesh=mesh, shard_dict=True, **kw)
+        whole = SAETrainer("topk", ae, LARGE_D, device=device, **kw)
+        for a, b in zip(sharded._state(), whole._state()):
+            assert torch.equal(a, b), "the sharded trainer's start differs"
+        cache = DeviceShuffleCache(str(store), LARGE_LAYER, 2 * batch, refresh_files=0,
+                                   seed=SEED, mesh=mesh)
+        try:
+            for i in range(3):
+                x = cache.next_batch(batch)
+                sharded.train_step(x, host_local=True)
+                whole.train_step(x)
+            for a, b in zip(sharded._state(), whole._state()):
+                assert torch.equal(a, b), "shard_dict at P = 1 differs from the unsharded trainer"
+            assert sharded.chunk_is_graph(cache.cache)
+            gen = torch.Generator(device=device).manual_seed(SEED + 17)
+            idx = torch.randint(0, cache.capacity, (POD_CHUNK, batch), generator=gen,
+                                device=device)
+            start = [t.detach().clone() for t in sharded._state()]
+            topk_sae_forward.launches = 0
+            gm = sharded.train_chunk_pod(cache, batch, POD_CHUNK, indices=idx)
+            torch.cuda.synchronize()
+            graph_launches = topk_sae_forward.launches
+            g_state = [t.detach().clone() for t in sharded._state()]
+            with torch.no_grad():
+                for t, s in zip(sharded._state(), start):
+                    t.copy_(s)
+            eager = [sharded._step(sample_rows(cache.cache, idx[i]), mesh)
+                     for i in range(POD_CHUNK)]
+            e_state = [t.detach().clone() for t in sharded._state()]
+        finally:
+            cache.close()
+        bit_equal = all(torch.equal(g, e) for g, e in zip(g_state, e_state)) and all(
+            torch.equal(gm[k], torch.stack([e[k] for e in eager])) for k in gm)
+    finally:
+        dist_lib.shutdown()
+    print(f"NCCL at world size 1, shard_dict on a model axis of 1 at d_in {LARGE_D}: 3 steps "
+          "bit-equal to the unsharded trainer; a pod chunk of "
+          f"{POD_CHUNK} replayed as a CUDA graph {'bit-equal to' if bit_equal else 'DIFFERS from'}"
+          f" its eager steps (kernel #4 launches {graph_launches})")
+    assert bit_equal
+    assert graph_launches == POD_CHUNK + 1, graph_launches
+    return {"steps_bit_equal": True, "graph_bit_equal": bit_equal,
+            "graph_launches": graph_launches, "batch": batch}
+
+
+def model_axis_phases(torch, device, tmp: Path, card: str) -> dict:
+    """Phase 31: the model axis. (a) the selection across shards and kernel
+    #4's encode and decode launches on a shard, in this process; (b) two gloo ranks on cuda:0 as a data 1 × model 2 mesh
+    training large_v1_audioset (3 steps against one process from the
+    sharded state, 2 timed) and one large_v3_l1 step; (c) NCCL at world
+    size 1 with shard_dict on a model axis of 1. → the record, with the
+    sharded launches of (b)."""
+    free_device_memory(torch)
+    t_start = time.perf_counter()
+    rec: dict = {"selection": check_topk_sharded(torch, device, card),
+                 "kernel4": check_topk_sharded_fused(torch, device, card)}
+    out = tmp / "model_axis"
+    out.mkdir(exist_ok=True)
+    t0 = time.perf_counter()
+    ranks = pod_spawn(torch, {"out": str(out)}, flag="--model-axis-rank",
+                      report="model_axis_rank{}.json")
+    rec["pair_seconds"] = time.perf_counter() - t0
+    for r in ranks:
+        for variant in ("topk", "l1"):
+            for st in r[variant]["steps"]:
+                # kernel #4's encode and decode around the selection across
+                # shards, never the whole forward (its thresholds would be
+                # one shard's)
+                assert st["launches"]["topk_sae_forward"] == 0, st
+                one = int(variant == "topk")
+                for key in ("topk_sae_encode", "topk_sae_decode", "shard_candidates",
+                            "combine_shard_thresholds"):
+                    assert st["launches"][key] == one, (key, st)
+                if variant == "topk":
+                    assert st["selection_bit_equal_to_kernel3"]
+    shadow = ranks[0]
+    for st in shadow["topk"]["steps"]:
+        assert max(st["metric_rel"].values()) < 1e-5, st["metric_rel"]
+        # the shards' acts are kernel #4's own columns: the same thresholds
+        assert st["rows_t_main_differ"] == 0 and st["rows_t_aux_differ"] == 0, st
+        assert st["counters_equal"], st
+    assert shadow["topk"]["steps"][-1]["dead"] > 0, "AuxK never ran"
+    l1 = shadow["l1"]["steps"][0]
+    assert max(l1["metric_rel"].values()) < 1e-2, l1["metric_rel"]
+    rec["ranks"] = ranks
+    rec["nccl_world1"] = model_axis_nccl_world1(torch, device, tmp)
+    free_device_memory(torch)
+    rec["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
+    for key in ("topk_sae_encode", "topk_sae_decode", "shard_candidates",
+                "combine_shard_thresholds"):
+        assert rec["launches"][key] > 0, rec["launches"]
+    rec["seconds"] = time.perf_counter() - t_start
+    ms = statistics.median(shadow["topk"]["step_ms"])
+    l1_ms = statistics.median(shadow["l1"]["step_ms"])
+    print(f"phase 31 in {rec['seconds']:.1f} s (the pair {rec['pair_seconds']:.1f} s): "
+          f"large_v1_audioset sharded over 2 gloo ranks SHARING one card, batch "
+          f"{MODEL_AXIS_BATCH}: {ms:.1f} ms a step (not a scaling number); per step "
+          f"vs one process: metrics {[max(s['metric_rel'].values()) for s in shadow['topk']['steps']]}"
+          f" relative, params {[s['param_rel'] for s in shadow['topk']['steps']]} of max, rows "
+          f"whose t_main differs from kernel #4's {[s['rows_t_main_differ'] for s in shadow['topk']['steps']]}"
+          f"; large_v3_l1 step: {l1_ms:.1f} ms a step (the same two ranks), metrics "
+          f"{max(l1['metric_rel'].values()):.2e}, params {l1['param_rel']:.2e}; launches "
+          f"{rec['launches']} on {card}")
+    return rec
+
+
+def model_axis_only(torch, device, card: str) -> dict:
+    """Phase 31 alone (after the build)."""
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_model_axis_") as tmp:
+        return model_axis_phases(torch, device, Path(tmp), card)
+
+
 def free_port() -> int:
     import socket
 
@@ -4080,7 +4693,10 @@ def main() -> int:
                     help="time the kernels and the large paths instead of the smoke")
     ap.add_argument("--pod-only", action="store_true",
                     help="phases 28-30 alone, on stores made here (a quick card check)")
+    ap.add_argument("--model-axis-only", action="store_true",
+                    help="phase 31 (the model axis) alone (a quick card check)")
     ap.add_argument("--pod-rank", type=int, default=None, help=argparse.SUPPRESS)
+    ap.add_argument("--model-axis-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--nccl-probe-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--pod-port", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--pod-spec", type=str, default=None, help=argparse.SUPPRESS)
@@ -4095,6 +4711,8 @@ def main() -> int:
         return pod_worker(args.pod_rank, args.pod_port, args.pod_spec)
     if args.nccl_probe_rank is not None:  # one rank of nccl_two_ranks
         return nccl_probe_worker(args.nccl_probe_rank, args.pod_port)
+    if args.model_axis_rank is not None:  # one rank of phase 31b
+        return model_axis_worker(args.model_axis_rank, args.pod_port, args.pod_spec)
     from freud_tpu_torch import _native, profiling
     from freud_tpu_torch.analysis.features import activation_length_from_samples
     from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
@@ -4118,7 +4736,8 @@ def main() -> int:
 
     # phase 1 — build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    _native.cuda_libraries("mel", "attention", "topk_threshold", "topk_fused")
+    _native.cuda_libraries("mel", "attention", "topk_threshold", "topk_fused",
+                           "topk_sharded")
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
     for name, log in _native.build_logs.items():
@@ -4130,6 +4749,10 @@ def main() -> int:
         return 0
     if args.pod_only:
         print(json.dumps({"pod": {**pod_only(torch, device, card), "card": card}}))
+        return 0
+    if args.model_axis_only:
+        print(json.dumps({"model_axis": {**model_axis_only(torch, device, card),
+                                         "card": card}}))
         return 0
     from freud_tpu_torch import flops
 
@@ -4684,6 +5307,11 @@ def main() -> int:
         pod_rec = pod_phases(torch, device, tmp, clips, card)
         print(json.dumps({"pod": {**pod_rec, "card": card}}))
 
+        # phase 31 — the model axis: the selection across shards, two gloo
+        # ranks with the dictionary split in two, NCCL at world size 1
+        axis_rec = model_axis_phases(torch, device, tmp, card)
+        print(json.dumps({"model_axis": {**axis_rec, "card": card}}))
+
     def unit(name: str) -> dict:
         count, what = per_unit[name]
         return dict(launches_per_unit=count, unit=what)
@@ -4729,6 +5357,13 @@ def main() -> int:
          "graph_vs_eager_max_rel_diff": graph_recs["topk"]["max_rel_diff"],
          "launches_sweep": launches_sweep["topk_sae_forward"],
          "launches_pod": pod_rec["launches"]["topk_sae_forward"],
+         "launches_model_axis": {k: axis_rec["launches"][k]
+                                 for k in ("topk_sae_encode", "topk_sae_decode")},
+         "model_axis": {
+             "source": "freud_tpu_torch/csrc/topk_fused.cu",
+             "launches": {k: axis_rec["launches"][k]
+                          for k in ("topk_sae_encode", "topk_sae_decode")},
+             **axis_rec["kernel4"]},
          "d768": small_recs["topk_sae_forward_d768"],
          "d768_k16": small_recs["topk_sae_forward_d768_k16"], **fused_rec},
         {"name": "topk_thresholds_fired", "route": "cuda",
@@ -4739,7 +5374,15 @@ def main() -> int:
          "launches_decoder": launches["decoder_topk_thresholds_fired"],
          "launches_sweep": launches_sweep["topk_thresholds_fired"],
          "launches_pod": pod_rec["launches"]["topk_thresholds_fired"],
-         "d768": small_recs["topk_thresholds_fired_d768"], **thresh_rec},
+         "d768": small_recs["topk_thresholds_fired_d768"],
+         "launches_model_axis": {
+             "shard_candidates": axis_rec["launches"]["shard_candidates"],
+             "combine_shard_thresholds": axis_rec["launches"]["combine_shard_thresholds"]},
+         "model_axis": {
+             "source": "freud_tpu_torch/csrc/topk_sharded.cu",
+             "launches": {k: axis_rec["launches"][k]
+                          for k in ("shard_candidates", "combine_shard_thresholds")},
+             **axis_rec["selection"]}, **thresh_rec},
     ]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])

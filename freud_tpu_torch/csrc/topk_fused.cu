@@ -53,6 +53,12 @@
 //       bit.
 // Row tiles are walked kGroup at a time across all column tiles, so the
 // other operand's tiles are reused from L2.
+//
+// On a dictionary split over model ranks a row's thresholds are the whole
+// row's, which no rank holds: there freud_topk_sae_encode runs (a) and (c)
+// on the rank's rows, the selection across shards (csrc/topk_sharded.cu)
+// takes (d)'s place, and freud_topk_sae_decode runs (b) and (e) under its
+// thresholds; the ranks' partial decodes are summed after it.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -381,6 +387,44 @@ decode_kernel(const __grid_constant__ CUtensorMap amap,
   }
 }
 
+// (a) and (c): acts from x; xs is the centred operand's scratch.
+int launch_encode(const float* x, const float* b_dec, const void* w_enc, const void* b_enc,
+                  int m, int n, int d, void* acts, void* xs, cudaStream_t s) {
+  using bf16 = __nv_bfloat16;
+  CUtensorMap xmap, wemap;
+  int err = hopper::matrix_map(&xmap, xs, m, d, kBK, kEncBM);
+  if (!err) err = hopper::matrix_map(&wemap, w_enc, n, d, kBK, kEncBN);
+  if (!err) err = hopper::allow_smem(encode_kernel, kEncSmem);
+  if (err) return err;
+  const long long chunks = (long long)m * d / 8;
+  center_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
+      x, b_dec, d, chunks, static_cast<bf16*>(xs));
+  const int enc_tiles = ((m + kEncBM - 1) / kEncBM) * ((n + kEncBN - 1) / kEncBN);
+  encode_kernel<<<enc_tiles, kThreads, kEncSmem, s>>>(
+      xmap, wemap, static_cast<const bf16*>(b_enc), static_cast<bf16*>(acts), m, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// (e): both masked decodes of acts under the per-row thresholds.
+int launch_decode(const void* acts, const void* w_dec, const float* t_main,
+                  const float* t_aux, const uint32_t* dead_bits, int m, int n, int d,
+                  float* y_main, float* y_aux, cudaStream_t s) {
+  CUtensorMap amap, wdmap;
+  int err = hopper::matrix_map(&amap, acts, m, n, kBK, kDecBM);
+  if (!err) err = hopper::matrix_map(&wdmap, w_dec, n, d, 64, kBK);
+  if (!err) err = hopper::allow_smem(decode_kernel, kDecSmem);
+  if (err) return err;
+  const int dec_tiles = ((m + kDecBM - 1) / kDecBM) * ((d + kDecBN - 1) / kDecBN);
+  decode_kernel<<<dec_tiles, kThreads, kDecSmem, s>>>(amap, wdmap, t_main, t_aux, dead_bits,
+                                                      y_main, y_aux, m, n, d);
+  return static_cast<int>(cudaGetLastError());
+}
+
+void launch_dead_bits(const uint8_t* dead, int n, uint32_t* dead_bits, cudaStream_t s) {
+  topk::dead_bits_kernel<<<(n + topk::kBitsThreads - 1) / topk::kBitsThreads,
+                           topk::kBitsThreads, 0, s>>>(dead, n, dead_bits);
+}
+
 }  // namespace
 
 extern "C" {
@@ -402,24 +446,9 @@ int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc
                            uint32_t* fired, void* xs, uint32_t* dead_bits, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (m == 0) return 0;
-  using bf16 = __nv_bfloat16;
-  CUtensorMap xmap, wemap, amap, wdmap;
-  int err = hopper::matrix_map(&xmap, xs, m, d, kBK, kEncBM);
-  if (!err) err = hopper::matrix_map(&wemap, w_enc, n, d, kBK, kEncBN);
-  if (!err) err = hopper::matrix_map(&amap, acts, m, n, kBK, kDecBM);
-  if (!err) err = hopper::matrix_map(&wdmap, w_dec, n, d, 64, kBK);
-  if (!err) err = hopper::allow_smem(encode_kernel, kEncSmem);
-  if (!err) err = hopper::allow_smem(decode_kernel, kDecSmem);
+  launch_dead_bits(dead, n, dead_bits, s);
+  int err = launch_encode(x, b_dec, w_enc, b_enc, m, n, d, acts, xs, s);
   if (err) return err;
-
-  const long long chunks = (long long)m * d / 8;
-  center_kernel<<<static_cast<unsigned>((chunks + 255) / 256), 256, 0, s>>>(
-      x, b_dec, d, chunks, static_cast<bf16*>(xs));
-  topk::dead_bits_kernel<<<(n + topk::kBitsThreads - 1) / topk::kBitsThreads,
-                           topk::kBitsThreads, 0, s>>>(dead, n, dead_bits);
-  const int enc_tiles = ((m + kEncBM - 1) / kEncBM) * ((n + kEncBN - 1) / kEncBN);
-  encode_kernel<<<enc_tiles, kThreads, kEncSmem, s>>>(
-      xmap, wemap, static_cast<const bf16*>(b_enc), static_cast<bf16*>(acts), m, n, d);
   topk::SelectParams sel{};
   sel.acts = acts;
   sel.dead = dead_bits;
@@ -431,13 +460,32 @@ int freud_topk_sae_forward(const float* x, const float* b_dec, const void* w_enc
   sel.m = m;
   sel.n = n;
   sel.nsel = 2;
-  err = static_cast<int>(cudaGetLastError());  // the launches before it
-  if (!err) err = topk::launch_select<topk::Bf16Bits>(sel, s);
+  err = topk::launch_select<topk::Bf16Bits>(sel, s);
   if (err) return err;
-  const int dec_tiles = ((m + kDecBM - 1) / kDecBM) * ((d + kDecBN - 1) / kDecBN);
-  decode_kernel<<<dec_tiles, kThreads, kDecSmem, s>>>(amap, wdmap, t_main, t_aux, dead_bits,
-                                                      y_main, y_aux, m, n, d);
-  return static_cast<int>(cudaGetLastError());
+  return launch_decode(acts, w_dec, t_main, t_aux, dead_bits, m, n, d, y_main, y_aux, s);
+}
+
+// The forward's encode alone, for a dictionary split over model ranks (the
+// thresholds come from the selection across shards): launches (a) and (c).
+// Arguments as freud_topk_sae_forward's.
+int freud_topk_sae_encode(const float* x, const float* b_dec, const void* w_enc,
+                          const void* b_enc, int m, int n, int d, void* acts, void* xs,
+                          void* stream) {
+  if (m == 0) return 0;
+  return launch_encode(x, b_dec, w_enc, b_enc, m, n, d, acts, xs,
+                       static_cast<cudaStream_t>(stream));
+}
+
+// The forward's decodes alone: launches (b) and (e) under the caller's
+// thresholds t_main, t_aux (m,) f32, each a bf16 value (the exact path's).
+// Arguments as freud_topk_sae_forward's.
+int freud_topk_sae_decode(const void* acts, const void* w_dec, const uint8_t* dead,
+                          const float* t_main, const float* t_aux, int m, int n, int d,
+                          float* y_main, float* y_aux, uint32_t* dead_bits, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (m == 0) return 0;
+  launch_dead_bits(dead, n, dead_bits, s);
+  return launch_decode(acts, w_dec, t_main, t_aux, dead_bits, m, n, d, y_main, y_aux, s);
 }
 
 }  // extern "C"

@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ..device import resolve_device
 from ..parallel import mesh as mesh_lib
 from .loaders import MemoryMappedActivationLoader, resample_padding_rows
 
@@ -99,15 +100,18 @@ class DeviceShuffleCache:
 
         ``mesh``: the window lives on the rank's card (``device`` defaults
         to the mesh's). JAX replicates the window over a single process's
-        chips; a rank has one card, so the placement is the card."""
+        chips; a rank has one card, so the placement is the card. Without
+        either the window is on the card (``device="cpu"`` for the CPU;
+        without CUDA anything else raises)."""
         mesh_lib.check_mesh(mesh)
-        if device is None:
-            device = mesh.device if mesh is not None else "cpu"
+        if device is None and mesh is not None:
+            device = mesh.device
         if cache_dtype not in CACHE_DTYPES:
             raise ValueError(
                 f"cache_dtype must be float32 or bfloat16, got {cache_dtype}")
         self.dtype = CACHE_DTYPES[cache_dtype]
-        self.device = torch.device(device)
+        self.device = resolve_device(device, what="device cache",
+                                     hint='pass device="cpu" to keep the window on the CPU')
         self.loader = MemoryMappedActivationLoader(
             data_path, layer_name, batch_size=max(refresh_files, 1),
             subset_size=subset_size, shuffle=True, drop_last=False, seed=seed,

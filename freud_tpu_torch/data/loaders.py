@@ -36,6 +36,7 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import serialize as sae_serialize
 from ..models.sae import topk as topk_mod
 from ..models.whisper import WhisperRuntime
+from ..device import resolve_device
 from ..parallel import mesh as mesh_lib
 from .audio_dataset import AudioBatchPipeline
 from .store import ActivationStoreReader
@@ -144,7 +145,8 @@ class FlyActivationLoader:
     ):
         """``max_new_tokens`` sizes a decoder layer's capture buffer
         (n_prompt + max_new_tokens rows a file); encoder layers ignore it.
-        ``device``: default the mesh's card, else the CPU.
+        ``device``: default the mesh's card, else the card (``"cpu"`` for
+        the CPU; without CUDA anything else raises).
 
         ``mesh``: split the encoder's work over the ranks: every rank
         decodes and runs the log-mel on the whole batch, encodes its
@@ -154,16 +156,17 @@ class FlyActivationLoader:
         n-th file starting at i, the pod collection's split (merge the
         per-rank stores with ``scripts/merge_stores.py``)."""
         self.mesh = mesh_lib.check_mesh(mesh)
-        if device is None:
-            device = mesh.device if mesh is not None else "cpu"
-        self.device = torch.device(device)
+        if device is None and mesh is not None:
+            device = mesh.device
+        self.device = resolve_device(device, what="fly loader",
+                                     hint='pass device="cpu" to run it on the CPU')
         if mesh is not None:
             if self.device != mesh.device:
                 raise ValueError(f"device {self.device} is not the mesh's {mesh.device}")
-            if batch_size % mesh.size:
+            if batch_size % mesh.data_size:
                 raise ValueError(
                     f"batch_size {batch_size} not divisible by the mesh's data "
-                    f"axis ({mesh.size})")
+                    f"axis ({mesh.data_size})")
         self.runtime = WhisperRuntime(whisper_model, layer_name,
                                       compute_dtype=compute_dtype,
                                       max_new_tokens=max_new_tokens,

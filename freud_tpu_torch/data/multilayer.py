@@ -64,9 +64,9 @@ class MultiLayerActivationLoader:
                 "supports decoder.* names)"
             )
         self.device = mesh.device if mesh is not None else resolve_device(device)
-        if mesh is not None and batch_size % mesh.size:
+        if mesh is not None and batch_size % mesh.data_size:
             raise ValueError(f"batch_size {batch_size} not divisible by the mesh's "
-                             f"data axis ({mesh.size})")
+                             f"data axis ({mesh.data_size})")
         self.runtime = WhisperRuntime(whisper_model, None, compute_dtype=compute_dtype,
                                       device=self.device)
         self.batch_size = batch_size

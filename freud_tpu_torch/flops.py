@@ -218,6 +218,45 @@ def topk_select_bound(rows: int, n_dict: int) -> KernelBound:
     return KernelBound(0.0, "bf16", nbytes)
 
 
+def topk_shard_candidates_bound(rows: int, n_local: int, width: int,
+                                in_bytes: int = 2) -> KernelBound:
+    """The sharded selection's candidates launch: a shard's acts (M, n_s)
+    of ``in_bytes`` an entry and its dead mask (n_s,) bool → the candidates
+    (M, width) int32; a selection, no counted operations."""
+    nbytes = float(in_bytes) * rows * n_local + n_local + 4.0 * rows * width
+    return KernelBound(0.0, "bf16", nbytes)
+
+
+def topk_shard_combine_bound(rows: int, n_local: int, width: int, shards: int,
+                             in_bytes: int = 2, n_thresholds: int = 3) -> KernelBound:
+    """The sharded selection's combine launch: every shard's candidates
+    (P, M, width) int32 and this shard's acts (M, n_s) → the thresholds
+    (M, 1) f32 each and the shard's fired mask (n_s,) bool."""
+    nbytes = (4.0 * shards * rows * width + float(in_bytes) * rows * n_local
+              + 4.0 * n_thresholds * rows + n_local)
+    return KernelBound(0.0, "bf16", nbytes)
+
+
+def topk_sae_encode_bound(rows: int, d_in: int, n_dict: int) -> KernelBound:
+    """Kernel #4's encode launches alone (a split dictionary's rows): x
+    (M, d_in) f32, f32 W_enc, b_enc and b_dec → acts (M, n_dict) bf16;
+    2·M·d_in·n_dict of bf16 products."""
+    nbytes = (4.0 * rows * d_in + 4.0 * (n_dict * d_in + n_dict + d_in)
+              + 2.0 * rows * n_dict)
+    return KernelBound(2.0 * rows * d_in * n_dict, "bf16", nbytes)
+
+
+def topk_sae_decode_bound(rows: int, d_in: int, n_dict: int,
+                          selected: float) -> KernelBound:
+    """Kernel #4's decode launches alone: acts (M, n_dict) bf16, f32 W_dec,
+    the dead mask and t_main, t_aux (M, 1) f32 → y_main, y_aux (M, d_in)
+    f32; 2·d_in operations per entry ``selected`` over both decodes (what
+    the run's data selected)."""
+    nbytes = (2.0 * rows * n_dict + 4.0 * n_dict * d_in + n_dict + 2 * 4.0 * rows
+              + 2 * 4.0 * rows * d_in)
+    return KernelBound(2.0 * selected * d_in, "bf16", nbytes)
+
+
 def topk_sae_forward_bound(rows: int, d_in: int, n_dict: int, k: int, k_aux: int,
                            selected: float | None = None) -> KernelBound:
     """Kernel #4: x (M, d_in) f32, f32 W_enc, b_enc, b_dec, W_dec and the

@@ -11,6 +11,7 @@ from .serialize import (
     params_from_jax,
     params_from_state_dict,
     sae_from_checkpoint,
+    shard_params_from_jax,
     state_dict_from_params,
     sweep_params_from_jax,
 )
@@ -37,6 +38,7 @@ __all__ = [
     "state_dict_from_params",
     "params_from_state_dict",
     "params_from_jax",
+    "shard_params_from_jax",
     "sweep_params_from_jax",
     "sae_from_checkpoint",
 ]

@@ -15,6 +15,13 @@ With a ``mesh`` (data parallelism, each rank a slice of the files) both
 normalisers are the whole batch's: the masked MSE divides by Σmask summed
 over the ranks, and the L1 mean is over every rank's frames. Each rank's
 losses are then its part of the global loss.
+
+With a dictionary split over a mesh's model axis (``model_mesh``, the
+trainer's ``shard_dict``) each rank holds ``n_dict / P`` columns of W and
+their biases: the latents are local, x̂ is the sum over the model group of
+each rank's partial product (bf16 operands, f32 sums and result, rounded
+to the matmul dtype after the sum), and so is the L1 term;
+``normalize_columns`` acts per column and stays local.
 """
 
 from __future__ import annotations
@@ -24,8 +31,10 @@ from typing import NamedTuple
 import torch
 from torch import nn
 
+from ...parallel import mesh as mesh_lib
 from ...parallel.mesh import all_reduce
 from .config import L1AutoEncoderConfig, get_n_dict_components
+from .topk import _mm
 
 
 class L1EncoderOutput(NamedTuple):
@@ -96,6 +105,26 @@ def decode(params, latent: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
     return latent @ W.T
 
 
+class _PartialDecode(torch.autograd.Function):
+    """A split dictionary's partial decode c · Wᵀ for bf16 latents: bf16
+    operands, f32 sums and an f32 result (rounded to bf16 only after the sum
+    over the model group), one tensor-core GEMM on the card (``topk._mm``);
+    the backward's products are bf16 ones, as the unsplit decode's."""
+
+    @staticmethod
+    def forward(ctx, c, W):
+        ctx.save_for_backward(c, W)
+        return _mm(c.reshape(-1, c.shape[-1]), W.T, True).reshape(*c.shape[:-1], W.shape[0])
+
+    @staticmethod
+    def backward(ctx, g):
+        c, W = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        dc = _mm(g2, W, True, out_dtype=torch.bfloat16).reshape(c.shape).to(c.dtype)
+        dW = _mm(g2.T, c.reshape(-1, c.shape[-1]), True, out_dtype=torch.bfloat16)
+        return dc, dW.to(W.dtype)
+
+
 def masked_mse(pred: torch.Tensor, target: torch.Tensor, ignored_value: float = -1.0,
                mesh=None):
     """MSE over elements where target != ignored_value (reference mse_loss);
@@ -108,17 +137,27 @@ def masked_mse(pred: torch.Tensor, target: torch.Tensor, ignored_value: float = 
 
 
 def forward(params, x: torch.Tensor, cfg: L1AutoEncoderConfig, *,
-            pre_normalized: bool = False, matmul_dtype=None, mesh=None) -> L1ForwardOutput:
+            pre_normalized: bool = False, matmul_dtype=None, mesh=None,
+            model_mesh=None) -> L1ForwardOutput:
+    """``mesh``: the data axis' normalisers; ``model_mesh``: the mesh whose
+    model axis splits the dictionary (``params`` are this rank's columns;
+    the latent returned is this rank's)."""
     if not pre_normalized:
         params = normalize_columns(params)
     c = encode(params, x, pre_normalized=True, matmul_dtype=matmul_dtype).latent
-    x_hat = decode(params, c, matmul_dtype=matmul_dtype).to(x.dtype)
     # losses in f32 (matmuls reduced, reductions full)
     l1 = torch.mean(torch.sum(torch.abs(c.to(torch.float32)), dim=-1))
+    if mesh_lib.model_sharded(model_mesh):
+        part = (_PartialDecode.apply(c, params.W) if c.dtype == torch.bfloat16
+                else c @ params.W.T)
+        x_hat = mesh_lib.model_sum(model_mesh, part).to(c.dtype).to(x.dtype)
+        l1 = mesh_lib.model_sum(model_mesh, l1)
+    else:
+        x_hat = decode(params, c, matmul_dtype=matmul_dtype).to(x.dtype)
     if mesh is not None:
         # this rank's share of the mean over every rank's frames (equal
         # slices; · 1 exactly with one rank)
-        l1 = l1 * (1.0 / mesh.size)
+        l1 = l1 * (1.0 / mesh.data_size)
     recon = cfg.recon_alpha * masked_mse(x_hat, x, mesh=mesh)
     return L1ForwardOutput(sae_out=x_hat, encoded=L1EncoderOutput(c), l1_loss=l1,
                            reconstruction_loss=recon)

@@ -9,7 +9,9 @@ so a checkpoint written by either package loads in the other.
 ``params_from_jax`` carries JAX parameters, given as numpy arrays, into the
 port's modules, as ``models/whisper/load.py::state_dict_from_jax`` does for
 Whisper; ``sweep_params_from_jax`` does so for a JAX sweep's stacked (K, …)
-parameters, one module a member.
+parameters, one module a member; ``shard_params_from_jax`` keeps this
+rank's rows of JAX's full parameters for a dictionary split over a mesh's
+model axis (the trainer's ``shard_dict``).
 """
 
 from __future__ import annotations
@@ -76,6 +78,22 @@ def params_from_jax(variant: str, np_params, device="cpu"):
         return L1SAE(t("W"), t("encoder_bias")).to(device)
     return TopKSAE(t("encoder_weight"), t("encoder_bias"), t("W_dec"),
                    t("b_dec")).to(device)
+
+
+def shard_params_from_jax(variant: str, np_params, mesh, device="cpu"):
+    """``params_from_jax`` keeping this rank's dictionary rows of JAX's full
+    parameters (L1's W columns; TopK's encoder and decoder rows, ``b_dec``
+    whole), as ``SAETrainer(shard_dict=True, mesh=mesh)`` holds them. The
+    whole module without a model axis."""
+    from ...parallel.mesh import shard_dict_slice
+
+    full = params_from_jax(variant, np_params)
+    if variant == "l1":
+        return L1SAE(shard_dict_slice(full.W.detach(), 1, mesh),
+                     shard_dict_slice(full.encoder_bias.detach(), 0, mesh)).to(device)
+    return TopKSAE(*(shard_dict_slice(getattr(full, n).detach(), 0, mesh)
+                     for n in ("encoder_weight", "encoder_bias", "W_dec")),
+                   full.b_dec.detach()).to(device)
 
 
 def sweep_params_from_jax(variant: str, stacked_np, device="cpu") -> list:

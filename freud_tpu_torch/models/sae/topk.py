@@ -26,6 +26,21 @@ autograd formulation over kernel #3 (``ops/topk_threshold``); otherwise a
 ``torch.autograd.Function`` whose forward is kernel #4 (``ops/topk_fused``)
 under bf16 matmuls or kernel #3 in f32, and whose backward is the five
 matmuls of JAX's hand-written VJP (``topk.py:409-470``).
+
+A dictionary split over a mesh's model axis (``model_mesh``, the trainer's
+``shard_dict``; ``parallel/mesh.py``): each rank holds ``n_dict / P`` rows
+of ``encoder_weight``, ``encoder_bias`` and ``W_dec`` and all of ``b_dec``,
+and model peers hold the same batch rows. The same functions take the
+``model_mesh``; its collectives are no-ops without one. The encode is
+local (under bf16, kernel #4's encode launch); the thresholds are the whole
+row's (``ops/topk_sharded``: kernel #3's selection across shards, routed
+by the GLOBAL n_dict); each rank decodes its rows (kernel #4's decode
+launch) and the partial decodes are summed over the model group before
+the errors, so every model rank holds the whole loss. AuxK's scale reads
+the global dead count. In the backward the dictionary's gradients stay
+local and ``b_dec``'s encode-path term is summed over the model group.
+The validation ``forward`` gives the top-k values with global indices
+(ties to the lower index) and the summed reconstruction.
 """
 
 from __future__ import annotations
@@ -36,8 +51,10 @@ import numpy as np
 import torch
 from torch import nn
 
-from ...ops.topk_fused import topk_sae_forward
+from ...ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
+from ...ops.topk_sharded import sharded_thresholds_fired
 from ...ops.topk_threshold import bisect_kth, topk_thresholds_fired
+from ...parallel import mesh as mesh_lib
 from ...parallel.mesh import all_reduce
 from .config import TopKAutoEncoderConfig, get_n_dict_components
 
@@ -124,8 +141,10 @@ def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool,
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
-def pre_acts(params, x: torch.Tensor, matmul_dtype=None) -> torch.Tensor:
-    sae_in = x - params.b_dec
+def pre_acts(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:
+    """relu((x − b_dec) · encoder_weightᵀ + encoder_bias); ``b_dec``
+    overrides the parameter (the sharded step passes its model copy)."""
+    sae_in = x - (params.b_dec if b_dec is None else b_dec)
     W = params.encoder_weight
     if matmul_dtype is not None:
         sae_in, W = sae_in.to(matmul_dtype), W.to(matmul_dtype)
@@ -174,14 +193,17 @@ def kth_threshold(acts: torch.Tensor, k: int, mask=None, iters: int = 24) -> tor
     return bisect_kth(masked, k, iters)
 
 
-def _masked_dense_decode(params, acts, threshold, matmul_dtype, select_mask=None):
+def _masked_dense_decode(params, acts, threshold, matmul_dtype, select_mask=None,
+                         model_mesh=None):
     """Decode the latents ≥ the per-position threshold as one product
-    (gradients reach exactly the selected entries)."""
+    (gradients reach exactly the selected entries); a split dictionary's
+    partial products summed over the model group."""
     keep = acts >= threshold
     if select_mask is not None:
         keep = keep & select_mask
     dense = torch.where(keep, acts, torch.zeros((), dtype=acts.dtype, device=acts.device))
-    return _dot_f32(dense, params.W_dec, matmul_dtype) + params.b_dec
+    return mesh_lib.model_sum(model_mesh, _dot_f32(dense, params.W_dec, matmul_dtype)) \
+        + params.b_dec
 
 
 def _total_variance(x: torch.Tensor, mesh=None) -> torch.Tensor:
@@ -193,7 +215,7 @@ def _total_variance(x: torch.Tensor, mesh=None) -> torch.Tensor:
     else:
         # each rank's mean weighted by its share of the files; · 1 exactly
         # with one rank
-        mu = all_reduce(mesh, x.mean(dim=0) * (1.0 / mesh.size))
+        mu = all_reduce(mesh, x.mean(dim=0) * (1.0 / mesh.data_size))
         tv = all_reduce(mesh, torch.sum((x - mu) ** 2))
     return torch.where(tv == 0, torch.ones_like(tv), tv)
 
@@ -207,8 +229,11 @@ def _or_across(mesh, fired: torch.Tensor) -> torch.Tensor:
 
 
 def forward(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
-            dead_mask: Optional[torch.Tensor] = None, matmul_dtype=None) -> TopKForwardOutput:
-    return _forward_impl(params, x, cfg, dead_mask, matmul_dtype)[0]
+            dead_mask: Optional[torch.Tensor] = None, matmul_dtype=None,
+            model_mesh=None) -> TopKForwardOutput:
+    """``model_mesh``: the mesh whose model axis splits the dictionary
+    (``params`` are this rank's rows; every model rank calls it)."""
+    return _forward_impl(params, x, cfg, dead_mask, matmul_dtype, model_mesh)[0]
 
 
 def forward_with_fired(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
@@ -218,14 +243,36 @@ def forward_with_fired(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
     return _forward_impl(params, x, cfg, dead_mask, matmul_dtype)
 
 
-def _forward_impl(params, x, cfg, dead_mask, matmul_dtype):
+def _global_topk(acts: torch.Tensor, k: int, model_mesh) -> TopKEncoderOutput:
+    """``select_topk`` of the whole row from this rank's columns ``acts``,
+    with GLOBAL indices, ties to the lower index: each shard's own top-k
+    (already in that order) gathered in model-rank order, then a stable
+    descending sort, which keeps tied values in index order."""
+    if not mesh_lib.model_sharded(model_mesh):
+        return select_topk(acts, k)
+    n_local = acts.shape[-1]
+    local = select_topk(acts, min(k, n_local))
+    lo = model_mesh.model_rank * n_local
+    vals = mesh_lib.model_all_gather(model_mesh, local.top_acts.contiguous())
+    idx = mesh_lib.model_all_gather(model_mesh, local.top_indices + lo)
+    vals = torch.cat(list(vals.unbind(0)), dim=-1)
+    idx = torch.cat(list(idx.unbind(0)), dim=-1)
+    order = torch.sort(vals, dim=-1, descending=True, stable=True).indices[..., :k]
+    return TopKEncoderOutput(top_acts=torch.gather(vals, -1, order),
+                             top_indices=torch.gather(idx, -1, order))
+
+
+def _forward_impl(params, x, cfg, dead_mask, matmul_dtype, model_mesh=None):
+    if dead_mask is not None and mesh_lib.model_sharded(model_mesh):
+        raise ValueError("the validation forward of a split dictionary takes no dead mask")
     acts = pre_acts(params, x, matmul_dtype=matmul_dtype)
-    top = select_topk(acts, cfg.k)
+    top = _global_topk(acts, cfg.k, model_mesh)
     thresh = top.top_acts.amin(dim=-1, keepdim=True)
     keep = acts >= thresh
     # zero activations never fire: a silent frame's threshold is 0
     fired = (keep & (acts > 0)).reshape(-1, keep.shape[-1]).any(dim=0)
-    sae_out = _masked_dense_decode(params, acts, thresh, matmul_dtype).to(x.dtype)
+    sae_out = _masked_dense_decode(params, acts, thresh, matmul_dtype,
+                                   model_mesh=model_mesh).to(x.dtype)
     e = sae_out - x
     tv = _total_variance(x)
 
@@ -243,8 +290,10 @@ def _forward_impl(params, x, cfg, dead_mask, matmul_dtype):
     fvu = torch.sum(e * e) / tv
 
     if cfg.multi_topk:
-        thresh4 = select_topk(acts, 4 * cfg.k).top_acts.amin(dim=-1, keepdim=True)
-        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype)
+        thresh4 = _global_topk(acts, 4 * cfg.k, model_mesh).top_acts.amin(dim=-1,
+                                                                           keepdim=True)
+        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype,
+                                         model_mesh=model_mesh)
         multi_topk_fvu = torch.sum((multi_out - x) ** 2) / tv
     else:
         multi_topk_fvu = torch.zeros((), dtype=x.dtype, device=x.device)
@@ -256,29 +305,39 @@ def _forward_impl(params, x, cfg, dead_mask, matmul_dtype):
 
 
 def training_losses(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
-                    dead_mask: torch.Tensor, matmul_dtype=None, mesh=None):
+                    dead_mask: torch.Tensor, matmul_dtype=None, mesh=None,
+                    model_mesh=None, n_dead=None):
     """Loss terms and the fired mask for the TRAIN step:
     → ({fvu, auxk_loss, multi_topk_fvu}, fired). Differentiable in the
-    parameters (and in x). With a ``mesh``, ``x`` is this rank's files: the
+    parameters (and in x, unless the dictionary is split). With a ``mesh``, ``x`` is this rank's files: the
     terms are this rank's part of the global loss (normalised by the global
-    total variance) and ``fired`` is the whole batch's."""
-    if cfg.multi_topk or params.W_dec.shape[0] >= 2 ** 15:
-        tv = None if mesh is None else _total_variance(x.detach(), mesh)
-        terms, fired = _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype, tv)
+    total variance) and ``fired`` is the whole batch's. With a
+    ``model_mesh`` whose model axis splits the dictionary, ``params`` and
+    ``dead_mask`` are this rank's rows, ``fired`` is for those rows and
+    ``n_dead``, the whole dictionary's dead count (a 0-dim f32 tensor), is
+    required; without one it is ``dead_mask``'s own."""
+    split = mesh_lib.model_sharded(model_mesh)
+    if n_dead is None:
+        if split:
+            raise ValueError("a split dictionary's losses need the global n_dead")
+        n_dead = dead_mask.sum().to(torch.float32)
+    # the route reads the whole row's width, not a shard's
+    n_dict = params.W_dec.shape[0] * (model_mesh.model_size if split else 1)
+    tv = None if mesh is None else _total_variance(x.detach(), mesh)
+    if cfg.multi_topk or n_dict >= 2 ** 15:
+        terms, fired = _training_losses_xla(params, x, cfg, dead_mask, n_dead, matmul_dtype,
+                                            tv, model_mesh)
         return terms, _or_across(mesh, fired)
     # JAX also sends recipes whose bf16 W_enc + W_dec exceed 64 MB to the
     # formulation above (KERNEL_RESIDENT_BUDGET, topk.py:41-46): that is the
     # TPU kernel's VMEM arena. The CUDA kernel keeps no weights resident, so
     # every size goes to it; the selection is the same exact bf16 selection.
-    bf16 = matmul_dtype == torch.bfloat16
-    args = (x, params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec,
-            dead_mask.to(torch.float32), cfg.k, x.shape[-1] // 2,
-            float(cfg.auxk_alpha), bf16)
-    if mesh is not None:
-        # the global total variance enters as an input: the backward takes
-        # it as a constant of the parameters
-        args = (*args, _total_variance(x.detach(), mesh))
-    fvu, auxk_loss, fired = _FusedLosses.apply(*args)
+    # The global total variance (a data-parallel step's) enters as an input:
+    # the backward takes it as a constant of the parameters.
+    fvu, auxk_loss, fired = _FusedLosses.apply(
+        x, params.encoder_weight, params.encoder_bias, params.W_dec, params.b_dec,
+        dead_mask.to(torch.float32), cfg.k, x.shape[-1] // 2, float(cfg.auxk_alpha),
+        matmul_dtype == torch.bfloat16, tv, n_dead, model_mesh)
     return {
         "fvu": fvu,
         "auxk_loss": auxk_loss,
@@ -286,39 +345,64 @@ def training_losses(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig,
     }, _or_across(mesh, fired)
 
 
+def _thresholds(acts, dead, k, k_aux, model_mesh, k_multi=0):
+    """Kernel #3's thresholds and fired mask of the (M, n) latent ``acts``;
+    across the shards when the dictionary is split."""
+    if mesh_lib.model_sharded(model_mesh):
+        return sharded_thresholds_fired(acts, dead, k, k_aux, model_mesh, k_multi=k_multi)
+    return topk_thresholds_fired(acts, dead, k, k_aux, k_multi=k_multi)
+
+
 class _FusedLosses(torch.autograd.Function):
     """Forward: kernel #4 (bf16) or kernel #3 (f32) plus the loss
     reductions. Backward: JAX's ``_fused_losses_bwd``. Thresholds are
     selection boundaries without gradient. ``tv``: the total variance that
     normalises the losses (a data-parallel step passes the global one);
-    computed from ``x`` when left out."""
+    computed from ``x`` when None. ``n_dead``: the dead count.
+
+    On a dictionary split over ``model_mesh`` the forward is kernel #4's
+    encode launch (bf16) or the f32 product, the selection across shards,
+    then kernel #4's decode launch (bf16) or the f32 products, the partial
+    decodes summed over the model group; in the backward ``b_dec``'s
+    encode-path term (a sum over every dictionary row) is summed over it
+    too, so ``b_dec``'s gradient is the same on every model rank."""
 
     @staticmethod
     def forward(ctx, x, enc_w, enc_b, W_dec, b_dec, dead_f, k, k_aux, alpha, bf16,
-                tv=None):
+                tv, n_dead, model_mesh):
         d_in = x.shape[-1]
         x2 = x.reshape(-1, d_in)
-        if bf16:
+        split = mesh_lib.model_sharded(model_mesh)
+        if bf16 and not split:
             acts, y_main, y_aux, t_main, t_aux, fired = topk_sae_forward(
                 x2, enc_w.T, enc_b, b_dec, W_dec, dead_f, k, k_aux)
         else:
-            acts = torch.relu((x2 - b_dec) @ enc_w.T + enc_b)
+            if bf16:
+                acts = topk_sae_encode(x2, enc_w.T, enc_b, b_dec)
+            else:
+                acts = torch.relu((x2 - b_dec) @ enc_w.T + enc_b)
             dead = dead_f > 0
-            t_main, t_aux, _, fired = topk_thresholds_fired(acts, dead, k, k_aux)
-            zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
-            y_main = torch.where(acts >= t_main, acts, zero) @ W_dec
-            y_aux = torch.where((acts >= t_aux) & dead, acts, zero) @ W_dec
+            t_main, t_aux, _, fired = _thresholds(acts, dead, k, k_aux, model_mesh)
+            if bf16:
+                y_main, y_aux = topk_sae_decode(acts, W_dec, dead_f, t_main, t_aux)
+            else:
+                zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
+                y_main = torch.where(acts >= t_main, acts, zero) @ W_dec
+                y_aux = torch.where((acts >= t_aux) & dead, acts, zero) @ W_dec
+            if split:  # ONE sum of both partial decodes
+                y_main, y_aux = mesh_lib.model_all_reduce(model_mesh,
+                                                          torch.stack([y_main, y_aux]))
         e = y_main + b_dec - x2  # = sae_out − x
         r = y_aux - y_main + x2  # = ê − e   (b_dec cancels)
         ctx.tv_given = tv is not None
         if tv is None:
             tv = _total_variance(x)
-        scale = torch.clamp(dead_f.sum() / k_aux, max=1.0)
+        scale = torch.clamp(n_dead / k_aux, max=1.0)
         fvu = torch.sum(e * e) / tv
         auxk_loss = alpha * scale * torch.sum(r * r) / tv
         ctx.save_for_backward(x, enc_w, W_dec, b_dec, acts, t_main, t_aux,
                               dead_f, e, r, tv, scale)
-        ctx.consts = (alpha, bf16)
+        ctx.consts = (alpha, bf16, model_mesh)
         ctx.mark_non_differentiable(fired)
         return fvu, auxk_loss, fired
 
@@ -326,7 +410,7 @@ class _FusedLosses(torch.autograd.Function):
     def backward(ctx, g_fvu, g_aux, _g_fired):
         x, enc_w, W_dec, b_dec, acts, t_main, t_aux, dead_f, e, r, tv, scale = (
             ctx.saved_tensors)
-        alpha, bf16 = ctx.consts
+        alpha, bf16, model_mesh = ctx.consts
         x2 = x.reshape(-1, x.shape[-1])
         sae_in = x2 - b_dec
         c1 = 2.0 * g_fvu / tv
@@ -356,7 +440,8 @@ class _FusedLosses(torch.autograd.Function):
 
         dW_enc = _mm(d_acts.T, sae_in, bf16)
         db_enc = torch.sum(d_acts, dim=0, dtype=torch.float32)
-        db_dec = db_dec - _mm(db_enc[None, :], enc_w, bf16)[0]
+        db_dec = db_dec - mesh_lib.model_all_reduce(
+            model_mesh, _mm(db_enc[None, :], enc_w, bf16)[0])
 
         dx = dtv = None
         # ∂L/∂tv
@@ -369,37 +454,46 @@ class _FusedLosses(torch.autograd.Function):
                 dx = dx + k_tv * 2.0 * (x - x.mean(dim=0))
         if ctx.tv_given and ctx.needs_input_grad[10]:
             dtv = k_tv
-        return (dx, dW_enc, db_enc, dW_dec, db_dec, None, None, None, None, None, dtv)
+        return (dx, dW_enc, db_enc, dW_dec, db_dec, None, None, None, None, None, dtv,
+                None, None)
 
 
-def _training_losses_xla(params, x, cfg, dead_mask, matmul_dtype=None, tv=None):
+def _training_losses_xla(params, x, cfg, dead_mask, n_dead, matmul_dtype=None, tv=None,
+                         model_mesh=None):
     """Autograd formulation over kernel #3 (multi_topk; n_dict ≥ 2¹⁵):
     every threshold and the fired mask from one pass over the latent.
-    ``tv``: as ``_FusedLosses``'."""
-    acts = pre_acts(params, x, matmul_dtype=matmul_dtype)
-    n_dict = acts.shape[-1]
+    ``tv``, ``n_dead``: as ``_FusedLosses``'. On a dictionary split over
+    ``model_mesh`` the selection runs across the shards, the partial decodes
+    are summed over the model group, and the encode reads ``b_dec`` through
+    ``model_copy``."""
+    acts = pre_acts(params, x, matmul_dtype=matmul_dtype,
+                    b_dec=mesh_lib.model_copy(model_mesh, params.b_dec))
+    n_local = acts.shape[-1]
     k_aux = x.shape[-1] // 2
-    flat = acts.detach().reshape(-1, n_dict)
-    t_main, t_aux, t4, fired = topk_thresholds_fired(
-        flat, dead_mask, cfg.k, k_aux, k_multi=4 * cfg.k if cfg.multi_topk else 0)
+    flat = acts.detach().reshape(-1, n_local)
+    t_main, t_aux, t4, fired = _thresholds(
+        flat, dead_mask, cfg.k, k_aux, model_mesh, k_multi=4 * cfg.k if cfg.multi_topk else 0)
     lead = acts.shape[:-1]
     t_main = t_main.reshape(*lead, 1).to(acts.dtype)
     t_aux = t_aux.reshape(*lead, 1).to(acts.dtype)
 
-    sae_out = _masked_dense_decode(params, acts, t_main, matmul_dtype).to(x.dtype)
+    sae_out = _masked_dense_decode(params, acts, t_main, matmul_dtype,
+                                   model_mesh=model_mesh).to(x.dtype)
     e = sae_out - x
     if tv is None:
         tv = _total_variance(x)
     fvu = torch.sum(e * e) / tv
 
-    scale = torch.clamp(dead_mask.sum() / k_aux, max=1.0)
+    scale = torch.clamp(n_dead / k_aux, max=1.0)
     dead = dead_mask.expand(acts.shape)
-    e_hat = _masked_dense_decode(params, acts, t_aux, matmul_dtype, select_mask=dead)
+    e_hat = _masked_dense_decode(params, acts, t_aux, matmul_dtype, select_mask=dead,
+                                 model_mesh=model_mesh)
     auxk_loss = cfg.auxk_alpha * scale * torch.sum((e_hat - e) ** 2) / tv
 
     if cfg.multi_topk:
         thresh4 = t4.reshape(*lead, 1).to(acts.dtype)
-        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype)
+        multi_out = _masked_dense_decode(params, acts, thresh4, matmul_dtype,
+                                         model_mesh=model_mesh)
         multi_topk_fvu = torch.sum((multi_out - x) ** 2) / tv
     else:
         multi_topk_fvu = torch.zeros((), dtype=x.dtype, device=x.device)

@@ -18,11 +18,17 @@ by a persistent grid), and both masked decodes as one dense GEMM
 whose acts operand is masked in registers. The signature is JAX's:
 ``enc_w_t`` is the encoder weight transposed, (d_in, n_dict).
 
-``topk_sae_forward`` dispatches on the device: a CUDA tensor launches the
-kernel, a CPU tensor takes ``topk_sae_forward_plain``.
-``topk_sae_forward.launches`` counts kernel launches; a launch captured into a
-CUDA graph counts in ``.captured``, and each replay adds it to ``.launches``
-(``train/graph.py``).
+On a dictionary split over a mesh's model axis a row's thresholds are the
+whole row's, which no rank holds: ``topk_sae_encode`` (the centring and the
+encode GEMM) and ``topk_sae_decode`` (the dead bits and both masked decodes
+under given thresholds) are the forward's launches on either side of the
+selection across shards (``ops/topk_sharded``), and each rank decodes its
+own dictionary rows.
+
+Each wrapper dispatches on the device: a CUDA tensor launches the kernel, a
+CPU tensor takes its ``*_plain`` version. ``.launches`` counts a wrapper's
+kernel launches; a launch captured into a CUDA graph counts in
+``.captured``, and each replay adds it to ``.launches`` (``train/graph.py``).
 """
 
 from __future__ import annotations
@@ -32,25 +38,35 @@ import ctypes
 import torch
 
 from .._native import check_cuda_status, cuda_library
-from .topk_threshold import fired_from_bits, topk_thresholds_fired_plain
+from .topk_threshold import count_launch, fired_from_bits, topk_thresholds_fired_plain
+
+
+def topk_sae_encode_plain(x2, enc_w_t, enc_b, b_dec):
+    """Plain PyTorch version of the encode: f32 products of bf16-rounded
+    operands rounded to bf16 (the kernel's bf16 products with f32 sums)."""
+    bf16, f32 = torch.bfloat16, torch.float32
+    sae_in = (x2 - b_dec).to(bf16)
+    z = sae_in.to(f32) @ enc_w_t.to(bf16).to(f32)
+    return torch.relu(z.to(bf16) + enc_b.to(bf16))
+
+
+def topk_sae_decode_plain(acts, W_dec, dead_f, t_main, t_aux):
+    """Plain PyTorch version of the decodes: dense masked products."""
+    f32 = torch.float32
+    af = acts.to(f32)
+    zero = torch.zeros((), dtype=f32, device=af.device)
+    w = W_dec.to(torch.bfloat16).to(f32)
+    y_main = torch.where(af >= t_main, af, zero) @ w
+    y_aux = torch.where((af >= t_aux) & (dead_f > 0), af, zero) @ w
+    return y_main, y_aux
 
 
 def topk_sae_forward_plain(x2, enc_w_t, enc_b, b_dec, W_dec, dead_f,
                            k: int, k_aux: int):
-    """Plain PyTorch version: f32 products of bf16-rounded operands rounded
-    to bf16 (the kernel's bf16 products with f32 sums), then the plain
-    selection and dense masked decodes."""
-    bf16, f32 = torch.bfloat16, torch.float32
-    sae_in = (x2 - b_dec).to(bf16)
-    z = sae_in.to(f32) @ enc_w_t.to(bf16).to(f32)
-    acts = torch.relu(z.to(bf16) + enc_b.to(bf16))
-    dead = dead_f > 0
-    t_main, t_aux, _, fired = topk_thresholds_fired_plain(acts, dead, k, k_aux)
-    af = acts.to(f32)
-    zero = torch.zeros((), dtype=f32, device=af.device)
-    w = W_dec.to(bf16).to(f32)
-    y_main = torch.where(af >= t_main, af, zero) @ w
-    y_aux = torch.where((af >= t_aux) & dead, af, zero) @ w
+    """Plain PyTorch version: the plain encode, selection and decodes."""
+    acts = topk_sae_encode_plain(x2, enc_w_t, enc_b, b_dec)
+    t_main, t_aux, _, fired = topk_thresholds_fired_plain(acts, dead_f > 0, k, k_aux)
+    y_main, y_aux = topk_sae_decode_plain(acts, W_dec, dead_f, t_main, t_aux)
     return acts, y_main, y_aux, t_main, t_aux, fired
 
 
@@ -66,9 +82,51 @@ def _library() -> ctypes.CDLL:
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
         ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
     ]
+    lib.freud_topk_sae_encode.restype = ctypes.c_int
+    lib.freud_topk_sae_encode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p,
+    ]
+    lib.freud_topk_sae_decode.restype = ctypes.c_int
+    lib.freud_topk_sae_decode.argtypes = [
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
+        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
+    ]
     lib.freud_cuda_error_string.restype = ctypes.c_char_p
     lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
     return lib
+
+
+def _check(m_like: torch.Tensor, d: int, n: int, *operands) -> None:
+    """The kernel's shape rules and one device for every operand."""
+    if d % 32 or n % 8:
+        raise ValueError(f"the kernel needs d_in % 32 == 0 and n_dict % 8 == 0: "
+                         f"d_in {d}, n_dict {n}")
+    for t in operands:
+        if t.device != m_like.device:
+            raise ValueError(f"operands must be on {m_like.device}, got {t.device}")
+
+
+def _encode_operands(x2, enc_w_t, enc_b, b_dec):
+    """The checked encode operands as the kernel reads them: → (m, d, n, x2
+    f32, w_enc (n, d) bf16, b_enc bf16, b_dec f32)."""
+    if x2.ndim != 2 or x2.dtype != torch.float32:
+        raise ValueError(f"x2 must be (M, d_in) float32, got {tuple(x2.shape)} {x2.dtype}")
+    m, d = x2.shape
+    n = enc_w_t.shape[1]
+    if enc_w_t.shape != (d, n) or enc_b.shape != (n,) or b_dec.shape != (d,):
+        raise ValueError(f"enc_w_t {tuple(enc_w_t.shape)}, enc_b {tuple(enc_b.shape)}, "
+                         f"b_dec {tuple(b_dec.shape)} do not match d_in {d}")
+    _check(x2, d, n, enc_w_t, enc_b, b_dec)
+    # the (n_dict, d_in) layout is the encoder weight's own (Linear), so the
+    # transpose back is free before the bf16 cast
+    x2 = x2.contiguous()
+    if x2.data_ptr() % 16:  # the centring pass reads x with 16-byte loads
+        x2 = x2.clone()
+    return (m, d, n, x2, enc_w_t.t().to(torch.bfloat16).contiguous(),
+            enc_b.to(torch.bfloat16).contiguous(), b_dec.to(torch.float32).contiguous())
 
 
 def topk_sae_forward(
@@ -85,36 +143,18 @@ def topk_sae_forward(
     f32, t_aux (M, 1) f32, fired (n_dict,) bool). y_* exclude b_dec."""
     if not x2.is_cuda:
         return topk_sae_forward_plain(x2, enc_w_t, enc_b, b_dec, W_dec, dead_f, k, k_aux)
-    if x2.ndim != 2 or x2.dtype != torch.float32:
-        raise ValueError(f"x2 must be (M, d_in) float32, got {tuple(x2.shape)} {x2.dtype}")
-    m, d = x2.shape
-    n = enc_w_t.shape[1]
-    if enc_w_t.shape != (d, n) or W_dec.shape != (n, d):
-        raise ValueError(f"enc_w_t {tuple(enc_w_t.shape)} / W_dec "
-                         f"{tuple(W_dec.shape)} do not match d_in {d}")
-    if enc_b.shape != (n,) or b_dec.shape != (d,) or dead_f.shape != (n,):
-        raise ValueError("enc_b, b_dec, dead_f must be (n_dict,), (d_in,), (n_dict,)")
-    if d % 32 or n % 8:
-        raise ValueError(f"the kernel needs d_in % 32 == 0 and n_dict % 8 == 0: "
-                         f"d_in {d}, n_dict {n}")
+    m, d, n, x2, w_enc, b_enc, b_dec32 = _encode_operands(x2, enc_w_t, enc_b, b_dec)
+    if W_dec.shape != (n, d) or dead_f.shape != (n,):
+        raise ValueError(f"W_dec {tuple(W_dec.shape)}, dead_f {tuple(dead_f.shape)} do not "
+                         f"match n_dict {n}, d_in {d}")
+    _check(x2, d, n, W_dec, dead_f)
     if min(k, k_aux) < 1:
         raise ValueError(f"k {k}, k_aux {k_aux} must be >= 1")
-    for t in (enc_w_t, enc_b, b_dec, W_dec, dead_f):
-        if t.device != x2.device:
-            raise ValueError(f"operands must be on {x2.device}, got {t.device}")
     lib = _library()
     max_n = lib.freud_topk_fused_max_n()
     if n > max_n:
         raise ValueError(f"n_dict {n} is wider than the selection's rows ({max_n})")
-    # operand preparation: the (n_dict, d_in) layout is the encoder weight's
-    # own (Linear), so the transpose back is free before the bf16 cast
-    x2 = x2.contiguous()
-    if x2.data_ptr() % 16:  # the centring pass reads x with 16-byte loads
-        x2 = x2.clone()
-    w_enc = enc_w_t.t().to(torch.bfloat16).contiguous()
-    b_enc = enc_b.to(torch.bfloat16).contiguous()
     w_dec = W_dec.to(torch.bfloat16).contiguous()
-    b_dec32 = b_dec.to(torch.float32).contiguous()
     dead = (dead_f > 0).to(torch.uint8)
     dev = x2.device
     acts = torch.empty((m, n), dtype=torch.bfloat16, device=dev)
@@ -136,12 +176,76 @@ def topk_sae_forward(
             t_aux.data_ptr(), fired.data_ptr(), xs.data_ptr(), dead_bits.data_ptr(),
             stream)
     check_cuda_status(status, "topk SAE forward kernel", lib)
-    if torch.cuda.is_current_stream_capturing():
-        topk_sae_forward.captured += 1  # launched by each replay (train/graph.py)
-    else:
-        topk_sae_forward.launches += 1
+    count_launch(topk_sae_forward)
     return acts, y_main, y_aux, t_main, t_aux, fired_from_bits(fired, n)
 
 
 topk_sae_forward.launches = 0
 topk_sae_forward.captured = 0
+
+
+def topk_sae_encode(x2: torch.Tensor, enc_w_t: torch.Tensor, enc_b: torch.Tensor,
+                    b_dec: torch.Tensor) -> torch.Tensor:
+    """The forward's encode (operands as ``topk_sae_forward``'s): → acts
+    (M, n_dict) bf16."""
+    if not x2.is_cuda:
+        return topk_sae_encode_plain(x2, enc_w_t, enc_b, b_dec)
+    m, d, n, x2, w_enc, b_enc, b_dec32 = _encode_operands(x2, enc_w_t, enc_b, b_dec)
+    lib = _library()
+    acts = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
+    xs = torch.empty((m, d), dtype=torch.bfloat16, device=x2.device)  # bf16(x − b_dec)
+    with torch.cuda.device(x2.device):
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        status = lib.freud_topk_sae_encode(
+            x2.data_ptr(), b_dec32.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), m, n, d,
+            acts.data_ptr(), xs.data_ptr(), stream)
+    check_cuda_status(status, "topk SAE encode kernel", lib)
+    count_launch(topk_sae_encode)
+    return acts
+
+
+topk_sae_encode.launches = 0
+topk_sae_encode.captured = 0
+
+
+def topk_sae_decode(acts: torch.Tensor, W_dec: torch.Tensor, dead_f: torch.Tensor,
+                    t_main: torch.Tensor, t_aux: torch.Tensor):
+    """The forward's masked decodes of acts (M, n_dict) bf16 under the
+    thresholds t_main, t_aux (M, 1) f32, each a bf16 value (the exact path's,
+    +inf for none): → (y_main, y_aux) (M, d_in) f32, b_dec excluded."""
+    if not acts.is_cuda:
+        return topk_sae_decode_plain(acts, W_dec, dead_f, t_main, t_aux)
+    if acts.ndim != 2 or acts.dtype != torch.bfloat16:
+        raise ValueError(f"acts must be (M, n_dict) bfloat16, got {tuple(acts.shape)} "
+                         f"{acts.dtype}")
+    m, n = acts.shape
+    d = W_dec.shape[1]
+    if W_dec.shape != (n, d) or dead_f.shape != (n,) or t_main.shape != (m, 1) \
+            or t_aux.shape != (m, 1):
+        raise ValueError(f"W_dec {tuple(W_dec.shape)}, dead_f {tuple(dead_f.shape)}, "
+                         f"t_main {tuple(t_main.shape)}, t_aux {tuple(t_aux.shape)} do not "
+                         f"match acts {(m, n)}")
+    _check(acts, d, n, W_dec, dead_f, t_main, t_aux)
+    lib = _library()
+    dev = acts.device
+    acts = acts.contiguous()
+    w_dec = W_dec.to(torch.bfloat16).contiguous()
+    dead = (dead_f > 0).to(torch.uint8)
+    t_main = t_main.to(torch.float32).contiguous()
+    t_aux = t_aux.to(torch.float32).contiguous()
+    y_main = torch.empty((m, d), dtype=torch.float32, device=dev)
+    y_aux = torch.empty_like(y_main)
+    dead_bits = torch.zeros((2 * -(-n // 64),), dtype=torch.int32, device=dev)  # scratch
+    with torch.cuda.device(dev):
+        stream = torch.cuda.current_stream(dev).cuda_stream
+        status = lib.freud_topk_sae_decode(
+            acts.data_ptr(), w_dec.data_ptr(), dead.data_ptr(), t_main.data_ptr(),
+            t_aux.data_ptr(), m, n, d, y_main.data_ptr(), y_aux.data_ptr(),
+            dead_bits.data_ptr(), stream)
+    check_cuda_status(status, "topk SAE decode kernel", lib)
+    count_launch(topk_sae_decode)
+    return y_main, y_aux
+
+
+topk_sae_decode.launches = 0
+topk_sae_decode.captured = 0

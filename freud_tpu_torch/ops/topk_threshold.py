@@ -122,6 +122,16 @@ def replay_kth(masked: torch.Tensor, k: int, iters: int = ITERS) -> torch.Tensor
     return lo
 
 
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel: into ``fn.captured`` while the stream
+    captures a CUDA graph (each replay adds it to ``fn.launches``,
+    ``train/graph.py``), else into ``fn.launches``."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
 def fired_from_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     """(ceil(n / 32),) int32 words, bit j % 32 of word j / 32 for column j
     → (n,) bool."""
@@ -211,10 +221,7 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
             t_main.data_ptr(), t_aux.data_ptr(),
             t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
     check_cuda_status(status, "topk thresholds kernel", lib)
-    if torch.cuda.is_current_stream_capturing():
-        topk_thresholds_fired.captured += 1  # launched by each replay (train/graph.py)
-    else:
-        topk_thresholds_fired.launches += 1
+    count_launch(topk_thresholds_fired)
     return t_main, t_aux, t_multi, fired_from_bits(fired, n)
 
 

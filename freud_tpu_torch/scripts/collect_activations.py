@@ -82,8 +82,8 @@ def collection_shard_setup(out_folder: str, data_parallel: bool, device=None):
         return None, None, out_folder
     world = mesh_lib.make_mesh(device=resolve_device(device))
     if mesh_lib.is_multiprocess(world):
-        return (mesh_lib.local_mesh(world), (world.rank, world.size),
-                str(Path(out_folder) / f"shard{world.rank}"))
+        return (mesh_lib.local_mesh(world), (world.data_rank, world.data_size),
+                str(Path(out_folder) / f"shard{world.data_rank}"))
     return mesh_lib.local_mesh(world), None, out_folder
 
 

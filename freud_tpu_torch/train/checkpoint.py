@@ -11,6 +11,14 @@ resumes the other's checkpoint.
 
 ``AsyncCheckpointWriter`` and the RNG-state helpers are framework-free and
 re-homed as they are.
+
+A dictionary split over a mesh's model axis (the trainer's ``shard_dict``)
+is written whole: ``gather_dict_state`` joins every model rank's rows of
+the parameters, the moments that mirror them and the counters, and
+``slice_dict_state`` takes a rank's rows of a full checkpoint's tensors
+(``dict_axes``: the dictionary axis of each parameter, JAX's
+``dict_sharding`` axes). A checkpoint written sharded therefore loads
+unsharded, into either package, and the other way round.
 """
 
 from __future__ import annotations
@@ -22,11 +30,34 @@ from typing import Callable
 import numpy as np
 import torch
 
+from ..parallel import mesh as mesh_lib
 from ..models.sae.serialize import (
     load_checkpoint_file,
     save_checkpoint,
     state_dict_from_params,
 )
+
+
+def dict_axes(variant: str) -> list:
+    """The dictionary axis of each parameter in the optimizer's order, None
+    for a replicated one: L1's W (d_in, n_dict) on 1 and its bias on 0;
+    TopK's encoder weight, encoder bias and W_dec on 0, b_dec replicated."""
+    if variant not in ("l1", "topk"):
+        raise ValueError(f"Invalid autoencoder variant: {variant!r}, must be 'l1' or 'topk'")
+    return [1, 0] if variant == "l1" else [0, 0, 0, None]
+
+
+def gather_dict_state(tensors: list, axes: list, mesh) -> list:
+    """The full tensors from this rank's rows (every model rank calls it;
+    a replicated tensor is its own)."""
+    return [t if a is None else mesh_lib.gather_dict(mesh, t, a)
+            for t, a in zip(tensors, axes)]
+
+
+def slice_dict_state(tensors: list, axes: list, mesh) -> list:
+    """This rank's rows of full tensors (a replicated tensor whole)."""
+    return [t if a is None else mesh_lib.shard_dict_slice(t, a, mesh)
+            for t, a in zip(tensors, axes)]
 
 
 def save_trainer_checkpoint(

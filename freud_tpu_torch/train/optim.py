@@ -27,6 +27,12 @@ its start, so the two differ there by ~1e-6 of the parameters, inside the
 optax test's 1e-5). The moments, the count and the parameters are updated
 in place at fixed addresses. The schedule's ``.host`` is the same formula
 in Python, for logging.
+
+With a dictionary split over a mesh's model axis (``model_mesh``, the
+trainer's ``shard_dict``) every update is elementwise and stays local to
+the rank's rows; only the clip's global norm crosses ranks: Σg² of the
+sharded parameters is summed over the model group, and the replicated
+ones (TopK's ``b_dec``) count once.
 """
 
 from __future__ import annotations
@@ -34,6 +40,9 @@ from __future__ import annotations
 import math
 
 import torch
+
+from ..parallel import mesh as mesh_lib
+from .checkpoint import dict_axes
 
 
 def make_schedule(scheduler: str, lr: float, steps: int, scheduler_params: dict):
@@ -75,7 +84,9 @@ class SAEOptimizer:
     and the parameters on the parameters' device."""
 
     def __init__(self, kind: str, params: list, schedule, clip_thresh: float,
-                 weight_decay: float = 0.0):
+                 weight_decay: float = 0.0, model_mesh=None, variant=None):
+        """``model_mesh``: the mesh whose model axis splits the dictionary of
+        ``variant``'s parameters (``checkpoint.dict_axes``); None: unsplit."""
         if kind not in ("adam", "radam"):
             raise ValueError(f"Invalid optimizer: {kind!r}, must be 'radam' or 'adam'")
         self.kind = kind
@@ -90,6 +101,24 @@ class SAEOptimizer:
         self.count = torch.zeros((), dtype=torch.int32, device=dev)
         self.mu = [torch.zeros_like(p) for p in params]
         self.nu = [torch.zeros_like(p) for p in params]
+        self.model_mesh = model_mesh if mesh_lib.model_sharded(model_mesh) else None
+        if self.model_mesh is not None:
+            # made here: a step captured in a CUDA graph copies nothing from
+            # the host
+            self._split = torch.tensor([a is not None for a in dict_axes(variant)],
+                                       device=dev)
+
+    def global_norm(self, grads: list) -> torch.Tensor:
+        """‖g‖ over every parameter; over the whole dictionary when it is
+        split (Σg² of the shards summed over the model group, the
+        replicated parameters counted once)."""
+        norms = torch._foreach_norm(grads)
+        if self.model_mesh is None:
+            return torch.linalg.vector_norm(torch.stack(norms))
+        sq = torch.stack(norms) ** 2
+        split = mesh_lib.model_all_reduce(self.model_mesh,
+                                          torch.where(self._split, sq, 0.0).sum())
+        return torch.sqrt(split + torch.where(self._split, 0.0, sq).sum())
 
     def step(self) -> None:
         """One update from the parameters' ``.grad``."""
@@ -100,7 +129,7 @@ class SAEOptimizer:
         """One update from ``grads`` (the parameters' order), with no host
         synchronisation and no Python value that depends on the count.
         Multi-tensor ops: a launch covers every parameter."""
-        norm = torch.linalg.vector_norm(torch.stack(torch._foreach_norm(grads)))
+        norm = self.global_norm(grads)
         # optax clip_by_global_norm: g under the threshold, else scaled to it
         grads = torch._foreach_mul(grads, torch.where(
             norm < self.clip_thresh, 1.0, self.clip_thresh / norm).to(grads[0].dtype))
@@ -163,8 +192,11 @@ class SAEOptimizer:
 def make_optimizer(optimizer: str, scheduler: str, lr: float, steps: int,
                    params: list, weight_decay: float = 0.0,
                    clip_thresh: float = 1.0,
-                   scheduler_params: dict | None = None):
-    """→ (SAEOptimizer, schedule) for ``params`` in the JAX leaf order."""
+                   scheduler_params: dict | None = None,
+                   model_mesh=None, variant=None):
+    """→ (SAEOptimizer, schedule) for ``params`` in the JAX leaf order
+    (``model_mesh``, ``variant``: ``SAEOptimizer``'s)."""
     schedule = make_schedule(scheduler, lr, steps, scheduler_params or {})
     return SAEOptimizer(optimizer, params, schedule, clip_thresh,
-                        weight_decay=weight_decay), schedule
+                        weight_decay=weight_decay, model_mesh=model_mesh,
+                        variant=variant), schedule

@@ -34,25 +34,38 @@ loader and the device cache resample the padding rows from valid ones
 file name.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``): one process drives one
-card, and each rank steps on its slice of every global batch. The
-parameters start equal on every rank (broadcast from rank 0 once); each
-rank differentiates its part of the GLOBAL loss (the losses' normalisers
-are reduced across the ranks first, ``models/sae/{topk,l1}.py``), the
-partial gradients and the logged metrics are summed across the ranks in one
-all-reduce, and the clip and the update run on the summed gradient. The
-dead-feature counters age by the global frame count from the fired mask
-ORed across the ranks, so they stay identical on every rank. With one
-rank every step equals the one-process step bit for bit.
+card, and each data rank steps on its slice of every global batch. The
+parameters start equal on every data rank (broadcast from data rank 0
+once); each rank differentiates its part of the GLOBAL loss (the losses'
+normalisers are reduced across the data ranks first,
+``models/sae/{topk,l1}.py``), the partial gradients and the logged metrics
+are summed across the data group in one all-reduce, and the clip and the
+update run on the summed gradient. The dead-feature counters age by the
+global frame count from the fired mask ORed across the data ranks, so they
+stay identical on every rank. With one rank every step equals the
+one-process step bit for bit.
+
+The model axis (``shard_dict=True`` on ``make_mesh(model_parallel=P)``,
+JAX's ``shard_dict``): each model rank holds ``n_dict / P`` dictionary rows
+(L1: columns of W), their optimizer moments and their dead counters; TopK's
+``b_dec`` is replicated. The whole dictionary is initialised from the seed
+and each rank keeps its rows, so a sharded trainer starts bit-equal to an
+unsharded one. A step's losses sum the ranks' partial decodes over the
+model group (and TopK selects across the shards, ``ops/topk_sharded``), the
+clip's norm sums over it, and everything else is local. Model peers hold
+the same batch rows. ``save``/``save_async`` gather the full tensors over
+the model group (every rank calls them; rank 0 writes), so the ``.pth``
+has the unsharded keys and shapes; ``load`` keeps the rank's rows of a
+full checkpoint. With P = 1 ``shard_dict`` changes nothing.
 
 ``train(mesh=)`` over several ranks is JAX's pod run: each rank reads its
 rows of every global batch (``host_bounds``), or caches and samples its own
 file stratum (``process_shard``), and validation, checkpoints, TensorBoard
 and transcripts run on rank 0 only. A pod chunk (``train_chunk_pod``) is
 one CUDA graph under NCCL, whose collectives capture; under gloo, whose
-collectives cannot be captured, it runs its steps eagerly.
-
-Not in this port yet: ``shard_dict`` (the model axis, ROADMAP Queue 1
-#12c).
+collectives cannot be captured, it runs its steps eagerly. ``train``
+takes no ``shard_dict`` (nor does JAX's): over a 2-D mesh it trains a
+replicated dictionary over the data axis.
 """
 
 from __future__ import annotations
@@ -85,20 +98,25 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import topk as topk_mod
 from ..models.sae.serialize import params_from_state_dict
 from ..models.whisper.runtime import WhisperRuntime, pin_full_f32
-from ..ops.topk_fused import topk_sae_forward
+from ..ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
+from ..ops.topk_sharded import combine_shard_thresholds, shard_candidates
 from ..ops.topk_threshold import topk_thresholds_fired
 from ..parallel import mesh as mesh_lib
 from .checkpoint import (
     AsyncCheckpointWriter,
+    dict_axes,
+    gather_dict_state,
     load_trainer_checkpoint,
     save_trainer_checkpoint,
+    slice_dict_state,
 )
 from .graph import run_chunk
 from .optim import make_optimizer
 
 # the kernel wrappers a train step can launch (their launches are counted
 # under graph replay)
-STEP_KERNELS = (topk_sae_forward, topk_thresholds_fired)
+STEP_KERNELS = (topk_sae_forward, topk_sae_encode, topk_sae_decode, topk_thresholds_fired,
+                shard_candidates, combine_shard_thresholds)
 N_TRANSCRIPTS = 4  # validation files transcribed per validation
 
 
@@ -138,17 +156,22 @@ class SAETrainer:
         mesh=None,
         shard_dict: bool = False,
     ):
-        """``device``: default the mesh's card, else the CPU. ``mesh``: train
-        data-parallel over its ranks (``train_step(..., host_local=True)``
-        takes this rank's rows; the parameters are broadcast from rank 0)."""
+        """``device``: default the mesh's card, else the card (``"cpu"`` for
+        the CPU; without CUDA anything else raises). ``mesh``: train
+        data-parallel over its data axis (``train_step(..., host_local=True)``
+        takes this rank's rows; the parameters are broadcast from data rank
+        0). ``shard_dict``: split the dictionary over the mesh's model axis
+        (module docstring)."""
         assert variant in ("l1", "topk"), (
             f"Invalid autoencoder variant: {variant}, must be 'l1' or 'topk'"
         )
-        if shard_dict:
-            raise NotImplementedError(mesh_lib.MODEL_AXIS_TODO)
         self.mesh = mesh_lib.check_mesh(mesh)
         if device is None:
-            device = mesh.device if mesh is not None else "cpu"
+            device = (mesh.device if mesh is not None else
+                      resolve_device(None, what="trainer",
+                                     hint='pass device="cpu" to train on the CPU'))
+        # the mesh whose model axis splits the dictionary (None: whole)
+        self.model_mesh = mesh if shard_dict and mesh_lib.model_sharded(mesh) else None
         self.variant = variant
         self.raw_config = dict(autoencoder_config)
         self.cfg = sae_config.config_for_variant(variant, autoencoder_config)
@@ -161,24 +184,44 @@ class SAETrainer:
         self.device = torch.device(device)
         pin_full_f32(self.device)  # f32 products mean f32, not TF32
         init = l1_mod.init_l1 if variant == "l1" else topk_mod.init_topk
-        self.params = init(activation_size, self.cfg, seed=seed, device=self.device)
+        self.n_dict_components = sae_config.get_n_dict_components(
+            activation_size, self.cfg.expansion_factor, self.cfg.n_dict_components)
+        # the dictionary rows this rank holds (all of them unless sharded)
+        self.dict_lo, self.dict_hi = mesh_lib.dict_bounds(self.n_dict_components,
+                                                          self.model_mesh)
+        if self.model_mesh is None:
+            self.params = init(activation_size, self.cfg, seed=seed, device=self.device)
+        else:
+            # the WHOLE dictionary from the seed (L1's is a QR of the full
+            # matrix), then this rank's rows: the start of an unsharded run
+            full = init(activation_size, self.cfg, seed=seed, device="cpu")
+            self.params = self._shard(full).to(self.device)
         if mesh is not None:
             if torch.device(device) != mesh.device:
                 raise ValueError(f"device {device} is not the mesh's {mesh.device}")
-            # every rank starts from rank 0's parameters
+            # every data rank starts from data rank 0's parameters (one
+            # broadcast a model index)
             mesh_lib.broadcast_(mesh, list(self.params.parameters()))
-        self.n_dict_components = sae_config.get_n_dict_components(
-            activation_size, self.cfg.expansion_factor, self.cfg.n_dict_components)
         self.opt, self.schedule = make_optimizer(
             optimizer, scheduler, lr, steps, _param_list(variant, self.params),
             weight_decay=weight_decay, clip_thresh=clip_thresh,
-            scheduler_params=scheduler_params)
+            scheduler_params=scheduler_params, model_mesh=self.model_mesh,
+            variant=variant)
         self.num_frames_since_fired = torch.zeros(
-            (self.n_dict_components,), dtype=torch.int32, device=self.device)
+            (self.dict_hi - self.dict_lo,), dtype=torch.int32, device=self.device)
         self.step = 0
         self.best_val_loss = float("inf")
         # (n_steps, batch_size) → (window, index buffer, CapturedChunk)
         self._chunks: dict = {}
+
+    def _shard(self, params):
+        """This rank's rows of a full parameter module (itself unsharded)."""
+        if self.model_mesh is None:
+            return params
+        kept = slice_dict_state(_param_list(self.variant, params), dict_axes(self.variant),
+                                self.model_mesh)
+        mod = l1_mod.L1SAE if self.variant == "l1" else topk_mod.TopKSAE
+        return mod(*kept)
 
     # ------------------------------------------------------------- steps
 
@@ -191,8 +234,10 @@ class SAETrainer:
         """The step body on a (B, T, d) f32 device batch: → metrics as 0-dim
         device tensors. No host synchronisation, no rebinding: a CUDA graph
         replays it. With a ``mesh``, ``x`` is this rank's slice of the global
-        batch and the step is the data-parallel one (module docstring)."""
+        batch and the step is the data-parallel one (module docstring); a
+        split dictionary's collectives run either way."""
         mm = torch.bfloat16 if self.amp else None
+        mmesh = self.model_mesh
         if self.variant == "l1":
             with torch.no_grad():
                 self.params.W.copy_(l1_mod.normalize_columns(self.params).W)
@@ -203,30 +248,37 @@ class SAETrainer:
                                for n, t in self.params.named_parameters()})
         if self.variant == "l1":
             out = l1_mod.forward(p, x, self.cfg, pre_normalized=True, matmul_dtype=mm,
-                                 mesh=mesh)
+                                 mesh=mesh, model_mesh=mmesh)
             loss = out.reconstruction_loss + out.l1_loss
             metrics = {"loss": loss, "loss_recon": out.reconstruction_loss,
                        "loss_l1": out.l1_loss}
         else:
             dead_mask = self.num_frames_since_fired > self.dead_feature_threshold
+            if mmesh is None:
+                n_dead, dead_pct = None, dead_mask.float().mean()
+            else:  # the whole dictionary's dead count
+                n_dead = mesh_lib.model_all_reduce(mmesh, dead_mask.sum().to(torch.float32))
+                dead_pct = n_dead / self.n_dict_components
             terms, fired = topk_mod.training_losses(p, x, self.cfg, dead_mask,
-                                                    matmul_dtype=mm, mesh=mesh)
+                                                    matmul_dtype=mm, mesh=mesh,
+                                                    model_mesh=mmesh, n_dead=n_dead)
             loss = terms["fvu"] + terms["auxk_loss"] + terms["multi_topk_fvu"] / 8
             metrics = {"loss": loss, "fvu": terms["fvu"],
                        "auxk_loss": terms["auxk_loss"],
                        "multi_topk_fvu": terms["multi_topk_fvu"],
-                       "dead_pct": dead_mask.float().mean()}
+                       "dead_pct": dead_pct}
         grads = torch.autograd.grad(loss, _param_list(self.variant, p))
         metrics = {k: v.detach() for k, v in metrics.items()}
         frames = x.shape[0] * x.shape[1]
         if mesh is not None:
-            # ONE all-reduce: the partial gradients and this rank's parts of
-            # the logged losses (dead_pct is the same on every rank)
+            # ONE all-reduce over the data group: the partial gradients and
+            # this rank's parts of the logged losses (dead_pct is the same on
+            # every rank)
             names = [k for k in metrics if k != "dead_pct"]
             *grads, summed = mesh_lib.all_reduce_flat(
                 mesh, [*grads, torch.stack([metrics[k] for k in names])])
             metrics.update({k: summed[i] for i, k in enumerate(names)})
-            frames *= mesh.size
+            frames *= mesh.data_size
         self.opt.update(grads)
         if self.variant == "topk":
             with torch.no_grad():
@@ -253,10 +305,11 @@ class SAETrainer:
             metrics = self._step(x, mesh)
         else:
             b = int(np.shape(batch)[0])
-            if mesh.size > 1 and b >= mesh.size and b % mesh.size:
+            n_data = mesh.data_size
+            if n_data > 1 and b >= n_data and b % n_data:
                 raise ValueError(
                     f"training batch of {b} is not divisible by the mesh's data "
-                    f"axis ({mesh.size}); pick a divisible train batch size "
+                    f"axis ({n_data}); pick a divisible train batch size "
                     "(validation tails may be ragged, training batches must not be)")
             x = mesh_lib.put_batch(mesh, batch).to(torch.float32)
             metrics = self._step(x, mesh if mesh_lib.divisible_batch(b, mesh) else None)
@@ -292,7 +345,7 @@ class SAETrainer:
         once per (n_steps, batch_size) (``train/graph.py``); a step that
         will not capture raises. On the CPU they run as a loop of the same
         body."""
-        if mesh_lib.is_multiprocess(self.mesh):
+        if self.mesh is not None and self.mesh.data_size > 1:
             raise ValueError("a pod's ranks sample their own strata: use "
                              "train_chunk_pod on a process_shard cache")
         return self._run_chunk(cache, batch_size, n_steps, indices, "train_chunk")
@@ -344,10 +397,11 @@ class SAETrainer:
         ``batch_rows`` rows: ~18 bytes per latent entry (the bf16 latent,
         its masks and the backward's bf16 cotangents; 17.3 measured at
         large_v1_audioset's peak), ~40 per input entry, and parameters,
-        gradients and both moments."""
+        gradients and both moments. A split dictionary counts this rank's
+        rows."""
         n_params = self.param_count()
-        return (batch_rows * (18 * self.n_dict_components + 40 * self.activation_size)
-                + 16 * n_params)
+        width = self.dict_hi - self.dict_lo
+        return (batch_rows * (18 * width + 40 * self.activation_size) + 16 * n_params)
 
     def current_lr(self, step: Optional[int] = None) -> float:
         """The lr of update ``step`` (1-based; default the last one)."""
@@ -362,23 +416,29 @@ class SAETrainer:
         ``sae_out``, also each file's reconstruction (``sae_out``, f32) and
         the transcript transport head (``sae_out_head``: the first
         N_TRANSCRIPTS reconstructions rounded to bf16, as the JAX package
-        fetches them for the validation transcripts)."""
+        fetches them for the validation transcripts). A split dictionary is
+        validated by every model rank together (the call is collective),
+        each holding the whole file statistics and ``mag`` over every
+        feature."""
         x = torch.as_tensor(batch).to(self.device, torch.float32)
         rows = []
         recons = []
         p = self.params
+        mmesh = self.model_mesh
         if self.variant == "l1":
             p = l1_mod.normalize_columns(p)
         for xi in x:
             if self.variant == "l1":
-                out = l1_mod.forward(p, xi[None], self.cfg, pre_normalized=True)
+                out = l1_mod.forward(p, xi[None], self.cfg, pre_normalized=True,
+                                     model_mesh=mmesh)
                 rows.append({
                     "recon": out.reconstruction_loss, "l1": out.l1_loss,
                     "mse": torch.mean((out.sae_out[0] - xi) ** 2),
-                    "mag": out.encoded.latent[0].abs().amax(dim=0),
+                    "mag": mesh_lib.gather_dict(
+                        mmesh, out.encoded.latent[0].abs().amax(dim=0), 0),
                 })
             else:
-                out = topk_mod.forward(p, xi[None], self.cfg)
+                out = topk_mod.forward(p, xi[None], self.cfg, model_mesh=mmesh)
                 # per-feature max |top activation| over the file's frames
                 mag = torch.zeros((self.n_dict_components,), device=x.device)
                 mag = mag.scatter_reduce(
@@ -412,21 +472,54 @@ class SAETrainer:
     def _extra(self, counter: torch.Tensor) -> dict:
         return {"num_frames_since_fired": counter.detach().cpu().to(torch.int32)}
 
+    def _full_state(self, copy: bool = True):
+        """(params module, optimizer leaves, counters) of the WHOLE
+        dictionary, as fresh device copies (``copy``) or the live tensors:
+        gathered over the model group when it is split (a collective: every
+        rank calls it)."""
+        def own(t):
+            return t.detach().clone() if copy else t.detach()
+
+        with torch.no_grad():
+            params = [own(t) for t in _param_list(self.variant, self.params)]
+            leaves = [own(t) for t in self.opt.state_leaves()]
+            counter = own(self.num_frames_since_fired)
+            if self.model_mesh is not None:
+                axes = dict_axes(self.variant)
+                params = gather_dict_state(params, axes, self.model_mesh)
+                # [count, mu…, nu…, count]: the moments mirror the parameters
+                leaves = [leaves[0], *gather_dict_state(leaves[1:-1], axes * 2,
+                                                        self.model_mesh), leaves[-1]]
+                counter = mesh_lib.gather_dict(self.model_mesh, counter, 0)
+        mod = l1_mod.L1SAE if self.variant == "l1" else topk_mod.TopKSAE
+        return mod(*params), leaves, counter
+
+    def _writes(self) -> bool:
+        """Whether this rank writes a checkpoint: rank 0 of a split
+        dictionary's mesh; every caller otherwise."""
+        return self.model_mesh is None or self.model_mesh.rank == 0
+
     def save(self, path: str, hparams: dict) -> None:
-        save_trainer_checkpoint(
-            path, self.variant, self.params, self.opt.state_leaves(), self.step,
-            self.best_val_loss, hparams, extra=self._extra(self.num_frames_since_fired))
+        """The checkpoint of the whole dictionary. With a split dictionary
+        every rank calls it (the gather is collective) and rank 0 writes."""
+        params, leaves, counter = self._full_state(copy=False)
+        if self._writes():
+            save_trainer_checkpoint(
+                path, self.variant, params, leaves, self.step, self.best_val_loss,
+                hparams, extra=self._extra(counter))
 
     def save_async(self, paths: list[str], hparams: dict,
                    writer: AsyncCheckpointWriter) -> None:
         """Queue a write-behind checkpoint of the CURRENT state to every path
         in ``paths`` (one snapshot, N disk writes). The snapshot is an
         on-device copy taken now: the next step updates the live tensors in
-        place. Host RNG states are captured here, on the training thread."""
-        with torch.no_grad():
-            snap_params = {k: t.detach().clone() for k, t in self.params.named_parameters()}
-            snap_leaves = [t.detach().clone() for t in self.opt.state_leaves()]
-            snap_fired = self.num_frames_since_fired.clone()
+        place. Host RNG states are captured here, on the training thread.
+        With a split dictionary the snapshot is gathered now, on every rank,
+        and rank 0 queues the write."""
+        params, snap_leaves, snap_fired = self._full_state()
+        if not self._writes():
+            return
+        snap_params = dict(params.named_parameters())
         step, best, variant = self.step, self.best_val_loss, self.variant
         rng_states = (np.random.get_state(), random.getstate())
 
@@ -451,20 +544,29 @@ class SAETrainer:
         writer.submit(work, coalesce=coalesce)
 
     def load(self, path: str) -> None:
+        """Resume from a checkpoint of the whole dictionary (either
+        package's); a split dictionary keeps this rank's rows of it."""
         ckpt, step, best = load_trainer_checkpoint(path)
-        loaded = params_from_state_dict(self.variant, ckpt["model"], self.device)
+        loaded = self._shard(params_from_state_dict(self.variant, ckpt["model"]))
         with torch.no_grad():
             for dst, src in zip(_param_list(self.variant, self.params),
                                 _param_list(self.variant, loaded)):
                 dst.copy_(src)
         optimizer = ckpt.get("optimizer")
         if isinstance(optimizer, dict) and "leaves" in optimizer:
-            self.opt.load_state_leaves(optimizer["leaves"])
+            leaves = list(optimizer["leaves"])
+            if self.model_mesh is not None and len(leaves) > 2:
+                axes = dict_axes(self.variant)
+                leaves = [leaves[0], *slice_dict_state(
+                    [torch.as_tensor(np.asarray(v)) for v in leaves[1:-1]], axes * 2,
+                    self.model_mesh), leaves[-1]]
+            self.opt.load_state_leaves(leaves)
         self.step = step
         self.best_val_loss = best
         if "num_frames_since_fired" in ckpt:
-            self.num_frames_since_fired.copy_(torch.as_tensor(
-                np.asarray(ckpt["num_frames_since_fired"]), dtype=torch.int32))
+            counter = torch.as_tensor(np.asarray(ckpt["num_frames_since_fired"]),
+                                      dtype=torch.int32)
+            self.num_frames_since_fired.copy_(counter[self.dict_lo:self.dict_hi])
 
     def param_count(self) -> int:
         mod = l1_mod if self.variant == "l1" else topk_mod
@@ -862,17 +964,18 @@ def train(
     fused = 0
     if device_cache_files and from_disk:
         rows = batch_size * loader.activation_shape[0]
-        if multihost:  # host_shard_bounds checked that the ranks divide it
-            cache_batch = batch_size // mesh.size
+        if multihost:  # host_shard_bounds checked that the data axis divides it
+            cache_batch = batch_size // mesh.data_size
         cache = DeviceShuffleCache(
             train_folder, layer_name, device_cache_files, seed=seed,
             start_step=trainer.step, cache_dtype=device_cache_dtype, device=dev,
-            # a pod rank caches and samples its own strided file stratum
-            process_shard=(mesh.rank, mesh.size) if multihost else None,
+            # a pod rank caches and samples its data index's strided file
+            # stratum (model peers the same one, with the same draws)
+            process_shard=(mesh.data_rank, mesh.data_size) if multihost else None,
             # the graph's private pool and the per-step path's pool each
             # hold a step's working set
             reserve_bytes=2 * trainer.step_working_bytes(
-                rows // (mesh.size if multihost else 1)))
+                rows // (mesh.data_size if multihost else 1)))
         # save/val events run host code against the trainer state, so they
         # must land on chunk boundaries; TB logs interior steps from the
         # chunk's stack. The auto chunk stays a DIVISOR of the cadence gcd

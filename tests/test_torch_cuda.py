@@ -326,6 +326,35 @@ def test_topk_fused_kernel_matches_plain(cuda, m, dead_share):
                          w_dec[:, :100], dead.float(), 32, 192)
 
 
+@pytest.mark.parametrize("m", [3000, 77])
+def test_topk_encode_decode_launches_match_forward(cuda, m):
+    """Kernel #4's encode and decode launches, as a split dictionary's step
+    runs them: the encode's acts bit-equal to the whole forward's on the same
+    columns, and the decode under the forward's thresholds bit-equal to its
+    decodes (the same tiles in the same order); each call counts one."""
+    from freud_tpu_torch.ops.topk_fused import topk_sae_decode, topk_sae_encode
+
+    rng = np.random.default_rng(11)
+    d, n = 384, 1024
+    x = torch.from_numpy(rng.standard_normal((m, d)).astype(np.float32)).to(cuda)
+    w_enc = torch.from_numpy((rng.uniform(-1, 1, (n, d)) / np.sqrt(d)).astype(np.float32)).to(cuda)
+    b_enc = -torch.from_numpy((rng.random(n) * 0.1).astype(np.float32)).to(cuda)
+    b_dec = torch.from_numpy((rng.standard_normal(d) * 0.1).astype(np.float32)).to(cuda)
+    w_dec = torch.nn.functional.normalize(w_enc, dim=1)
+    dead = torch.from_numpy(rng.random(n) < 0.3).to(cuda)
+    whole = topk_sae_forward(x, w_enc.T, b_enc, b_dec, w_dec, dead.float(), 32, 192)
+    before = (topk_sae_encode.launches, topk_sae_decode.launches)
+    acts = topk_sae_encode(x, w_enc.T, b_enc, b_dec)
+    y_main, y_aux = topk_sae_decode(acts, w_dec, dead.float(), whole[3], whole[4])
+    torch.cuda.synchronize()
+    assert (topk_sae_encode.launches, topk_sae_decode.launches) == (before[0] + 1,
+                                                                  before[1] + 1)
+    assert torch.equal(acts, whole[0])
+    assert torch.equal(y_main, whole[1]) and torch.equal(y_aux, whole[2])
+    half = topk_sae_encode(x, w_enc[: n // 2].T, b_enc[: n // 2], b_dec)
+    assert torch.equal(half, whole[0][:, : n // 2])
+
+
 def test_topk_fused_kernel_large_geometry(cuda):
     """large_v1_audioset's geometry (d_in 1280, n_dict 20480, k 32, k_aux
     640, 94% of latents dead) with silent rows and ties at t_main: the same

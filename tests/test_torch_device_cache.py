@@ -71,7 +71,7 @@ def _bits(a) -> np.ndarray:
 def test_fill_matches_jax(store, dtype):
     path, _ = store
     kw = dict(capacity_files=8, refresh_files=0, seed=3, start_step=2, cache_dtype=dtype)
-    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw)
+    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw, device="cpu")
     try:
         assert tc.cache.dtype == dc.CACHE_DTYPES[dtype] and tc.capacity == 8
         assert tc.window_bytes == 8 * T * D * (4 if dtype == "float32" else 2)
@@ -80,10 +80,10 @@ def test_fill_matches_jax(store, dtype):
         jc.close()
         tc.close()
     with pytest.raises(ValueError, match="cache_dtype"):
-        DeviceShuffleCache(path, "L", capacity_files=4, cache_dtype="float16")
+        DeviceShuffleCache(path, "L", capacity_files=4, cache_dtype="float16", device="cpu")
     # a pod rank's stratum (every 2nd file from 1) fills as JAX's does
     kw = {**kw, "capacity_files": 6, "process_shard": (1, 2)}
-    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw)
+    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw, device="cpu")
     try:
         np.testing.assert_array_equal(tc._files, np.arange(N_FILES)[1::2])
         np.testing.assert_array_equal(_bits(tc.cache), _bits(jc.cache))
@@ -100,7 +100,7 @@ def test_refresh_plan_matches_jax(store):
     in order they leave the same window."""
     path, _ = store
     kw = dict(capacity_files=8, refresh_files=6, seed=3)
-    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw)
+    jc, tc = JaxCache(path, "L", **kw), DeviceShuffleCache(path, "L", **kw, device="cpu")
     try:
         jwin, twin = jc.cache, tc.cache.clone()
         for _ in range(3):
@@ -123,7 +123,7 @@ def test_refresh_plan_matches_jax(store):
 def test_samples_are_store_rows(store, dtype):
     path, data = store
     cache = DeviceShuffleCache(path, "L", capacity_files=8, refresh_files=0,
-                               cache_dtype=dtype)
+                               cache_dtype=dtype, device="cpu")
     try:
         want = torch.from_numpy(data).to(dc.CACHE_DTYPES[dtype]).float()
         draws = [cache.next_batch(5) for _ in range(4)]
@@ -143,7 +143,7 @@ def test_resume_does_not_reissue_start_indices(store):
     draws = {}
     for start in (0, 0, 5):
         cache = DeviceShuffleCache(path, "L", capacity_files=20, refresh_files=0,
-                                   start_step=start)
+                                   start_step=start, device="cpu")
         draws.setdefault(start, []).append(cache.draw(4, 8))
         cache.close()
     assert torch.equal(*draws[0])  # the same start, the same stream
@@ -152,7 +152,7 @@ def test_resume_does_not_reissue_start_indices(store):
 
 def test_refresh_brings_new_files(store):
     path, _ = store
-    cache = DeviceShuffleCache(path, "L", capacity_files=4, refresh_files=4)
+    cache = DeviceShuffleCache(path, "L", capacity_files=4, refresh_files=4, device="cpu")
     try:
         first = {int(t) for t in cache.cache[:, 0, 0]}
         seen = set()
@@ -176,7 +176,7 @@ def test_broken_store_surfaces_in_next_batch(store, monkeypatch):
         return read(self, indices)
 
     monkeypatch.setattr(ActivationStoreReader, "batch", fail_after_fill)
-    cache = DeviceShuffleCache(path, "L", capacity_files=4, refresh_files=2)
+    cache = DeviceShuffleCache(path, "L", capacity_files=4, refresh_files=2, device="cpu")
     try:
         with pytest.raises(RuntimeError, match="refresh thread died"):
             deadline = time.time() + 20
@@ -192,7 +192,7 @@ def test_decoder_store_resampled_rows_match_jax(tmp_path):
     n_frames = [T - i % 3 for i in range(N_FILES)]
     path, data = _write_store(tmp_path / "d", layer, n_frames=n_frames)
     kw = dict(capacity_files=10, refresh_files=0, seed=4)
-    jc, tc = JaxCache(path, layer, **kw), DeviceShuffleCache(path, layer, **kw)
+    jc, tc = JaxCache(path, layer, **kw), DeviceShuffleCache(path, layer, **kw, device="cpu")
     try:
         assert tc._resample
         np.testing.assert_array_equal(tc.cache.numpy(), np.asarray(jc.cache))
@@ -215,7 +215,7 @@ def _trainers(variant, amp=True, seed=3):
               scheduler_params={"num_warmup_steps": 1}, lr=1e-2, steps=12,
               clip_thresh=1.0, seed=seed, amp=amp)
     jt = jtrainer.SAETrainer(variant, CFGS[variant], D, **kw)
-    tt = SAETrainer(variant, CFGS[variant], D, **kw)
+    tt = SAETrainer(variant, CFGS[variant], D, **kw, device="cpu")
     src = params_from_jax(variant, jax.tree_util.tree_map(np.asarray, jt.params))
     with torch.no_grad():
         for name, p in tt.params.named_parameters():
@@ -239,8 +239,8 @@ def test_train_chunk_matches_per_step(store, variant):
     for chunked in (False, True):
         trainer = SAETrainer(variant, CFGS[variant], D, optimizer="adam",
                              scheduler="linear", scheduler_params={"num_warmup_steps": 1},
-                             lr=1e-2, steps=12, seed=3)
-        cache = DeviceShuffleCache(path, "L", capacity_files=20, refresh_files=0, seed=7)
+                             lr=1e-2, steps=12, seed=3, device="cpu")
+        cache = DeviceShuffleCache(path, "L", capacity_files=20, refresh_files=0, seed=7, device="cpu")
         try:
             if chunked:
                 stacks = [trainer.train_chunk(cache, 8, 3) for _ in range(2)]
@@ -268,7 +268,7 @@ def test_train_chunk_matches_jax(store, variant, amp):
     path, _ = store
     jt, tt = _trainers(variant, amp)
     jc = JaxCache(path, "L", capacity_files=20, refresh_files=0, seed=7)
-    tc = DeviceShuffleCache(path, "L", capacity_files=20, refresh_files=0, seed=7)
+    tc = DeviceShuffleCache(path, "L", capacity_files=20, refresh_files=0, seed=7, device="cpu")
     tol = 2e-2 if amp else 1e-4
     try:
         np.testing.assert_array_equal(tc.cache.numpy(), np.asarray(jc.cache))
@@ -303,14 +303,14 @@ def test_pod_chunk_raises(store):
 
     path, _ = store
     with pytest.raises(ValueError, match="mesh"):
-        SAETrainer("l1", L1_CFG, D).train_chunk_pod(None, 4, 2)
+        SAETrainer("l1", L1_CFG, D, device="cpu").train_chunk_pod(None, 4, 2)
     out = {}
     for chunked in (False, True):
         trainer = SAETrainer("topk", TOPK_CFG, D, optimizer="adam", scheduler="linear",
                              scheduler_params={"num_warmup_steps": 1}, lr=1e-2,
                              steps=12, seed=3, mesh=Mesh("cpu"))
         cache = DeviceShuffleCache(path, "L", capacity_files=10, refresh_files=0,
-                                   seed=7, process_shard=(0, 2))
+                                   seed=7, process_shard=(0, 2), device="cpu")
         idx = torch.from_numpy(np.random.default_rng(0).integers(0, 10, (3, 4)))
         if chunked:
             metrics = {k: v[-1] for k, v in trainer.train_chunk_pod(cache, 4, 3, idx).items()}
@@ -325,7 +325,7 @@ def test_pod_chunk_raises(store):
     for k, v in out[False][1].items():
         torch.testing.assert_close(out[True][1][k], v, rtol=0, atol=0)
     cache = DeviceShuffleCache(path, "L", capacity_files=10, refresh_files=0, seed=7,
-                               cache_dtype="bfloat16")
+                               cache_dtype="bfloat16", device="cpu")
     g = torch.Generator().manual_seed(5)
     stack, g2 = trainer._build_pod_sampler(3, 4)(cache.cache, g)
     assert g2 is g and stack.dtype == torch.bfloat16 and stack.shape == (3, 4, T, D)

@@ -147,7 +147,7 @@ out["train_files"] = sorted(str(p.relative_to(root / "pod" / f"p{rank}"))
 # 3. the pod cache, its chunk against its steps, and train() through it
 from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
 caches = [DeviceShuffleCache(str(root / "store"), "L", 8, refresh_files=0, seed=7,
-                             process_shard=(rank, 2)) for _ in range(2)]
+                             process_shard=(rank, 2), device="cpu") for _ in range(2)]
 out["stratum"] = caches[0]._files.tolist()
 idx = caches[0].draw(STEPS, B // 2)
 init = pickle.loads((root / "init_topk.pkl").read_bytes())
@@ -250,7 +250,7 @@ def _port_trainer(variant, cfg, init):
     from freud_tpu_torch.models.sae import params_from_jax
     from freud_tpu_torch.train.trainer import SAETrainer
 
-    tr = SAETrainer(variant, cfg, D, **TRAINER_KW)
+    tr = SAETrainer(variant, cfg, D, **TRAINER_KW, device="cpu")
     with torch.no_grad():
         for n, p in tr.params.named_parameters():
             p.copy_(getattr(params_from_jax(variant, init), n))
@@ -412,7 +412,7 @@ def test_trainer_starts_from_rank_0(pod):
     from freud_tpu_torch.train.trainer import SAETrainer
 
     _, ranks, _ = pod
-    want = SAETrainer("l1", VARIANTS["l1"][1], D, **{**TRAINER_KW, "seed": 0})
+    want = SAETrainer("l1", VARIANTS["l1"][1], D, **{**TRAINER_KW, "seed": 0}, device="cpu")
     for r in ranks:
         for a, b in zip(r["seeded"], want._state()):
             torch.testing.assert_close(a, b, rtol=0, atol=0)
@@ -554,7 +554,7 @@ def test_fly_loader_mesh_yields_the_whole_batch(pod, monkeypatch):
 
     root, ranks, _ = pod
     monkeypatch.setenv("FREUD_WHISPER_DIR", str(root / "whisper"))
-    want = list(FlyActivationLoader(str(root / "audio"), "tiny", None, LAYER, 2))
+    want = list(FlyActivationLoader(str(root / "audio"), "tiny", None, LAYER, 2, device="cpu"))
     for r in ranks:
         assert [f for _, f in r["fly"]] == [list(f) for _, f in want]
         for (a, _), (b, _) in zip(r["fly"], want):
@@ -661,18 +661,6 @@ def test_pod_input_keeps_one_order(tmp_path):
     with pytest.raises(SystemExit, match="fly-mode"):
         train(**train_config(tmp_path, tmp_path / "run", from_disk=False, mesh=mesh,
                              start_checkpoint=None))
-
-
-def test_model_axis_raises_12c():
-    """The model axis is Queue 1 #12c: ``make_mesh(model_parallel>1)`` and
-    ``shard_dict`` raise naming it."""
-    from freud_tpu_torch.parallel.mesh import make_mesh
-    from freud_tpu_torch.train.trainer import SAETrainer
-
-    with pytest.raises(NotImplementedError, match="#12c"):
-        make_mesh(model_parallel=2, device="cpu")
-    with pytest.raises(NotImplementedError, match="#12c"):
-        SAETrainer("topk", TOPK, D, shard_dict=True)
 
 
 def test_mesh_helpers_split_like_jax():

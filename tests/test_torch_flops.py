@@ -88,6 +88,12 @@ MAIN_PATH = [
      0.1977, "operations"),
     (flops.topk_sae_forward_bound(12000, 768, 12288, 32, 384), 234.160128e9,
      481.174272e6, 0.2368, "operations"),
+    # kernel #4's encode and decode launches on large_v1_audioset's shard
+    # of a dictionary split in two (the decode at 336 selected entries a row)
+    (flops.topk_sae_encode_bound(48000, 1280, 10240), 1.2582912e12, 1.28127488e9,
+     1.2723, "operations"),
+    (flops.topk_sae_decode_bound(48000, 1280, 10240, 48000 * 336), 41.28768e9,
+     1.52738304e9, 0.4559, "bytes"),
 ]
 
 

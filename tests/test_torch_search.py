@@ -158,7 +158,7 @@ def test_fly_search_matches_jax(fly_env):
     activations on its device; files and order equal JAX's, values, traces
     and per-file maxima within FLY_TOL of the largest |value|."""
     audio = str(fly_env)
-    loader = FlyActivationLoader(audio, "tiny", None, "encoder.blocks.1", 2)
+    loader = FlyActivationLoader(audio, "tiny", None, "encoder.blocks.1", 2, device="cpu")
     jloader = JaxFly(audio, "tiny", None, "encoder.blocks.1", 2)
     for feat, q in ((3, {}), (17, dict(absolute_magnitude=True)), (40, dict(min_val=0.0))):
         got = top_activations(loader, feat, 3, **q)
@@ -172,7 +172,7 @@ def test_fly_search_matches_jax(fly_env):
         np.testing.assert_allclose(got[1], want[1], rtol=0, atol=FLY_TOL * scale)
     lens = sorted(len(tr) for _, tr, _, _ in top_activations(loader, 0, 5)[0])
     assert lens == [20, 35, 50, 65, 100]  # each clip's frames, from its decode
-    bad = FlyActivationLoader(audio, "tiny", None, "encoder.blocks.1", 2, drop_last=True)
+    bad = FlyActivationLoader(audio, "tiny", None, "encoder.blocks.1", 2, drop_last=True, device="cpu")
     with pytest.raises(ValueError, match="drop_last"):
         top_activations(bad, 0, 2)
     with pytest.raises(ValueError, match="out of range"):

@@ -77,7 +77,7 @@ def test_members_equal_solo_port_trainers(variant):
     assert set(m) == set(sweep.metric_names) and all(v.shape == (3,) for v in m.values())
     assert sweep.step == 3
     for i in (0, 2):
-        solo = SAETrainer(variant, CFGS[variant], D, seed=5 + i, **KW)
+        solo = SAETrainer(variant, CFGS[variant], D, seed=5 + i, **KW, device="cpu")
         for x in data:
             solo_m = solo.train_step(x[i])
         for a, b in zip(sweep.members[i]._state(), solo._state()):
@@ -318,7 +318,7 @@ def test_fused_chunk_equals_per_step(tmp_path, variant):
         sweep = SAESweepTrainer(variant, CFGS[variant], D, 2, model_hparams=hps,
                                 device="cpu", **KW)
         cache = DeviceShuffleCache(str(tmp_path), layer, capacity_files=12,
-                                   refresh_files=0, seed=9)
+                                   refresh_files=0, seed=9, device="cpu")
         try:
             if chunked:
                 for _ in range(2):

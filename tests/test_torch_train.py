@@ -114,7 +114,7 @@ def _trainers(variant, ae_cfg, optimizer, scheduler, amp):
               scheduler_params={"num_warmup_steps": 1}, lr=1e-2, steps=10,
               clip_thresh=1.0, seed=0, amp=amp)
     jt = JaxTrainer(variant, ae_cfg, D, **kw)
-    tt = SAETrainer(variant, ae_cfg, D, **kw)
+    tt = SAETrainer(variant, ae_cfg, D, **kw, device="cpu")
     src = params_from_jax(variant, jax.tree_util.tree_map(np.asarray, jt.params))
     with torch.no_grad():
         for name, p in tt.params.named_parameters():
@@ -383,6 +383,6 @@ def test_fly_mode_drops_the_ragged_tail_like_jax(tmp_path, monkeypatch):
     assert seen["torch"] == seen["jax"] == [(2, 1500, 384)] * 2
     for drop_last, batches in ((True, 1), (False, 2)):
         loader = tloaders.FlyActivationLoader(str(audio), "test:tiny", None, LAYER, 2,
-                                              drop_last=drop_last)
+                                              drop_last=drop_last, device="cpu")
         assert len(loader) == batches and loader.dataset_length == 3
         assert len(loader.pipeline._batches()) == batches

@@ -149,7 +149,7 @@ def _trainers():
     kw = dict(optimizer="adam", scheduler="linear", scheduler_params={"num_warmup_steps": 1},
               lr=1e-3, steps=4, clip_thresh=1.0, seed=3)
     jt = jtrainer.SAETrainer("topk", TOPK, 384, **kw)
-    tt = ttrainer.SAETrainer("topk", TOPK, 384, **kw)
+    tt = ttrainer.SAETrainer("topk", TOPK, 384, **kw, device="cpu")
     src = params_from_jax("topk", jax.tree_util.tree_map(np.asarray, jt.params))
     with torch.no_grad():
         for name, p in tt.params.named_parameters():
