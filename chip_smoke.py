@@ -313,10 +313,15 @@ code: run parent, change, change, parent in one call to compare two trees.
 ``--pod-only`` runs phases 28–30 alone (after the build) on the stores
 they read, made first: phase 3's collection and its index, and 12 files
 of Whisper small's blocks 2 and 5. ``--model-axis-only`` runs phase 31
-alone (after the build; it makes its own rows and store).
+alone (after the build; it makes its own rows and store), ``--topk-only``
+phase 2's kernel #3 and #4 checks. ``--knockouts`` times the sharded
+selection's two launches against copies of their sources with one part
+taken out, built into a temporary directory (``KNOCKOUTS``: the copies
+whose marks the checkout's sources hold, so a copy of this script in an
+older checkout knocks out that checkout's design).
 
-Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only]
-(needs one CUDA card)
+Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only |
+--topk-only | --knockouts] (needs one CUDA card)
 """
 
 from __future__ import annotations
@@ -4130,38 +4135,66 @@ def pod_only(torch, device, card: str) -> dict:
 
 
 def check_topk_sharded(torch, device, card) -> dict:
-    """Phase 31a: kernel #3's selection across dictionary shards at
-    large_v1_audioset's width, in this process: the bf16 (exact path) and
-    f32 (float path) latents of a large batch (48,000 rows × 20,480) split
-    into P = 2 and 4 column shards; each shard's candidates launch, the
-    gather done here (a stack), each shard's combine launch. The
+    """Phase 31a: kernel #3's selection across dictionary shards, in this
+    process, for each key kind: the bf16 (exact path) and f32 (float path)
+    latents of a large_v1_audioset batch (48,000 rows × 20,480) and a bf16
+    one of 48,000 × 40,960 (the bf16 float path: n_dict >= 2^15), each
+    split into P = 2 and 4 column shards; each shard's candidates launch,
+    the gather done here (a stack), each shard's combine launch. The
     thresholds bit-equal on every shard to kernel #3 on the whole latent and
     to the plain version, the fired bits each shard's columns of the whole
-    mask; then the edge cases (fewer dead latents than k_aux in the whole
-    row, one shard without any, none dead). Both launches timed at P = 2 and
-    4 beside their bounds, with the plain versions and torch.topk(acts_s, k)
-    on the same shard as the library yardstick."""
+    mask, the candidates equal to the plain version's as key multisets with
+    the header exact; in four dead cases (a third dead, fewer dead latents
+    than k_aux in the whole row, one shard without any, none dead). Edge
+    rows in every latent: a silent row, a tie across the shard boundaries,
+    a row of one value throughout (ties fill both regions) and, on the
+    float kinds, a row of negative values and -inf. Edge widths: shards of
+    1,001 columns (not a multiple of 16 bytes) in every kind, shards
+    narrower than k_sel (every key sent), and an f32 shard of 52,379
+    columns at 300 rows, held to kernel #3's plain version (kernel #3
+    takes at most 49,152 f32 columns). Both launches timed at P = 2 and 4,
+    at k_multi 128 and at the recipe's own selection (large_v1_audioset
+    has no multi_topk: k_sel 32), beside their bounds, with the plain
+    versions and torch.topk(acts_s, k) on the same shard as the library
+    yardstick."""
     from freud_tpu_torch import flops
     from freud_tpu_torch.ops import topk_sharded as ts
-    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+    from freud_tpu_torch.ops.topk_threshold import (topk_thresholds_fired,
+                                                    topk_thresholds_fired_plain)
 
     gen = torch.Generator().manual_seed(SEED + 31)
     m, n, k, k_aux, k_multi = LARGE_M_ROWS, LARGE_N_DICT, K, LARGE_K_AUX, 4 * K
-    a = torch.relu(torch.randn((m, n), generator=gen)).to(device)
-    a[5] = 0.0  # a silent row
-    a[6, n // 2 - 40:n // 2 + 40] = 3.5  # a tie across the P = 2 and 4 boundaries
-    third = (torch.rand((n,), generator=gen) < 1 / 3).to(device)
-    few = torch.zeros_like(third)
-    few[torch.randperm(n, generator=gen)[:k_aux // 2].to(device)] = True
-    first_alive = third.clone()
-    first_alive[: n // 4] = False
     record: dict = {"route": "cuda", "replaces": "freud_tpu/ops/topk_threshold.py:225",
-                    "shape": [m, n], "k": k, "k_aux": k_aux, "k_multi": k_multi}
+                    "shape": [m, n], "k": k, "k_aux": k_aux, "k_multi": k_multi,
+                    "max_abs_err": 0.0}
+
+    def edge_rows(acts, kind):
+        """The edge rows, in place: silent, a tie across the P = 2 and 4
+        boundaries, one value throughout; on the float kinds a row of
+        negative values with -inf in every seventh column."""
+        w = acts.shape[1]
+        acts[5] = 0.0
+        acts[6, w // 2 - 40:w // 2 + 40] = 3.5
+        acts[7] = 1.25
+        if kind != ts.EXACT:
+            acts[8] = -acts[8].abs() - 0.25
+            acts[8, ::7] = float("-inf")
+        return acts
+
+    def dead_cases(w, p):
+        third = (torch.rand((w,), generator=gen) < 1 / 3).to(device)
+        few = torch.zeros_like(third)
+        few[torch.randperm(w, generator=gen)[:k_aux // 2].to(device)] = True
+        first_alive = third.clone()
+        first_alive[: w // p] = False
+        return (("a third dead", third), ("fewer dead than k_aux", few),
+                ("first shard none dead", first_alive),
+                ("none dead", torch.zeros_like(third)))
 
     def same_candidates(got, want) -> int:
-        """Candidate rows hold a multiset of keys each (the kernel writes
-        them in arrival order): → the largest key difference after sorting
-        each row's regions, the header as it is."""
+        """Candidate rows hold a multiset of keys each (the kernel's order
+        within a region is its own): → the largest key difference after
+        sorting each row's regions, the header as it is."""
         c_main = got.shape[1] - k_aux - ts.HEADER
         err = 0
         for lo, hi in ((0, c_main), (c_main, c_main + k_aux)):
@@ -4172,83 +4205,118 @@ def check_topk_sharded(torch, device, card) -> dict:
                              - want[:, -ts.HEADER:].to(torch.int64)).abs().max()))
 
     def shards(acts, p):
-        s = n // p
+        s = acts.shape[1] // p
         return [acts[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
 
-    def run(acts_s, dead_s, kind, plain=False):
+    def run(acts_s, dead_s, kind, w, km, plain=False):
         cand = ts.shard_candidates_plain if plain else ts.shard_candidates
         comb = ts.combine_shard_thresholds_plain if plain else ts.combine_shard_thresholds
-        g = torch.stack([cand(x, d, k_multi, k_aux, kind) for x, d in zip(acts_s, dead_s)])
-        return [comb(g, x, n, k, k_aux, k_multi, kind) for x in acts_s]
+        g = torch.stack([cand(x, d, max(k, km), k_aux, kind) for x, d in zip(acts_s, dead_s)])
+        return [comb(g, x, w, k, k_aux, km, kind) for x in acts_s]
 
-    for dtype, name in ((torch.bfloat16, "bf16"), (torch.float32, "f32")):
-        acts = a.to(dtype)
-        kind = ts.key_kind(acts, n)
-        assert kind == (ts.EXACT if dtype == torch.bfloat16 else ts.F32)
+    def check(name, acts, kind, p, signed=False, km=k_multi, whole_plain=False):
+        """Every dead case at P = p: candidates against the plain version's,
+        thresholds and fired against kernel #3 on the whole latent (its
+        plain version where ``whole_plain``) and the plain versions."""
+        w = acts.shape[1]
+        assert ts.key_kind(acts, w, signed) == kind, (name, kind)
+        acts_s = shards(acts, p)
+        whole = topk_thresholds_fired_plain if whole_plain else topk_thresholds_fired
+        ref = "'s plain version" if whole_plain else ""
+        for dname, dead in dead_cases(w, p):
+            dead_s = list(dead.view(p, -1).unbind(0))
+            cand_err = max(same_candidates(
+                ts.shard_candidates(x, d, max(k, km), k_aux, kind),
+                ts.shard_candidates_plain(x, d, max(k, km), k_aux, kind))
+                for x, d in zip(acts_s, dead_s))
+            assert cand_err == 0, (name, p, dname, cand_err)
+            want = whole(acts, dead, k, k_aux, k_multi=km, signed=signed)
+            got = run(acts_s, dead_s, kind, w, km)
+            plain = run(acts_s, dead_s, kind, w, km, plain=True)
+            torch.cuda.synchronize()
+            for g, pl in zip(got, plain):
+                for i in range(3):
+                    assert (g[i] is None and want[i] is None) or torch.equal(g[i], want[i]), (
+                        name, p, dname, i)
+                    assert (pl[i] is None and want[i] is None) or torch.equal(pl[i], want[i]), (
+                        name, p, dname, i, "plain")
+            assert torch.equal(torch.cat([g[3] for g in got]), want[3]), (name, p, dname)
+            assert torch.equal(torch.cat([g[3] for g in plain]), want[3]), (name, p, dname)
+            err = max(_threshold_err(g, pl) for g, pl in zip(got, plain))
+            record["max_abs_err"] = max(record["max_abs_err"], err)
+            print(f"sharded selection {name} P={p} ({dname}) {tuple(acts.shape)}: candidates "
+                  "equal to the plain version's (as key multisets, header exact), thresholds "
+                  f"and fired bit-equal to kernel #3{ref} on the whole latent and to the "
+                  "plain version on every shard")
+
+    def timed(name, acts, kind, p, km):
+        """Both launches on shard 0 (a third dead) beside their bounds."""
+        w = acts.shape[1]
+        s = w // p
+        acts_s = shards(acts, p)
+        dead_s = list(dead_cases(w, p)[0][1].view(p, -1).unbind(0))
+        k_sel = max(k, km)
+        width = ts.candidate_width(s, k_sel, k_aux)
+        g = torch.stack([ts.shard_candidates(x, d, k_sel, k_aux, kind)
+                         for x, d in zip(acts_s, dead_s)])
+        cand_ms = cuda_ms(lambda: ts.shard_candidates(acts_s[0], dead_s[0], k_sel, k_aux,
+                                                      kind), reps=10)
+        comb_ms = cuda_ms(lambda: ts.combine_shard_thresholds(
+            g, acts_s[0], w, k, k_aux, km, kind), reps=10)
+        cand_plain = cuda_ms(lambda: ts.shard_candidates_plain(
+            acts_s[0], dead_s[0], k_sel, k_aux, kind), warmup=1, reps=3)
+        comb_plain = cuda_ms(lambda: ts.combine_shard_thresholds_plain(
+            g, acts_s[0], w, k, k_aux, km, kind), warmup=1, reps=3)
+        lib_ms = cuda_ms(lambda: torch.topk(acts_s[0], k, dim=1), reps=10)
+        in_bytes = acts.element_size()
+        cb = flops.topk_shard_candidates_bound(m, s, width, in_bytes)
+        mb = flops.topk_shard_combine_bound(m, s, width, p, in_bytes, 3 if km else 2)
+        assert cand_ms >= cb.bound_ms and comb_ms >= mb.bound_ms, (name, p, km)
+        print(f"sharded selection {name} P={p} k_sel {k_sel} shard {m}×{s}: candidates "
+              f"{cand_ms:.4f} ms (bound {cb.bound_ms:.4f}, plain {cand_plain:.4f}, torch.topk(k) "
+              f"{lib_ms:.4f}), combine {comb_ms:.4f} ms (bound {mb.bound_ms:.4f}, plain "
+              f"{comb_plain:.4f}) on {card}")
+        return {
+            "shard": [m, s], "width": width, "k_sel": k_sel,
+            "candidates": dict(name="shard_candidates", max_abs_err=0.0, ms=cand_ms,
+                               plain_ms=cand_plain, **yardsticks(
+                cb, lib_ms, "torch.topk(acts_s, k): the shard's top k values only")),
+            "combine": dict(name="combine_shard_thresholds",
+                            max_abs_err=record["max_abs_err"], ms=comb_ms,
+                            plain_ms=comb_plain, **yardsticks(
+                mb, None, "none: no library call merges candidates by kernel #3's rules"))}
+
+    a = torch.relu(torch.randn((m, n), generator=gen)).to(device)
+    gd = torch.Generator(device).manual_seed(SEED + 33)
+    latents = (("bf16", ts.EXACT, lambda: a.to(torch.bfloat16)),
+               ("f32", ts.F32, lambda: a.clone()),
+               ("bf16_float", ts.BF16, lambda: torch.relu_(torch.randn(
+                   (m, 2 * n), generator=gd, device=device)).to(torch.bfloat16)))
+    for name, kind, make in latents:
+        acts = edge_rows(make(), kind)
         for p in (2, 4):
-            acts_s = shards(acts, p)
-            for dname, dead in (("a third dead", third), ("fewer dead than k_aux", few),
-                                ("first shard none dead", first_alive),
-                                ("none dead", torch.zeros_like(third))):
-                dead_s = list(dead.view(p, -1).unbind(0))
-                cand_err = max(same_candidates(
-                    ts.shard_candidates(x, d, k_multi, k_aux, kind),
-                    ts.shard_candidates_plain(x, d, k_multi, k_aux, kind))
-                    for x, d in zip(acts_s, dead_s))
-                assert cand_err == 0, (name, p, dname, cand_err)
-                want = topk_thresholds_fired(acts, dead, k, k_aux, k_multi=k_multi)
-                got = run(acts_s, dead_s, kind)
-                plain = run(acts_s, dead_s, kind, plain=True)
-                torch.cuda.synchronize()
-                for g, pl in zip(got, plain):
-                    for i in range(3):
-                        assert torch.equal(g[i], want[i]), (name, p, dname, i)
-                        assert torch.equal(pl[i], want[i]), (name, p, dname, i, "plain")
-                assert torch.equal(torch.cat([g[3] for g in got]), want[3]), (name, p, dname)
-                assert torch.equal(torch.cat([g[3] for g in plain]), want[3]), (name, p, dname)
-                err = max(_threshold_err(g, pl) for g, pl in zip(got, plain))
-                record["max_abs_err"] = max(record.get("max_abs_err", 0.0), err)
-                print(f"sharded selection {name} P={p} ({dname}) {m}×{n}: candidates "
-                      "equal to the plain version's (as key sets), thresholds and fired "
-                      "bit-equal to kernel #3 on the whole latent and to the plain "
-                      "version on every shard")
-            # timing at the main case (a third dead), shard 0
-            dead_s = list(third.view(p, -1).unbind(0))
-            s = n // p
-            width = ts.candidate_width(s, k_multi, k_aux)
-            g = torch.stack([ts.shard_candidates(x, d, k_multi, k_aux, kind)
-                             for x, d in zip(acts_s, dead_s)])
-            cand_ms = cuda_ms(lambda: ts.shard_candidates(acts_s[0], dead_s[0], k_multi,
-                                                          k_aux, kind), reps=10)
-            comb_ms = cuda_ms(lambda: ts.combine_shard_thresholds(
-                g, acts_s[0], n, k, k_aux, k_multi, kind), reps=10)
-            cand_plain = cuda_ms(lambda: ts.shard_candidates_plain(
-                acts_s[0], dead_s[0], k_multi, k_aux, kind), warmup=1, reps=3)
-            comb_plain = cuda_ms(lambda: ts.combine_shard_thresholds_plain(
-                g, acts_s[0], n, k, k_aux, k_multi, kind), warmup=1, reps=3)
-            lib_ms = cuda_ms(lambda: torch.topk(acts_s[0], k, dim=1), reps=10)
-            in_bytes = acts.element_size()
-            cb = flops.topk_shard_candidates_bound(m, s, width, in_bytes)
-            mb = flops.topk_shard_combine_bound(m, s, width, p, in_bytes)
-            assert cand_ms >= cb.bound_ms and comb_ms >= mb.bound_ms
-            record[f"{name}_p{p}"] = {
-                "shard": [m, s], "width": width,
-                "candidates": dict(name="shard_candidates", max_abs_err=0.0, ms=cand_ms,
-                                   plain_ms=cand_plain, **yardsticks(
-                    cb, lib_ms, "torch.topk(acts_s, k): the shard's top k values only")),
-                "combine": dict(name="combine_shard_thresholds",
-                                max_abs_err=record["max_abs_err"], ms=comb_ms,
-                                plain_ms=comb_plain, **yardsticks(
-                    mb, None, "none: no library call merges candidates by kernel #3's "
-                    "rules"))}
-            print(f"sharded selection {name} P={p} shard {m}×{s}: candidates {cand_ms:.4f} ms "
-                  f"(bound {cb.bound_ms:.4f}, plain {cand_plain:.4f}, torch.topk(k) "
-                  f"{lib_ms:.4f}), combine {comb_ms:.4f} ms (bound {mb.bound_ms:.4f}, plain "
-                  f"{comb_plain:.4f}) on {card}")
-            del acts_s, g
+            check(name, acts, kind, p)
+            record[f"{name}_p{p}"] = timed(name, acts, kind, p, k_multi)
+            record[f"{name}_p{p}_k{k}"] = timed(name, acts, kind, p, 0)
         del acts
         torch.cuda.empty_cache()
     del a
+    # edge widths, at 3,000 rows (300 for the widest f32 shard)
+    small = torch.relu(torch.randn((3000, 4 * 1001), generator=gen)).to(device)
+    for name, kind, dtype, signed in (("bf16", ts.EXACT, torch.bfloat16, False),
+                                      ("bf16 signed", ts.BF16, torch.bfloat16, True),
+                                      ("f32", ts.F32, torch.float32, False)):
+        for p in (2, 4):
+            unaligned = edge_rows(small[:, :1001 * p].to(dtype), kind)
+            check(f"{name} shards of 1,001 columns", unaligned, kind, p, signed)
+            narrow = edge_rows(small[:, :100 * p].to(dtype), kind)
+            check(f"{name} shards of 100 columns (< k_sel)", narrow, kind, p, signed)
+    wide = edge_rows(torch.relu(torch.randn((300, 2 * 52379), generator=gen)).to(device),
+                     ts.F32)
+    check("f32 shards of 52,379 columns", wide, ts.F32, 2, whole_plain=True)
+    record["edges"] = {"unaligned_shard": 1001, "narrow_shard": 100,
+                       "f32_widest_shard": [300, 52379]}
+    del small, wide
     torch.cuda.empty_cache()
     return record
 
@@ -4661,6 +4729,168 @@ def model_axis_only(torch, device, card: str) -> dict:
         return model_axis_phases(torch, device, Path(tmp), card)
 
 
+def topk_only(torch, device, card: str) -> dict:
+    """Phase 2's kernel #3 and #4 checks alone (after the build): the
+    selection core's other two callers, to time beside the sharded
+    launches."""
+    return {"topk_sae_forward": check_topk_fused(torch, device, card),
+            "topk_thresholds_fired": check_topk_threshold(torch, device, card)}
+
+
+# --knockouts: copies of the sharded selection's sources, each with one part
+# taken out; (file, start, stop, text) replaces [start, stop) by text, or
+# start itself when stop is None. A copy is built where all its marks are
+# in the tree's sources: the first five in PR 14's design, the rest in the
+# redesign on the selection core. Their results are wrong; only the time
+# is read.
+_FIRED_KEY = "    const uint32_t fk = Row::kBits == 16 ? 0xC000u : 0xC0000000u;  // 2.0\n"
+KNOCKOUTS = {
+    "cand_no_emit": [("topk_sharded.cu",
+                      "    for (int j = tid; j < n; j += kNT) {\n      const uint32_t key = keys[j];",
+                      "    if (tid < 4) o[c_main + k_aux + tid] = red[tid];", "")],
+    "cand_16B_loads": [("topk_sharded.cu",
+                        "    for (int j = tid; j < n; j += kNT) {\n      const uint32_t key = "
+                        "load_key<Row>(acts, row, n, j);",
+                        "    lo_a = __reduce_min_sync(kFull, lo_a);", """\
+    for (int c = tid; c < (n >> 3); c += kNT) {
+      const uint4 v = reinterpret_cast<const uint4*>(acts)[(static_cast<size_t>(row) * n >> 3) + c];
+      const uint32_t wd[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        const int j = c * 8 + e;
+        const uint32_t key = Row::key((wd[e >> 1] >> (16 * (e & 1))) & 0xFFFFu);
+        keys[j] = key;
+        const uint32_t km = finite_key<Row>(key) ? key : kNone;
+        lo_a = min(lo_a, km);
+        hi_a = max(hi_a, key);
+        if ((dead[j >> 5] >> (j & 31)) & 1u) {
+          lo_d = min(lo_d, km);
+          hi_d = max(hi_d, key);
+        }
+      }
+    }
+""")],
+    "comb_no_fired": [("topk_sharded.cu",
+                       "    // this shard's fired columns: a warp tests 32 consecutive columns",
+                       "    __syncthreads();  // the candidates are reused by the next row", "")],
+    "comb_fired_only": [("topk_sharded.cu",
+                         "    // the headers: global range, dead count, each shard's aux count",
+                         "    // this shard's fired columns: a warp tests 32 consecutive columns",
+                         _FIRED_KEY)],
+    "cand_emit_held": [("topk_select.cuh", "  if (from_stage && radix[0]) {", None,
+                        "  if (false) {")],
+    "cand_key_range": [("topk_select.cuh",
+                        "    if constexpr (kCand && Row::kBits == 16) {\n      packed_range", None,
+                        "    if constexpr (false) {\n      packed_range")],
+    "cand_stage_eighth": [("topk_select.cuh", "  if constexpr (kCand) {\n    const size_t want",
+                           None, "  if constexpr (false) {\n    const size_t want")],
+    "cand_dead_unstaged": [("topk_select.cuh", "        if (use && !radix[kAux]) cut_dead = 0u;",
+                            None, "        if (false) cut_dead = 0u;"),
+                           ("topk_select.cuh", "  if (from_stage && radix[0]) {", None,
+                            "  if (from_stage && radix[0] && radix[kAux]) {")],
+    "comb_no_select": [("topk_sharded.cu", "    kth[0] = sel[0] ?", None,
+                        "    for (int i = 0; i < topk::kMaxSel; ++i) sel[i] = false;\n"
+                        "    kth[0] = sel[0] ?")],
+    "comb_no_cut": [("topk_sharded.cu", "    if (Bits == 32 && keep && b == 15)", None,
+                     "    if (false)")],
+    "comb_no_fired_stream": [("topk_sharded.cu", "    // this shard's fired columns\n",
+                              "  }\n  __syncthreads();\n  for (int w = tid; w < nwords; "
+                              "w += blockDim.x)", "")],
+    "comb_fired_stream_only": [("topk_sharded.cu",
+                                "    // the headers: global range and dead count",
+                                "    // this shard's fired columns\n", _FIRED_KEY)],
+}
+
+
+def knockouts(torch, device, card: str) -> dict:
+    """The sharded selection's launches against copies with one part taken
+    out (KNOCKOUTS; those whose marks this tree's sources hold), each
+    built by nvcc into a temporary directory and called through the
+    wrappers with its library swapped in, two rounds, at large_v1_audioset's
+    latent split in 2 and 4 (bf16 exact path and f32, k_multi 128, a third
+    dead; candidates also with none dead), beside kernel #3 on the same
+    shard. → medians in ms."""
+    import ctypes
+
+    from freud_tpu_torch import _native
+    from freud_tpu_torch.ops import topk_sharded as ts
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+
+    csrc = REPO / "freud_tpu_torch" / "csrc"
+    sources = {f.name: f.read_text() for f in csrc.iterdir()}
+    copies = {"base": dict(sources)}
+    for name, edits in KNOCKOUTS.items():
+        text = dict(sources)
+        if not all(e[1] in text[e[0]] and (e[2] is None or e[2] in text[e[0]]) for e in edits):
+            continue
+        for f, start, stop, new in edits:
+            i = text[f].index(start)
+            j = i + len(start) if stop is None else text[f].index(stop, i)
+            text[f] = text[f][:i] + new + text[f][j:]
+        copies[name] = text
+    libs: dict = {}
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_ko_") as tmp:
+        procs = {}
+        for name, text in copies.items():
+            d = Path(tmp) / name
+            d.mkdir()
+            for f, body in text.items():
+                (d / f).write_text(body)
+            procs[name] = subprocess.Popen(
+                [_native._nvcc(), *_native.NVCC_FLAGS, "-o", str(d / "lib.so"),
+                 str(d / "topk_sharded.cu")],
+                stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+        for name, proc in procs.items():
+            log = proc.communicate()[0]
+            assert proc.returncode == 0, f"knock-out {name} did not build:\n{log}"
+            libs[name] = ctypes.CDLL(str(Path(tmp) / name / "lib.so"))
+    print(f"knock-outs built: {list(libs)}")
+    real = ts.cuda_library
+
+    def use(name):
+        ts.cuda_library = lambda _n: libs[name]
+        ts._library()
+
+    gen = torch.Generator().manual_seed(SEED + 34)
+    m, n, k, k_aux, k_multi = LARGE_M_ROWS, LARGE_N_DICT, K, LARGE_K_AUX, 4 * K
+    a = torch.relu(torch.randn((m, n), generator=gen)).to(device)
+    dead = (torch.rand((n,), generator=gen) < 1 / 3).to(device)
+    rec: dict = {"card": card}
+    try:
+        for label, dtype, kind, p in (("bf16_p2", torch.bfloat16, ts.EXACT, 2),
+                                      ("bf16_p4", torch.bfloat16, ts.EXACT, 4),
+                                      ("f32_p2", torch.float32, ts.F32, 2),
+                                      ("f32_p4", torch.float32, ts.F32, 4)):
+            acts = a.to(dtype)
+            s = n // p
+            shard = [acts[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
+            dead_s = list(dead.view(p, -1).unbind(0))
+            none = torch.zeros_like(dead_s[0])
+            row = {"kernel3_on_the_shard": cuda_ms(lambda: topk_thresholds_fired(
+                shard[0], dead_s[0], k, k_aux, k_multi=k_multi), reps=10)}
+            use("base")
+            g = torch.stack([ts.shard_candidates(x, d, k_multi, k_aux, kind)
+                             for x, d in zip(shard, dead_s)])
+            for _ in range(2):
+                for name in libs:
+                    use(name)
+                    row.setdefault(name, []).append({
+                        "candidates": cuda_ms(lambda: ts.shard_candidates(
+                            shard[0], dead_s[0], k_multi, k_aux, kind), reps=10),
+                        "candidates_none_dead": cuda_ms(lambda: ts.shard_candidates(
+                            shard[0], none, k_multi, k_aux, kind), reps=10),
+                        "combine": cuda_ms(lambda: ts.combine_shard_thresholds(
+                            g, shard[0], n, k, k_aux, k_multi, kind), reps=10)})
+            rec[label] = row
+            print(f"knock-outs {label}: {json.dumps(row)}")
+            del acts, shard, g
+            torch.cuda.empty_cache()
+    finally:
+        ts.cuda_library = real
+        ts._library()
+    return rec
+
+
 def free_port() -> int:
     import socket
 
@@ -4695,6 +4925,11 @@ def main() -> int:
                     help="phases 28-30 alone, on stores made here (a quick card check)")
     ap.add_argument("--model-axis-only", action="store_true",
                     help="phase 31 (the model axis) alone (a quick card check)")
+    ap.add_argument("--topk-only", action="store_true",
+                    help="phase 2's kernel #3 and #4 checks alone")
+    ap.add_argument("--knockouts", action="store_true",
+                    help="time the sharded selection's launches against copies with one "
+                         "part taken out")
     ap.add_argument("--pod-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--model-axis-rank", type=int, default=None, help=argparse.SUPPRESS)
     ap.add_argument("--nccl-probe-rank", type=int, default=None, help=argparse.SUPPRESS)
@@ -4753,6 +4988,12 @@ def main() -> int:
     if args.model_axis_only:
         print(json.dumps({"model_axis": {**model_axis_only(torch, device, card),
                                          "card": card}}))
+        return 0
+    if args.topk_only:
+        print(json.dumps({"topk": {**topk_only(torch, device, card), "card": card}}))
+        return 0
+    if args.knockouts:
+        print(json.dumps({"knockouts": knockouts(torch, device, card)}))
         return 0
     from freud_tpu_torch import flops
 

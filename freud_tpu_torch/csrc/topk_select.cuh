@@ -1,8 +1,13 @@
-// Per-row selection core shared by csrc/topk_threshold.cu (kernel #3) and
-// csrc/topk_fused.cu (kernel #4's select launch): for every row of an
-// (M, n) matrix, up to three k-th largest values (t_main with k[0], t_aux
-// with k[1] among the dead columns, t_multi with k[2]) and the fired mask,
-// the columns where any row holds a positive value >= t_main.
+// Per-row selection core shared by csrc/topk_threshold.cu (kernel #3),
+// csrc/topk_fused.cu (kernel #4's select launch) and csrc/topk_sharded.cu
+// (the candidates launch of kernel #3 across dictionary shards): for every
+// row of an (M, n) matrix, up to three k-th largest keys (k[0]; k[1] among
+// the dead columns; k[2]), then one of two epilogues (select_rows' kCand):
+//   * thresholds: t_main, t_aux and t_multi by the edge rules below, and
+//     the fired mask, the columns where any row holds a positive value >=
+//     t_main;
+//   * candidates: the row's keys above each k-th key and that key's ties,
+//     and the header the combine reads (emit_candidates says what).
 //
 // Order keys. A value becomes an unsigned key whose order is the order the
 // selection needs:
@@ -165,6 +170,8 @@ struct SelectParams {
   int m, n, nsel, iters; // iters: the float path's bisection steps
   int slots;             // ring buffers; 0: rows load straight from global
   int seg;               // staged keys a warp holds at most (the launcher sets it)
+  uint32_t* out;         // the candidates epilogue's rows: (m, width) words
+  int width;
 };
 
 template <class Row, int NT>
@@ -402,9 +409,175 @@ __device__ __forceinline__ void key_range(const uint32_t (&kw)[CH][4], const uin
   });
 }
 
+// key_range's smallest finite and largest keys (rng) for 16-bit keys, two
+// at a time in packed pairs (the candidates epilogue's header, which needs
+// no count of key 0). Padding is key 0, never finite and never dead.
+template <class Row, int CH>
+__device__ __forceinline__ void packed_range(const uint32_t (&kw)[CH][4],
+                                             const uint32_t (&dm)[CH], uint4& rng) {
+  constexpr uint32_t kLo = Row::kNegInf * 0x10001u;
+  uint32_t lo = 0xFFFFFFFFu, hi = 0u, lo_d = 0xFFFFFFFFu, hi_d = 0u, fin = 0u, fin_d = 0u;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+#pragma unroll
+    for (int j = 0; j < 4; ++j) {
+      const uint32_t w = kw[i][j];
+      uint32_t f = __vcmpgtu2(w, kLo);  // 0xFFFF in each finite half
+      if constexpr (Row::kPosInf <= 0xFFFFu) f &= __vcmpltu2(w, Row::kPosInf * 0x10001u);
+      const uint32_t b = (dm[i] >> (2 * j)) & 3u;
+      const uint32_t d = (b & 1u) * 0xFFFFu | (b >> 1) * 0xFFFF0000u;  // dead halves
+      const uint32_t km = w | ~f;  // a key that is not finite counts as the largest
+      lo = __vminu2(lo, km);
+      hi = __vmaxu2(hi, w);
+      lo_d = __vminu2(lo_d, km | ~d);
+      hi_d = __vmaxu2(hi_d, w & d);
+      fin |= f;
+      fin_d |= f & d;
+    }
+  }
+  rng.x = fin ? min(lo & 0xFFFFu, lo >> 16) : 0xFFFFFFFFu;
+  rng.y = max(hi & 0xFFFFu, hi >> 16);
+  rng.z = fin_d ? min(lo_d & 0xFFFFu, lo_d >> 16) : 0xFFFFFFFFu;
+  rng.w = max(hi_d & 0xFFFFu, hi_d >> 16);
+}
+
+// ------------------------------------------------------------ candidates
+
+// emit_candidates from the keys a thread holds: a thread counts the keys
+// it sends, a block-wide prefix over the counts gives it its slots.
+template <class Row, int NT, int CH>
+__device__ __forceinline__ void emit_held(const SelectParams& p, uint32_t* o, uint32_t* aux,
+                                          const uint32_t (&kw)[CH][4],
+                                          const uint32_t (&dm)[CH], int chunks,
+                                          const bool (&radix)[kMaxSel],
+                                          const uint32_t (&prefix)[kMaxSel], uint4* wsum) {
+  constexpr int kPer = Row::kPerChunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t n = static_cast<uint32_t>(p.n);
+  // where element e of chunk i goes: bit 0 the main region, bit 1 the aux one
+  auto place = [&](int i, int e) -> uint32_t {
+    const int c = tid + i * NT;
+    if (c >= chunks || static_cast<uint32_t>(c * kPer + e) >= n) return 0u;  // padding
+    const uint32_t key = key_at<Row, CH>(kw, i, e);
+    const uint32_t dead = (dm[i] >> e) & 1u;
+    return static_cast<uint32_t>(!radix[0] || key > prefix[0]) |
+           (static_cast<uint32_t>(dead && (!radix[kAux] || key > prefix[kAux])) << 1);
+  };
+  uint32_t cm = 0u, ca = 0u;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const uint32_t w = place(i, e);
+      cm += w & 1u;
+      ca += w >> 1;
+    }
+  }
+  uint32_t om = cm, oa = ca;  // inclusive prefix over the warp's lanes
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t vm = __shfl_up_sync(kFull, om, off), va = __shfl_up_sync(kFull, oa, off);
+    if (lane >= off) {
+      om += vm;
+      oa += va;
+    }
+  }
+  if (lane == 31) wsum[warp] = make_uint4(om, oa, 0u, 0u);
+  __syncthreads();
+  om -= cm;
+  oa -= ca;
+  for (int w = 0; w < warp; ++w) {
+    const uint4 v = wsum[w];
+    om += v.x;
+    oa += v.y;
+  }
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const uint32_t w = place(i, e);
+      if (w & 1u) o[om++] = key_at<Row, CH>(kw, i, e);
+      if (w & 2u) aux[oa++] = key_at<Row, CH>(kw, i, e);
+    }
+  }
+}
+
+// The candidates epilogue: row `row` of p.out (p.width words) becomes
+//     [c_main keys | k[1] keys | lo_all, hi_all, lo_dead, hi_dead, d_s]
+// with c_main = min(k[0], n): each region holds the keys above its
+// selection's k-th key (every key, or every dead key, where the row holds
+// fewer than k), then that key's ties until the region is full; the aux
+// region past d_s (the dead count) is padding (0); the header is the
+// smallest finite and the largest key, of all columns and of the dead
+// ones. The k-th key is the exact one the radix select found (prefix),
+// never the float path's replayed threshold, which may lie below it. Each
+// warp counts the keys it sends, a block-wide prefix over the counts gives
+// each its slots (one barrier, no atomics), and it writes them, a ballot
+// placing a lane's key; the order within a region is the warps', not the
+// columns'. A row selected from its staged keys sends from those (every key
+// above a k-th key is staged, and every dead key where the row holds fewer
+// than k[1]), others from the keys held in registers.
+template <class Row, int NT, int CH>
+__device__ __forceinline__ void emit_candidates(
+    const SelectParams& p, int row, const uint32_t (&kw)[CH][4], const uint32_t (&dm)[CH],
+    int chunks, const bool (&radix)[kMaxSel], const uint32_t (&prefix)[kMaxSel],
+    const uint32_t (&need)[kMaxSel], uint4 rng, uint32_t n_dead, bool from_stage,
+    const typename Staged<Row>::Entry* seg, uint32_t staged, uint4* wsum) {
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t n = static_cast<uint32_t>(p.n);
+  const uint32_t c_main = min(p.k[0], n), k_aux = p.k[kAux];
+  uint32_t* const o = p.out + static_cast<size_t>(row) * p.width;
+  uint32_t* const aux = o + c_main;
+  if (from_stage && radix[0]) {
+    uint32_t cm = 0u, ca = 0u;
+    each_staged_key<Row>(seg, staged, [&](uint32_t key, uint32_t dead) {
+      cm += key > prefix[0];
+      ca += dead && (!radix[kAux] || key > prefix[kAux]);
+    });
+    cm = __reduce_add_sync(kFull, cm);
+    ca = __reduce_add_sync(kFull, ca);
+    if (lane == 0) wsum[warp] = make_uint4(cm, ca, 0u, 0u);
+    __syncthreads();
+    uint32_t om = 0u, oa = 0u;
+    for (int w = 0; w < warp; ++w) {
+      const uint4 v = wsum[w];
+      om += v.x;
+      oa += v.y;
+    }
+    const uint32_t below = (1u << lane) - 1u;
+    for (uint32_t j0 = 0; j0 < staged; j0 += 32) {
+      bool tm = false, ta = false;
+      uint32_t key = 0u;
+      if (j0 + lane < staged) {
+        const auto e = seg[j0 + lane];
+        key = Staged<Row>::key(e);
+        tm = key > prefix[0];
+        ta = Staged<Row>::dead(e) && (!radix[kAux] || key > prefix[kAux]);
+      }
+      const uint32_t bm = __ballot_sync(kFull, tm), ba = __ballot_sync(kFull, ta);
+      if (tm) o[om + __popc(bm & below)] = key;
+      if (ta) aux[oa + __popc(ba & below)] = key;
+      om += __popc(bm);
+      oa += __popc(ba);
+    }
+  } else {
+    emit_held<Row, NT, CH>(p, o, aux, kw, dm, chunks, radix, prefix, wsum);
+  }
+  // the k-th keys' ties fill what is left of each region
+  if (radix[0])
+    for (uint32_t t = c_main - need[0] + tid; t < c_main; t += NT) o[t] = prefix[0];
+  if (radix[kAux])
+    for (uint32_t t = k_aux - need[kAux] + tid; t < k_aux; t += NT) aux[t] = prefix[kAux];
+  else
+    for (uint32_t t = n_dead + tid; t < k_aux; t += NT) aux[t] = 0u;
+  if (tid < 5)
+    o[c_main + k_aux + tid] =
+        tid == 0 ? rng.x : (tid == 1 ? rng.y : (tid == 2 ? rng.z : (tid == 3 ? rng.w : n_dead)));
+}
+
 // ------------------------------------------------------------ the kernel
 
-template <class Row, int NT, int CH>
+template <class Row, int NT, int CH, bool kCand>
 __global__ void __launch_bounds__(NT, (NT == 256 ? 3 : (NT == 512 ? 2 : 1)))
 select_rows(const SelectParams p) {
   using S = Smem<Row, NT>;
@@ -473,7 +646,7 @@ select_rows(const SelectParams p) {
     radix[i] = i < p.nsel && cand >= p.k[i];
     need_min |= i < p.nsel && !radix[i] && cand > 0;
   }
-  const bool need_range = Row::kFloat || need_min;
+  const bool need_range = kCand || Row::kFloat || need_min;
   // key 0 in the last chunk past n (rows loaded without the ring), live
   const uint32_t pads = static_cast<uint32_t>(chunks * kPer - n);
   // first-digit bins from the last row's buckets, one bin lower: a row
@@ -530,7 +703,11 @@ select_rows(const SelectParams p) {
                                        p.seg);
     uint4 cnt = make_uint4(0u, 0u, 0u, 0u);
     uint4 rng = make_uint4(0xFFFFFFFFu, 0u, 0xFFFFFFFFu, 0u);
-    if (need_range) {
+    if constexpr (kCand && Row::kBits == 16) {
+      packed_range<Row, CH>(kw, dm, rng);
+      rng = make_uint4(__reduce_min_sync(kFull, rng.x), __reduce_max_sync(kFull, rng.y),
+                       __reduce_min_sync(kFull, rng.z), __reduce_max_sync(kFull, rng.w));
+    } else if (need_range) {
       key_range<Row, NT, CH>(kw, dm, chunks, cnt, rng);
       cnt = make_uint4(0u, 0u, __reduce_add_sync(kFull, cnt.z), __reduce_add_sync(kFull, cnt.w));
       rng = make_uint4(__reduce_min_sync(kFull, rng.x), __reduce_max_sync(kFull, rng.y),
@@ -637,6 +814,10 @@ select_rows(const SelectParams p) {
       const bool use = lo_dead < kBins0 && lo_dead > kZeroBin + 1u;  // the zero key stays out
       cut_live = use ? lo_live - 1u : kNone;
       cut_dead = use ? lo_dead - 1u : kNone;
+      // candidates send every dead key where the row holds fewer than k[1]:
+      // the stage keeps them all
+      if constexpr (kCand)
+        if (use && !radix[kAux]) cut_dead = 0u;
     }
 
     // ---- later digits, inside each selection's bin
@@ -694,6 +875,12 @@ select_rows(const SelectParams p) {
           prefix[i] = (prefix[i] << wd) | s.pick[i][0];
           need[i] -= s.pick[i][1];
         }
+    }
+
+    if constexpr (kCand) {
+      emit_candidates<Row, NT, CH>(p, row, kw, dm, chunks, radix, prefix, need, rng, n_dead,
+                                   from_stage, seg, staged, s.wsum);
+      continue;
     }
 
     // ---- thresholds by the edge rules, and the fired test's key
@@ -754,27 +941,36 @@ select_rows(const SelectParams p) {
       }
     }
   }
-  __syncthreads();
-  for (int w = tid; w < nwords; w += NT)
-    if (fmask[w]) atomicOr(&p.fired[w], fmask[w]);
+  if constexpr (!kCand) {
+    __syncthreads();
+    for (int w = tid; w < nwords; w += NT)
+      if (fmask[w]) atomicOr(&p.fired[w], fmask[w]);
+  }
 }
 
 // ------------------------------------------------------------ host side
 
-// Launch select_rows<Row, NT, CH> with the ring depth that lets the most
-// CTAs share an SM, and as many CTAs as then fit on the card, at most one a
-// row.
-template <class Row, int NT, int CH>
+// Launch select_rows<Row, NT, CH, kCand> with the ring depth that lets the
+// most CTAs share an SM, and as many CTAs as then fit on the card, at most
+// one a row.
+template <class Row, int NT, int CH, bool kCand>
 int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
-  auto kern = select_rows<Row, NT, CH>;
+  auto kern = select_rows<Row, NT, CH, kCand>;
   cudaFuncAttributes attr;
   int err = static_cast<int>(cudaFuncGetAttributes(&attr, kern));
   if (err) return err;
   const size_t row_bytes = static_cast<size_t>(p.n) * Row::kElem;
   // the fired mask (whole 16-byte pieces), then each warp's staged keys: an
-  // eighth of the keys a warp holds
+  // eighth of the keys a warp holds; for candidates at least twice the
+  // warp's share of the ranks (k_aux of a narrow shard stages more), and
+  // at most all it holds
   const size_t keys_per_warp = static_cast<size_t>(CH) * Row::kPerChunk * 32;
   p.seg = static_cast<int>(keys_per_warp / 8);
+  if constexpr (kCand) {
+    const size_t want = 2 * (static_cast<size_t>(p.k[0]) + p.k[1]) / (NT / 32) + 32;
+    p.seg = static_cast<int>(want < keys_per_warp / 8 ? keys_per_warp / 8
+                                                      : (want < keys_per_warp ? want : keys_per_warp));
+  }
   const size_t mask_bytes = 4 * static_cast<size_t>(((p.n + 31) / 32 + 3) & ~3) +
                             sizeof(typename Staged<Row>::Entry) * p.seg * (NT / 32);
   const size_t room = kBlockSmem - attr.sharedSizeBytes;
@@ -806,25 +1002,28 @@ int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
   return static_cast<int>(cudaGetLastError());
 }
 
-// The widest row a Row's kernels take: 12 chunks a thread at 1024 threads.
-template <class Row>
+// The widest row a Row's kernels take: 12 chunks a thread at 1024 threads;
+// 13 for f32 candidates (a row of up to 53,248 columns, which loads
+// straight from global memory: it does not fit a ring buffer).
+template <class Row, bool kCand = false>
 constexpr int max_n() {
-  return 12 * 1024 * Row::kPerChunk;
+  return (kCand && Row::kBits == 32 ? 13 : 12) * 1024 * Row::kPerChunk;
 }
 
 // Picks the kernel for the row's width: the fewest threads a row (256, 512,
-// 1024) at which a thread holds at most 6 chunks, else 12 at 1024.
-template <class Row>
+// 1024) at which a thread holds at most 6 chunks, else 12 at 1024 (13 for
+// f32 candidates). kCand: the candidates epilogue, else the thresholds.
+template <class Row, bool kCand = false>
 int launch_select(SelectParams p, cudaStream_t stream) {
   if (p.m == 0) return 0;
-  if (p.n < 1 || p.n > max_n<Row>()) return static_cast<int>(cudaErrorInvalidValue);
+  if (p.n < 1 || p.n > max_n<Row, kCand>()) return static_cast<int>(cudaErrorInvalidValue);
   const int chunks = (p.n + Row::kPerChunk - 1) / Row::kPerChunk;
   const bool aligned = reinterpret_cast<uintptr_t>(p.acts) % 16 == 0 &&
                        (static_cast<size_t>(p.n) * Row::kElem) % 16 == 0;
   const int per256 = (chunks + 255) / 256, per512 = (chunks + 511) / 512,
             per1024 = (chunks + 1023) / 1024;
 #define TOPK_TRY(NT_, CH_, PER_) \
-  if ((PER_) <= (CH_)) return launch_rows<Row, NT_, CH_>(p, aligned, stream);
+  if ((PER_) <= (CH_)) return launch_rows<Row, NT_, CH_, kCand>(p, aligned, stream);
   if constexpr (!Row::kFloat) {
     TOPK_TRY(256, 1, per256)
     TOPK_TRY(256, 2, per256)
@@ -837,6 +1036,9 @@ int launch_select(SelectParams p, cudaStream_t stream) {
   TOPK_TRY(512, 6, per512)
   TOPK_TRY(1024, 6, per1024)
   TOPK_TRY(1024, 12, per1024)
+  if constexpr (kCand && Row::kBits == 32) {
+    TOPK_TRY(1024, 13, per1024)
+  }
 #undef TOPK_TRY
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -7,20 +7,23 @@ kernel ``freud_tpu/ops/topk_threshold.py`` (``topk_thresholds_fired``), for
 which XLA gathers the whole ``(M, n_dict)`` latent. Here the latent stays
 where it is and ``sharded_thresholds_fired`` runs three steps:
 
-1. ``shard_candidates`` (one launch) on this rank's ``(M, n_s)`` shard: a
-   row of ``min(k_sel, n_s)`` top order keys (``k_sel`` = max(k, k_multi)),
-   ``k_aux`` slots for the top ``min(k_aux, d_s)`` keys among the shard's
-   ``d_s`` dead columns, and a header: the smallest finite and the largest
-   key, of all columns and of the dead ones, and ``d_s``
-   (``candidate_width``). The keys are ``order_key``'s on the float path
-   and the bf16 bits read as int16 (offset to unsigned) on the exact path;
+1. ``shard_candidates`` (one launch of kernel #3's selection core,
+   ``csrc/topk_select.cuh``, with its candidates epilogue) on this rank's
+   ``(M, n_s)`` shard: a row of ``min(k_sel, n_s)`` top order keys
+   (``k_sel`` = max(k, k_multi)), ``k_aux`` slots for the top
+   ``min(k_aux, d_s)`` keys among the shard's ``d_s`` dead columns, and a
+   header: the smallest finite and the largest key, of all columns and of
+   the dead ones, and ``d_s`` (``candidate_width``). The keys are
+   ``order_key``'s on the float path and the bf16 bits read as int16
+   (offset to unsigned) on the exact path; within a region their order is
+   the kernel's own (the combine reads multisets);
 2. one all-gather of those rows over the model group
    (``parallel.mesh.model_all_gather``, bit-exact): O(M · P · (k_sel +
    k_aux)) words, not O(M · n_dict);
-3. ``combine_shard_thresholds`` (one launch) on the gathered keys: t_main,
-   t_aux and t_multi with ``topk_thresholds_fired``'s rules, bit for bit,
-   and ``fired`` for this rank's columns. Every model rank computes the same
-   thresholds from the same bytes.
+3. ``combine_shard_thresholds`` (one launch, one warp a row) on the
+   gathered keys: t_main, t_aux and t_multi with ``topk_thresholds_fired``'s
+   rules, bit for bit, and ``fired`` for this rank's columns. Every model
+   rank computes the same thresholds from the same bytes.
 
 The traps: the float path replays the 26-step bisection from the row's
 GLOBAL finite min and max (the headers'), never from the candidates alone;

@@ -20,7 +20,10 @@ input; the fused forward — acts differ on fewer than 1e-3 of entries, by at
 most one bf16 ulp of the pre-activation (the card's f32 sums round it
 either way), selection bit-equal to the plain selection on the kernel's own
 acts, decodes within 1e-3 of max; one TopK training backward on the card
-within 3e-2 of max of the CPU's gradients."""
+within 3e-2 of max of the CPU's gradients; the selection across dictionary
+shards — candidates equal to the plain version's as key multisets with the
+header exact, thresholds and fired bit for bit against the plain versions
+and kernel #3 on the whole latent."""
 
 import time
 
@@ -44,6 +47,7 @@ from freud_tpu_torch.ops.mel import (
     log_mel_spectrogram_recipe,
     recipe_gap,
 )
+from freud_tpu_torch.ops import topk_sharded as ts
 from freud_tpu_torch.ops.topk_fused import topk_sae_forward, topk_sae_forward_plain
 from freud_tpu_torch.ops.topk_threshold import (
     topk_thresholds_fired,
@@ -287,6 +291,99 @@ def test_topk_thresholds_kernel_bit_equal(cuda, dtype, signed, dead_share, m, n,
         assert torch.equal(g, w) and torch.equal(g, g2)
     if dead_share == 0.0:
         assert torch.isinf(got[1]).all()
+
+
+SHARD_K, SHARD_K_AUX, SHARD_K_MULTI = 32, 192, 128
+SHARD_KINDS = {"exact": ts.EXACT, "bf16": ts.BF16, "f32": ts.F32}
+
+
+def _shard_inputs(cuda, kind, n_s, p, dead_kind, m=2000, seed=12):
+    """p shards of n_s columns with the edge rows (silent, a tie across the
+    shard boundaries, one value throughout; on the float kinds a row of
+    negative values with -inf), the dead mask of test_torch_model_axis's
+    case, and whether the bf16 float path needs ``signed``."""
+    rng = np.random.default_rng(seed)
+    n = n_s * p
+    a = np.maximum(rng.standard_normal((m, n)), 0).astype(np.float32)
+    a[1] = 0.0
+    a[2, n // 2 - 3:n // 2 + 3] = 2.5
+    a[3] = 0.75
+    if kind != ts.EXACT:
+        a[4] = -np.abs(a[4]) - 0.25
+        a[4, ::7] = -np.inf
+    if dead_kind == "few":  # fewer dead than k_aux in the whole row
+        dead = np.zeros(n, bool)
+        dead[rng.choice(n, min(n, SHARD_K_AUX // 2), replace=False)] = True
+    else:
+        dead = rng.random(n) < (0.4 if dead_kind != "none" else 0.0)
+        if dead_kind == "first_shard_alive":
+            dead[:n_s] = False
+    acts = torch.from_numpy(a).to(cuda).to(torch.float32 if kind == ts.F32 else torch.bfloat16)
+    # a bf16 latent narrower than 2^15 takes the float path only when signed
+    return acts, torch.from_numpy(dead).to(cuda), kind == ts.BF16
+
+
+def _same_candidates(got, want):
+    """Each region a multiset of keys (the order within it is the kernel's
+    own), the header exact."""
+    c_main = got.shape[1] - SHARD_K_AUX - ts.HEADER
+    for lo, hi in ((0, c_main), (c_main, c_main + SHARD_K_AUX)):
+        g = torch.sort(got[:, lo:hi].to(torch.int64) & 0xFFFFFFFF, dim=1).values
+        w = torch.sort(want[:, lo:hi].to(torch.int64) & 0xFFFFFFFF, dim=1).values
+        assert torch.equal(g, w)
+    assert torch.equal(got[:, -ts.HEADER:], want[:, -ts.HEADER:])
+
+
+def _check_sharded_selection(acts, dead, kind, p, signed, whole_fn):
+    n = acts.shape[1]
+    s = n // p
+    shards = [acts[:, i * s:(i + 1) * s].contiguous() for i in range(p)]
+    dead_s = [dead[i * s:(i + 1) * s] for i in range(p)]
+    k_sel = max(SHARD_K, SHARD_K_MULTI)
+    before = (ts.shard_candidates.launches, ts.combine_shard_thresholds.launches)
+    cands = [ts.shard_candidates(x, d, k_sel, SHARD_K_AUX, kind) for x, d in zip(shards, dead_s)]
+    plain = [ts.shard_candidates_plain(x, d, k_sel, SHARD_K_AUX, kind)
+             for x, d in zip(shards, dead_s)]
+    args = (n, SHARD_K, SHARD_K_AUX, SHARD_K_MULTI, kind)
+    got = [ts.combine_shard_thresholds(torch.stack(cands), x, *args) for x in shards]
+    want = [ts.combine_shard_thresholds_plain(torch.stack(plain), x, *args) for x in shards]
+    whole = whole_fn(acts, dead, SHARD_K, SHARD_K_AUX, k_multi=SHARD_K_MULTI, signed=signed)
+    torch.cuda.synchronize()
+    assert (ts.shard_candidates.launches, ts.combine_shard_thresholds.launches) == (
+        before[0] + p, before[1] + p)
+    for c, pc in zip(cands, plain):
+        _same_candidates(c, pc)
+    for i, (g, w) in enumerate(zip(got, want)):
+        for j in range(3):
+            assert torch.equal(g[j], w[j]) and torch.equal(g[j], whole[j]), j
+        assert torch.equal(g[3], w[3]) and torch.equal(g[3], whole[3][i * s:(i + 1) * s])
+
+
+@pytest.mark.parametrize("n_s", [1024, 1001, 100])  # aligned, not 16-byte rows, < k_sel
+@pytest.mark.parametrize("p", [2, 4])
+@pytest.mark.parametrize("dead_kind", ["many", "few", "none", "first_shard_alive"])
+@pytest.mark.parametrize("kind", list(SHARD_KINDS))
+def test_sharded_selection_launches_match_plain(cuda, kind, dead_kind, p, n_s):
+    """The candidates and combine launches of csrc/topk_sharded.cu against
+    their plain versions and kernel #3 on the whole latent."""
+    acts, dead, signed = _shard_inputs(cuda, SHARD_KINDS[kind], n_s, p, dead_kind)
+    _check_sharded_selection(acts, dead, SHARD_KINDS[kind], p, signed, topk_thresholds_fired)
+
+
+def test_sharded_selection_takes_the_widest_f32_shard(cuda):
+    """An f32 shard of 52,379 columns (wider than kernel #3's 49,152 f32
+    columns: held to its plain version on the whole latent); one more
+    column than the launch takes raises."""
+    n_s = 52379
+    acts, dead, _ = _shard_inputs(cuda, ts.F32, n_s, 2, "many", m=64)
+    _check_sharded_selection(acts, dead, ts.F32, 2, False, topk_thresholds_fired_plain)
+    lib = ts._library()
+    widest = lib.freud_shard_max_local()
+    assert widest >= n_s
+    with pytest.raises(ValueError):
+        ts.shard_candidates(torch.zeros((4, widest + 1), device=cuda),
+                            torch.zeros((widest + 1,), dtype=torch.bool, device=cuda),
+                            SHARD_K, SHARD_K_AUX, ts.F32)
 
 
 @pytest.mark.parametrize("m,dead_share", [(3000, 0.3), (77, 0.01), (77, 0.0)])
