@@ -32,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..device import resolve_device
 from ..parallel import mesh as mesh_lib
 from .loaders import MemoryMappedActivationLoader, resample_padding_rows
@@ -229,10 +230,14 @@ class DeviceShuffleCache:
                     take.append(order[cursor])
                     cursor += 1
                 refresh_idx = self._files[np.asarray(take)]
-                rows = self._resample_rows(reader.batch(refresh_idx)[0], refresh_idx)
-                slots = self._rng.integers(0, self.capacity, self.refresh_files)
-                # the queue bound (2) caps the staged device buffers
-                item = self._stage(rows, slots)
+                # build: the host's own work; stage: the pinning and upload,
+                # whose CUDA calls can wait behind the consumer's graph launch
+                with profiling.span("cache_refresh_build"):
+                    rows = self._resample_rows(reader.batch(refresh_idx)[0], refresh_idx)
+                    slots = self._rng.integers(0, self.capacity, self.refresh_files)
+                with profiling.span("cache_refresh_stage"):
+                    # the queue bound (2) caps the staged device buffers
+                    item = self._stage(rows, slots)
                 while not self._stop.is_set():
                     # retry the SAME item: dropping it on a full queue would
                     # busy-loop on wasted disk reads and skip these files'
@@ -255,14 +260,15 @@ class DeviceShuffleCache:
             rows, slots, event = self._q.get_nowait()
         except queue.Empty:
             return
-        if event is not None:
-            stream = torch.cuda.current_stream(self.device)
-            stream.wait_event(event)
-            # the side stream allocated them: keep them until this stream's
-            # copy has read them
-            rows.record_stream(stream)
-            slots.record_stream(stream)
-        self.cache.index_copy_(0, slots, rows)
+        with profiling.span("cache_refresh_apply"):
+            if event is not None:
+                stream = torch.cuda.current_stream(self.device)
+                stream.wait_event(event)
+                # the side stream allocated them: keep them until this
+                # stream's copy has read them
+                rows.record_stream(stream)
+                slots.record_stream(stream)
+            self.cache.index_copy_(0, slots, rows)
 
     def draw(self, n_steps: int, batch_size: int) -> torch.Tensor:
         """(n_steps, batch_size) int64 window rows, in one launch."""

@@ -1,64 +1,107 @@
 """Lightweight tracing/profiling for pipeline stages.
 
-Every hot pipeline stage wraps itself in ``span(name)``, which (a)
-accumulates wall-clock per stage into a process-wide table, and (b) pushes an
-NVTX range so stages show up on CUDA profiler timelines (``torch.profiler``,
-Nsight) when a CUDA build of PyTorch is running. Same table and report as
-``freud_tpu.profiling``; ``torch.cuda.nvtx.range`` takes the place of
-``jax.profiler.TraceAnnotation``.
+Every hot pipeline stage wraps itself in ``span(name)``, which
+
+* accumulates wall-clock per stage into a process-wide table (``stats``,
+  ``report``: the same table and report as ``freud_tpu.profiling``);
+* keeps a record of each of the newest ``_MAX_CALLS_KEPT`` calls of each
+  name (``records``): its ``id``, the ``parent`` id (the innermost span open
+  on the same thread when it began, None at the top), its ``thread``
+  (``threading.get_native_id()``, the ``tid`` of a profiler trace), its
+  ``start_ns`` on ``time.time_ns()`` and its duration ``dur_s``. The
+  chrome trace that ``torch.profiler`` exports counts its ``ts`` (µs) on
+  the same clock from the trace's ``baseTimeNanoseconds``, so a record
+  lines up with the trace's events;
+* opens ``torch.profiler.record_function(name)`` while a profiler is
+  running (``start_trace``, or one started on this thread): the span is
+  then a ``user_annotation`` on the trace's host timeline, beside the
+  device's kernels, and a profiler's idle gap can be named after it. Under
+  ``torch.autograd.profiler.emit_nvtx()`` the same ranges are NVTX ranges
+  for Nsight. Without a profiler the annotation is skipped (a check of
+  ~0.1 µs against ~14 µs for ``record_function`` itself), and a span costs
+  a few µs of host time, most of it the context manager's own.
 
 Spans time the host: a span around asynchronous CUDA work measures the
-enqueue unless the stage itself waits for the device (``d2h_fetch`` does).
+enqueue unless the stage itself waits for the device. These wait:
+``d2h_fetch`` (the device-to-host copy), ``train_chunk_wait`` (the chunk
+through its synchronisation), ``serve.locked`` (it ends with the answer's
+copy to the host) and ``chunk_replay``, whose launch of a many-step graph
+blocks until the card has taken much of its work.
 
 ``trace(logdir)`` (or ``start_trace``/``stop_trace``) captures a
-``torch.profiler`` trace of the host and, with a card, of CUDA into
-``logdir`` (TensorBoard's trace layout), where the JAX package captures a
-``jax.profiler`` one; a ``None`` logdir is a no-op.
+``torch.profiler`` trace of the host, every thread's spans included, and,
+with a card, of CUDA into ``logdir`` (TensorBoard's trace layout), where the
+JAX package captures a ``jax.profiler`` one; a ``None`` logdir is a no-op.
 """
 
 from __future__ import annotations
 
 import contextlib
+import itertools
 import threading
 import time
-from collections import defaultdict
-from typing import Iterator, Optional
+from collections import defaultdict, deque
+from typing import Iterator, NamedTuple, Optional
 
 import torch
+
+# Per-call records kept per span: the newest, enough to decompose a
+# measured window without unbounded growth on per-batch spans.
+_MAX_CALLS_KEPT = 2048
+
+
+class Record(NamedTuple):
+    id: int
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    dur_s: float
+
 
 _lock = threading.Lock()
 _totals: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
-_durations: dict[str, list[float]] = defaultdict(list)
-# Per-call samples kept per span, enough to decompose low-cadence stages
-# without unbounded growth on per-batch spans.
-_MAX_CALLS_KEPT = 2048
+_records: dict[str, deque] = defaultdict(lambda: deque(maxlen=_MAX_CALLS_KEPT))
+_ids = itertools.count(1)  # next() of a count is atomic under the GIL
+_local = threading.local()  # .stack: ids of the spans open on this thread
 _trace = None  # the running torch.profiler.profile of start_trace
 
 
-def _annotation(name: str):
-    # NVTX exists only in CUDA builds of PyTorch; a CPU build raises on use
-    if torch.cuda.is_available():
-        return torch.cuda.nvtx.range(name)
-    return contextlib.nullcontext()
+def _thread_stack() -> list:
+    stack = getattr(_local, "stack", None)
+    if stack is None:
+        stack = _local.stack = []
+        _local.thread = threading.get_native_id()
+    return stack
 
 
 @contextlib.contextmanager
 def span(name: str) -> Iterator[None]:
+    stack = _thread_stack()
+    sid = next(_ids)
+    parent = stack[-1] if stack else None
+    stack.append(sid)
+    start_ns = time.time_ns()
     t0 = time.perf_counter()
     try:
-        with _annotation(name):
+        # a profiler started on another thread reads as off here; start_trace
+        # profiles every thread
+        if _trace is not None or torch._C._autograd._profiler_enabled():
+            with torch.profiler.record_function(name):
+                yield
+        else:
             yield
     finally:
         # account failed invocations too — a raising stage would otherwise
         # vanish from the report, under-counting exactly what's being
         # debugged
         dt = time.perf_counter() - t0
+        stack.pop()
+        rec = Record(sid, parent, _local.thread, start_ns, dt)
         with _lock:
             _totals[name] += dt
             _counts[name] += 1
-            if len(_durations[name]) < _MAX_CALLS_KEPT:
-                _durations[name].append(dt)
+            _records[name].append(rec)
 
 
 def stats() -> dict[str, dict[str, float]]:
@@ -70,17 +113,23 @@ def stats() -> dict[str, dict[str, float]]:
         }
 
 
-def calls(name: str) -> list[float]:
-    """Per-call durations for ``name`` (first _MAX_CALLS_KEPT calls)."""
+def records(name: str) -> list[Record]:
+    """The newest ``_MAX_CALLS_KEPT`` calls of ``name``, oldest first, by
+    when they ended."""
     with _lock:
-        return list(_durations.get(name, ()))
+        return list(_records.get(name, ()))
+
+
+def calls(name: str) -> list[float]:
+    """Per-call durations in seconds of ``records(name)``."""
+    return [r.dur_s for r in records(name)]
 
 
 def reset() -> None:
     with _lock:
         _totals.clear()
         _counts.clear()
-        _durations.clear()
+        _records.clear()
 
 
 def report() -> str:
@@ -97,7 +146,10 @@ def start_trace(logdir: str) -> None:
         activities.append(torch.profiler.ProfilerActivity.CUDA)
     prof = torch.profiler.profile(
         activities=activities,
-        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir))
+        on_trace_ready=torch.profiler.tensorboard_trace_handler(logdir),
+        # every thread's spans, the server's handlers and the cache's
+        # producer included: without it only this thread's are kept
+        experimental_config=torch.profiler._ExperimentalConfig(profile_all_threads=True))
     prof.start()
     _trace = prof
 

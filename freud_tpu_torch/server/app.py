@@ -35,10 +35,19 @@ dataset roots unless ``allow_any_audio_path`` is set.
 long-form seek loop (``WhisperRuntime.transcribe_long``, word times with
 ``word_timestamps=1``), as the JAX server does; its query parameters are
 checked on the host before any device work, and a bad one answers 400.
+
+Every POST opens the span ``serve.request`` (``profiling.span``) from its
+request line to the last byte written, with the children ``serve.read``
+(receiving the body), ``serve.parse`` (the multipart parse),
+``serve.decode`` (the upload's decode), ``serve.lock_wait`` (the queue
+behind the device lock), ``serve.locked`` (the work under it, which ends
+with the answer's copy to the host) and ``serve.respond`` (the answer's
+JSON or text and its write).
 """
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import re
@@ -54,6 +63,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from .. import profiling
 from ..analysis.features import FeatureAnalyzer
 from ..analysis.search import top_activations
 from ..audio.decode import load_audio
@@ -193,7 +203,22 @@ def parse_multipart(content_type: str, body: bytes):
     return out
 
 
+_UPLOAD_ROUTES = ("/top_features", "/manipulate_feature", "/transcribe")
+
+
 def make_handler(state: GuiState):
+    @contextlib.contextmanager
+    def device_lock():
+        """The one device lock, its wait and its hold as spans, the hold
+        under inference mode."""
+        with profiling.span("serve.lock_wait"):
+            state.lock.acquire()
+        try:
+            with profiling.span("serve.locked"), torch.inference_mode():
+                yield
+        finally:
+            state.lock.release()
+
     class Handler(BaseHTTPRequestHandler):
         protocol_version = "HTTP/1.1"
 
@@ -281,15 +306,23 @@ def make_handler(state: GuiState):
             # unexpected handler exceptions must answer 500 JSON, not drop
             # the connection mid-response (Flask's behavior the React client
             # expects); headers-already-sent errors can only close
-            try:
-                super().handle_one_request()
-            except (BrokenPipeError, ConnectionResetError):
-                self.close_connection = True
-            except Exception as e:  # noqa: BLE001 — last-resort boundary
+            with contextlib.ExitStack() as self._request_span:
                 try:
-                    self._send_json({"error": f"internal error: {e}"}, 500)
-                except Exception:  # noqa: BLE001
+                    super().handle_one_request()
+                except (BrokenPipeError, ConnectionResetError):
                     self.close_connection = True
+                except Exception as e:  # noqa: BLE001 — last-resort boundary
+                    try:
+                        self._send_json({"error": f"internal error: {e}"}, 500)
+                    except Exception:  # noqa: BLE001
+                        self.close_connection = True
+
+        def parse_request(self):
+            # a POST's serve.request opens once its request line has been
+            # read and closes with handle_one_request, after the last byte
+            if self.raw_requestline.startswith(b"POST "):
+                self._request_span.enter_context(profiling.span("serve.request"))
+            return super().parse_request()
 
         def do_OPTIONS(self):
             self.send_response(204)
@@ -359,22 +392,27 @@ def make_handler(state: GuiState):
                 # to a temp file and a float32 buffer ~8x its size
                 self._send_json({"error": "upload too large"}, 413)
                 return
-            body = self.rfile.read(length)
-            if path not in ("/top_features", "/manipulate_feature",
-                            "/transcribe"):
-                self._send_json({"error": "not found"}, 404)
-                return
-            if not state.allow_audio_upload:
-                self._send_json({"error": "audio upload disabled"}, 403)
+            if path not in _UPLOAD_ROUTES or not state.allow_audio_upload:
+                # read either way: the kept-alive connection's next request
+                # starts after this body
+                self.rfile.read(length)
+                if path not in _UPLOAD_ROUTES:
+                    self._send_json({"error": "not found"}, 404)
+                else:
+                    self._send_json({"error": "audio upload disabled"}, 403)
                 return
             try:
-                parts = parse_multipart(self.headers.get("Content-Type", ""), body)
+                with profiling.span("serve.read"):
+                    body = self.rfile.read(length)
+                with profiling.span("serve.parse"):
+                    parts = parse_multipart(self.headers.get("Content-Type", ""), body)
                 if "audio" not in parts:
                     raise ValueError("No audio file provided")
                 filename, payload = parts["audio"]
                 if not payload:
                     raise ValueError("No selected file")
-                audio = decode_uploaded_audio(payload, filename)
+                with profiling.span("serve.decode"):
+                    audio = decode_uploaded_audio(payload, filename)
             except (ValueError, RuntimeError) as e:
                 self._send_json({"error": str(e)}, 400)
                 return
@@ -416,15 +454,16 @@ def make_handler(state: GuiState):
                             return
                     if q.get("highlight_words", "0").lower() in truthy:
                         opts["highlight_words"] = True
-                with state.lock, torch.inference_mode():
+                with device_lock():
                     result = state.transcribe(audio, long_mode, fallback, wts)
-                if fmt == "json":
-                    self._send_json(result)
-                else:
-                    mime = ("text/vtt" if fmt == "vtt" else
-                            "text/tab-separated-values" if fmt == "tsv" else
-                            "text/plain")
-                    self._send_text(get_writer(fmt)(result, **opts), mime)
+                with profiling.span("serve.respond"):
+                    if fmt == "json":
+                        self._send_json(result)
+                    else:
+                        mime = ("text/vtt" if fmt == "vtt" else
+                                "text/tab-separated-values" if fmt == "tsv" else
+                                "text/plain")
+                        self._send_text(get_writer(fmt)(result, **opts), mime)
             elif path == "/top_features":
                 top_n = int(q.get("top_n", 32))
                 if not (1 <= top_n <= state.n_features):
@@ -432,14 +471,15 @@ def make_handler(state: GuiState):
                         {"error": f"top_n must be in [1, "
                                   f"{state.n_features}], got {top_n}"}, 400)
                     return
-                with state.lock, torch.inference_mode():
+                with device_lock():
                     idx, traces = state.analyzer.top_features_for_audio(audio, top_n)
-                self._send_json(
-                    {
-                        "top_indices": idx,
-                        "top_activations": [np.asarray(t).tolist() for t in traces],
-                    }
-                )
+                with profiling.span("serve.respond"):
+                    self._send_json(
+                        {
+                            "top_indices": idx,
+                            "top_activations": [np.asarray(t).tolist() for t in traces],
+                        }
+                    )
             else:
                 feat_idx = int(q.get("feat_idx", 0))
                 factor = float(q.get("manipulation_factor", 1.5))
@@ -448,20 +488,22 @@ def make_handler(state: GuiState):
                         {"error": f"feat_idx {feat_idx} outside "
                                   f"[0, {state.n_features})"}, 400)
                     return
-                with state.lock, torch.inference_mode():
+                with device_lock():
                     (
                         baseline_text, manipulated_text, standard_text,
                         standard_acts, manipulated_acts,
                     ) = state.analyzer.manipulate(audio, feat_idx, factor)
-                self._send_json(
-                    {
-                        "baseline_text": baseline_text,
-                        "manipulated_text": manipulated_text,
-                        "standard_text": standard_text,
-                        "standard_activations": np.asarray(standard_acts).tolist(),
-                        "manipulated_activations": np.asarray(manipulated_acts).tolist(),
-                    }
-                )
+                with profiling.span("serve.respond"):
+                    self._send_json(
+                        {
+                            "baseline_text": baseline_text,
+                            "manipulated_text": manipulated_text,
+                            "standard_text": standard_text,
+                            "standard_activations": np.asarray(standard_acts).tolist(),
+                            "manipulated_activations":
+                                np.asarray(manipulated_acts).tolist(),
+                        }
+                    )
 
     return Handler
 

@@ -27,6 +27,7 @@ from typing import Callable
 
 import torch
 
+from .. import profiling
 from ..data.device_cache import sample_rows
 
 
@@ -103,15 +104,20 @@ def run_chunk(chunks: dict, step: Callable[[torch.Tensor], dict], window: torch.
     if graph is None:
         graph = window.device.type == "cuda"
     if not graph:
-        stack = [step(sample_rows(window, indices[i])) for i in range(n_steps)]
-        return {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
+        with profiling.span("chunk_replay"):
+            stack = [step(sample_rows(window, indices[i])) for i in range(n_steps)]
+            return {k: torch.stack([m[k] for m in stack]) for k in stack[0]}
     key = tuple(indices.shape)
     captured = chunks.get(key)
     if captured is None or captured[0] is not window:
         idx = torch.zeros(key, dtype=torch.int64, device=window.device)
-        chunk = capture_chunk(lambda i: step(sample_rows(window, idx[i])), n_steps,
-                              state, counted, what)
+        with profiling.span("chunk_capture"):
+            chunk = capture_chunk(lambda i: step(sample_rows(window, idx[i])), n_steps,
+                                  state, counted, what)
         captured = chunks[key] = (window, idx, chunk)
     _, idx, chunk = captured
     idx.copy_(indices)
-    return chunk.replay()
+    # the launch of a many-step graph returns only once the card has taken
+    # much of its work: this span is the host's wait on the replay
+    with profiling.span("chunk_replay"):
+        return chunk.replay()

@@ -351,16 +351,19 @@ class SAETrainer:
         return self._run_chunk(cache, batch_size, n_steps, indices, "train_chunk")
 
     def _run_chunk(self, cache, batch_size: int, n_steps: int, indices, what: str) -> dict:
-        window, _ = cache.sample_state()
-        if indices is None:
-            indices = cache.draw(n_steps, batch_size)
-        if tuple(indices.shape) != (n_steps, batch_size):
-            raise ValueError(f"indices {tuple(indices.shape)} must be "
-                             f"({n_steps}, {batch_size})")
-        metrics = run_chunk(self._chunks, self._chunk_step(), window, indices,
-                            self._state(), STEP_KERNELS, f"{what} ({self.variant})",
-                            graph=self.chunk_is_graph(window))
-        self.step += n_steps
+        # train_chunk: the host's part (refresh, draw, index copy) and its
+        # chunk_replay child
+        with profiling.span("train_chunk"):
+            window, _ = cache.sample_state()
+            if indices is None:
+                indices = cache.draw(n_steps, batch_size)
+            if tuple(indices.shape) != (n_steps, batch_size):
+                raise ValueError(f"indices {tuple(indices.shape)} must be "
+                                 f"({n_steps}, {batch_size})")
+            metrics = run_chunk(self._chunks, self._chunk_step(), window, indices,
+                                self._state(), STEP_KERNELS, f"{what} ({self.variant})",
+                                graph=self.chunk_is_graph(window))
+            self.step += n_steps
         return metrics
 
     def train_chunk_pod(self, cache, local_batch: int, n_steps: int,
@@ -1038,13 +1041,12 @@ def train(
             if (fused and trainer.step % fused == 0
                     and steps - trainer.step >= fused):
                 first = trainer.step + 1
-                # train_chunk: the enqueue (refresh, index draw, replay);
                 # train_chunk_wait: the chunk through its synchronisation
+                # (the method opens train_chunk inside it)
                 with profiling.span("train_chunk_wait"):
-                    with profiling.span("train_chunk"):
-                        metrics = (trainer.train_chunk_pod(cache, cache_batch, fused)
-                                   if multihost
-                                   else trainer.train_chunk(cache, batch_size, fused))
+                    metrics = (trainer.train_chunk_pod(cache, cache_batch, fused)
+                               if multihost
+                               else trainer.train_chunk(cache, batch_size, fused))
                     if cuda:
                         torch.cuda.synchronize(dev)
                 log_steps = [s for s in range(first, trainer.step + 1)
