@@ -16,8 +16,8 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
 
   0. the card (nvidia-smi name and power limit), torch and CUDA versions,
      whether TensorBoard imports;
-  1. build all four kernel sources (five kernels) from csrc/ with nvcc for
-     sm_90a, in parallel;
+  1. build every kernel source from csrc/ with nvcc for sm_90a, in
+     parallel;
   2. each kernel against its plain PyTorch version on the card, at the
      main paths' shapes (and edge rows for the TopK kernels, kernel #4 also
      at large_v1_audioset's geometry, its select launch timed alone by its
@@ -26,7 +26,12 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      all -inf; kernel #1 at 80 and 128 bands, with
      mostly silent clips, and also against its recipe with exact sums;
      kernel #2 also against its plain version rounded where the contract
-     rounds), with its stated tolerance, and both timed
+     rounds; the TopK backward's masked pair and route,
+     ``csrc/topk_backward.cu``, bit-equal to their plain versions, db_enc
+     within its f32 rounding bound, in bf16 and f32 at tiny_topk's shape,
+     with none and every latent dead, at large_v1_audioset's and at one
+     rank's columns of its dictionary split in two), with its stated
+     tolerance, and both timed
      (median CUDA-event time after warm-up), beside the kernel's bound
      (freud_tpu_torch.flops, from this run's inputs; every time must be at
      or above it) and the PyTorch calls that compute the same function where
@@ -41,15 +46,16 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
   5. the train CLI (``python -m freud_tpu_torch.scripts.train_sae``, run
      in-process) on that store from configs/train/tiny_topk.json: 30 steps
      with AuxK active from step 2, checkpoints that load with
-     weights_only=True, kernel #4's launches; then 4 steps with multi_topk
-     (kernel #3's launches) and 4 steps of tiny_l1.json; steps/s each;
+     weights_only=True, kernel #4's launches and one of each backward pass
+     a step; then 4 steps with multi_topk (kernel #3's launches, no
+     backward pass) and 4 steps of tiny_l1.json; steps/s each;
  5b. the train CLI through the device cache (``device_cache_files`` 24 of
      the 51 files, refresh on, ``fused_steps`` 10, ``save_every`` and
      ``val_every`` 30): tiny_topk with an f32 and a bf16 window (AuxK from
      step 2), 10 multi_topk steps and tiny_l1 at batch 50; each chunk a
      CUDA graph replay: steps, checkpoints and the one validation on their
-     cadence, kernel #4 (#3 under multi_topk) once a replayed step (and once
-     for the capture's warm-up), finite losses, the window's bytes against
+     cadence, kernel #4 and the backward passes (#3 under multi_topk) once
+     a replayed step (and once for the capture's warm-up), finite losses, the window's bytes against
      its shape and dtype, the resident validation set on; then a chunk of 5
      tiny_topk steps (batch 50, kernel #4 inside, AuxK active) and one of 5
      tiny_l1 steps (batch 100) replayed as a graph against the same steps
@@ -267,7 +273,10 @@ and the device JSON (#1, #2 and #5 also their launches in phase 25, #3
 and #4 in phases 26–27, #2, #3 and #4 their records at phases 25–26's
 shapes, every kernel its launches in phases 28–30 as ``launches_pod``;
 #3 and #4 also ``launches_model_axis`` and the ``model_axis`` record of
-phase 31's launches). Before them, one JSON line records phase 31
+phase 31's launches). The TopK backward's two passes have a record each
+too: launches in phase 5 (one a step), the cache runs, phases 26–27, 28–30
+and 31, and the time at each shape of phase 2 beside its plain version and
+bytes bound. Before them, one JSON line records phase 31
 (``{"model_axis": …}``).
 Before that, one JSON line records phases 28–30 (``{"pod": …}``): the
 comparisons, the ms a step, the chunk, the sweep, the merged stores and the
@@ -408,6 +417,8 @@ GRID_STEPS, GRID_CHUNK, GRID_CACHE_FILES = 25, 10, 24
 POD_BATCH, POD_STEPS, POD_CACHE_FILES, POD_CHUNK = 50, 10, 24, 5
 POD_LAYERS, POD_ML_BATCH, POD_ML_FILES = ["encoder.blocks.1", "encoder.blocks.2"], 4, 8
 POD_TIMED_STEPS, POD_TIMEOUT_S = 5, 420
+# the TopK backward's pass wrappers (ops/topk_backward), one of each a step
+BACKWARD_PASSES = ("topk_masked_pair", "topk_route")
 # phase 31: large_v1_audioset over a data 1 × model 2 mesh of two gloo ranks
 # on one card (the batch cut from the recipe's 32 files: see PERF.md §4)
 MODEL_AXIS_BATCH, MODEL_AXIS_STEPS, MODEL_AXIS_TIMED_STEPS = 16, 3, 2
@@ -974,6 +985,117 @@ def check_topk_threshold(torch, device, card):
     return record
 
 
+# the TopK backward's passes: (label, rows, width, dtype, dead share, k_aux,
+# timed); the label prefixes the record's keys ("" the main shape)
+BACKWARD_SHAPES = (
+    ("", M_ROWS, N_DICT, "bfloat16", 1 / 3, K_AUX, True),
+    ("none_dead_", 3001, N_DICT, "bfloat16", 0.0, K_AUX, False),
+    ("all_dead_", 3001, N_DICT, "bfloat16", 1.0, K_AUX, False),
+    ("f32_", M_ROWS, N_DICT, "float32", 1 / 3, K_AUX, True),
+    ("large_", LARGE_M_ROWS, LARGE_N_DICT, "bfloat16", 0.94, LARGE_K_AUX, True),
+    # a large_v1_audioset dictionary split in two: one rank's columns
+    ("shard_", LARGE_M_ROWS, LARGE_N_DICT // 2, "bfloat16", 0.94, LARGE_K_AUX, True),
+    ("shard_f32_", 5000, LARGE_N_DICT // 2, "float32", 0.94, LARGE_K_AUX, False),
+)
+
+
+def _backward_operands(torch, device, gen, m, n, dtype, dead_share, k_aux):
+    """acts, t_main, t_aux, dead_f and [d1; d2] as the TopK backward sees
+    them: relu'd normal acts with a silent row (t_main 0) and a row tied
+    across (ties kept), kernel #3's thresholds at k and ``k_aux`` (a row
+    without a dead latent: t_aux +inf), [d1; d2] normal with negative
+    zeros."""
+    from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
+
+    acts = torch.relu(torch.randn((m, n), generator=gen, device=device)).to(dtype)
+    acts[1] = 0.0
+    acts[2] = 0.25
+    dead = torch.rand((n,), generator=gen, device=device) < dead_share
+    t_main, t_aux = topk_thresholds_fired(acts, dead, K, k_aux)[:2]
+    d = torch.randn((2 * m, n), generator=gen, device=device).to(dtype)
+    d[::3, ::5] = -0.0
+    return acts, t_main, t_aux, dead.float(), d
+
+
+def check_topk_backward(torch, device, card) -> dict:
+    """The TopK backward's two passes (``csrc/topk_backward.cu``) against
+    their plain versions at the training paths' shapes: tiny_topk's (75,000
+    × 6,144) in bf16 and f32 (the f32 route), none and every latent dead,
+    large_v1_audioset's (48,000 × 20,480, 94% dead) and one rank's columns
+    of its dictionary split in two (10,240) in bf16 and f32. The masked
+    pair and d_acts bit for bit, two launches bit-equal; db_enc within the
+    f32 rounding bound of its two-level sum (each row group's sum, then the
+    groups in order) of the exact column sum. Each timed beside its bytes
+    bound and its plain version. → {wrapper: record}."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.topk_backward import (
+        GROUP_ROWS,
+        topk_masked_pair,
+        topk_masked_pair_plain,
+        topk_route,
+        topk_route_plain,
+    )
+
+    def bits(t):
+        return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+    gen = torch.Generator(device).manual_seed(SEED + 19)
+    none = "none: the plain version's compares, wheres and {} are the PyTorch calls"
+    recs = {"topk_masked_pair": dict(max_abs_err=0.0, **yardsticks(
+                flops.topk_bwd_pair_bound(M_ROWS, N_DICT), None, none.format("cat"))),
+            "topk_route": dict(max_abs_err=0.0, **yardsticks(
+                flops.topk_bwd_route_bound(M_ROWS, N_DICT), None, none.format("sum")))}
+    for label, m, n, dname, dead_share, k_aux, timed in BACKWARD_SHAPES:
+        dtype = getattr(torch, dname)
+        acts, t_main, t_aux, dead_f, d = _backward_operands(
+            torch, device, gen, m, n, dtype, dead_share, k_aux)
+        masks = (acts, t_main, t_aux, dead_f)
+        pair, again = topk_masked_pair(*masks), topk_masked_pair(*masks)
+        want = topk_masked_pair_plain(*masks)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(pair), bits(want)), label
+        assert torch.equal(bits(again), bits(pair)), label
+        assert bool(pair[m:].any()) == (dead_share > 0), label
+        del pair, again, want
+        (d_acts, db), (d_again, db_again) = topk_route(d, *masks), topk_route(d, *masks)
+        want, want_db = topk_route_plain(d, *masks)
+        torch.cuda.synchronize()
+        assert torch.equal(bits(d_acts), bits(want)), label
+        assert torch.equal(bits(d_again), bits(d_acts)), label
+        assert torch.equal(bits(db_again), bits(db)), label
+        exact = torch.sum(want, dim=0, dtype=torch.float64)
+        bound = ((GROUP_ROWS + -(-m // GROUP_ROWS)) * 2.0 ** -24
+                 * torch.sum(want.abs(), dim=0, dtype=torch.float64))
+        ratio = float(((db.double() - exact).abs() / bound.clamp(min=1e-300)).max())
+        assert ratio <= 1.0 and d_acts.any(), (label, ratio)
+        recs["topk_route"][f"{label}db_enc_bound_ratio"] = ratio
+        print(f"topk backward {label or 'main_'}({m}, {n}) {dname}, {dead_share:.2f} dead: "
+              f"masked pair and d_acts bit-equal to plain, two launches bit-equal; db_enc "
+              f"{ratio:.3f} of its f32 rounding bound (plain sum "
+              f"{float((want_db.double() - exact).abs().max()):.3e} from exact)")
+        del d_acts, d_again, want, want_db, exact, bound
+        if timed:
+            in_bytes = torch.finfo(dtype).bits // 8
+            for name, fn, plain, bound in (
+                    ("topk_masked_pair", lambda: topk_masked_pair(*masks),
+                     lambda: topk_masked_pair_plain(*masks),
+                     flops.topk_bwd_pair_bound(m, n, in_bytes)),
+                    ("topk_route", lambda: topk_route(d, *masks),
+                     lambda: topk_route_plain(d, *masks),
+                     flops.topk_bwd_route_bound(m, n, in_bytes))):
+                ms = cuda_ms(fn, reps=10)
+                plain_ms = cuda_ms(plain, warmup=1, reps=3)
+                assert ms >= bound.bound_ms, (name, label, ms, bound.bound_ms)
+                recs[name].update({f"{label}ms": ms, f"{label}plain_ms": plain_ms,
+                                   f"{label}bound_ms": bound.bound_ms})
+                print(f"{name} ({m}, {n}) {dname}: kernel {ms:.4f} ms, plain "
+                      f"{plain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms ({bound.bound_by}; "
+                      f"{bound.bytes / 1e9:.2f} GB) on {card}")
+        del acts, t_main, t_aux, dead_f, d, masks
+        torch.cuda.empty_cache()
+    return recs
+
+
 def write_wavs(folder: Path, lengths: list[int], broken: bool = False,
                seed: int = SEED) -> list[tuple[str, int]]:
     """Seeded noise clips of ``lengths`` samples as 16-bit PCM WAV, plus
@@ -1024,6 +1146,16 @@ def collect(config: dict, cfg_path: Path) -> dict:
 RUN_OBJECTS: dict = {}
 
 
+def backward_counters() -> dict:
+    """The TopK backward passes' wrappers by name; none on a tree without
+    them."""
+    try:
+        from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
+    except ImportError:
+        return {}
+    return {"topk_masked_pair": topk_masked_pair, "topk_route": topk_route}
+
+
 def train(config: dict, cfg_path: Path, prof=None, warm: int = 0,
           prof_chunk: int | None = None) -> tuple[dict, list[dict]]:
     """The train CLI in this process; → (its stats, every step's metrics as
@@ -1044,14 +1176,15 @@ def train(config: dict, cfg_path: Path, prof=None, warm: int = 0,
     seen: list[dict] = []
     chunks: list[dict] = []
     RUN_OBJECTS.clear()
+    counters = {"topk_sae_forward": topk_sae_forward,
+                "topk_thresholds_fired": topk_thresholds_fired, **backward_counters()}
 
-    def counts() -> tuple[int, int]:
-        return topk_sae_forward.launches, topk_thresholds_fired.launches
+    def counts() -> dict:
+        return {k: fn.launches for k, fn in counters.items()}
 
-    def launched(before: tuple[int, int]) -> dict:
+    def launched(before: dict) -> dict:
         after = counts()
-        return {"launches_topk_sae_forward": after[0] - before[0],
-                "launches_topk_thresholds_fired": after[1] - before[1]}
+        return {f"launches_{k}": after[k] - before[k] for k in counters}
 
     step = SAETrainer.train_step
 
@@ -3285,6 +3418,8 @@ def sweep_per_layer(torch, device, tmp: Path, store_dir: str, card: str,
     assert stats["steps"] == SWEEP_TOPK_STEPS and np.isfinite(stats["final"]["loss"]).all()
     assert launches["topk_sae_forward"] == 4 * SWEEP_TOPK_STEPS, launches
     assert launches["topk_thresholds_fired"] == 0, launches
+    backward = [k for k in BACKWARD_PASSES if k in counters]
+    assert all(launches[k] == 4 * SWEEP_TOPK_STEPS for k in backward), launches
     for layer in SMALL_LAYERS:
         variant, cfg_, act, params = sae_from_checkpoint(str(out / f"{layer}.pth"), "cpu")
         assert variant == "topk" and act == SMALL_D and cfg_.k == K, layer
@@ -3304,6 +3439,7 @@ def sweep_per_layer(torch, device, tmp: Path, store_dir: str, card: str,
     print(f"per-layer L1 sweep ({lbase['autoencoder_config']}): {stats['steps']} steps, "
           f"final losses {stats['final']['loss']}; launches {launches}")
     assert stats["steps"] == SWEEP_L1_STEPS and np.isfinite(stats["final"]["loss"]).all()
+    assert all(launches[k] == 0 for k in backward), launches
     free_device_memory(torch)
 
     cfg = sweep_config(store_dir, tmp / "sweep_multi", layer_names=SMALL_LAYERS, steps=2)
@@ -3313,6 +3449,7 @@ def sweep_per_layer(torch, device, tmp: Path, store_dir: str, card: str,
     print(f"per-layer multi_topk sweep: {stats['steps']} steps; launches {launches}")
     assert stats["steps"] == 2 and np.isfinite(stats["final"]["loss"]).all()
     assert launches["topk_thresholds_fired"] == 4 * 2, launches
+    assert all(launches[k] == 0 for k in backward), launches  # the autograd route
     free_device_memory(torch)
 
     # members against solo trainers on the same batches, then the step's time
@@ -3481,6 +3618,8 @@ def sweep_grid(torch, tmp: Path, store_dir: str, card: str, counters: dict) -> d
         assert all(b is group[0][1] for _, b in group[1:])
     # a capture's warm-up step, then one a member a replayed or tail step
     assert launches["topk_sae_forward"] == len(ks) * per_group * (1 + GRID_STEPS), launches
+    assert all(launches[k] == launches["topk_sae_forward"]
+               for k in BACKWARD_PASSES if k in counters), launches
     tags = sorted(f"{sweep_mod._hp_tag(hp)}.pth" for hp in hps)
     assert sorted(p.name for p in out.glob("*.pth")) == tags
     for m in stats["models"]:
@@ -3617,6 +3756,7 @@ def pod_worker(rank: int, port: int, spec_path: str) -> int:
     from freud_tpu_torch.data.multilayer import collect_multilayer
     from freud_tpu_torch.ops.attention import fused_qkv_attention
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
     from freud_tpu_torch.parallel import distributed as dist_lib
@@ -3632,7 +3772,7 @@ def pod_worker(rank: int, port: int, spec_path: str) -> int:
     assert mesh.device == torch.device("cuda:0")
     rec: dict = {"rank": rank}
     kernels = (log_mel_spectrogram_cuda, fused_qkv_attention, topk_sae_forward,
-               topk_thresholds_fired)
+               topk_thresholds_fired, topk_masked_pair, topk_route)
 
     def zero():
         for fn in kernels:
@@ -3663,7 +3803,7 @@ def pod_worker(rank: int, port: int, spec_path: str) -> int:
             spec["store"], LAYER, POD_BATCH, shuffle=True, drop_last=True, seed=SEED))
     metrics, counters, walls, forced = [], [], [], []
     zero()
-    shadow_launches = 0
+    shadow_launches = dict.fromkeys(read(), 0)
     for i in range(POD_STEPS):
         x = next(batches)
         assert x.shape == (POD_BATCH // 2, 1500, D_IN), x.shape
@@ -3675,10 +3815,10 @@ def pod_worker(rank: int, port: int, spec_path: str) -> int:
         metrics.append({k: float(v) for k, v in m.items()})
         counters.append(tr.num_frames_since_fired.cpu().clone())
         if shadow is not None:
-            before = topk_sae_forward.launches
+            before = read()
             sm = shadow.train_step(next(gbatches))
-            torch.cuda.synchronize()
-            shadow_launches += topk_sae_forward.launches - before
+            for k, v in read().items():
+                shadow_launches[k] += v - before[k]
             forced.append({
                 "metric_rel": max(abs(float(sm[k]) - v) / max(abs(float(sm[k])), 1e-30)
                                   for k, v in metrics[-1].items()),
@@ -3699,8 +3839,7 @@ def pod_worker(rank: int, port: int, spec_path: str) -> int:
         tr.train_step(x, host_local=True)
         torch.cuda.synchronize()
         walls.append(1e3 * (time.perf_counter() - t0))
-    launches = read()
-    launches["topk_sae_forward"] -= shadow_launches
+    launches = {k: v - shadow_launches[k] for k, v in read().items()}
     rec["topk"] = {"metrics": metrics, "launches": launches, "step_ms": walls,
                    "forced": forced}
     del shadow, tr
@@ -3819,6 +3958,7 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
     from freud_tpu_torch.data.device_cache import DeviceShuffleCache, sample_rows
     from freud_tpu_torch.data.loaders import MemoryMappedActivationLoader
     from freud_tpu_torch.data.multilayer import collect_multilayer
+    from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.parallel import distributed as dist_lib
     from freud_tpu_torch.parallel import mesh as mesh_lib
@@ -3915,7 +4055,8 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
     assert max(aux[1:]) > 0, aux
     for r in ranks:
         pod_steps = POD_STEPS + POD_TIMED_STEPS
-        assert r["topk"]["launches"]["topk_sae_forward"] == pod_steps, r["topk"]["launches"]
+        for k in ("topk_sae_forward", *BACKWARD_PASSES):
+            assert r["topk"]["launches"][k] == pod_steps, (k, r["topk"]["launches"])
     rank0 = torch.load(pod / "pod_topk.pth", map_location="cpu", weights_only=True)
     single = SAETrainer("topk", ae, D_IN, device=device, **kw)
     single.load(str(pod / "pod_topk.pth"))
@@ -3946,6 +4087,7 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
     assert multi_rel <= 1e-4 and l1_rel <= 1e-3, (multi_rel, l1_rel)
     for r in ranks:
         assert r["multi_topk"]["launches"]["topk_thresholds_fired"] == 2, r["multi_topk"]
+        assert all(r["multi_topk"]["launches"][k] == 0 for k in BACKWARD_PASSES), r["multi_topk"]
         assert r["l1"]["steps"] == 4
     assert {"checkpoints/step4.pth", "checkpoints/bestval.pth"} <= set(ranks[0]["l1"]["files"])
     assert ranks[1]["l1"]["files"] == []
@@ -3959,6 +4101,7 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
           f"its steps bit for bit, launches {[c['launches'] for c in rec['chunk']]}")
     for c in rec["chunk"]:
         assert c["launches"]["topk_sae_forward"] == POD_CHUNK and c["auxk_loss"] > 0, c
+        assert all(c["launches"][k] == POD_CHUNK for k in BACKWARD_PASSES), c
     # 28d: search bit-equal to the one-rank answer
     for r in range(2):
         found = pickle.loads((pod / f"search_rank{r}.pkl").read_bytes())
@@ -3982,6 +4125,7 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
     assert sweep_rel <= 1e-6, sweep_rel
     for r in ranks:
         assert r["sweep"]["launches"]["topk_sae_forward"] == 2, r["sweep"]
+        assert all(r["sweep"]["launches"][k] == 2 for k in BACKWARD_PASSES), r["sweep"]
     del sw
     free_device_memory(torch)
 
@@ -4035,10 +4179,14 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
     try:
         mesh = mesh_lib.make_mesh()
         assert (mesh.backend, mesh.size) == ("nccl", 1), mesh
-        topk_sae_forward.launches = 0
+        step_fns = {"topk_sae_forward": topk_sae_forward, "topk_masked_pair": topk_masked_pair,
+                    "topk_route": topk_route}
+        for fn in step_fns.values():
+            fn.launches = 0
         train_fn(**{**tcfg, "run_dir": str(tmp / "nccl1"), "mesh": mesh})
         torch.cuda.synchronize()
-        nccl_train_launches = topk_sae_forward.launches
+        nccl_train = {k: fn.launches for k, fn in step_fns.items()}
+        nccl_train_launches = nccl_train["topk_sae_forward"]
         a = torch.load(tmp / "nopg" / "checkpoints" / f"step{POD_STEPS}.pth", weights_only=True)
         b = torch.load(tmp / "nccl1" / "checkpoints" / f"step{POD_STEPS}.pth",
                        weights_only=True)
@@ -4056,10 +4204,12 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
             idx = torch.randint(0, cache.capacity, (POD_CHUNK, POD_BATCH), generator=gen,
                                 device=device)
             start = [t.detach().clone() for t in tr._state()]
-            topk_sae_forward.launches = 0
+            for fn in step_fns.values():
+                fn.launches = 0
             gm = tr.train_chunk_pod(cache, POD_BATCH, POD_CHUNK, indices=idx)
             torch.cuda.synchronize()
-            graph_launches = topk_sae_forward.launches
+            graph = {k: fn.launches for k, fn in step_fns.items()}
+            graph_launches = graph["topk_sae_forward"]
             g_state = [t.detach().clone() for t in tr._state()]
             with torch.no_grad():
                 for t, s in zip(tr._state(), start):
@@ -4078,7 +4228,9 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
         dist_lib.shutdown()
     rec["nccl_world1"] = {"train_bit_equal": True, "train_launches": nccl_train_launches,
                           "graph_vs_eager_max_rel": graph_rel,
-                          "graph_launches": graph_launches}
+                          "graph_launches": graph_launches,
+                          "train_launches_by_kernel": nccl_train,
+                          "graph_launches_by_kernel": graph}
     print(f"NCCL at world size 1: train(mesh=) {POD_STEPS} steps, checkpoint tensors "
           f"bit-equal to train() without a process group (kernel #4 launches "
           f"{nccl_train_launches}); a pod chunk of {POD_CHUNK} captured with its NCCL "
@@ -4087,8 +4239,8 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
           f"steps; kernel #4 launches {graph_launches} (the capture's warm-up step and "
           f"{POD_CHUNK} replayed)")
     assert graph_rel <= 1e-6, graph_rel
-    assert nccl_train_launches == POD_STEPS
-    assert graph_launches == POD_CHUNK + 1, graph_launches
+    assert nccl_train == dict.fromkeys(step_fns, POD_STEPS), nccl_train
+    assert graph == dict.fromkeys(step_fns, POD_CHUNK + 1), graph
     del tr
     free_device_memory(torch)
     rec["seconds"] = time.perf_counter() - t_start
@@ -4101,7 +4253,10 @@ def pod_phases(torch, device, tmp: Path, clips, card: str) -> dict:
                                  + r["sweep"]["launches"]["topk_sae_forward"] for r in ranks)
                              + nccl_train_launches + graph_launches),
         "topk_thresholds_fired": sum(r["multi_topk"]["launches"]["topk_thresholds_fired"]
-                                     for r in ranks)}
+                                     for r in ranks),
+        **{k: (sum(r["topk"]["launches"][k] + r["chunk"]["launches"][k]
+                   + r["sweep"]["launches"][k] for r in ranks)
+               + nccl_train[k] + graph[k]) for k in BACKWARD_PASSES}}
     print(f"phases 28-30 in {rec['seconds']:.1f} s (the pair {pair_s:.1f} s) on {card}; "
           f"launches {rec['launches']}")
     return rec
@@ -4464,6 +4619,7 @@ def model_axis_worker(rank: int, port: int, spec_path: str) -> int:
     spec = json.loads(Path(spec_path).read_text())
     from freud_tpu_torch.models.sae import topk as topk_mod
     from freud_tpu_torch.ops import topk_sharded as ts
+    from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import (topk_sae_decode, topk_sae_encode,
                                                 topk_sae_forward)
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
@@ -4476,7 +4632,7 @@ def model_axis_worker(rank: int, port: int, spec_path: str) -> int:
     mesh = mesh_lib.make_mesh(model_parallel=2)
     assert mesh.shape == {"data": 1, "model": 2} and mesh.backend == "gloo", mesh
     kernels = (topk_sae_forward, topk_sae_encode, topk_sae_decode, topk_thresholds_fired,
-               ts.shard_candidates, ts.combine_shard_thresholds)
+               ts.shard_candidates, ts.combine_shard_thresholds, topk_masked_pair, topk_route)
     rows = MODEL_AXIS_BATCH * 1500
 
     def zero():
@@ -4688,7 +4844,7 @@ def model_axis_phases(torch, device, tmp: Path, card: str) -> dict:
                 assert st["launches"]["topk_sae_forward"] == 0, st
                 one = int(variant == "topk")
                 for key in ("topk_sae_encode", "topk_sae_decode", "shard_candidates",
-                            "combine_shard_thresholds"):
+                            "combine_shard_thresholds", *BACKWARD_PASSES):
                     assert st["launches"][key] == one, (key, st)
                 if variant == "topk":
                     assert st["selection_bit_equal_to_kernel3"]
@@ -4706,7 +4862,7 @@ def model_axis_phases(torch, device, tmp: Path, card: str) -> dict:
     free_device_memory(torch)
     rec["launches"] = {k: sum(r["launches"][k] for r in ranks) for k in ranks[0]["launches"]}
     for key in ("topk_sae_encode", "topk_sae_decode", "shard_candidates",
-                "combine_shard_thresholds"):
+                "combine_shard_thresholds", *BACKWARD_PASSES):
         assert rec["launches"][key] > 0, rec["launches"]
     rec["seconds"] = time.perf_counter() - t_start
     ms = statistics.median(shadow["topk"]["step_ms"])
@@ -4730,11 +4886,12 @@ def model_axis_only(torch, device, card: str) -> dict:
 
 
 def topk_only(torch, device, card: str) -> dict:
-    """Phase 2's kernel #3 and #4 checks alone (after the build): the
+    """Phase 2's TopK checks alone (after the build): kernels #3 and #4, the
     selection core's other two callers, to time beside the sharded
-    launches."""
+    launches, and the TopK backward's passes."""
     return {"topk_sae_forward": check_topk_fused(torch, device, card),
-            "topk_thresholds_fired": check_topk_threshold(torch, device, card)}
+            "topk_thresholds_fired": check_topk_threshold(torch, device, card),
+            **check_topk_backward(torch, device, card)}
 
 
 # --knockouts: copies of the sharded selection's sources, each with one part
@@ -4926,7 +5083,7 @@ def main() -> int:
     ap.add_argument("--model-axis-only", action="store_true",
                     help="phase 31 (the model axis) alone (a quick card check)")
     ap.add_argument("--topk-only", action="store_true",
-                    help="phase 2's kernel #3 and #4 checks alone")
+                    help="phase 2's TopK checks alone (kernels #3, #4, the backward's passes)")
     ap.add_argument("--knockouts", action="store_true",
                     help="time the sharded selection's launches against copies with one "
                          "part taken out")
@@ -4952,6 +5109,7 @@ def main() -> int:
     from freud_tpu_torch.analysis.features import activation_length_from_samples
     from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
+    from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
 
@@ -4971,8 +5129,10 @@ def main() -> int:
 
     # phase 1 — build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    _native.cuda_libraries("mel", "attention", "topk_threshold", "topk_fused",
-                           "topk_sharded")
+    # the sources this tree holds (an older checkout lacks the newer ones)
+    _native.cuda_libraries(*[n for n in ("mel", "attention", "topk_threshold", "topk_fused",
+                                         "topk_sharded", "topk_backward")
+                             if (REPO / "freud_tpu_torch" / "csrc" / f"{n}.cu").exists()])
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
     for name, log in _native.build_logs.items():
@@ -5005,6 +5165,7 @@ def main() -> int:
     wattn_rec = check_whisper_attention(torch, device, card)
     fused_rec = check_topk_fused(torch, device, card)
     thresh_rec = check_topk_threshold(torch, device, card)
+    backward_recs = check_topk_backward(torch, device, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -5078,12 +5239,17 @@ def main() -> int:
                 # in step 1 are dead from step 2, so AuxK runs
                 "autoencoder_config": {**tbase["autoencoder_config"],
                                        "dead_feature_threshold": M_ROWS // 2}}
-        topk_sae_forward.launches = 0
-        topk_thresholds_fired.launches = 0
+        backward = {"topk_masked_pair": topk_masked_pair, "topk_route": topk_route}
+        for fn in (topk_sae_forward, topk_thresholds_fired, *backward.values()):
+            fn.launches = 0
         tstats, steps = train(tcfg, tmp / "topk.json")
         launches["topk_sae_forward"] = topk_sae_forward.launches
         per_unit["topk_sae_forward"] = (statistics.median(
             m["launches_topk_sae_forward"] for m in steps), "train step")
+        for k, fn in backward.items():  # one of each in every step's backward
+            launches[k] = fn.launches
+            per_unit[k] = (statistics.median(m[f"launches_{k}"] for m in steps), "train step")
+            assert [m[f"launches_{k}"] for m in steps] == [1] * TRAIN_STEPS, (k, steps)
         span_ms = 1e3 * statistics.median(profiling.calls("train_step"))
         dead = [m["dead_pct"] for m in steps]
         aux = [m["auxk_loss"] for m in steps]
@@ -5092,7 +5258,8 @@ def main() -> int:
               f"writes), median train_step {span_ms:.3f} ms on {card}; dead_pct "
               f"step 2 {dead[1]:.4f}, last {dead[-1]:.4f}; auxk_loss step 2 "
               f"{aux[1]:.4e}; loss {steps[0]['loss']:.4f} → {steps[-1]['loss']:.4f}; "
-              f"kernel #4 launches {launches['topk_sae_forward']}")
+              f"kernel #4 launches {launches['topk_sae_forward']}, backward passes "
+              f"{ {k: launches[k] for k in backward} }")
         assert len(steps) == TRAIN_STEPS and tstats["steps"] == TRAIN_STEPS
         assert all(np.isfinite(list(m.values())).all() for m in steps)
         assert max(dead[1:]) > 0 and max(aux[1:]) > 0, (dead, aux)
@@ -5120,6 +5287,7 @@ def main() -> int:
               f"multi_topk_fvu {msteps[-1]['multi_topk_fvu']:.4f}; kernel #3 "
               f"launches {launches['topk_thresholds_fired']}")
         assert launches["topk_thresholds_fired"] >= 4, launches
+        assert all(m[f"launches_{k}"] == 0 for m in msteps for k in backward), msteps
         assert all(np.isfinite(list(m.values())).all() for m in msteps)
 
         lbase = json.loads((REPO / "configs/train/tiny_l1.json").read_text())
@@ -5136,8 +5304,8 @@ def main() -> int:
 
         # phase 5b — the train CLI through the device cache (a 24-file window
         # of the 51-file store, refresh on), chunks of 10 as CUDA graphs
-        topk_sae_forward.launches = 0
-        topk_thresholds_fired.launches = 0
+        for fn in (topk_sae_forward, topk_thresholds_fired, *backward.values()):
+            fn.launches = 0
         cache_runs = [
             ("tiny_topk, f32 window", tcfg, 30),
             ("tiny_topk, bf16 window", {**tcfg, "device_cache_dtype": "bfloat16"}, 30),
@@ -5178,11 +5346,18 @@ def main() -> int:
                       else "launches_topk_sae_forward" if "topk" in name else None)
             if kernel:  # the capture's warm-up step, then one a replayed step
                 assert [c[kernel] for c in chunks] == [11] + [10] * (n // 10 - 1), chunks
+            for k in backward:  # TopK's backward alone runs the passes
+                want = [11] + [10] * (n // 10 - 1) if kernel == "launches_topk_sae_forward" \
+                    else [0] * (n // 10)
+                assert [c[f"launches_{k}"] for c in chunks] == want, (k, chunks)
             if "topk" in name and "multi" not in name:
                 assert max(m["auxk_loss"] for m in csteps[1:]) > 0
             free_device_memory(torch)
         launches["cache_topk_sae_forward"] = topk_sae_forward.launches
         launches["cache_topk_thresholds_fired"] = topk_thresholds_fired.launches
+        for k, fn in backward.items():
+            launches[f"cache_{k}"] = fn.launches
+            assert fn.launches == 2 * (30 + 1), (k, fn.launches)
         print(f"launches in the cache runs: kernel #4 {topk_sae_forward.launches}, "
               f"kernel #3 {topk_thresholds_fired.launches}")
         assert topk_sae_forward.launches == 2 * (30 + 1)
@@ -5358,6 +5533,8 @@ def main() -> int:
         assert max(dead[1:]) > 0 and max(aux[1:]) > 0, (dead, aux)
         assert large_topk_launches >= LARGE_TRAIN_STEPS, large_topk_launches
         assert statistics.median(m["launches_topk_sae_forward"] for m in ltsteps) == 1
+        for k in backward:
+            assert [m[f"launches_{k}"] for m in ltsteps] == [1] * LARGE_TRAIN_STEPS, k
         check_checkpoints(torch, tmp / "run_large_topk" / "checkpoints",
                           ["step5.pth", "step10.pth", "bestval.pth"])
         free_device_memory(torch)
@@ -5524,7 +5701,7 @@ def main() -> int:
 
         # phase 26 — per-layer sweeps over phase 25's four stores
         sweep_counters = {"topk_sae_forward": topk_sae_forward,
-                          "topk_thresholds_fired": topk_thresholds_fired}
+                          "topk_thresholds_fired": topk_thresholds_fired, **backward}
         small_recs["topk_sae_forward_d768"] = check_topk_fused_small(torch, device, card)
         small_recs["topk_sae_forward_d768_k16"] = check_topk_fused_small(torch, device, card,
                                                                          k=16)
@@ -5625,6 +5802,19 @@ def main() -> int:
                           for k in ("shard_candidates", "combine_shard_thresholds")},
              **axis_rec["selection"]}, **thresh_rec},
     ]
+    # the TopK backward's passes: no TPU kernel's port (JAX leaves the masks
+    # to XLA's fusions); every route's TopK backward runs them on the card
+    kernels += [
+        {"name": name, "route": "cuda",
+         "source": "freud_tpu_torch/csrc/topk_backward.cu",
+         "replaces": "the backward's ATen mask, where, add and column-sum passes "
+                     "(freud_tpu/models/sae/topk.py:409-470 leaves them to XLA)",
+         "launches": launches[name], **unit(name),
+         "launches_cache_path": launches[f"cache_{name}"],
+         "launches_sweep": launches_sweep[name],
+         "launches_pod": pod_rec["launches"][name],
+         "launches_model_axis": axis_rec["launches"][name], **backward_recs[name]}
+        for name in BACKWARD_PASSES]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of "

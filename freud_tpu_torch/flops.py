@@ -257,6 +257,25 @@ def topk_sae_decode_bound(rows: int, d_in: int, n_dict: int,
     return KernelBound(2.0 * selected * d_in, "bf16", nbytes)
 
 
+def topk_bwd_pair_bound(rows: int, n_dict: int, in_bytes: int = 2) -> KernelBound:
+    """The TopK backward's masked pair: acts (M, n_dict) of ``in_bytes`` an
+    entry, t_main, t_aux (M,) f32 and the dead flags (n_dict,) f32 →
+    [dense_main; dense_aux] (2M, n_dict) in acts' dtype; masks and selects,
+    no counted operations."""
+    nbytes = 3.0 * in_bytes * rows * n_dict + 2 * 4.0 * rows + 4.0 * n_dict
+    return KernelBound(0.0, "bf16", nbytes)
+
+
+def topk_bwd_route_bound(rows: int, n_dict: int, in_bytes: int = 2) -> KernelBound:
+    """The TopK backward's route: [d1; d2] (2M, n_dict) and acts (M, n_dict)
+    of ``in_bytes`` an entry, t_main, t_aux (M,) f32 and the dead flags
+    (n_dict,) f32 → d_acts (M, n_dict) in acts' dtype and db_enc (n_dict,)
+    f32 (the row groups' partial sums between its two launches are not
+    counted); no counted operations."""
+    nbytes = 4.0 * in_bytes * rows * n_dict + 2 * 4.0 * rows + 2 * 4.0 * n_dict
+    return KernelBound(0.0, "bf16", nbytes)
+
+
 def topk_sae_forward_bound(rows: int, d_in: int, n_dict: int, k: int, k_aux: int,
                            selected: float | None = None) -> KernelBound:
     """Kernel #4: x (M, d_in) f32, f32 W_enc, b_enc, b_dec, W_dec and the

@@ -24,8 +24,12 @@ With one rank every value equals the one-process path's bit for bit. ``training_
 as JAX routes it (``topk.py:310-329``): multi_topk and n_dict ≥ 2¹⁵ take an
 autograd formulation over kernel #3 (``ops/topk_threshold``); otherwise a
 ``torch.autograd.Function`` whose forward is kernel #4 (``ops/topk_fused``)
-under bf16 matmuls or kernel #3 in f32, and whose backward is the five
-matmuls of JAX's hand-written VJP (``topk.py:409-470``).
+under bf16 matmuls or kernel #3 in f32, and whose backward is JAX's
+hand-written VJP (``topk.py:409-470``): its five products as plain matrix
+products (``W_dec``'s two as one of depth 2M, ``d1`` and ``d2`` as one), with
+the masks and selects of the (M, n_dict) latent in two hand-written passes
+around them (``ops/topk_backward``: the masked pair before the ``W_dec``
+product, the routed cotangent and ``encoder_bias``'s column sum after it).
 
 A dictionary split over a mesh's model axis (``model_mesh``, the trainer's
 ``shard_dict``; ``parallel/mesh.py``): each rank holds ``n_dict / P`` rows
@@ -51,6 +55,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops.topk_backward import topk_masked_pair, topk_route
 from ...ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
 from ...ops.topk_sharded import sharded_thresholds_fired
 from ...ops.topk_threshold import bisect_kth, topk_thresholds_fired
@@ -354,11 +359,13 @@ def _thresholds(acts, dead, k, k_aux, model_mesh, k_multi=0):
 
 
 class _FusedLosses(torch.autograd.Function):
-    """Forward: kernel #4 (bf16) or kernel #3 (f32) plus the loss
-    reductions. Backward: JAX's ``_fused_losses_bwd``. Thresholds are
-    selection boundaries without gradient. ``tv``: the total variance that
-    normalises the losses (a data-parallel step passes the global one);
-    computed from ``x`` when None. ``n_dead``: the dead count.
+    """Forward: kernel #4 (bf16) or kernel #3 (f32, both decodes one
+    product over ``topk_masked_pair``) plus the loss reductions. Backward: JAX's ``_fused_losses_bwd``, its products plain
+    and its (M, n_dict) masks and selects in ``ops/topk_backward``'s two
+    passes (one route for every dtype, a split dictionary's too).
+    Thresholds are selection boundaries without gradient. ``tv``: the total
+    variance that normalises the losses (a data-parallel step passes the
+    global one); computed from ``x`` when None. ``n_dead``: the dead count.
 
     On a dictionary split over ``model_mesh`` the forward is kernel #4's
     encode launch (bf16) or the f32 product, the selection across shards,
@@ -384,14 +391,13 @@ class _FusedLosses(torch.autograd.Function):
             dead = dead_f > 0
             t_main, t_aux, _, fired = _thresholds(acts, dead, k, k_aux, model_mesh)
             if bf16:
-                y_main, y_aux = topk_sae_decode(acts, W_dec, dead_f, t_main, t_aux)
-            else:
-                zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
-                y_main = torch.where(acts >= t_main, acts, zero) @ W_dec
-                y_aux = torch.where((acts >= t_aux) & dead, acts, zero) @ W_dec
+                y = torch.stack(topk_sae_decode(acts, W_dec, dead_f, t_main, t_aux))
+            else:  # both decodes one product over the backward's masked pair
+                y = (topk_masked_pair(acts, t_main, t_aux, dead_f) @ W_dec).view(
+                    2, acts.shape[0], -1)
             if split:  # ONE sum of both partial decodes
-                y_main, y_aux = mesh_lib.model_all_reduce(model_mesh,
-                                                          torch.stack([y_main, y_aux]))
+                y = mesh_lib.model_all_reduce(model_mesh, y)
+            y_main, y_aux = y
         e = y_main + b_dec - x2  # = sae_out − x
         r = y_aux - y_main + x2  # = ê − e   (b_dec cancels)
         ctx.tv_given = tv is not None
@@ -415,31 +421,24 @@ class _FusedLosses(torch.autograd.Function):
         sae_in = x2 - b_dec
         c1 = 2.0 * g_fvu / tv
         c2 = 2.0 * g_aux * alpha * scale / tv
-        g_main = c1 * e - c2 * r  # ∂L/∂y_main (M, d)
-        g_auxd = c2 * r  # ∂L/∂y_aux
+        # [∂L/∂y_main; ∂L/∂y_aux] (2M, d)
+        g = torch.cat([c1 * e - c2 * r, c2 * r])
+        g_main = g[:x2.shape[0]]
 
-        zero = torch.zeros((), dtype=acts.dtype, device=acts.device)
-        keep_main = acts >= t_main
-        keep_aux = (acts >= t_aux) & (dead_f > 0)
-        dense_main = torch.where(keep_main, acts, zero)
-        dense_aux = torch.where(keep_aux, acts, zero)
-        dW_dec = _mm(dense_main.T, g_main, bf16) + _mm(dense_aux.T, g_auxd, bf16)
-        del dense_main, dense_aux
+        # the (M, n_dict) passes are ops/topk_backward's, around the
+        # products: [dense_main; dense_aux] makes dW_dec one product of
+        # depth 2M
+        dW_dec = _mm(topk_masked_pair(acts, t_main, t_aux, dead_f).T, g, bf16)
         db_dec = c1 * torch.sum(e, dim=0)  # Σ(∂L/∂y_main + ∂L/∂y_aux) = c1·Σe
 
         # only selected entries carry gradient; under bf16 the (M, n_dict)
-        # cotangents stay bf16, as in JAX (topk.py:435)
+        # cotangents stay bf16, as in JAX (topk.py:435); [d1; d2] is one
+        # product
         ct = torch.bfloat16 if bf16 else torch.float32
-        live = acts > 0
-        d1 = _mm(g_main, W_dec.T, bf16, out_dtype=ct)
-        d2 = _mm(g_auxd, W_dec.T, bf16, out_dtype=ct)
-        zct = torch.zeros((), dtype=ct, device=acts.device)
-        d_acts = (torch.where(keep_main & live, d1, zct)
-                  + torch.where(keep_aux & live, d2, zct))
-        del d1, d2, keep_main, keep_aux, live
+        d_acts, db_enc = topk_route(_mm(g, W_dec.T, bf16, out_dtype=ct), acts, t_main,
+                                    t_aux, dead_f)
 
         dW_enc = _mm(d_acts.T, sae_in, bf16)
-        db_enc = torch.sum(d_acts, dim=0, dtype=torch.float32)
         db_dec = db_dec - mesh_lib.model_all_reduce(
             model_mesh, _mm(db_enc[None, :], enc_w, bf16)[0])
 

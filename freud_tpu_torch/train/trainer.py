@@ -98,6 +98,7 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import topk as topk_mod
 from ..models.sae.serialize import params_from_state_dict
 from ..models.whisper.runtime import WhisperRuntime, pin_full_f32
+from ..ops.topk_backward import topk_masked_pair, topk_route
 from ..ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
 from ..ops.topk_sharded import combine_shard_thresholds, shard_candidates
 from ..ops.topk_threshold import topk_thresholds_fired
@@ -116,7 +117,7 @@ from .optim import make_optimizer
 # the kernel wrappers a train step can launch (their launches are counted
 # under graph replay)
 STEP_KERNELS = (topk_sae_forward, topk_sae_encode, topk_sae_decode, topk_thresholds_fired,
-                shard_candidates, combine_shard_thresholds)
+                shard_candidates, combine_shard_thresholds, topk_masked_pair, topk_route)
 N_TRANSCRIPTS = 4  # validation files transcribed per validation
 
 

@@ -23,7 +23,9 @@ acts, decodes within 1e-3 of max; one TopK training backward on the card
 within 3e-2 of max of the CPU's gradients; the selection across dictionary
 shards — candidates equal to the plain version's as key multisets with the
 header exact, thresholds and fired bit for bit against the plain versions
-and kernel #3 on the whole latent."""
+and kernel #3 on the whole latent; the TopK backward's passes — dense_* and
+d_acts bit for bit against the plain versions, db_enc within the f32
+rounding bound of its two-level sum."""
 
 import time
 
@@ -510,6 +512,112 @@ def test_topk_training_backward_on_card_matches_cpu(cuda):
         grads[dev.type] = {k: p.grad.cpu() for k, p in params.named_parameters()}
     for k, g in grads["cpu"].items():
         assert ((grads["cuda"][k] - g).abs().max() / g.abs().max()).item() < 3e-2, k
+
+
+# (dtype, rows, width, dead): the tiny recipe's width and the large one's,
+# row counts that are not a multiple of the kernels' row group, a width that
+# is not a multiple of 16 bytes (a split dictionary's shard), then no dead
+# latent (t_aux +inf in every row) and a wholly dead dictionary
+BACKWARD_CASES = [
+    *[(dtype, m, n, "some") for dtype in (BF16, F32)
+      for m, n in ((3001, 6144), (1237, 20480), (777, 1001))],
+    *[(dtype, 3001, 6144, dead) for dtype in (BF16, F32) for dead in ("none", "all")],
+]
+
+
+def _backward_inputs(cuda, dtype, m, n, dead_kind, seed=15):
+    """acts, thresholds and dead flags as the backward sees them, with a
+    silent row (t_main 0), a row tied across, thresholds equal to an entry
+    of their row (ties kept), rows without a dead latent (t_aux +inf), and
+    [d1; d2] with negative zeros."""
+    gen = torch.Generator(cuda).manual_seed(seed)
+    acts = torch.relu(torch.randn((m, n), generator=gen, device=cuda)).to(dtype)
+    acts[1] = 0.0
+    acts[2] = 0.25
+    dead = {"some": torch.rand((n,), generator=gen, device=cuda) < 0.4,
+            "none": torch.zeros((n,), dtype=torch.bool, device=cuda),
+            "all": torch.ones((n,), dtype=torch.bool, device=cuda)}[dead_kind]
+    af = acts.float()
+    t_main = af.topk(32, dim=1).values[:, -1:].contiguous()
+    n_dead = int(dead.sum())
+    if n_dead:
+        masked = torch.where(dead, af, float("-inf"))
+        t_aux = masked.topk(min(192, n_dead), dim=1).values[:, -1:].contiguous()
+        t_aux[5::7] = float("inf")
+    else:
+        t_aux = torch.full((m, 1), float("inf"), device=cuda)
+    d = torch.randn((2 * m, n), generator=gen, device=cuda).to(dtype)
+    d[::3, ::5] = -0.0
+    return acts, t_main, t_aux, dead.float(), d
+
+
+def _bits(t):
+    return t.view(torch.int16 if t.dtype == torch.bfloat16 else torch.int32)
+
+
+@pytest.mark.parametrize("dtype,m,n,dead_kind", BACKWARD_CASES)
+def test_topk_backward_passes_bit_equal_plain(cuda, dtype, m, n, dead_kind):
+    """The backward's masked pair and route launches (csrc/topk_backward.cu)
+    against their plain versions: dense_* and d_acts bit for bit, signs of
+    zeros included; db_enc within the f32 rounding of its two-level sum
+    (each row group's sum, then the groups in order) of the exact column
+    sum, and the same bits from two launches; one count a call."""
+    from freud_tpu_torch.ops.topk_backward import (
+        GROUP_ROWS,
+        topk_masked_pair,
+        topk_masked_pair_plain,
+        topk_route,
+        topk_route_plain,
+    )
+
+    acts, t_main, t_aux, dead_f, d = _backward_inputs(cuda, dtype, m, n, dead_kind)
+    before = (topk_masked_pair.launches, topk_route.launches)
+    pair = topk_masked_pair(acts, t_main, t_aux, dead_f)
+    pair_again = topk_masked_pair(acts, t_main, t_aux, dead_f)
+    d_acts, db_enc = topk_route(d, acts, t_main, t_aux, dead_f)
+    d_acts_again, db_enc_again = topk_route(d, acts, t_main, t_aux, dead_f)
+    want_pair = topk_masked_pair_plain(acts, t_main, t_aux, dead_f)
+    want_d_acts, want_db = topk_route_plain(d, acts, t_main, t_aux, dead_f)
+    torch.cuda.synchronize()
+    assert (topk_masked_pair.launches, topk_route.launches) == (before[0] + 2, before[1] + 2)
+    assert pair.dtype == dtype and d_acts.dtype == dtype
+    assert torch.equal(_bits(pair), _bits(want_pair))
+    assert torch.equal(_bits(pair_again), _bits(pair))
+    assert torch.equal(_bits(d_acts), _bits(want_d_acts))
+    assert torch.equal(_bits(d_acts_again), _bits(d_acts))
+    assert torch.equal(_bits(db_enc_again), _bits(db_enc))
+    exact = want_d_acts.double().sum(dim=0)
+    bound = (GROUP_ROWS + -(-m // GROUP_ROWS)) * 2.0 ** -24 * want_d_acts.double().abs().sum(0)
+    assert ((db_enc.double() - exact).abs() <= bound).all()
+    assert ((want_db.double() - exact).abs() <= bound).all()
+    # the cases select something on both sides, and route something
+    assert pair[:m].any() and d_acts.any()
+    assert bool(pair[m:].any()) == (dead_kind != "none")
+
+
+def test_train_chunk_replay_launches_each_backward_pass_once_a_step(cuda, tmp_path):
+    """A replayed TopK chunk (tiny width, AuxK live) counts one launch of
+    each backward pass a step."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache
+    from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    path, _ = _activation_store(tmp_path / "s")
+    trainer = SAETrainer("topk", {"expansion_factor": 16, "k": 32, "auxk_alpha": 1 / 32,
+                                  "dead_feature_threshold": 3000}, 384, optimizer="adam",
+                         lr=1e-3, steps=50, device=cuda)
+    with torch.no_grad():
+        trainer.params.encoder_bias[::2] = -1e3
+    cache = DeviceShuffleCache(path, "encoder.blocks.2", 12, refresh_files=0, device=cuda)
+    try:
+        trainer.train_chunk(cache, 4, 3)  # captured, then replayed
+        before = (topk_masked_pair.launches, topk_route.launches)
+        metrics = trainer.train_chunk(cache, 4, 3)  # replayed
+        torch.cuda.synchronize()
+    finally:
+        cache.close()
+    assert (topk_masked_pair.launches, topk_route.launches) == (before[0] + 3, before[1] + 3)
+    assert float(metrics["auxk_loss"][-1]) > 0
 
 
 # ------------------------------------------- GPU-resident training input

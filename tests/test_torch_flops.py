@@ -94,6 +94,16 @@ MAIN_PATH = [
      1.2723, "operations"),
     (flops.topk_sae_decode_bound(48000, 1280, 10240, 48000 * 336), 41.28768e9,
      1.52738304e9, 0.4559, "bytes"),
+    # the TopK backward's masked pair and route: 6 and 8 bytes an entry in
+    # bf16, 12 and 16 on the f32 route
+    (flops.topk_bwd_pair_bound(48000, 20480), 0.0, 5.89870592e9, 1.7608, "bytes"),
+    (flops.topk_bwd_route_bound(48000, 20480), 0.0, 7.86486784e9, 2.3477, "bytes"),
+    (flops.topk_bwd_pair_bound(75000, 6144), 0.0, 2.765424576e9, 0.8255, "bytes"),
+    (flops.topk_bwd_route_bound(75000, 6144), 0.0, 3.687049152e9, 1.1006, "bytes"),
+    (flops.topk_bwd_pair_bound(75000, 6144, in_bytes=4), 0.0, 5.530224576e9, 1.6508,
+     "bytes"),
+    (flops.topk_bwd_route_bound(75000, 6144, in_bytes=4), 0.0, 7.373449152e9, 2.201,
+     "bytes"),
 ]
 
 
