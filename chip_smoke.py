@@ -329,7 +329,14 @@ taken out, built into a temporary directory (``KNOCKOUTS``: the copies
 whose marks the checkout's sources hold, so a copy of this script in an
 older checkout knocks out that checkout's design).
 
-Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only |
+Phase 2 also holds Uni-MoE-2.0-Omni's MoE kernels (``csrc/moe.cu``) against
+their plain versions at the omni cell's shapes, skewed routing and a
+ragged token count, then captures ``lm.layers.20`` of the benchmark's
+Uni-MoE-2.0-Omni at its published widths (weights drawn on the card) once
+under ``set_sync_debug_mode("error")``, asserting 21 launches of each MoE
+wrapper (``--moe-only`` runs these two checks alone).
+
+Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only | --moe-only |
 --topk-only | --knockouts] (needs one CUDA card)
 """
 
@@ -1094,6 +1101,170 @@ def check_topk_backward(torch, device, card) -> dict:
         del acts, t_main, t_aux, dead_f, d, masks
         torch.cuda.empty_cache()
     return recs
+
+
+# Uni-MoE-2.0-Omni's MoE at the collection cell's shapes: 32 clips of 232
+# positions, d 3584, 4 dynamic experts of width 18,944 and a null one, top 2
+MOE_TOKENS, MOE_D, MOE_WIDTH, MOE_DYN, MOE_TOP_K = 32 * 232, 3584, 18944, 4, 2
+MOE_RAGGED_TOKENS = 1037
+
+
+def check_moe(torch, device, card) -> dict:
+    """The MoE's kernels (``csrc/moe.cu``) against their plain versions at
+    the omni cell's shapes, at routing drawn as the benchmark draws it,
+    skewed (every token on expert 0 alone; every token on experts 0 and 1,
+    none on 2 and 3) and at a ragged token count: the router's probabilities
+    within 1e-5, its selection equal away from the decisions, plan, permute
+    and combine bit for bit, the grouped products within 1e-2 of the plain
+    products' largest value. Each timed at the drawn routing beside its
+    bound. → {kernel: record}."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops import moe
+
+    gen = torch.Generator(device).manual_seed(SEED + 29)
+
+    def uniform(*shape, fan):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1)
+                / fan ** 0.5).bfloat16()
+
+    w_gate = uniform(MOE_DYN, MOE_WIDTH, MOE_D, fan=MOE_D)
+    w_up = uniform(MOE_DYN, MOE_WIDTH, MOE_D, fan=MOE_D)
+    w_down = uniform(MOE_DYN, MOE_D, MOE_WIDTH, fan=MOE_WIDTH)
+    w_router = torch.randn(MOE_DYN + 1, MOE_D, generator=gen, device=device) * 1.5 / MOE_D ** 0.5
+    recs = {}
+    for label, tokens, skew in (("", MOE_TOKENS, None), ("one_", MOE_TOKENS, "one"),
+                                ("pair_", MOE_TOKENS, "pair"),
+                                ("ragged_", MOE_RAGGED_TOKENS, None)):
+        u = torch.randn(tokens, MOE_D, generator=gen, device=device).bfloat16()
+        probs, sel, wsel = moe.route(u, w_router, 0.7, MOE_TOP_K)
+        p_probs, p_sel, p_wsel = moe.route_plain(u, w_router, 0.7, MOE_TOP_K)
+        ps = torch.sort(p_probs, dim=-1, descending=True).values
+        clear = ((ps[:, :-1] - ps[:, 1:]).min(1).values > 1e-5) & ((ps[:, 0] - 0.7).abs() > 1e-5)
+        route_err = float((probs - p_probs).abs().max())
+        assert route_err <= 1e-5 and torch.equal(sel[clear], p_sel[clear]), (label, route_err)
+        if skew == "one":
+            sel = torch.tensor([0, -1], dtype=torch.int32, device=device).repeat(tokens, 1)
+        elif skew == "pair":
+            sel = torch.tensor([1, 0], dtype=torch.int32, device=device).repeat(tokens, 1)
+        counts = torch.zeros(MOE_DYN + 1, dtype=torch.int32, device=device)
+        p_counts = counts.clone()
+        offsets, pos = moe.plan(sel, MOE_DYN, counts)
+        p_offsets, p_pos = moe.plan_plain(sel, MOE_DYN, p_counts)
+        assert torch.equal(counts, p_counts) and torch.equal(offsets, p_offsets), label
+        assert torch.equal(pos, p_pos), label
+        routed = int(counts[:MOE_DYN].sum())
+        rows_max = tokens * MOE_TOP_K
+        a = moe.permute(u, pos, rows_max)
+        assert torch.equal(a[:routed], moe.permute_plain(u, pos, rows_max)[:routed]), label
+        h = moe.gateup(a, counts, offsets, w_gate, w_up)
+        p_h = moe.gateup_plain(a, counts, offsets, w_gate, w_up)
+        gateup_err = float((h[:routed].float() - p_h[:routed].float()).abs().max()
+                           / p_h[:routed].float().abs().max())
+        y = moe.down(p_h, counts, offsets, w_down)
+        p_y = moe.down_plain(p_h, counts, offsets, w_down)
+        down_err = float((y[:routed].float() - p_y[:routed].float()).abs().max()
+                         / p_y[:routed].float().abs().max())
+        fixed = torch.randn(tokens, MOE_D, generator=gen, device=device).bfloat16()
+        out = moe.combine(u, fixed, p_y, pos, wsel)
+        combine_eq = torch.equal(out.view(torch.int16),
+                                 moe.combine_plain(u, fixed, p_y, pos, wsel).view(torch.int16))
+        print(f"moe {label or 'drawn_'}({tokens} tokens, {routed} rows, counts "
+              f"{counts.tolist()}): route {route_err:.2e} from plain, plan and permute "
+              f"bit-equal, gate/up {gateup_err:.2e} and down {down_err:.2e} of max from "
+              f"plain, combine bit-equal {combine_eq}")
+        assert gateup_err <= 1e-2 and down_err <= 1e-2 and combine_eq, label
+        recs[f"{label}errors"] = {"route": route_err, "gateup": gateup_err, "down": down_err,
+                                  "rows": routed, "counts": counts.tolist()}
+        if label == "":
+            bounds = {"moe_gateup": flops.moe_gateup_bound(routed, MOE_D, MOE_WIDTH, MOE_DYN),
+                      "moe_down": flops.moe_down_bound(routed, MOE_D, MOE_WIDTH, MOE_DYN),
+                      "moe_route+plan+permute+combine": flops.moe_route_bound(
+                          tokens, MOE_D, MOE_DYN + 1, MOE_TOP_K, routed)}
+            timed = {
+                "moe_gateup": (lambda: moe.gateup(a, counts, offsets, w_gate, w_up),
+                               lambda: moe.gateup_plain(a, counts, offsets, w_gate, w_up)),
+                "moe_down": (lambda: moe.down(p_h, counts, offsets, w_down),
+                             lambda: moe.down_plain(p_h, counts, offsets, w_down)),
+                "moe_route+plan+permute+combine": (
+                    lambda: (moe.route(u, w_router, 0.7, MOE_TOP_K),
+                             moe.plan(sel, MOE_DYN, counts),
+                             moe.permute(u, pos, rows_max),
+                             moe.combine(u, fixed, p_y, pos, wsel)),
+                    lambda: (moe.route_plain(u, w_router, 0.7, MOE_TOP_K),
+                             moe.plan_plain(sel, MOE_DYN, p_counts),
+                             moe.permute_plain(u, pos, rows_max),
+                             moe.combine_plain(u, fixed, p_y, pos, wsel)))}
+            for name, (fn, plain) in timed.items():
+                ms, plain_ms = cuda_ms(fn, reps=10), cuda_ms(plain, warmup=1, reps=3)
+                b = bounds[name]
+                recs[name] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": b.bound_ms,
+                              "bound_by": b.bound_by, "roofline_pct": 100 * b.bound_ms / ms}
+                print(f"{name} ({routed} rows): kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
+                      f"bound {b.bound_ms:.4f} ms ({b.bound_by}), "
+                      f"{100 * b.bound_ms / ms:.1f}% of it on {card}")
+        del u, a, h, p_h, y, p_y, fixed, out
+        torch.cuda.empty_cache()
+    return recs
+
+
+OMNI_CONFIG = REPO / "portbench" / "configs" / "uni_moe_omni.json"
+OMNI_TAP, OMNI_CLIPS = "lm.layers.20", 2
+
+
+def check_omni_forward(torch, device, card) -> dict:
+    """One capture at ``lm.layers.20`` of the benchmark's Uni-MoE-2.0-Omni
+    (its published widths, 21 LM layers, weights drawn on the card by the
+    benchmark's seed rule with plain random routers) through
+    ``OmniRuntime``, after a warm one: each MoE wrapper launches its kernel
+    once a layer (21), none falls back to its plain version, and nothing
+    synchronises with the host; every layer's router takes each token once
+    or twice. → {"launches": {wrapper: n}, "ms": the capture's wall}."""
+    import math
+    import zlib
+
+    from freud_tpu_torch.models.omni import OmniRuntime
+    from freud_tpu_torch.ops import moe
+    from portbench import omni_data
+
+    cfg = json.loads(OMNI_CONFIG.read_text())
+    hf = omni_data.hf_config(cfg, omni_data.prompt_ids(SEED, cfg["vocab_size"], 24, 8))
+    n_router = cfg["mlp_dynamic_expert_num"] + cfg["mlp_dynamic_null_expert_num"]
+    gen = torch.Generator().manual_seed(SEED + 31)
+    routers = [torch.randn(n_router, cfg["hidden_size"], generator=gen)
+               * cfg["init"]["router_scale"] / math.sqrt(cfg["hidden_size"])
+               for _ in range(cfg["num_hidden_layers"])]
+    sd = omni_data.state_dict(lambda *parts: zlib.crc32(repr(parts).encode()), hf, device,
+                              routers)
+    rt = OmniRuntime("uni-moe-2.0-omni", OMNI_TAP, torch.bfloat16, device, weights=(hf, sd))
+    del sd
+    mels = torch.randn(OMNI_CLIPS, cfg["audio_tower"]["n_mels"], 3000, generator=gen).to(device)
+    wrappers = (moe.route, moe.plan, moe.permute, moe.gateup, moe.down, moe.combine)
+    rt.activations_with_lengths(mels)  # warm: cuBLAS and SDPA pick their kernels
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acts, _ = rt.activations_with_lengths(mels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    layers = rt.counters().shape[0]
+    tokens = OMNI_CLIPS * rt.cfg.seq_len
+    taken = rt.counters().sum(1)
+    print(f"omni forward ({OMNI_CLIPS} clips to {OMNI_TAP}, {layers} LM layers): launches "
+          f"{launches}, router takes {taken.tolist()} of {tokens} tokens, {ms:.1f} ms "
+          f"on {card}")
+    assert all(n == layers == 21 for n in launches.values()), launches
+    assert bool(((taken >= tokens) & (taken <= 2 * tokens)).all()), taken
+    assert acts.shape == (OMNI_CLIPS, rt.cfg.query_tokens, cfg["hidden_size"])
+    assert bool(torch.isfinite(acts.float()).all())
+    del rt, acts
+    torch.cuda.empty_cache()
+    return {"launches": launches, "ms": ms}
 
 
 def write_wavs(folder: Path, lengths: list[int], broken: bool = False,
@@ -5084,6 +5255,8 @@ def main() -> int:
                     help="phase 31 (the model axis) alone (a quick card check)")
     ap.add_argument("--topk-only", action="store_true",
                     help="phase 2's TopK checks alone (kernels #3, #4, the backward's passes)")
+    ap.add_argument("--moe-only", action="store_true",
+                    help="the MoE kernels of Uni-MoE-2.0-Omni alone (a quick card check)")
     ap.add_argument("--knockouts", action="store_true",
                     help="time the sharded selection's launches against copies with one "
                          "part taken out")
@@ -5131,7 +5304,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the sources this tree holds (an older checkout lacks the newer ones)
     _native.cuda_libraries(*[n for n in ("mel", "attention", "topk_threshold", "topk_fused",
-                                         "topk_sharded", "topk_backward")
+                                         "topk_sharded", "topk_backward", "moe")
                              if (REPO / "freud_tpu_torch" / "csrc" / f"{n}.cu").exists()])
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
@@ -5155,6 +5328,11 @@ def main() -> int:
     if args.knockouts:
         print(json.dumps({"knockouts": knockouts(torch, device, card)}))
         return 0
+    if args.moe_only:
+        print(json.dumps({"moe": {**check_moe(torch, device, card),
+                                  "omni_forward": check_omni_forward(torch, device, card),
+                                  "card": card}}))
+        return 0
     from freud_tpu_torch import flops
 
     assert flops.device_peaks() is not None, "the card is not in flops' peak table"
@@ -5166,6 +5344,8 @@ def main() -> int:
     fused_rec = check_topk_fused(torch, device, card)
     thresh_rec = check_topk_threshold(torch, device, card)
     backward_recs = check_topk_backward(torch, device, card)
+    moe_recs = check_moe(torch, device, card)
+    omni_rec = check_omni_forward(torch, device, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -5815,6 +5995,13 @@ def main() -> int:
          "launches_pod": pod_rec["launches"][name],
          "launches_model_axis": axis_rec["launches"][name], **backward_recs[name]}
         for name in BACKWARD_PASSES]
+    # Uni-MoE-2.0-Omni's MoE: no TPU kernel's port (the JAX package has no
+    # such model); its plain versions are ops/moe.py's
+    kernels += [
+        {"name": name, "route": "cuda", "source": "freud_tpu_torch/csrc/moe.cu",
+         "replaces": "none (ops/moe.py's plain versions)", **moe_recs[name],
+         "launches_omni_forward": {n: omni_rec["launches"][n] for n in name[4:].split("+")}}
+        for name in ("moe_gateup", "moe_down", "moe_route+plan+permute+combine")]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of "

@@ -35,6 +35,7 @@ from ..models.sae import config as sae_config
 from ..models.sae import l1 as l1_mod
 from ..models.sae import serialize as sae_serialize
 from ..models.sae import topk as topk_mod
+from ..models.omni import OmniRuntime, is_omni
 from ..models.whisper import WhisperRuntime
 from ..device import resolve_device
 from ..parallel import mesh as mesh_lib
@@ -142,8 +143,18 @@ class FlyActivationLoader:
         max_new_tokens: int = 224,
         mesh=None,
         shard: tuple[int, int] | None = None,
+        model_weights: tuple | None = None,
     ):
-        """``max_new_tokens`` sizes a decoder layer's capture buffer
+        """``whisper_model`` names a Whisper model or Uni-MoE-2.0-Omni
+        (``uni-moe-2.0-omni``, or its checkpoint directory), whose taps are
+        ``lm.layers.N`` (a clip's audio tokens) and ``encoder.blocks.N`` (its
+        Whisper tower); ``model_weights=(hf_config,
+        state_dict)`` hands its weights over in memory (the loader takes the
+        state dict's tensors). Its per-layer router counts ride to the host
+        with each batch's fetch and are recorded as the ``moe.tokens``
+        counter (``profiling.count``) when the batch is yielded.
+
+        ``max_new_tokens`` sizes a decoder layer's capture buffer
         (n_prompt + max_new_tokens rows a file); encoder layers ignore it.
         ``device``: default the mesh's card, else the card (``"cpu"`` for
         the CPU; without CUDA anything else raises).
@@ -167,10 +178,18 @@ class FlyActivationLoader:
                 raise ValueError(
                     f"batch_size {batch_size} not divisible by the mesh's data "
                     f"axis ({mesh.data_size})")
-        self.runtime = WhisperRuntime(whisper_model, layer_name,
-                                      compute_dtype=compute_dtype,
-                                      max_new_tokens=max_new_tokens,
-                                      device=self.device)
+        if model_weights is not None or is_omni(whisper_model):
+            if mesh is not None or shard is not None:
+                raise ValueError("Uni-MoE-2.0-Omni collects on one card (no mesh or shard)")
+            self.runtime = OmniRuntime(whisper_model, layer_name,
+                                       compute_dtype=compute_dtype, device=self.device,
+                                       weights=model_weights)
+        else:
+            self.runtime = WhisperRuntime(whisper_model, layer_name,
+                                          compute_dtype=compute_dtype,
+                                          max_new_tokens=max_new_tokens,
+                                          device=self.device)
+        self._counters = getattr(self.runtime, "counters", None)
         self._decoder_layer = layer_name.startswith("decoder.")
         self.batch_size = batch_size
         # the sequential-scan guard of analysis/search.py reads both
@@ -254,6 +273,10 @@ class FlyActivationLoader:
             # on the card, start the device→host copy now, ahead of the next
             # batch's work
             fetched.append(DeviceFetch(o) if o.is_cuda else o)
+        if self._counters is not None:
+            # the router's counts, copied behind the batch's outputs
+            table = self._counters()
+            fetched.append(DeviceFetch(table) if fetch and table.is_cuda else table.clone())
         return tuple(fetched)
 
     def __iter__(self) -> Iterator[tuple]:
@@ -282,6 +305,9 @@ class FlyActivationLoader:
             yield self._finalize(*pending)
 
     def _finalize(self, outs, filenames, lengths):
+        if self._counters is not None:
+            *outs, table = outs
+            profiling.count("moe.tokens", table)
         ok = decodable_mask(lengths, filenames)
         if not ok.all():
             outs = tuple(o[torch.from_numpy(ok).to(o.device)]
@@ -297,9 +323,8 @@ class FlyActivationLoader:
             if isinstance(n_valid, torch.Tensor):
                 n_valid = n_valid.cpu()
             return (*outs, filenames, np.asarray(n_valid, np.int64))
-        n_frames = np.asarray(
-            [activation_length_from_samples(int(n)) for n in lengths],
-            np.int64)
+        length = getattr(self.runtime, "activation_length", activation_length_from_samples)
+        n_frames = np.asarray([length(int(n)) for n in lengths], np.int64)
         return (*outs, filenames, n_frames)
 
 

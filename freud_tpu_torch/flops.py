@@ -293,3 +293,34 @@ def topk_sae_forward_bound(rows: int, d_in: int, n_dict: int, k: int, k_aux: int
               + 2 * 4.0 * rows * d_in              # y_main, y_aux
               + 2 * 4.0 * rows + n_dict)           # t_main, t_aux, fired
     return KernelBound(flops, "bf16", nbytes)
+
+
+def moe_gateup_bound(rows: int, d: int, width: int, n_dyn: int) -> KernelBound:
+    """The MoE's grouped gate/up product (``csrc/moe.cu``): ``rows`` routed
+    rows (M, d) bf16 and ``n_dyn`` experts' gate and up (width, d) bf16 →
+    the SwiGLU (M, width) bf16; 2·M·d·2·width bf16 operations."""
+    nbytes = 2.0 * (rows * d + 2 * n_dyn * width * d + rows * width)
+    return KernelBound(4.0 * rows * d * width, "bf16", nbytes)
+
+
+def moe_down_bound(rows: int, d: int, width: int, n_dyn: int) -> KernelBound:
+    """The MoE's grouped down product: (M, width) bf16 and ``n_dyn``
+    experts' (d, width) bf16 → (M, d) bf16; 2·M·width·d operations."""
+    nbytes = 2.0 * (rows * width + n_dyn * d * width + rows * d)
+    return KernelBound(2.0 * rows * d * width, "bf16", nbytes)
+
+
+def moe_route_bound(tokens: int, d: int, n_router: int, top_k: int, rows: int) -> KernelBound:
+    """The MoE's route, plan, permute and combine launches together, bound
+    by bytes: the router reads u (T, d) bf16 and its (n_router, d) f32
+    weights and writes probs, sel and wsel; the plan reads sel and writes
+    the rows; the permute copies ``rows`` rows of u; the combine reads h,
+    the fixed experts' output and the ``rows`` expert rows and writes
+    (T, d) bf16. The router's 2·T·d·n_router f32 operations are left out
+    (under a thousandth of the bytes' time)."""
+    slots = 4.0 * tokens * top_k
+    nbytes = (2.0 * tokens * d + 4.0 * n_router * d + 4.0 * tokens * n_router + 2 * slots
+              + 2 * slots + 4.0 * n_router
+              + 2 * 2.0 * rows * d + slots
+              + 3 * 2.0 * tokens * d + 2.0 * rows * d + 2 * slots)
+    return KernelBound(0.0, "bf16", nbytes)

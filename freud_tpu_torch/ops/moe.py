@@ -1,0 +1,272 @@
+"""The routed experts of a top-p mixture of experts with a null expert
+(Uni-MoE-2.0-Omni's FFN), as hand-written CUDA kernels
+(``csrc/moe.cu``) beside their plain PyTorch versions.
+
+They replace no TPU kernel: the JAX package has no such model. The layer
+(``models/omni/model.py::MoE``) calls, in order:
+
+  route(u, w_router, top_p, top_k) → (probs (T, n_all) f32, sel (T, top_k)
+      int32, wsel (T, top_k) f32): logits = u·w_routerᵀ in f32 (the router
+      in fp32 whatever u's dtype), p = softmax; entries in order of p, ties
+      to the lower index; entry j is taken while j < top_k and the sum of
+      the p before it is below top_p (the first always). sel holds the
+      taken entries (-1 where none), wsel their p, not renormalised.
+  plan(sel, n_dyn, counts) → (offsets (n_dyn,), pos (T, top_k) int32):
+      counts (n_all,) int32 of every entry, the null ones (index ≥ n_dyn)
+      included, written into ``counts``; the dynamic experts' rows laid
+      expert by expert, in slot order within one; pos is each slot's row
+      (-1 for an empty or null slot).
+  permute(u, pos, rows_max) → a (rows_max, d): u's row at each of its rows
+      (rows past the routed ones hold whatever was there).
+  gateup(a, counts, offsets, w_gate, w_up) → h (rows_max, I):
+      silu(a·w_gate[e]ᵀ) ⊙ (a·w_up[e]ᵀ) on expert e's rows, each product,
+      the silu and the ⊙ rounded to a's dtype as eager PyTorch rounds them.
+  down(h, counts, offsets, w_down) → y (rows_max, d): h·w_down[e]ᵀ.
+  combine(x, fixed, y, pos, wsel) → x + fixed + Σ_j wsel_j · y[pos_j] in
+      f32, in slot order, rounded once to x's dtype.
+
+No token is dropped: rows_max = T·top_k holds every slot. On the card
+nothing here synchronises with the host: the counts and offsets stay on the
+card, and the grouped products read them there (their grids are sized for
+the worst case). A CUDA tensor launches the kernels, which take contiguous
+bf16 operands and raise on any other; a CPU tensor takes the ``*_plain``
+version (which reads the counts on the host). ``.launches`` counts a
+wrapper's calls on the card.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from .._native import check_cuda_status, cuda_library
+from .topk_threshold import count_launch
+
+# ------------------------------------------------------------ plain versions
+
+
+def select(probs, top_p: float, top_k: int):
+    """The top-p rule on (T, n_all) probabilities → (sel, wsel)."""
+    ps, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+    before = torch.cat([torch.zeros_like(ps[:, :1]), torch.cumsum(ps, dim=-1)[:, :-1]], dim=1)
+    take = before[:, :top_k] < top_p
+    take[:, 0] = True
+    sel = torch.where(take, idx[:, :top_k], -1).to(torch.int32)
+    wsel = torch.where(take, ps[:, :top_k], 0.0)
+    return sel, wsel
+
+
+def route_plain(u, w_router, top_p: float, top_k: int):
+    """Plain PyTorch version of ``route``."""
+    probs = torch.softmax(u.float() @ w_router.float().T, dim=-1)
+    return (probs, *select(probs, top_p, top_k))
+
+
+def plan_plain(sel, n_dyn: int, counts):
+    """Plain PyTorch version of ``plan``."""
+    t, k = sel.shape
+    flat = sel.reshape(-1).to(torch.int64)
+    n_all = counts.numel()
+    counts.copy_(torch.bincount(flat[flat >= 0], minlength=n_all)[:n_all].to(counts.dtype))
+    dyn = (flat >= 0) & (flat < n_dyn)
+    key = torch.where(dyn, flat, n_dyn)
+    order = torch.sort(key, stable=True).indices
+    rows = torch.arange(flat.numel(), device=sel.device)
+    pos = torch.empty_like(flat)
+    pos[order] = torch.where(dyn[order], rows, -1)
+    dyn_counts = counts[:n_dyn].to(torch.int64)
+    offsets = torch.cumsum(dyn_counts, 0) - dyn_counts
+    return offsets.to(torch.int32), pos.reshape(t, k).to(torch.int32)
+
+
+def permute_plain(u, pos, rows_max: int):
+    """Plain PyTorch version of ``permute`` (unrouted rows are zeros)."""
+    k = pos.shape[1]
+    a = u.new_zeros((rows_max + 1, u.shape[1]))
+    dst = torch.where(pos >= 0, pos, rows_max).reshape(-1).to(torch.int64)
+    a.index_copy_(0, dst, u.repeat_interleave(k, dim=0))
+    return a[:rows_max]
+
+
+def _expert_rows(counts, offsets, n_dyn: int):
+    c, o = counts[:n_dyn].tolist(), offsets.tolist()
+    return [(e, o[e], o[e] + c[e]) for e in range(n_dyn) if c[e]]
+
+
+def gateup_plain(a, counts, offsets, w_gate, w_up):
+    """Plain PyTorch version of ``gateup`` (unrouted rows are zeros)."""
+    h = a.new_zeros((a.shape[0], w_gate.shape[1]))
+    for e, lo, hi in _expert_rows(counts, offsets, w_gate.shape[0]):
+        x = a[lo:hi]
+        h[lo:hi] = F.silu(x @ w_gate[e].T) * (x @ w_up[e].T)
+    return h
+
+
+def down_plain(h, counts, offsets, w_down):
+    """Plain PyTorch version of ``down`` (unrouted rows are zeros)."""
+    y = h.new_zeros((h.shape[0], w_down.shape[1]))
+    for e, lo, hi in _expert_rows(counts, offsets, w_down.shape[0]):
+        y[lo:hi] = h[lo:hi] @ w_down[e].T
+    return y
+
+
+def combine_plain(x, fixed, y, pos, wsel):
+    """Plain PyTorch version of ``combine``."""
+    acc = x.float() + fixed.float()
+    for j in range(pos.shape[1]):
+        p = pos[:, j].to(torch.int64)
+        rows = y.index_select(0, p.clamp(min=0)).float()
+        acc = acc + torch.where((p >= 0)[:, None], wsel[:, j:j + 1] * rows, 0.0)
+    return acc.to(x.dtype)
+
+
+# -------------------------------------------------------------- the kernels
+
+
+def _library() -> ctypes.CDLL:
+    lib = cuda_library("moe")
+    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    sigs = {
+        "freud_moe_route": [p, p, i, i, i, f, i, p, p, p, p],
+        "freud_moe_plan": [p, i, i, i, p, p, p, p],
+        "freud_moe_permute": [p, p, i, i, i, p, p],
+        "freud_moe_gateup": [p, i, i, p, p, i, i, p, p, p, p],
+        "freud_moe_down": [p, i, i, p, i, i, p, p, p, p],
+        "freud_moe_combine": [p, p, p, p, p, i, i, i, p, p],
+    }
+    for name, args in sigs.items():
+        fn = getattr(lib, name)
+        fn.restype = ctypes.c_int
+        fn.argtypes = args
+    lib.freud_moe_max_all.restype = ctypes.c_int
+    lib.freud_cuda_error_string.restype = ctypes.c_char_p
+    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
+    return lib
+
+
+def _stream(t: torch.Tensor) -> int:
+    return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def _on_card(what: str, *tensors) -> bool:
+    """Whether the call takes the kernels: it does when its first tensor is
+    on the card, and then every tensor must be contiguous bf16 (raises
+    otherwise); on the CPU it takes the plain version."""
+    if not tensors[0].is_cuda:
+        return False
+    for t in tensors:
+        if t.dtype != torch.bfloat16 or not t.is_contiguous():
+            raise ValueError(f"{what}: the kernels take contiguous bf16 tensors, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return True
+
+
+def route(u: torch.Tensor, w_router: torch.Tensor, top_p: float, top_k: int):
+    """u (T, d), w_router (n_all, d) → (probs, sel, wsel) (module docstring)."""
+    if not _on_card("moe route", u):
+        return route_plain(u, w_router, top_p, top_k)
+    lib = _library()
+    t, d = u.shape
+    n_all = w_router.shape[0]
+    if n_all > lib.freud_moe_max_all() or top_k > n_all or d % 8:
+        raise ValueError(f"moe route: {n_all} router outputs, top_k {top_k}, d {d}")
+    w = w_router.float().contiguous()
+    probs = torch.empty((t, n_all), dtype=torch.float32, device=u.device)
+    sel = torch.empty((t, top_k), dtype=torch.int32, device=u.device)
+    wsel = torch.empty((t, top_k), dtype=torch.float32, device=u.device)
+    status = lib.freud_moe_route(u.data_ptr(), w.data_ptr(), t, d, n_all, float(top_p),
+                                 top_k, probs.data_ptr(), sel.data_ptr(), wsel.data_ptr(),
+                                 _stream(u))
+    check_cuda_status(status, "moe route kernel", lib)
+    count_launch(route)
+    return probs, sel, wsel
+
+
+def plan(sel: torch.Tensor, n_dyn: int, counts: torch.Tensor):
+    """sel (T, top_k) int32; counts (n_all,) int32, written → (offsets,
+    pos) (module docstring)."""
+    if not sel.is_cuda:
+        return plan_plain(sel, n_dyn, counts)
+    lib = _library()
+    sel = sel.contiguous()
+    offsets = torch.empty((n_dyn,), dtype=torch.int32, device=sel.device)
+    pos = torch.empty(sel.shape, dtype=torch.int32, device=sel.device)
+    if counts.dtype != torch.int32 or not counts.is_contiguous():
+        raise ValueError("moe plan: counts must be a contiguous int32 tensor")
+    status = lib.freud_moe_plan(sel.data_ptr(), sel.numel(), counts.numel(), n_dyn,
+                                counts.data_ptr(), offsets.data_ptr(), pos.data_ptr(),
+                                _stream(sel))
+    check_cuda_status(status, "moe plan kernel", lib)
+    count_launch(plan)
+    return offsets, pos
+
+
+def permute(u: torch.Tensor, pos: torch.Tensor, rows_max: int) -> torch.Tensor:
+    """u (T, d), pos (T, top_k) → a (rows_max, d) (module docstring)."""
+    if not _on_card("moe permute", u):
+        return permute_plain(u, pos, rows_max)
+    lib = _library()
+    t, d = u.shape
+    a = torch.empty((rows_max, d), dtype=u.dtype, device=u.device)
+    status = lib.freud_moe_permute(u.data_ptr(), pos.contiguous().data_ptr(), t, pos.shape[1],
+                                   d, a.data_ptr(), _stream(u))
+    check_cuda_status(status, "moe permute kernel", lib)
+    count_launch(permute)
+    return a
+
+
+def gateup(a, counts, offsets, w_gate, w_up) -> torch.Tensor:
+    """a (rows_max, d); w_gate, w_up (n_dyn, I, d) → h (rows_max, I)."""
+    if not _on_card("moe gateup", a, w_gate, w_up):
+        return gateup_plain(a, counts, offsets, w_gate, w_up)
+    n_dyn, i, d = w_gate.shape
+    if d % 64 or i % 128:
+        raise ValueError(f"moe gateup: d {d} must divide by 64 and I {i} by 128")
+    lib = _library()
+    h = torch.empty((a.shape[0], i), dtype=a.dtype, device=a.device)
+    status = lib.freud_moe_gateup(a.data_ptr(), a.shape[0], d, w_gate.data_ptr(),
+                                  w_up.data_ptr(), n_dyn, i, counts.data_ptr(),
+                                  offsets.data_ptr(), h.data_ptr(), _stream(a))
+    check_cuda_status(status, "moe gate/up kernel", lib)
+    count_launch(gateup)
+    return h
+
+
+def down(h, counts, offsets, w_down) -> torch.Tensor:
+    """h (rows_max, I); w_down (n_dyn, d, I) → y (rows_max, d)."""
+    if not _on_card("moe down", h, w_down):
+        return down_plain(h, counts, offsets, w_down)
+    n_dyn, d, i = w_down.shape
+    if i % 64 or d % 256:
+        raise ValueError(f"moe down: I {i} must divide by 64 and d {d} by 256")
+    lib = _library()
+    y = torch.empty((h.shape[0], d), dtype=h.dtype, device=h.device)
+    status = lib.freud_moe_down(h.data_ptr(), h.shape[0], i, w_down.data_ptr(), n_dyn, d,
+                                counts.data_ptr(), offsets.data_ptr(), y.data_ptr(),
+                                _stream(h))
+    check_cuda_status(status, "moe down kernel", lib)
+    count_launch(down)
+    return y
+
+
+def combine(x, fixed, y, pos, wsel) -> torch.Tensor:
+    """x, fixed (T, d); y (rows_max, d); pos, wsel (T, top_k) → (T, d)."""
+    if not _on_card("moe combine", x, fixed, y):
+        return combine_plain(x, fixed, y, pos, wsel)
+    lib = _library()
+    t, d = x.shape
+    out = torch.empty_like(x)
+    status = lib.freud_moe_combine(x.data_ptr(), fixed.data_ptr(), y.data_ptr(),
+                                   pos.contiguous().data_ptr(),
+                                   wsel.contiguous().data_ptr(), t, pos.shape[1], d,
+                                   out.data_ptr(), _stream(x))
+    check_cuda_status(status, "moe combine kernel", lib)
+    count_launch(combine)
+    return out
+
+
+for _fn in (route, plan, permute, gateup, down, combine):
+    _fn.launches = 0
+    _fn.captured = 0

@@ -21,6 +21,14 @@ Every hot pipeline stage wraps itself in ``span(name)``, which
   ~0.1 µs against ~14 µs for ``record_function`` itself), and a span costs
   a few µs of host time, most of it the context manager's own.
 
+Counters (``count(name, value)``) keep the newest ``_MAX_CALLS_KEPT``
+readings of each name beside the spans, in the same record scheme (``id``,
+the ``parent`` span open on the thread, ``thread``, ``start_ns``) with the
+reading as ``value``: any array-like, a ``DeviceFetch`` whose copy is still
+in flight included, which is read only when ``counter_values`` asks (so
+recording one adds no synchronisation). ``moe.tokens``, a batch's (layer,
+router entry) token counts of Uni-MoE-2.0-Omni, is one.
+
 Spans time the host: a span around asynchronous CUDA work measures the
 enqueue unless the stage itself waits for the device. These wait:
 ``d2h_fetch`` (the device-to-host copy), ``train_chunk_wait`` (the chunk
@@ -41,8 +49,9 @@ import itertools
 import threading
 import time
 from collections import defaultdict, deque
-from typing import Iterator, NamedTuple, Optional
+from typing import Any, Iterator, NamedTuple, Optional
 
+import numpy as np
 import torch
 
 # Per-call records kept per span: the newest, enough to decompose a
@@ -58,10 +67,19 @@ class Record(NamedTuple):
     dur_s: float
 
 
+class CounterRecord(NamedTuple):
+    id: int
+    parent: Optional[int]
+    thread: int
+    start_ns: int
+    value: Any
+
+
 _lock = threading.Lock()
 _totals: dict[str, float] = defaultdict(float)
 _counts: dict[str, int] = defaultdict(int)
 _records: dict[str, deque] = defaultdict(lambda: deque(maxlen=_MAX_CALLS_KEPT))
+_counters: dict[str, deque] = defaultdict(lambda: deque(maxlen=_MAX_CALLS_KEPT))
 _ids = itertools.count(1)  # next() of a count is atomic under the GIL
 _local = threading.local()  # .stack: ids of the spans open on this thread
 _trace = None  # the running torch.profiler.profile of start_trace
@@ -120,6 +138,28 @@ def records(name: str) -> list[Record]:
         return list(_records.get(name, ()))
 
 
+def count(name: str, value: Any) -> None:
+    """Record one reading of counter ``name`` (module docstring)."""
+    stack = _thread_stack()
+    rec = CounterRecord(next(_ids), stack[-1] if stack else None, _local.thread,
+                        time.time_ns(), value)
+    with _lock:
+        _counters[name].append(rec)
+
+
+def counter_records(name: str) -> list[CounterRecord]:
+    """The newest ``_MAX_CALLS_KEPT`` readings of counter ``name``, oldest
+    first."""
+    with _lock:
+        return list(_counters.get(name, ()))
+
+
+def counter_values(name: str) -> list[np.ndarray]:
+    """The readings of ``counter_records(name)`` as numpy arrays (a reading
+    whose device copy is in flight waits for that copy alone)."""
+    return [np.asarray(r.value) for r in counter_records(name)]
+
+
 def calls(name: str) -> list[float]:
     """Per-call durations in seconds of ``records(name)``."""
     return [r.dur_s for r in records(name)]
@@ -130,6 +170,7 @@ def reset() -> None:
         _totals.clear()
         _counts.clear()
         _records.clear()
+        _counters.clear()
 
 
 def report() -> str:

@@ -19,6 +19,14 @@ captures every position: each file stores n_prompt + max_new_tokens rows,
 and its ``n_frames`` is the positions its decode processed (the rows after
 are EOT padding).
 
+``whisper_model`` may also be ``uni-moe-2.0-omni`` (Uni-MoE-2.0-Omni, its
+HuggingFace directory found under ``$FREUD_OMNI_DIR``): its taps are
+``lm.layers.N`` (the language model's residual stream after layer N, a
+clip's 200 audio tokens of 0.1 s each; ``n_frames`` counts those that cover
+real audio) and ``encoder.blocks.N`` (its Whisper tower).
+It runs on the card in ``precision="bfloat16"``, the model's own (any
+other precision is refused there; the CPU also runs float32).
+
 With ``sae_model`` (a trainer checkpoint) the SAE encodes each batch on
 the device: an L1 SAE stores its dense latents, a TopK SAE an indexed store
 of ``(top_acts, top_indices)`` (``{layer}_activation_values.npy`` and
@@ -266,7 +274,9 @@ def get_activations(
 def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", type=str, required=True,
-                        help="Path to feature configuration file")
+                        help="Path to feature configuration file (whisper_model: a "
+                             "Whisper name, or uni-moe-2.0-omni with layer_name "
+                             "lm.layers.N or encoder.blocks.N)")
     parser.add_argument("--resume", action="store_true",
                         help="continue an interrupted collection: skip "
                              "already-stored files and append to the store")

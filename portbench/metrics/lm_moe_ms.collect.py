@@ -1,0 +1,10 @@
+"""Device ms a batch of the kernels launched inside the program's ``lm.moe``
+spans (the MoE's RMSNorm, router, permute, grouped expert products, fixed
+experts and combine, every LM layer), in the profiled sub-window; a kernel
+belongs to a span whose call holds its launch (``span_kernels.py``)."""
+
+
+def read(r):
+    s = (r.w.get("span_device_s") or {}).get("lm.moe")
+    units = r.profile.units if r.profile is not None else 0
+    return 1e3 * s / units if s and units else None

@@ -104,6 +104,13 @@ MAIN_PATH = [
      "bytes"),
     (flops.topk_bwd_route_bound(75000, 6144, in_bytes=4), 0.0, 7.373449152e9, 2.201,
      "bytes"),
+    # Uni-MoE-2.0-Omni's MoE at the omni cell's batch: 7,424 tokens, 10,558
+    # routed rows over 4 experts of width 18,944 at d 3584
+    (flops.moe_gateup_bound(10558, 3584, 18944, 4), 2.867354140672e12, 1.562025984e9,
+     2.8992, "operations"),
+    (flops.moe_down_bound(10558, 3584, 18944, 4), 1.433677070336e12, 1.018863616e9,
+     1.4496, "operations"),
+    (flops.moe_route_bound(7424, 3584, 5, 2, 10558), 0.0, 440.536084e6, 0.1315, "bytes"),
 ]
 
 
