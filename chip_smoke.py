@@ -1103,6 +1103,53 @@ def check_topk_backward(torch, device, card) -> dict:
     return recs
 
 
+# the SAE encode's indexed top-k at the main path's f32 shapes, each with
+# the encode's fused bias: (label, rows, columns) — one /top_features
+# request, a large_v1_audioset collection batch, a uni_moe_omni batch (two
+# column segments and a merge)
+INDEXED_SHAPES = (("serve_", 1500, 20480), ("", 32 * 1500, 20480), ("omni_", 6400, 57344))
+
+
+def check_topk_indexed(torch, device, card) -> dict:
+    """The SAE encode's selection (``ops/topk_indexed``) at
+    ``INDEXED_SHAPES``: bit for bit the sort it replaced (``pre_acts``'s add
+    and ReLU, then a stable descending ``torch.sort`` cut to k) on products
+    with zero-padded tail rows, silent rows, -0.0 and a row of exact ties,
+    one launch a call; timed beside that chain and its bytes bound."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    gen = torch.Generator(device).manual_seed(SEED + 23)
+    rec = {"library": "the replaced chain: add, relu, torch.sort (stable), [..., :k]"}
+    for label, m, n in INDEXED_SHAPES:
+        z = torch.randn((m, n), generator=gen, device=device) * 0.3 - 0.2
+        b = torch.randn((n,), generator=gen, device=device) * 0.05
+        z[-7:] = 0.0  # zero-padded tail rows: the bias alone, fewer than k positive
+        z[0] = -10.0  # silent: every latent 0
+        z[1] = -0.0
+        z[2] = 0.5 - b  # every latent tied at 0.5 (up to rounding)
+        before = topk_indexed.launches
+        got = topk_indexed(z, K, bias=b)
+        want = topk_indexed_plain(z, K, bias=b)
+        torch.cuda.synchronize()
+        assert topk_indexed.launches == before + 1, label
+        assert torch.equal(got[1], want[1]), label
+        assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32)), label
+        bound = flops.topk_indexed_bound(m, n, K, bias=True)
+        ms = cuda_ms(lambda: topk_indexed(z, K, bias=b), reps=10)
+        chain_ms = cuda_ms(lambda: topk_indexed_plain(z, K, bias=b), warmup=1, reps=3)
+        assert ms >= bound.bound_ms, (label, ms, bound.bound_ms)
+        rec.update({f"{label}ms": ms, f"{label}plain_ms": chain_ms, f"{label}library_ms": chain_ms,
+                    f"{label}bound_ms": bound.bound_ms})
+        print(f"topk_indexed ({m}, {n}) f32, k {K}, fused bias: bit-equal to the sort; kernel "
+              f"{ms:.4f} ms, add+relu+sort {chain_ms:.4f} ms, bound {bound.bound_ms:.4f} ms "
+              f"({bound.bound_by}; {bound.bytes / 1e9:.2f} GB) on {card}")
+        del z, b, got, want
+        torch.cuda.empty_cache()
+    rec["bound_by"] = "bytes"
+    return rec
+
+
 # Uni-MoE-2.0-Omni's MoE at the collection cell's shapes: 32 clips of 232
 # positions, d 3584, 4 dynamic experts of width 18,944 and a null one, top 2
 MOE_TOKENS, MOE_D, MOE_WIDTH, MOE_DYN, MOE_TOP_K = 32 * 232, 3584, 18944, 4, 2
@@ -2966,7 +3013,8 @@ def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
     store (block 16), then the GUI server from disk over it with phase 10's
     large_v1_audioset TopK checkpoint: /status, /top_files on both paths,
     one /top_features and one /manipulate_feature (median of 2), kernel #5
-    launched 17 times a capture and 32 times a decode's encoder. The
+    launched 17 times a capture and 32 times a decode's encoder, the SAE
+    encode's selection once a request. The
     server's decode budget is cut to LARGE_SERVER_MAX_NEW tokens to stay
     within the time limit."""
     width = json.loads((store / f"{LARGE_LAYER}_metadata.json").read_text())[
@@ -2983,7 +3031,10 @@ def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
     state.runtime.decoder  # built at first use: with the server, not in a request
     init_s = time.perf_counter() - t0
     state.runtime.max_new_tokens = LARGE_SERVER_MAX_NEW
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed
+
     upload = (wav_dir / "clip000.wav").read_bytes()
+    counters = {**counters, "topk_indexed": topk_indexed}  # the SAE encode's selection
     rec = serve_requests(torch, server, [("status", "GET", "/status", None, None),
                                          ("top_files_indexed", "GET",
                                           f"/top_files?feature_idx={feat}&n_files=10", None, None)],
@@ -3001,9 +3052,11 @@ def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
     capture = int(LARGE_LAYER.rsplit(".", 1)[-1]) + 1
     whole = state.runtime.dims.n_audio_layer
     assert rec["top_features"]["launches"] == {
-        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture}, rec
+        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture,
+        "topk_indexed": 1}, rec
     assert rec["manipulate_x8"]["launches"] == {
-        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture + 3 * whole}, rec
+        "log_mel": 1, "fused_qkv_attention": 0, "whisper_attention": capture + 3 * whole,
+        "topk_indexed": 1}, rec
     feats = json.loads(rec["top_features"]["body"])
     assert len(feats["top_indices"]) == 32
     assert all(np.isfinite(t).all() and len(t) == 1500 for t in feats["top_activations"])
@@ -5059,10 +5112,12 @@ def model_axis_only(torch, device, card: str) -> dict:
 def topk_only(torch, device, card: str) -> dict:
     """Phase 2's TopK checks alone (after the build): kernels #3 and #4, the
     selection core's other two callers, to time beside the sharded
-    launches, and the TopK backward's passes."""
+    launches, the TopK backward's passes and the SAE encode's indexed
+    selection."""
     return {"topk_sae_forward": check_topk_fused(torch, device, card),
             "topk_thresholds_fired": check_topk_threshold(torch, device, card),
-            **check_topk_backward(torch, device, card)}
+            **check_topk_backward(torch, device, card),
+            "topk_indexed": check_topk_indexed(torch, device, card)}
 
 
 # --knockouts: copies of the sharded selection's sources, each with one part
@@ -5284,6 +5339,7 @@ def main() -> int:
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
     from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
 
     # phase 0 — the card
@@ -5304,7 +5360,7 @@ def main() -> int:
     t0 = time.perf_counter()
     # the sources this tree holds (an older checkout lacks the newer ones)
     _native.cuda_libraries(*[n for n in ("mel", "attention", "topk_threshold", "topk_fused",
-                                         "topk_sharded", "topk_backward", "moe")
+                                         "topk_sharded", "topk_backward", "moe", "topk_indexed")
                              if (REPO / "freud_tpu_torch" / "csrc" / f"{n}.cu").exists()])
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
@@ -5344,6 +5400,7 @@ def main() -> int:
     fused_rec = check_topk_fused(torch, device, card)
     thresh_rec = check_topk_threshold(torch, device, card)
     backward_recs = check_topk_backward(torch, device, card)
+    indexed_rec = check_topk_indexed(torch, device, card)
     moe_recs = check_moe(torch, device, card)
     omni_rec = check_omni_forward(torch, device, card)
 
@@ -5549,9 +5606,18 @@ def main() -> int:
         # phase 6 — one TopK batch at full width, card against CPU
         card_vs_cpu_batch(torch, device, store)
 
-        # phase 7 — collection with the trained TopK SAE attached
+        # phase 7 — collection with the trained TopK SAE attached: the
+        # encode's selection once a batch
+        topk_indexed.launches = log_mel_spectrogram_cuda.launches = 0
         sstats = collect({**config, "sae_model": str(ckpts / "bestval.pth"),
                           "out_folder": str(tmp / "sae")}, tmp / "sae.json")
+        sae_batches = log_mel_spectrogram_cuda.launches  # one a batch
+        launches["topk_indexed"] = topk_indexed.launches
+        per_unit["topk_indexed"] = (topk_indexed.launches / sae_batches, "SAE collection batch")
+        print(f"SAE encode's selection: {topk_indexed.launches} launches in {sae_batches} "
+              f"batches")
+        assert topk_indexed.launches == sae_batches >= n_batches, (topk_indexed.launches,
+                                                                   sae_batches)
         smeta = json.loads((tmp / "sae" / f"{LAYER}_metadata.json").read_text())
         vals = np.load(tmp / "sae" / f"{LAYER}_activation_values.npy", mmap_mode="r")
         idx = np.load(tmp / "sae" / f"{LAYER}_feature_indices.npy", mmap_mode="r")
@@ -5995,6 +6061,15 @@ def main() -> int:
          "launches_pod": pod_rec["launches"][name],
          "launches_model_axis": axis_rec["launches"][name], **backward_recs[name]}
         for name in BACKWARD_PASSES]
+    # the SAE encode's top-k: no TPU kernel's port (the JAX package leaves
+    # lax.top_k to XLA); its plain version is the stable sort it replaced
+    kernels.append(
+        {"name": "topk_indexed", "route": "cuda", "source": "freud_tpu_torch/csrc/topk_indexed.cu",
+         "replaces": "select_topk's stable torch.sort over every latent (freud_tpu/models/sae/"
+                     "topk.py select_topk leaves lax.top_k to XLA)",
+         "launches": launches["topk_indexed"], **unit("topk_indexed"),
+         "launches_server_large": server_large["top_features"]["launches"]["topk_indexed"],
+         **indexed_rec})
     # Uni-MoE-2.0-Omni's MoE: no TPU kernel's port (the JAX package has no
     # such model); its plain versions are ops/moe.py's
     kernels += [

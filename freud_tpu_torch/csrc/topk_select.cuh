@@ -1,13 +1,17 @@
 // Per-row selection core shared by csrc/topk_threshold.cu (kernel #3),
-// csrc/topk_fused.cu (kernel #4's select launch) and csrc/topk_sharded.cu
-// (the candidates launch of kernel #3 across dictionary shards): for every
-// row of an (M, n) matrix, up to three k-th largest keys (k[0]; k[1] among
-// the dead columns; k[2]), then one of two epilogues (select_rows' kCand):
+// csrc/topk_fused.cu (kernel #4's select launch), csrc/topk_sharded.cu
+// (the candidates launch of kernel #3 across dictionary shards) and
+// csrc/topk_indexed.cu (the SAE encode's top-k): for every row of an (M, n)
+// matrix, up to three k-th largest keys (k[0]; k[1] among the dead
+// columns; k[2]), then one of three epilogues (the kernels' kCand, kIdx):
 //   * thresholds: t_main, t_aux and t_multi by the edge rules below, and
 //     the fired mask, the columns where any row holds a positive value >=
 //     t_main;
 //   * candidates: the row's keys above each k-th key and that key's ties,
-//     and the header the combine reads (emit_candidates says what).
+//     and the header the combine reads (emit_candidates says what);
+//   * indexed (select_indexed): the row's k largest elements and their
+//     columns, in the order of torch.sort on the card, stable and
+//     descending (emit_indexed says how).
 //
 // Order keys. A value becomes an unsigned key whose order is the order the
 // selection needs:
@@ -80,6 +84,7 @@ constexpr int kBins0 = 1 << kDigit0;
 constexpr int kBitsThreads = 256;         // dead_bits_kernel's block
 constexpr size_t kBlockSmem = 232448;     // shared memory a block may use
 constexpr uint32_t kPiece = 32768;        // bytes a bulk copy
+constexpr int kCandidates = 1, kIndexed = 2;  // launch_rows' epilogues (0: thresholds)
 
 // The dead mask (n,) bytes → bits (ceil(n / 32) words), bit j % 32 of word
 // j / 32 set for a dead column j.
@@ -130,6 +135,15 @@ struct Bf16Value {
   __device__ static uint32_t fire_key(float t) {
     return key(__bfloat16_as_ushort(__float2bfloat16_ru(t)));
   }
+  // the indexed epilogue's keys (torch.sort's order on the card): the
+  // order key with -0 keyed as +0; raw() inverts every other key
+  __device__ static uint32_t sort_key(uint32_t bits) { return key(bits == 0x8000u ? 0u : bits); }
+  __device__ static uint32_t sort_word(uint32_t w) {
+    return sort_key(w & 0xFFFFu) | (sort_key(w >> 16) << 16);
+  }
+  __device__ static uint32_t raw(uint32_t key) {
+    return (key & 0x8000u) ? (key ^ 0x8000u) : (~key & 0xFFFFu);
+  }
 };
 
 struct F32Value {
@@ -147,7 +161,20 @@ struct F32Value {
     return __uint_as_float((key & 0x80000000u) ? (key ^ 0x80000000u) : ~key);
   }
   __device__ static uint32_t fire_key(float t) { return key(__float_as_uint(t)); }
+  __device__ static uint32_t sort_key(uint32_t bits) { return word(bits == 0x80000000u ? 0u : bits); }
+  __device__ static uint32_t sort_word(uint32_t w) { return sort_key(w); }
+  __device__ static uint32_t raw(uint32_t key) {
+    return (key & 0x80000000u) ? (key ^ 0x80000000u) : ~key;
+  }
 };
+
+// The encode's prologue on one f32 product z (bits): relu(z + b) as
+// torch.relu(z + b) computes it on the card (one f32 add; clamp_min's NaN
+// rule, then fmaxf), bit for bit.
+__device__ __forceinline__ uint32_t add_relu(uint32_t z, float b) {
+  const float v = __fadd_rn(__uint_as_float(z), b);
+  return __float_as_uint(isnan(v) ? v : fmaxf(v, 0.f));
+}
 
 // Digit p of a kBits-bit key: `width` bits above `shift`.
 template <int Bits>
@@ -173,6 +200,33 @@ struct SelectParams {
   uint32_t* out;         // the candidates epilogue's rows: (m, width) words
   int width;
 };
+
+// The indexed epilogue's operands ride in fields the other epilogues read,
+// so the struct their kernels take is what it was: t[0] the bias (the
+// whole row's (parts · n,) f32, added and ReLU-ed in the load; null for
+// none), t[1] the values and t[2] the columns (m, k[0]) — the input's type
+// and int64 where parts == 1, else raw words and int32 columns of the
+// whole row — and width the segment count: rows are `parts` column
+// segments of n each of a wider row (segment = row % parts).
+__host__ __device__ __forceinline__ const float* idx_bias(const SelectParams& p) { return p.t[0]; }
+__host__ __device__ __forceinline__ void* idx_vals(const SelectParams& p) { return p.t[1]; }
+__host__ __device__ __forceinline__ void* idx_cols(const SelectParams& p) { return p.t[2]; }
+__host__ __device__ __forceinline__ int idx_parts(const SelectParams& p) { return p.width; }
+
+inline SelectParams indexed_params(const void* acts, const float* bias, int m, int n, int k,
+                                   int parts, void* vals, void* cols) {
+  SelectParams p{};
+  p.acts = acts;
+  p.k[0] = static_cast<uint32_t>(k);
+  p.m = m;
+  p.n = n;
+  p.nsel = 1;
+  p.t[0] = const_cast<float*>(bias);
+  p.t[1] = static_cast<float*>(vals);
+  p.t[2] = static_cast<float*>(cols);
+  p.width = parts;
+  return p;
+}
 
 template <class Row, int NT>
 struct Smem {
@@ -575,387 +629,175 @@ __device__ __forceinline__ void emit_candidates(
         tid == 0 ? rng.x : (tid == 1 ? rng.y : (tid == 2 ? rng.z : (tid == 3 ? rng.w : n_dead)));
 }
 
-// ------------------------------------------------------------ the kernel
+// ------------------------------------------------------------ indexed
+
+// The element the zero key stood for (+0 or -0): read again from row
+// `row` of p.acts at column col, through the prologue where there is a
+// bias.
+template <class Row>
+__device__ __forceinline__ uint32_t raw_at(const SelectParams& p, int row, uint32_t col,
+                                           uint32_t col0) {
+  const size_t at = static_cast<size_t>(row) * p.n + col;
+  if constexpr (Row::kBits == 16) {
+    return static_cast<const uint16_t*>(p.acts)[at];
+  } else {
+    const uint32_t z = static_cast<const uint32_t*>(p.acts)[at];
+    return idx_bias(p) ? add_relu(z, idx_bias(p)[col0 + col]) : z;
+  }
+}
+
+// The indexed epilogue: row `row`'s k = k[0] largest elements, in the
+// order of a stable descending sort, and their columns. kth is the exact
+// k-th sort key and need the count of its ties that belong to the top k;
+// k − need keys lie above it. A thread counts the keys it holds above kth
+// and tied with it, a block-wide prefix over the counts gives it slots in
+// pairs (keys above first, any order); where the row holds more ties than
+// need, the first need of them in column order take the last slots: the
+// columns of chunk i, (tid + i·NT)·kPer + e, run over i, then the thread,
+// then e, so one block-wide prefix a chunk index, from the first, until
+// need are placed. Then thread j < k places pair j by counting the pairs
+// before it (key descending, column ascending: the columns are distinct),
+// and writes its element and column there.
+template <class Row, int NT, int CH>
+__device__ __forceinline__ void emit_indexed(const SelectParams& p, int row,
+                                             const uint32_t (&kw)[CH][4], uint32_t kth,
+                                             uint32_t need, uint32_t col0, uint4* wsum,
+                                             uint2* pairs) {
+  constexpr int kPer = Row::kPerChunk;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const uint32_t k = p.k[0], n = static_cast<uint32_t>(p.n);
+  auto col_of = [&](int i, int e) { return static_cast<uint32_t>((tid + i * NT) * kPer + e); };
+  // padding is key 0, never above kth; a tie only inside the row (key 0 is
+  // also a NaN's: all bits set)
+  auto tie = [&](int i, int e) { return key_at<Row, CH>(kw, i, e) == kth && col_of(i, e) < n; };
+  uint32_t ca = 0u, ct = 0u;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      ca += key_at<Row, CH>(kw, i, e) > kth;
+      ct += tie(i, e);
+    }
+  }
+  uint32_t oa = ca, ot = ct;  // inclusive prefix over the warp's lanes
+#pragma unroll
+  for (int off = 1; off < 32; off <<= 1) {
+    const uint32_t va = __shfl_up_sync(kFull, oa, off), vt = __shfl_up_sync(kFull, ot, off);
+    if (lane >= off) {
+      oa += va;
+      ot += vt;
+    }
+  }
+  if (lane == 31) wsum[warp] = make_uint4(oa, ot, 0u, 0u);
+  __syncthreads();
+  oa -= ca;
+  ot -= ct;
+  uint32_t ties = 0u;
+  for (int w = 0; w < NT / 32; ++w) {
+    const uint4 v = wsum[w];
+    if (w < warp) {
+      oa += v.x;
+      ot += v.y;
+    }
+    ties += v.y;
+  }
+  const uint32_t above = k - need;
+#pragma unroll
+  for (int i = 0; i < CH; ++i) {
+#pragma unroll
+    for (int e = 0; e < kPer; ++e) {
+      const uint32_t key = key_at<Row, CH>(kw, i, e);
+      if (key > kth) pairs[oa++] = make_uint2(key, col_of(i, e));
+      if (ties == need && tie(i, e)) pairs[above + ot++] = make_uint2(key, col_of(i, e));
+    }
+  }
+  if (ties > need) {  // the first need ties in column order
+    uint32_t base = 0u;
+#pragma unroll
+    for (int i = 0; i < CH; ++i) {
+      if (base >= need) break;
+      uint32_t t = 0u;
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) t += tie(i, e);
+      uint32_t o = t;
+#pragma unroll
+      for (int off = 1; off < 32; off <<= 1) {
+        const uint32_t v = __shfl_up_sync(kFull, o, off);
+        if (lane >= off) o += v;
+      }
+      if (lane == 31) wsum[warp].z = o;
+      __syncthreads();
+      o += base - t;
+      for (int w = 0; w < NT / 32; ++w) {
+        const uint32_t z = wsum[w].z;
+        if (w < warp) o += z;
+        base += z;
+      }
+#pragma unroll
+      for (int e = 0; e < kPer; ++e) {
+        if (!tie(i, e)) continue;
+        if (o < need) pairs[above + o] = make_uint2(kth, col_of(i, e));
+        ++o;
+      }
+      __syncthreads();  // wsum's .z is the next chunk index's
+    }
+  }
+  __syncthreads();
+  if (tid < static_cast<int>(k)) {
+    const uint2 me = pairs[tid];
+    uint32_t at = 0u;
+    for (uint32_t j = 0; j < k; ++j) {
+      const uint2 o = pairs[j];
+      at += o.x > me.x || (o.x == me.x && o.y < me.y);
+    }
+    const uint32_t raw = me.x == Row::kZero ? raw_at<Row>(p, row, me.y, col0) : Row::raw(me.x);
+    const size_t o = static_cast<size_t>(row) * k + at;
+    if (idx_parts(p) == 1) {
+      if constexpr (Row::kBits == 16)
+        static_cast<uint16_t*>(idx_vals(p))[o] = static_cast<uint16_t>(raw);
+      else
+        static_cast<uint32_t*>(idx_vals(p))[o] = raw;
+      static_cast<int64_t*>(idx_cols(p))[o] = me.y;
+    } else {
+      static_cast<uint32_t*>(idx_vals(p))[o] = raw;
+      static_cast<int32_t*>(idx_cols(p))[o] = static_cast<int32_t>(col0 + me.y);
+    }
+  }
+}
+
+// ------------------------------------------------------------ the kernels
 
 template <class Row, int NT, int CH, bool kCand>
 __global__ void __launch_bounds__(NT, (NT == 256 ? 3 : (NT == 512 ? 2 : 1)))
 select_rows(const SelectParams p) {
-  using S = Smem<Row, NT>;
-  using Entry = typename Staged<Row>::Entry;
-  constexpr int kWarps = NT / 32;
-  constexpr int kPer = Row::kPerChunk;
-  constexpr uint32_t kChunkMask = (1u << kPer) - 1u;
-  constexpr int kPasses = Row::kBits == 16 ? 2 : 3;
-  constexpr int kShift0 = digit_shift<Row::kBits>(0);
-  constexpr uint32_t kZeroBin = Row::kZero >> kShift0;
-  constexpr uint32_t kNone = 0xFFFFFFFFu;
-  constexpr int kPer0 = kBins0 / NT;
-  extern __shared__ __align__(128) unsigned char dyn[];
-  __shared__ __align__(16) S s;
+  constexpr bool kIdx = false;
+#include "topk_select_body.cuh"
+}
 
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int n = p.n;
-  const int chunks = (n + kPer - 1) / kPer;
-  const uint32_t row_bytes = static_cast<uint32_t>(n) * Row::kElem;
-  const int nwords = (n + 31) >> 5;
-  uint32_t* fmask = reinterpret_cast<uint32_t*>(dyn + static_cast<size_t>(p.slots) * row_bytes);
-  Entry* seg = reinterpret_cast<Entry*>(fmask + ((nwords + 3) & ~3)) + warp * p.seg;
-
-  // the dead bits of this thread's chunks, kept for every row
-  uint32_t dm[CH];
-  uint32_t nd = 0;
-#pragma unroll
-  for (int i = 0; i < CH; ++i) {
-    const int c = tid + i * NT;
-    dm[i] = c < chunks ? (p.dead[(c * kPer) >> 5] >> ((c * kPer) & 31)) & kChunkMask : 0u;
-    nd += __popc(dm[i]);
-  }
-  for (int b = tid; b < 2 * kBins0; b += NT) (&s.h[0][0])[b] = 0u;
-  for (int b = tid; b < kMaxSel * S::kLaterBins; b += NT) (&s.g[0][0])[b] = 0u;
-  for (int w = tid; w < nwords; w += NT) fmask[w] = 0u;
-  nd = __reduce_add_sync(kFull, nd);
-  if (lane == 0) s.wsum[warp].x = nd;
-  if (tid == 0 && p.slots > 0) {
-    for (int j = 0; j < p.slots; ++j) hopper::mbar_init(&s.full[j], 1);
-    hopper::fence_barrier_init();
-  }
-  __syncthreads();
-  uint32_t n_dead = 0;
-#pragma unroll
-  for (int w = 0; w < kWarps; ++w) n_dead += s.wsum[w].x;
-
-  auto issue = [&](int slot, int row) {
-    if (row >= p.m) return;
-    unsigned char* dst = dyn + static_cast<size_t>(slot) * row_bytes;
-    const unsigned char* src =
-        static_cast<const unsigned char*>(p.acts) + static_cast<size_t>(row) * row_bytes;
-    hopper::mbar_expect_tx(&s.full[slot], row_bytes);
-    for (uint32_t off = 0; off < row_bytes; off += kPiece)
-      hopper::bulk_load_1d(dst + off, src + off, min(kPiece, row_bytes - off), &s.full[slot]);
-  };
-  if (tid == 0)
-    for (int j = 0; j < p.slots; ++j) issue(j, blockIdx.x + j * gridDim.x);
-
-  // what every row shares: candidates, which selections radix-select, and
-  // whether the exact path's edge rule needs a row's smallest key
-  bool radix[kMaxSel];
-  bool need_min = false;
-#pragma unroll
-  for (int i = 0; i < kMaxSel; ++i) {
-    const uint32_t cand = i == kAux ? n_dead : static_cast<uint32_t>(n);
-    radix[i] = i < p.nsel && cand >= p.k[i];
-    need_min |= i < p.nsel && !radix[i] && cand > 0;
-  }
-  const bool need_range = kCand || Row::kFloat || need_min;
-  // key 0 in the last chunk past n (rows loaded without the ring), live
-  const uint32_t pads = static_cast<uint32_t>(chunks * kPer - n);
-  // first-digit bins from the last row's buckets, one bin lower: a row
-  // stages its keys at or above them (cut_dead for dead columns) and
-  // selects from those alone when every k-th key lies there; kNone, or a
-  // row whose k-th key lies lower, selects from all the keys it holds
-  uint32_t cut_live = kNone, cut_dead = kNone;
-
-  for (int it = 0, row = blockIdx.x; row < p.m; ++it, row += gridDim.x) {
-    // ---- the row into registers, as keys
-    uint32_t kw[CH][4];
-    if (p.slots > 0) {
-      const int slot = it % p.slots;
-      hopper::mbar_wait(&s.full[slot], (it / p.slots) & 1);
-      const uint4* src = reinterpret_cast<const uint4*>(dyn + static_cast<size_t>(slot) * row_bytes);
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        const int c = tid + i * NT;
-        uint4 v = make_uint4(0u, 0u, 0u, 0u);
-        if (c < chunks) {
-          v = src[c];
-          v = make_uint4(Row::word(v.x), Row::word(v.y), Row::word(v.z), Row::word(v.w));
-        }
-        kw[i][0] = v.x;
-        kw[i][1] = v.y;
-        kw[i][2] = v.z;
-        kw[i][3] = v.w;
-      }
-    } else {
-      const size_t base = static_cast<size_t>(row) * n;
-#pragma unroll
-      for (int i = 0; i < CH; ++i) {
-        const int c = tid + i * NT;
-        kw[i][0] = kw[i][1] = kw[i][2] = kw[i][3] = 0u;
-#pragma unroll
-        for (int e = 0; e < kPer; ++e) {
-          const int j = c * kPer + e;
-          if (c < chunks && j < n) {
-            if constexpr (Row::kBits == 16) {
-              const uint32_t raw = static_cast<const uint16_t*>(p.acts)[base + j];
-              kw[i][e >> 1] |= Row::key(raw) << (16 * (e & 1));
-            } else {
-              kw[i][e] = Row::key(static_cast<const uint32_t*>(p.acts)[base + j]);
-            }
-          }
-        }
-      }
-    }
-
-    // ---- stage the keys above the cutoffs; the range for the edge rules
-    uint32_t staged = kNone;
-    if (cut_dead != kNone)
-      staged = stage_keys<Row, NT, CH>(kw, dm, cut_live << kShift0, cut_dead << kShift0, seg,
-                                       p.seg);
-    uint4 cnt = make_uint4(0u, 0u, 0u, 0u);
-    uint4 rng = make_uint4(0xFFFFFFFFu, 0u, 0xFFFFFFFFu, 0u);
-    if constexpr (kCand && Row::kBits == 16) {
-      packed_range<Row, CH>(kw, dm, rng);
-      rng = make_uint4(__reduce_min_sync(kFull, rng.x), __reduce_max_sync(kFull, rng.y),
-                       __reduce_min_sync(kFull, rng.z), __reduce_max_sync(kFull, rng.w));
-    } else if (need_range) {
-      key_range<Row, NT, CH>(kw, dm, chunks, cnt, rng);
-      cnt = make_uint4(0u, 0u, __reduce_add_sync(kFull, cnt.z), __reduce_add_sync(kFull, cnt.w));
-      rng = make_uint4(__reduce_min_sync(kFull, rng.x), __reduce_max_sync(kFull, rng.y),
-                       __reduce_min_sync(kFull, rng.z), __reduce_max_sync(kFull, rng.w));
-    }
-    if (lane == 0) {
-      s.staged[warp] = staged;
-      s.counts[warp] = cnt;
-      s.range[warp] = rng;
-    }
-    __syncthreads();  // the row is in registers: its buffer takes the next row
-    if (tid == 0 && p.slots > 0) issue(it % p.slots, row + p.slots * gridDim.x);
-    bool from_stage = cut_dead != kNone;
-    uint32_t bottom_all = 0u, bottom_dead = 0u;  // keys 0, padding included
-#pragma unroll
-    for (int w = 0; w < kWarps; ++w) {
-      from_stage = from_stage && s.staged[w] != kNone;
-      if (need_range) {
-        const uint4 c = s.counts[w], r = s.range[w];
-        bottom_all += c.z;
-        bottom_dead += c.w;
-        rng = make_uint4(min(rng.x, r.x), max(rng.y, r.y), min(rng.z, r.z), max(rng.w, r.w));
-      }
-    }
-
-    // ---- first digit: from the staged keys, else (or when a k-th key lies
-    // below the cutoffs) from every key held, the zero key counted apart
-    uint32_t zc[kMaxSel], prefix[kMaxSel], need[kMaxSel];
-    for (int attempt = from_stage ? 0 : 1; attempt < 2; ++attempt) {
-      const bool stage_pass = attempt == 0;
-      uint32_t zl = 0u, zd = 0u;
-      if (stage_pass) {
-        each_staged_key<Row>(seg, staged, [&](uint32_t key, uint32_t dead) {
-          atomicAdd(&s.h[dead][key >> kShift0], 1u);
-        });
-      } else {
-        each_held_key<Row, NT, CH>(kw, dm, chunks, [&](uint32_t key, uint32_t dead) {
-          const uint32_t zero = key == Row::kZero;
-          zl += zero & (dead ^ 1u);
-          zd += zero & dead;
-          if (!zero) atomicAdd(&s.h[dead][key >> kShift0], 1u);
-        });
-        zl = __reduce_add_sync(kFull, zl);
-        zd = __reduce_add_sync(kFull, zd);
-        if (lane == 0) s.counts[warp] = make_uint4(zl, zd, 0u, 0u);
-      }
-      __syncthreads();
-      if (tid == 0) {
-#pragma unroll
-        for (int i = 0; i < kMaxSel; ++i) s.pick[i][0] = kNone;
-      }
-      if (!stage_pass) {
-        zl = zd = 0u;
-#pragma unroll
-        for (int w = 0; w < kWarps; ++w) {
-          zl += s.counts[w].x;
-          zd += s.counts[w].y;
-        }
-      }
-      // each selection's zero keys (at kZeroBin), and the padding in bin 0
-      // of live keys
-      uint32_t padc[kMaxSel];
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i) {
-        zc[i] = i == kAux ? zd : zl + zd;
-        padc[i] = (i == kAux || stage_pass) ? 0u : pads;
-      }
-      uint32_t all[kPer0], dead[kPer0];
-      take_bins<kPer0>(s.h[0], all);
-      take_bins<kPer0>(s.h[1], dead);
-#pragma unroll
-      for (int b = 0; b < kPer0; ++b) all[b] += dead[b];
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i) need[i] = p.k[i];
-      pick_bins<NT, kPer0>(
-          p.nsel, radix, need,
-          [&](int i, int b) -> uint32_t {
-            const int bin = tid * kPer0 + b;
-            uint32_t v = i == kAux ? dead[b] : all[b];
-            if (bin == static_cast<int>(kZeroBin)) v += zc[i];
-            if (bin == 0) v -= padc[i];
-            return v;
-          },
-          s.wsum, s.pick);
-      bool found = true;
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i) {
-        prefix[i] = s.pick[i][0];
-        if (radix[i]) {
-          // from the stage, a bin below a cutoff holds only some of its keys
-          found = found && prefix[i] != kNone &&
-                  (!stage_pass || prefix[i] >= (i == kAux ? cut_dead : cut_live));
-          need[i] -= s.pick[i][1];
-        }
-      }
-      from_stage = stage_pass && found;
-      if (found) break;
-    }
-    {  // the next row's cutoffs
-      uint32_t lo_live = kBins0;
-      if (radix[0]) lo_live = min(lo_live, prefix[0]);
-      if (radix[2]) lo_live = min(lo_live, prefix[2]);
-      const uint32_t lo_dead = radix[kAux] ? min(lo_live, prefix[kAux]) : lo_live;
-      const bool use = lo_dead < kBins0 && lo_dead > kZeroBin + 1u;  // the zero key stays out
-      cut_live = use ? lo_live - 1u : kNone;
-      cut_dead = use ? lo_dead - 1u : kNone;
-      // candidates send every dead key where the row holds fewer than k[1]:
-      // the stage keeps them all
-      if constexpr (kCand)
-        if (use && !radix[kAux]) cut_dead = 0u;
-    }
-
-    // ---- later digits, inside each selection's bin
-#pragma unroll
-    for (int pass = 1; pass < kPasses; ++pass) {
-      const int sh = digit_shift<Row::kBits>(pass), wd = digit_width<Row::kBits>(pass);
-      const uint32_t dmask = (1u << wd) - 1u;
-      const uint32_t zero_top = Row::kZero >> (sh + wd);
-      // a selection that does not radix-select matches nothing
-      uint32_t match[kMaxSel];
-#pragma unroll
-      for (int q = 0; q < kMaxSel; ++q) match[q] = radix[q] ? prefix[q] : kNone;
-      if (from_stage) {
-        each_staged_key<Row>(seg, staged,
-                             LaterDigit<Row, S::kLaterBins, false>{match[0], match[1], match[2], sh, wd, &s.g[0][0]});
-      } else if (match[0] == zero_top || match[1] == zero_top || match[2] == zero_top) {
-        each_held_key<Row, NT, CH>(kw, dm, chunks,
-                                   LaterDigit<Row, S::kLaterBins, true>{match[0], match[1], match[2], sh, wd, &s.g[0][0]});
-      } else {
-        each_held_key<Row, NT, CH>(kw, dm, chunks,
-                                   LaterDigit<Row, S::kLaterBins, false>{match[0], match[1], match[2], sh, wd, &s.g[0][0]});
-      }
-      __syncthreads();
-      const uint32_t padl = from_stage ? 0u : pads;
-      auto adjust = [&](int i, int bin) -> uint32_t {
-        uint32_t c = 0u;
-        if (zero_top == prefix[i] && bin == static_cast<int>((Row::kZero >> sh) & dmask))
-          c += zc[i];
-        if (prefix[i] == 0u && bin == 0) c -= padl * (i != kAux);
-        return c;
-      };
-      if constexpr (Row::kBits == 16) {
-#pragma unroll
-        for (int q = 0; q < kMaxSel; ++q)
-          if (q == warp && q < p.nsel && radix[q]) {
-            find_warp(
-                q, need[q],
-                [&](int i, int b) -> uint32_t { return s.g[i][b] + adjust(i, b); }, s.pick);
-            s.g[q][lane] = 0u;
-          }
-        __syncthreads();
-      } else {
-        constexpr int kPer1 = kBins0 / NT;
-        uint32_t c[kMaxSel][kPer1];
-#pragma unroll
-        for (int q = 0; q < kMaxSel; ++q) take_bins<kPer1>(s.g[q], c[q]);
-        pick_bins<NT, kPer1>(
-            p.nsel, radix, need,
-            [&](int i, int b) -> uint32_t { return c[i][b] + adjust(i, tid * kPer1 + b); },
-            s.wsum, s.pick);
-      }
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i)
-        if (radix[i]) {
-          prefix[i] = (prefix[i] << wd) | s.pick[i][0];
-          need[i] -= s.pick[i][1];
-        }
-    }
-
-    if constexpr (kCand) {
-      emit_candidates<Row, NT, CH>(p, row, kw, dm, chunks, radix, prefix, need, rng, n_dead,
-                                   from_stage, seg, staged, s.wsum);
-      continue;
-    }
-
-    // ---- thresholds by the edge rules, and the fired test's key
-    uint32_t fk;
-    if constexpr (Row::kFloat) {
-      float tmain = 0.f;
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i) {
-        if (i >= p.nsel || (i != 0 && tid != i)) continue;
-        float vk;  // the k-th largest entry of the masked row
-        if (radix[i])
-          vk = Row::value(prefix[i]);
-        else if (i == kAux && p.k[i] <= static_cast<uint32_t>(n))
-          vk = -INFINITY;
-        else
-          vk = NAN;  // fewer than k entries: count >= k never holds
-        const uint32_t lo_key = i == kAux ? rng.z : rng.x;
-        float lo = lo_key == 0xFFFFFFFFu ? INFINITY : Row::value(lo_key);
-        float hi = i == kAux ? (n_dead > 0 ? Row::value(rng.w) : -INFINITY) : Row::value(rng.y);
-        for (int step = 0; step < p.iters; ++step) {
-          const float mid = __fmul_rn(__fadd_rn(lo, hi), 0.5f);
-          if (mid <= vk)
-            lo = mid;
-          else
-            hi = mid;
-        }
-        if (tid == i) p.t[i][row] = lo;
-        if (i == 0) tmain = lo;
-      }
-      fk = max(Row::fire_key(tmain), Row::kZero + 1u);
-    } else {
-      uint32_t out[kMaxSel];
-#pragma unroll
-      for (int i = 0; i < kMaxSel; ++i) {
-        const uint32_t cand = i == kAux ? n_dead : static_cast<uint32_t>(n);
-        const uint32_t bottom = i == kAux ? bottom_dead : bottom_all - pads;  // real keys 0
-        const uint32_t smallest = bottom > 0 ? 0u : (i == kAux ? rng.z : rng.x);
-        out[i] = radix[i] ? prefix[i] : (cand == 0 ? Row::kInf : smallest);
-      }
-      if (tid < p.nsel) {
-#pragma unroll
-        for (int i = 0; i < kMaxSel; ++i)
-          if (i == tid) p.t[i][row] = Row::value(out[i]);
-      }
-      fk = max(out[0], Row::kZero + 1u);  // >= t_main and positive
-    }
-
-    // ---- fired: a chunk's selected columns into one word of the mask
-#pragma unroll
-    for (int i = 0; i < CH; ++i) {
-      uint32_t bits = 0u;
-#pragma unroll
-      for (int e = 0; e < kPer; ++e)
-        bits |= static_cast<uint32_t>(key_at<Row, CH>(kw, i, e) >= fk) << e;
-      if (bits) {
-        const int col = (tid + i * NT) * kPer;
-        atomicOr(&fmask[col >> 5], bits << (col & 31));
-      }
-    }
-  }
-  if constexpr (!kCand) {
-    __syncthreads();
-    for (int w = tid; w < nwords; w += NT)
-      if (fmask[w]) atomicOr(&p.fired[w], fmask[w]);
-  }
+// one CTA an SM may take up to 65536 / NT registers a thread (on an H100,
+// 512 threads at 128 registers ran fastest on 20,480 f32 columns)
+template <class Row, int NT, int CH>
+__global__ void __launch_bounds__(NT, 1)
+select_indexed(const SelectParams p) {
+  constexpr bool kCand = false, kIdx = true;
+#include "topk_select_body.cuh"
 }
 
 // ------------------------------------------------------------ host side
 
-// Launch select_rows<Row, NT, CH, kCand> with the ring depth that lets the
-// most CTAs share an SM, and as many CTAs as then fit on the card, at most
-// one a row.
-template <class Row, int NT, int CH, bool kCand>
+// Launch select_rows<Row, NT, CH, kEpi == kCandidates> (select_indexed
+// for kIndexed) with the ring depth that lets the most CTAs share an SM,
+// and as many CTAs as then fit on the card, at most one a row (for
+// kIndexed a multiple of its segment count).
+template <class Row, int NT, int CH, int kEpi>
 int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
-  auto kern = select_rows<Row, NT, CH, kCand>;
+  constexpr bool kCand = kEpi == kCandidates, kIdx = kEpi == kIndexed;
+  auto kern = [] {
+    if constexpr (kIdx)
+      return select_indexed<Row, NT, CH>;
+    else
+      return select_rows<Row, NT, CH, kCand>;
+  }();
   cudaFuncAttributes attr;
   int err = static_cast<int>(cudaFuncGetAttributes(&attr, kern));
   if (err) return err;
@@ -963,7 +805,8 @@ int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
   // the fired mask (whole 16-byte pieces), then each warp's staged keys: an
   // eighth of the keys a warp holds; for candidates at least twice the
   // warp's share of the ranks (k_aux of a narrow shard stages more), and
-  // at most all it holds
+  // at most all it holds; for indexed rows no mask, and the k pairs after
+  // the stage
   const size_t keys_per_warp = static_cast<size_t>(CH) * Row::kPerChunk * 32;
   p.seg = static_cast<int>(keys_per_warp / 8);
   if constexpr (kCand) {
@@ -971,8 +814,9 @@ int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
     p.seg = static_cast<int>(want < keys_per_warp / 8 ? keys_per_warp / 8
                                                       : (want < keys_per_warp ? want : keys_per_warp));
   }
-  const size_t mask_bytes = 4 * static_cast<size_t>(((p.n + 31) / 32 + 3) & ~3) +
-                            sizeof(typename Staged<Row>::Entry) * p.seg * (NT / 32);
+  const size_t mask_bytes =
+      (kIdx ? sizeof(uint2) * p.k[0] : 4 * static_cast<size_t>(((p.n + 31) / 32 + 3) & ~3)) +
+      sizeof(typename Staged<Row>::Entry) * p.seg * (NT / 32);
   const size_t room = kBlockSmem - attr.sharedSizeBytes;
   err = hopper::allow_smem(kern, room);
   if (err) return err;
@@ -997,7 +841,8 @@ int launch_rows(SelectParams p, bool aligned, cudaStream_t stream) {
   err = hopper::sm_count(&sms);
   if (err) return err;
   const long long fit = static_cast<long long>(per_sm > 1 ? per_sm : 1) * sms;
-  const long long grid = p.m < fit ? p.m : fit;
+  long long grid = p.m < fit ? p.m : fit;
+  if constexpr (kIdx) grid -= grid % idx_parts(p);  // p.m is a multiple of parts
   kern<<<static_cast<unsigned>(grid), NT, dyn, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }

@@ -276,6 +276,17 @@ def topk_bwd_route_bound(rows: int, n_dict: int, in_bytes: int = 2) -> KernelBou
     return KernelBound(0.0, "bf16", nbytes)
 
 
+def topk_indexed_bound(rows: int, n_dict: int, k: int, in_bytes: int = 4,
+                       bias: bool = False) -> KernelBound:
+    """The SAE encode's indexed top-k: the latent (M, n_dict) of ``in_bytes``
+    an entry read once (and the bias (n_dict,) f32 where it is fused) →
+    values (M, k) in the latent's type and int64 columns (M, k); compares,
+    no counted operations."""
+    nbytes = float(in_bytes) * rows * n_dict + (in_bytes + 8.0) * rows * k
+    nbytes += 4.0 * n_dict if bias else 0.0
+    return KernelBound(0.0, "bf16", nbytes)
+
+
 def topk_sae_forward_bound(rows: int, d_in: int, n_dict: int, k: int, k_aux: int,
                            selected: float | None = None) -> KernelBound:
     """Kernel #4: x (M, d_in) f32, f32 W_enc, b_enc, b_dec, W_dec and the

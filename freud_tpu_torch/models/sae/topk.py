@@ -11,8 +11,9 @@ normalised by the total variance Σ(x − mean₀(x))² over the file axis:
                    (k_aux = d_in // 2, a decode of the dead latents)
   multi_topk_fvu = FVU of a 4k-sparse decode
 
-``forward``/``forward_with_fired`` are the validation path (``torch.topk``
-by a stable sort, no kernel).
+``forward``/``forward_with_fired`` are the validation path: ``select_topk``
+(a stable sort's order; on the card the indexed selection kernel,
+``ops/topk_indexed``) and masked dense decodes.
 
 Data parallelism (``mesh``, ``parallel/mesh.py``): each rank holds a slice
 of the batch's files. The total variance is a statistic of the WHOLE batch
@@ -57,6 +58,7 @@ from torch import nn
 
 from ...ops.topk_backward import topk_masked_pair, topk_route
 from ...ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
+from ...ops.topk_indexed import topk_indexed, topk_indexed_plain
 from ...ops.topk_sharded import sharded_thresholds_fired
 from ...ops.topk_threshold import bisect_kth, topk_thresholds_fired
 from ...parallel import mesh as mesh_lib
@@ -146,25 +148,39 @@ def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool,
     return a.to(torch.float32) @ b.to(torch.float32)
 
 
-def pre_acts(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:
-    """relu((x − b_dec) · encoder_weightᵀ + encoder_bias); ``b_dec``
-    overrides the parameter (the sharded step passes its model copy)."""
+def _encoder_product(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:
+    """(x − b_dec) · encoder_weightᵀ, operands in ``matmul_dtype``."""
     sae_in = x - (params.b_dec if b_dec is None else b_dec)
     W = params.encoder_weight
     if matmul_dtype is not None:
         sae_in, W = sae_in.to(matmul_dtype), W.to(matmul_dtype)
-    return torch.relu(sae_in @ W.T + params.encoder_bias.to(sae_in.dtype))
+    return sae_in @ W.T
+
+
+def pre_acts(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:
+    """relu((x − b_dec) · encoder_weightᵀ + encoder_bias); ``b_dec``
+    overrides the parameter (the sharded step passes its model copy)."""
+    z = _encoder_product(params, x, matmul_dtype, b_dec)
+    return torch.relu(z + params.encoder_bias.to(z.dtype))
 
 
 def select_topk(latents: torch.Tensor, k: int) -> TopKEncoderOutput:
     """The k largest per position, ties to the lower index (``lax.top_k``'s
-    order; a stable descending sort keeps it)."""
-    vals, idx = torch.sort(latents, dim=-1, descending=True, stable=True)
-    return TopKEncoderOutput(top_acts=vals[..., :k], top_indices=idx[..., :k])
+    order; a stable descending sort keeps it): on the card the indexed
+    selection kernel (``ops/topk_indexed``), on the CPU the sort itself
+    (the kernel wrapper's checks, k ≤ 256 among them, do not apply there)."""
+    select = topk_indexed if latents.is_cuda else topk_indexed_plain
+    return TopKEncoderOutput(*select(latents, k))
 
 
 def encode(params, x: torch.Tensor, cfg: TopKAutoEncoderConfig) -> TopKEncoderOutput:
-    return select_topk(pre_acts(params, x), cfg.k)
+    """``select_topk(pre_acts(params, x), k)``; on the card the selection
+    kernel adds ``encoder_bias`` to the product and applies the ReLU in its
+    load, bit for bit as ``pre_acts`` rounds them."""
+    if not x.is_cuda:
+        return select_topk(pre_acts(params, x), cfg.k)
+    z = _encoder_product(params, x)
+    return TopKEncoderOutput(*topk_indexed(z, cfg.k, bias=params.encoder_bias))
 
 
 def dense_latent(top_acts: torch.Tensor, top_indices: torch.Tensor, n_dict: int) -> torch.Tensor:

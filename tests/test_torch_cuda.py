@@ -25,8 +25,12 @@ shards — candidates equal to the plain version's as key multisets with the
 header exact, thresholds and fired bit for bit against the plain versions
 and kernel #3 on the whole latent; the TopK backward's passes — dense_* and
 d_acts bit for bit against the plain versions, db_enc within the f32
-rounding bound of its two-level sum."""
+rounding bound of its two-level sum; the SAE encode's indexed top-k —
+values and indices bit for bit against the stable ``torch.sort`` on the
+card (and the CPU's sort, off rows with NaN, which it orders otherwise),
+with the fused bias and ReLU against ``pre_acts``' add and ReLU."""
 
+import copy
 import time
 
 import numpy as np
@@ -847,3 +851,166 @@ def test_decode_capture_on_card_matches_cpu(cuda, monkeypatch):
         assert (err / want[0].abs().max()).item() < 1e-4
         if upto == 15:
             assert int(got[1][r]) == int(want[1][r])
+
+
+# ------------------------------------------------- the SAE encode's top-k
+
+INDEXED_WIDTHS = [20480, 57344, 1001]  # one segment (f32), two (f32), rows not in 16 bytes
+
+
+NAN_ROW = 7
+
+
+def _indexed_rows(rng, m, n, k, dtype, device):
+    """ReLU rows with the cases the sort's order makes subtle, each in a
+    few rows: fewer than k positives, all zeros, -0.0 among +0.0, +inf,
+    NaN of either sign and of several payloads (row ``NAN_ROW``), many
+    exact ties at the k-th value."""
+    x = np.maximum(rng.standard_normal((m, n)), 0).astype(np.float32)
+    sparse = rng.random((m, n)) < min(0.5, k / n)  # rows 0-3: fewer than k positives
+    x[:4] = np.where(sparse[:4], x[:4], 0.0)
+    x[4] = 0.0
+    x[5] = 0.0
+    x[5, ::3] = -0.0
+    x[5, 7] = 1.0
+    x[6, rng.choice(n, 3, replace=False)] = np.inf
+    nan = rng.choice(n, 8, replace=False)
+    x[NAN_ROW].view(np.uint32)[nan] = [0x7FC00000, 0x7FC00000, 0x7FA00000, 0x7FC10000,
+                                       0xFFC00000, 0xFFC00000, 0xFFA00000, 0xFF810000]
+    x[NAN_ROW, rng.choice(n, 2, replace=False)] = np.inf
+    x[8, :] = 0.5  # every entry tied
+    x[9, ::2] = 0.75  # half the row tied above the rest
+    x[10] = -x[10]  # no positive entry, no zero
+    x[11, : n // 2] = -0.0
+    t = torch.from_numpy(x).to(device=device, dtype=dtype)
+    return t
+
+
+def _assert_indexed_equal(got, want):
+    iv = torch.int32 if got[0].dtype == torch.float32 else torch.int16
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0].contiguous().view(iv), want[0].contiguous().view(iv))
+
+
+@pytest.mark.parametrize("k", [1, 16, 32, 128])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("n", INDEXED_WIDTHS)
+def test_topk_indexed_bit_equal_to_the_stable_sort(cuda, n, dtype, k):
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    rng = np.random.default_rng(n + k)
+    x = _indexed_rows(rng, 300, n, k, dtype, cuda)
+    before = topk_indexed.launches
+    got = topk_indexed(x, k)
+    torch.cuda.synchronize()
+    assert topk_indexed.launches == before + 1
+    assert got[0].dtype == dtype and got[1].dtype == torch.int64
+    _assert_indexed_equal(got, topk_indexed_plain(x, k))
+    # the CPU's sort too, but on NaN (it puts every NaN on top)
+    rows = [i for i in range(x.shape[0]) if i != NAN_ROW]
+    want = topk_indexed_plain(x[rows].cpu(), k)
+    _assert_indexed_equal((got[0][rows].cpu(), got[1][rows].cpu()), want)
+    _assert_indexed_equal(topk_indexed(x[:, None], k), (got[0][:, None], got[1][:, None]))
+
+
+@pytest.mark.parametrize("n", INDEXED_WIDTHS)
+def test_topk_indexed_fused_bias_relu_bit_equal(cuda, n):
+    """relu(z + b_enc) formed in the kernel's load against the separate add
+    and ReLU then the sort, with -0.0 and NaN in the product and the bias."""
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    rng = np.random.default_rng(n)
+    z = torch.from_numpy(rng.standard_normal((400, n)).astype(np.float32)).to(cuda)
+    b = torch.from_numpy((rng.standard_normal(n) * 0.5).astype(np.float32)).to(cuda)
+    z[0] = -0.0
+    b[: n // 4] = -0.0
+    z[1, 5] = float("nan")
+    z[2, 9] = -float("nan")
+    z[3] = -b  # exact zeros after the add
+    z[4] = -10.0  # nothing positive
+    got = topk_indexed(z, 32, bias=b)
+    want = topk_indexed_plain(torch.relu(z + b), 32)
+    _assert_indexed_equal(got, want)
+    _assert_indexed_equal(got, topk_indexed_plain(z, 32, bias=b))
+
+
+def test_topk_indexed_under_graph_capture(cuda):
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    rng = np.random.default_rng(3)
+    x = _indexed_rows(rng, 500, 57344, 32, torch.float32, cuda)
+    topk_indexed(x, 32)  # builds and loads before the capture
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    before = (topk_indexed.launches, topk_indexed.captured)
+    with torch.cuda.graph(g):
+        out = topk_indexed(x, 32)
+    assert (topk_indexed.launches, topk_indexed.captured) == (before[0], before[1] + 1)
+    x.copy_(_indexed_rows(rng, 500, 57344, 32, torch.float32, cuda))
+    g.replay()
+    torch.cuda.synchronize()
+    _assert_indexed_equal(out, topk_indexed_plain(x, 32))
+
+
+@pytest.mark.parametrize("m,n", [(48000, 20480), (6400, 57344)])
+def test_topk_indexed_main_path_shapes(cuda, m, n):
+    """collection's and the omni SAE's (M, n_dict) f32 latents: no launch
+    refused, bit-equal to the sort; the wrapper's segment widths are the
+    library's."""
+    from freud_tpu_torch.ops import topk_indexed as ti
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    lib = ti._library()
+    assert [lib.freud_topk_indexed_max_n(bf16) for bf16 in (0, 1)] == [
+        ti.MAX_N[torch.float32], ti.MAX_N[torch.bfloat16]]
+
+    gen = torch.Generator(device=cuda).manual_seed(m)
+    x = torch.relu(torch.randn((m, n), device=cuda, generator=gen) - 1.0)
+    x[m - 7:] = 0.0  # zero-padded tail rows
+    b = torch.randn(n, device=cuda, generator=gen) * 0.1
+    got = topk_indexed(x, 32, bias=b)
+    torch.cuda.synchronize()
+    _assert_indexed_equal(got, topk_indexed_plain(x, 32, bias=b))
+
+
+def test_encode_on_card_takes_the_kernel_and_matches_cpu(cuda, monkeypatch):
+    """``encode`` and ``select_topk`` on the card: one launch each, no
+    ``torch.sort``, bit-equal to the sort of the card's own ``pre_acts``,
+    and the CPU's encode on the same inputs within the f32 products'
+    rounding."""
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
+    from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
+
+    cfg = TopKAutoEncoderConfig(k=32, expansion_factor=16)
+    params = topk_mod.init_topk(1280, cfg, seed=5)
+    gen = torch.Generator().manual_seed(6)
+    with torch.no_grad():
+        params.encoder_bias.copy_(torch.randn(20480, generator=gen) * 0.05)
+        x = torch.randn((2, 750, 1280), generator=gen)
+        x[1, 700:] = params.b_dec  # silent frames: every latent at its bias
+    card = copy.deepcopy(params).to(cuda)
+    xc = x.to(cuda)
+    with torch.no_grad():
+        want = topk_indexed_plain(topk_mod.pre_acts(card, xc), 32)
+
+        def no_sort(*a, **kw):
+            raise AssertionError("torch.sort over a row on the card")
+
+        monkeypatch.setattr(torch, "sort", no_sort)
+        before = topk_indexed.launches
+        got = topk_mod.encode(card, xc, cfg)
+        sel = topk_mod.select_topk(topk_mod.pre_acts(card, xc), 32)
+        torch.cuda.synchronize()
+        assert topk_indexed.launches == before + 2
+        monkeypatch.undo()
+        _assert_indexed_equal(got, want)
+        _assert_indexed_equal(sel, want)
+        cpu = topk_mod.encode(params, x, cfg)
+        dense = topk_mod.pre_acts(params, x)
+    scale = cpu.top_acts.abs().max().item()
+    assert (got.top_acts.cpu() - cpu.top_acts).abs().max().item() < 1e-5 * scale
+    # where the indices differ, the card's choice is as large on the CPU
+    picked = torch.gather(dense, -1, got.top_indices.cpu())
+    assert (picked - cpu.top_acts).abs().max().item() < 1e-5 * scale
+    assert (got.top_indices.cpu() != cpu.top_indices).float().mean().item() < 1e-3

@@ -104,6 +104,13 @@ MAIN_PATH = [
      "bytes"),
     (flops.topk_bwd_route_bound(75000, 6144, in_bytes=4), 0.0, 7.373449152e9, 2.201,
      "bytes"),
+    # the SAE encode's indexed top-k, f32 with the fused bias, k 32: the
+    # collection batch, the omni SAE's batch, one serving request
+    (flops.topk_indexed_bound(48000, 20480, 32, bias=True), 0.0, 3.95067392e9, 1.1793,
+     "bytes"),
+    (flops.topk_indexed_bound(6400, 57344, 32, bias=True), 0.0, 1.470693376e9, 0.439,
+     "bytes"),
+    (flops.topk_indexed_bound(1500, 20480, 32, in_bytes=2), 0.0, 61.92e6, 0.0185, "bytes"),
     # Uni-MoE-2.0-Omni's MoE at the omni cell's batch: 7,424 tokens, 10,558
     # routed rows over 4 experts of width 18,944 at d 3584
     (flops.moe_gateup_bound(10558, 3584, 18944, 4), 2.867354140672e12, 1.562025984e9,
