@@ -295,29 +295,22 @@ device-busy share and the server's ms a request.
 five kernels through their wrappers at the main paths' shapes (kernel #1
 at both band counts; kernel #3 in bf16 and f32; kernels #2 and #4 also by
 launch, from torch.profiler kernel names, #4's select launch picked out;
-kernel #2's library yardstick), then collects 256 30-s WAVs
-with random:tiny to block 2 and with random:large-v1 to block 16 (the
-steady rate a batch, from the time between a 256-file and a 64-file run
-after an untimed one; device time a batch by kernel from a profiled
-64-file run) and runs 8 large_v1_audioset steps on the large store (the
-last 4 profiled), then trains tiny_l1 (batch 100) and tiny_topk (batch 50)
-at their recipes' cadence on a seeded 1,024-file store (2.36 GB) with a
-64-file validation store in four modes: the mmap loader a step (100 steps),
-and the device cache of 512 files (300 steps) a step, in fused chunks (CUDA
-graphs) with an f32 window and with a bf16 one; steps/s, median step,
-median mmap gather, peak device memory, and tiny_topk's device busy share
-in a profiled chunk; then one batch of 8 30-s clips transcribed greedily at
-the full 224-token budget (early exit off) with random:tiny in f32 and
-bf16 and random:large-v3 in bf16: RTFx, ms a token, device-busy share and
-device time by kernel and by decode part (null on a tree without
-transcription); then random:tiny ``decoder.blocks.2`` collection's steady
-RTFx (64 and 32 30-s files after an untimed run, batch 32) and ms a decode
-step of 8 30-s clips at the full budget unsteered and steered by a TopK SAE
-at tiny_topk width (null on a tree without decoder capture). It prints one
-JSON line. It reaches the package only through the wrappers, the CLIs and
-the trainer, whose interfaces are those of every checkout that holds all
-five kernels, so a copy of this script placed in an older checkout times that checkout's kernels with the same
-code: run parent, change, change, parent in one call to compare two trees.
+kernel #2's library yardstick), the numbers of PERF.md's table of kernels.
+Collection, SAE training and the GUI's /top_features are the benchmark's
+cells (``portbench/``) and are not timed here. Then one batch of 8 30-s
+clips transcribed greedily at the full 224-token budget (early exit off)
+with random:tiny in f32 and bf16 and random:large-v3 in bf16: RTFx, ms a
+token, device-busy share and device time by kernel and by decode part
+(null on a tree without transcription); then random:tiny
+``decoder.blocks.2`` collection's steady RTFx (64 and 32 30-s files after
+an untimed run, batch 32) and ms a decode step of 8 30-s clips at the full
+budget unsteered and steered by a TopK SAE at tiny_topk width (null on a
+tree without decoder capture). It prints one JSON line. It reaches the
+package only through the wrappers, the CLIs and the runtime, whose
+interfaces are those of every checkout that holds all five kernels, so a
+copy of this script placed in an older checkout times that checkout's
+kernels with the same code: run parent, change, change, parent in one
+call to compare two trees.
 
 ``--pod-only`` runs phases 28–30 alone (after the build) on the stores
 they read, made first: phase 3's collection and its index, and 12 files
@@ -378,7 +371,6 @@ LARGE_D, LARGE_N_DICT, LARGE_K_AUX = 1280, 20480, 640
 LARGE_M_ROWS = 32 * 1500  # one large_v1_audioset step's rows
 LARGE_TRAIN_STEPS = 10
 # --bench: 30-s files of large-v1 collection, large_v1_audioset steps
-BENCH_FILES, BENCH_STEPS = 256, 8
 # transcription: tiny's batch, its file mix (30-s clips, shorter ones and an
 # undecodable one: a padded tail) and large-v3's beam batch
 TRANSCRIBE_BATCH, TRANSCRIBE_LONG, BEAM_BATCH = 8, 8, 2
@@ -395,16 +387,6 @@ LARGE_SERVER_MAX_NEW = 64
 LONG_CLIPS_S = (75.0, 45.0)
 LONG_MAX_NEW_TINY, LONG_MAX_NEW_LARGE, LONG_CV_MAX_NEW = 48, 24, 32
 WORD_PROB_REL = 2e-3  # word probabilities card against CPU, relative (|logit| ≤ 10)
-# --bench: the tiny recipes' training input, on seeded stores of (1500, 384)
-# f32 files, in four modes (name, steps, config keys)
-TRAIN_BENCH_FILES, TRAIN_BENCH_VAL_FILES = 1024, 64
-TRAIN_BENCH_MODES = (
-    ("mmap_per_step", 100, {"device_cache_files": 0}),
-    ("cache_per_step", 300, {"device_cache_files": 512, "fused_steps": 0}),
-    ("cache_fused", 300, {"device_cache_files": 512, "fused_steps": None}),
-    ("cache_fused_bf16", 300, {"device_cache_files": 512, "fused_steps": None,
-                               "device_cache_dtype": "bfloat16"}),
-)
 # phases 25-27: Whisper small (d 768, 12 heads): four layers from one encoder
 # pass over 36 30-s clips at batch 16, then sweeps at tiny_topk's dictionary
 # (expansion 16: n_dict 12,288) and batch 8 files (12,000 rows a step)
@@ -1374,18 +1356,14 @@ def backward_counters() -> dict:
     return {"topk_masked_pair": topk_masked_pair, "topk_route": topk_route}
 
 
-def train(config: dict, cfg_path: Path, prof=None, warm: int = 0,
-          prof_chunk: int | None = None) -> tuple[dict, list[dict]]:
+def train(config: dict, cfg_path: Path) -> tuple[dict, list[dict]]:
     """The train CLI in this process; → (its stats, every step's metrics as
     floats, with the TopK kernels' launches in that step). A fused chunk's
     steps come from its metric stack, each with the chunk's number and its
-    launches (kernel launches counted by the wrappers under replay). A
-    torch.profiler ``prof`` traces the steps after the first ``warm``, or
-    the chunk numbered ``prof_chunk``. The cache and validation set the run
-    built land in ``RUN_OBJECTS``. Trees without ``train_chunk`` (before the
-    device cache) run the same per-step path."""
-    import torch
-
+    launches (kernel launches counted by the wrappers under replay). The
+    cache and validation set the run built land in ``RUN_OBJECTS``. Trees
+    without ``train_chunk`` (before the device cache) run the same per-step
+    path."""
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
     from freud_tpu_torch.ops.topk_threshold import topk_thresholds_fired
     from freud_tpu_torch.train import trainer as trainer_mod
@@ -1407,29 +1385,16 @@ def train(config: dict, cfg_path: Path, prof=None, warm: int = 0,
     step = SAETrainer.train_step
 
     def spy(self, batch):
-        if prof is not None and prof_chunk is None and len(seen) == warm:
-            torch.cuda.synchronize()
-            prof.start()
         before = counts()
         metrics = step(self, batch)
         seen.append({**{k: float(v) for k, v in metrics.items()}, **launched(before)})
-        if prof is not None and prof_chunk is None and len(seen) == config["steps"]:
-            torch.cuda.synchronize()
-            prof.stop()
         return metrics
 
     chunk = getattr(SAETrainer, "train_chunk", None)
 
     def chunk_spy(self, cache, batch_size, n_steps, indices=None):
-        traced = prof is not None and len(chunks) == prof_chunk
-        if traced:
-            torch.cuda.synchronize()
-            prof.start()
         before = counts()
         metrics = chunk(self, cache, batch_size, n_steps, indices)
-        if traced:
-            torch.cuda.synchronize()
-            prof.stop()
         chunks.append({"steps": n_steps, **launched(before)})
         stack = {k: v.tolist() for k, v in metrics.items()}
         for i in range(n_steps):
@@ -1483,128 +1448,15 @@ def device_ms_by_kernel(prof, units: int, top: int = 14) -> tuple[dict, float, f
     return ranked, sum(times.values()), copies
 
 
-def bench_collection(torch, tmp: Path, base: dict, model: str, wavs: dict) -> dict:
-    """The collection CLI's steady rate with ``base``'s config and ``model``:
-    an untimed run (kernel build, warm-up), runs over BENCH_FILES and over
-    2 batches (the steady time a batch is the difference over the batches
-    between them), and one over 2 batches under torch.profiler for the
-    device time a batch by kernel. ``wavs`` maps a file count to its folder
-    of 30-s WAVs."""
-    from torch.profiler import ProfilerActivity, profile
-
-    batch = base["batch_size"]
-    runs = []
-    for n_files in (2 * batch, BENCH_FILES, 2 * batch, 2 * batch):
-        cfg = {**base, "whisper_model": model, "data_path": str(wavs[n_files]),
-               "out_folder": str(tmp / f"{model.replace(':', '_')}_store{len(runs)}")}
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        with prof if len(runs) == 3 else contextlib.nullcontext():
-            runs.append(collect(cfg, tmp / "collect.json"))
-            torch.cuda.synchronize()
-        free_device_memory(torch)
-    steady_s = (runs[1]["elapsed_s"] - runs[2]["elapsed_s"]) / (
-        (BENCH_FILES - 2 * batch) / batch)
-    by_kernel, total, copies = device_ms_by_kernel(prof, 2)
-    return {"files": BENCH_FILES, "batch": batch, "rtfx": runs[1]["rtfx"],
-            "steady_batch_ms": 1e3 * steady_s, "steady_rtfx": batch * 30.0 / steady_s,
-            "device_busy_steady": total / (1e3 * steady_s), "kernels_ms_per_batch": total,
-            "copies_ms_per_batch": copies, "by_kernel_ms_per_batch": by_kernel,
-            "store": str(tmp / f"{model.replace(':', '_')}_store1")}
-
-
-def write_training_store(folder: Path, n_files: int, seed: int) -> None:
-    """A tiny-width store of seeded normal rows, ``n_files`` × (1500, 384)
-    f32, written 32 files at a time with the port's store writer."""
-    from freud_tpu_torch.data.store import ActivationStoreWriter
-
-    rng = np.random.default_rng(seed)
-    w = ActivationStoreWriter(folder, LAYER, (1500, D_IN), (1500, D_IN))
-    for i in range(0, n_files, 32):
-        n = min(32, n_files - i)
-        w.append_batch([f"f{j:05d}.wav" for j in range(i, i + n)],
-                       rng.standard_normal((n, 1500, D_IN), dtype=np.float32),
-                       n_frames=[1500] * n)
-    w.close()
-
-
-def bench_training(torch, tmp: Path) -> dict:
-    """tiny_l1 (batch 100) and tiny_topk (batch 50) at their recipes'
-    cadence (save_every 1000, val_every 100, log_tb_every 10) on a
-    TRAIN_BENCH_FILES-file store with a TRAIN_BENCH_VAL_FILES-file
-    validation store, in the TRAIN_BENCH_MODES: steps/s from the CLI, the
-    median step (``train_step``, or ``train_chunk_wait`` over the chunk's
-    steps), the median ``mmap_batch``, peak device memory; for tiny_topk's
-    fused f32 mode the device's busy share: the kernels' device time in a
-    profiled chunk (the second of a further 2-chunk run: the profiler
-    stretches a replayed chunk's wall many times over) over the median
-    chunk of the unprofiled run. A tree whose ``train()`` raises for the
-    cache gets null rows with the reason."""
-    from torch.profiler import ProfilerActivity, profile
-
-    from freud_tpu_torch import profiling
-
-    t0 = time.perf_counter()
-    train_dir, val_dir = tmp / "train_store", tmp / "val_store"
-    write_training_store(train_dir, TRAIN_BENCH_FILES, SEED + 10)
-    write_training_store(val_dir, TRAIN_BENCH_VAL_FILES, SEED + 11)
-    rec = {"train_files": TRAIN_BENCH_FILES, "val_files": TRAIN_BENCH_VAL_FILES,
-           "store_write_s": time.perf_counter() - t0}
-    for recipe, batch in (("tiny_l1", 100), ("tiny_topk", 50)):
-        base = json.loads((REPO / f"configs/train/{recipe}.json").read_text())
-        assert base["batch_size"] == batch, base["batch_size"]
-        assert (base["save_every"], base["val_every"], base["log_tb_every"]) == (1000, 100, 10)
-        rows = rec[recipe] = {}
-        for mode, steps, extra in TRAIN_BENCH_MODES:
-            cfg = {**base, "train_folder": str(train_dir), "val_folder": str(val_dir),
-                   "run_dir": str(tmp / f"run_{recipe}_{mode}"), "steps": steps, **extra}
-            free_device_memory(torch)
-            torch.cuda.reset_peak_memory_stats()
-            try:
-                stats, _ = train(cfg, tmp / "bench_train.json")
-            except NotImplementedError as e:
-                rows[mode] = None
-                rows[f"{mode}_null_reason"] = f"{type(e).__name__}: {e}"
-                continue
-            waits = profiling.calls("train_chunk_wait")
-            chunk = RUN_OBJECTS["chunks"][0]["steps"] if waits else 1
-            step_ms = 1e3 * statistics.median(waits or profiling.calls("train_step")) / chunk
-            mmap = profiling.calls("mmap_batch")
-            row = rows[mode] = {
-                "steps": stats["steps"], "steps_per_sec": stats["steps_per_sec"],
-                "median_step_ms": step_ms,
-                "step_span": "train_chunk_wait / chunk" if waits else "train_step",
-                "chunk_steps": chunk if waits else None,
-                "first_chunk_ms": 1e3 * waits[0] if waits else None,  # with the capture
-                "validations": len(profiling.calls("validate")),
-                "median_validate_ms": 1e3 * statistics.median(profiling.calls("validate")),
-                "median_mmap_batch_ms": 1e3 * statistics.median(mmap) if mmap else None,
-                "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
-            if (recipe, mode) == ("tiny_topk", "cache_fused"):
-                chunk_ms = 1e3 * statistics.median(waits)
-                prof = profile(activities=[ProfilerActivity.CUDA])
-                train({**cfg, "steps": 2 * chunk, "run_dir": str(tmp / "run_profiled")},
-                      tmp / "bench_train.json", prof=prof, prof_chunk=1)
-                by_kernel, total, copies = device_ms_by_kernel(prof, 1)
-                row.update(median_chunk_ms=chunk_ms, profiled_kernels_ms=total,
-                           profiled_copies_ms=copies,
-                           device_busy=(total + copies) / chunk_ms,
-                           by_kernel_ms_per_chunk=by_kernel)
-            print(f"bench training {recipe} {mode}: {json.dumps(row)}", flush=True)
-    return rec
-
-
 def bench(torch, device, card) -> dict:
     """``--bench``: the five kernels timed through their wrappers at the main
     paths' shapes (kernel #1 at both band counts; kernel #2 beside its
     library yardstick and split by launch, kernel #4 split by launch), then
-    the tiny and the large-v1 collections' steady rates with the device time
-    a batch by kernel, and the large_v1_audioset recipe's step. It uses
-    nothing but the wrappers, the CLIs and the trainer, so a copy of this
-    script beside an older freud_tpu_torch times that package with the same
-    code."""
+    transcription and decoder-layer collection. It uses nothing but the
+    wrappers, the CLIs and the runtime, so a copy of this script beside an
+    older freud_tpu_torch times that package with the same code."""
     from torch.profiler import ProfilerActivity, profile
 
-    from freud_tpu_torch import profiling
     from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
@@ -1677,50 +1529,11 @@ def bench(torch, device, card) -> dict:
 
     with tempfile.TemporaryDirectory(prefix="chip_bench_") as tmp:
         tmp = Path(tmp)
-        wavs = {}
-        for n_files in (2 * BATCH, BENCH_FILES):
-            wavs[n_files] = tmp / f"audio{n_files}"
-            wavs[n_files].mkdir()
-            write_wavs(wavs[n_files], [480000] * n_files)
-        # tiny collection to block 2 (kernels #1 and #2), batch 32
-        tiny = json.loads((REPO / "configs/features/tiny_block_2_test.json").read_text())
-        rec["tiny_collection"] = bench_collection(
-            torch, tmp, {**tiny, "batch_size": BATCH}, "random:tiny", wavs)
-        # large-v1 collection to block 16 (kernels #1 and #5), batch 32
-        base = json.loads(
-            (REPO / "configs/features/large_v1_block_16_audioset_train.json").read_text())
-        assert base["batch_size"] == BATCH
-        rec["large_v1_collection"] = large = bench_collection(
-            torch, tmp, base, "random:large-v1", wavs)
-
-        # large_v1_audioset on the BENCH_FILES store, the last half profiled
-        tbase = json.loads((REPO / "configs/train/large_v1_audioset.json").read_text())
-        store = large.pop("store")
-        rec["tiny_collection"].pop("store")
-        tcfg = {**tbase, "train_folder": store, "val_folder": store,
-                "run_dir": str(tmp / "run"), "steps": BENCH_STEPS, "save_every": 10 ** 6,
-                "val_every": 10 ** 6, "log_tb_every": 10 ** 6,
-                # below one step's 48,000 frames: AuxK runs from step 2
-                "autoencoder_config": {**tbase["autoencoder_config"],
-                                       "dead_feature_threshold": LARGE_M_ROWS // 2}}
-        warm = BENCH_STEPS // 2
-        prof = profile(activities=[ProfilerActivity.CUDA])
-        torch.cuda.reset_peak_memory_stats()
-        tstats, steps = train(tcfg, tmp / "train.json", prof, warm)
-        spans = profiling.calls("train_step")
-        by_kernel, total, copies = device_ms_by_kernel(prof, BENCH_STEPS - warm)
-        rec["large_v1_audioset"] = {
-            "steps": BENCH_STEPS, "profiled_steps": BENCH_STEPS - warm,
-            "steps_per_sec": tstats["steps_per_sec"],
-            "median_train_step_ms": 1e3 * statistics.median(spans),
-            "peak_device_memory_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
-            "dead_pct_last": steps[-1]["dead_pct"], "kernels_ms_per_step": total,
-            "copies_ms_per_step": copies, "by_kernel_ms_per_step": by_kernel}
-        free_device_memory(torch)
-        rec["tiny_training"] = bench_training(torch, tmp)
-        free_device_memory(torch)
+        wavs = tmp / "audio"
+        wavs.mkdir()
+        write_wavs(wavs, [480000] * 2 * BATCH)
         rec["transcription"] = bench_transcription(torch, tmp, device)
-        rec["decoder"] = bench_decoder(torch, tmp, wavs[2 * BATCH], device)
+        rec["decoder"] = bench_decoder(torch, tmp, wavs, device)
     return rec
 
 
@@ -2842,26 +2655,6 @@ def device_share(torch, server, method: str, path: str, data: bytes | None) -> d
     return {"wall_ms": wall, "kernel_ms": kernel_ms, "device_busy": kernel_ms / wall}
 
 
-def top_features_split(torch, state, upload: bytes) -> dict:
-    """Where a /top_features request's time goes, in this thread (median ms
-    of 3): the upload's decode (a temporary file read through ``wave``),
-    the analyzer (log-mel, capture, SAE, sort; synchronised) and the JSON
-    encoding of its answer."""
-    from freud_tpu_torch.server.app import decode_uploaded_audio
-
-    decode_ms, _, audio = timed(torch, lambda: decode_uploaded_audio(upload, "u.wav"), 3)
-
-    def analyze():
-        with torch.inference_mode():
-            return state.analyzer.top_features_for_audio(audio, 32)
-
-    analyzer_ms, _, (idx, traces) = timed(torch, analyze, 3)
-    json_ms, _, _ = timed(torch, lambda: json.dumps(
-        {"top_indices": idx,
-         "top_activations": [np.asarray(t).tolist() for t in traces]}).encode(), 3)
-    return {"decode_upload_ms": decode_ms, "analyzer_ms": analyzer_ms, "json_ms": json_ms}
-
-
 def check_out_of_range(server, n_features: int, upload: bytes) -> None:
     """Out-of-range indices answer 400 before any device work (a
     device-side assert would poison the CUDA context), and the next
@@ -2965,10 +2758,8 @@ def serving_tiny(torch, tmp: Path, config: dict, clips, audio_dir: Path, counter
                           for name, method, path, data, _, _ in requests
                           if name in ("top_files_scan", "top_features", "manipulate_x8",
                                       "transcribe")}
-            shares["top_features_split"] = top_features_split(torch, state, upload)
             print(f"  {label} device busy a request: "
-                  f"{ {k: round(v['device_busy'], 4) for k, v in shares.items() if 'device_busy' in v} }"
-                  f"; /top_features split {shares['top_features_split']}")
+                  f"{ {k: round(v['device_busy'], 4) for k, v in shares.items()} }")
         check_out_of_range(server, n, upload)
         stop_server(server)
         recs[label] = {"init_s": init_s, "device_share": shares,
@@ -3067,11 +2858,9 @@ def serving_large(torch, tmp: Path, store: Path, wav_dir: Path, ckpt: Path,
                                             f"/manipulate_feature?feat_idx={feat}&"
                                             "manipulation_factor=8", upload),
               "top_features": device_share(torch, server, "POST", "/top_features?top_n=32",
-                                           upload),
-              "top_features_split": top_features_split(torch, state, upload)}
+                                           upload)}
     print(f"  large device busy a request: "
-          f"{ {k: round(v['device_busy'], 4) for k, v in shares.items() if 'device_busy' in v} }"
-          f"; /top_features split {shares['top_features_split']}")
+          f"{ {k: round(v['device_busy'], 4) for k, v in shares.items()} }")
     stop_server(server)
     del state
     free_device_memory(torch)
@@ -5228,11 +5017,10 @@ def knockouts(torch, device, card: str) -> dict:
             assert proc.returncode == 0, f"knock-out {name} did not build:\n{log}"
             libs[name] = ctypes.CDLL(str(Path(tmp) / name / "lib.so"))
     print(f"knock-outs built: {list(libs)}")
-    real = ts.cuda_library
+    real = _native.swap_library("topk_sharded", libs["base"])
 
     def use(name):
-        ts.cuda_library = lambda _n: libs[name]
-        ts._library()
+        _native.swap_library("topk_sharded", libs[name])
 
     gen = torch.Generator().manual_seed(SEED + 34)
     m, n, k, k_aux, k_multi = LARGE_M_ROWS, LARGE_N_DICT, K, LARGE_K_AUX, 4 * K
@@ -5269,8 +5057,7 @@ def knockouts(torch, device, card: str) -> dict:
             del acts, shard, g
             torch.cuda.empty_cache()
     finally:
-        ts.cuda_library = real
-        ts._library()
+        _native.swap_library("topk_sharded", real)
     return rec
 
 
@@ -5358,10 +5145,7 @@ def main() -> int:
 
     # phase 1 — build, one nvcc per source, all at once
     t0 = time.perf_counter()
-    # the sources this tree holds (an older checkout lacks the newer ones)
-    _native.cuda_libraries(*[n for n in ("mel", "attention", "topk_threshold", "topk_fused",
-                                         "topk_sharded", "topk_backward", "moe", "topk_indexed")
-                             if (REPO / "freud_tpu_torch" / "csrc" / f"{n}.cu").exists()])
+    _native.cuda_libraries(*_native.SIGNATURES)
     print(f"built kernels in {time.perf_counter() - t0:.2f} s "
           f"({ {k: round(v, 2) for k, v in _native.build_seconds.items()} })")
     for name, log in _native.build_logs.items():

@@ -14,6 +14,14 @@ in ``.gitignore``), at first use, from sources in the checkout:
 
 A file lock serialises builds across processes (parallel test workers, the
 collection CLI started beside a smoke run).
+
+This module is also the one binding seam of the kernels: ``SIGNATURES``
+declares every entry point of every library once, each library's entry
+points are bound when it loads, and a ``Kernel`` launches one of them
+(device, stream, status check, launch count). A wrapper in ``ops/`` keeps
+its plain version, its checks and its allocations, and marks itself
+``@counted(kernel)``; ``train/graph.py`` counts every wrapper so marked
+under CUDA graph replay.
 """
 
 from __future__ import annotations
@@ -21,6 +29,7 @@ from __future__ import annotations
 import contextlib
 import ctypes
 import fcntl
+import functools
 import hashlib
 import os
 import shutil
@@ -28,6 +37,8 @@ import subprocess
 import threading
 import time
 from pathlib import Path
+
+import torch
 
 PACKAGE_DIR = Path(__file__).resolve().parent
 BUILD_DIR = PACKAGE_DIR / "_build"
@@ -40,8 +51,58 @@ NVCC_FLAGS = (
     "-shared", "-Xcompiler", "-fPIC",
 )
 
+# The entry points of each kernel library ``csrc/<library>.cu``, one letter
+# a parameter of the C prototype: p a pointer (a tensor's data, or None for
+# NULL), i an int, f a float, q a long long array (a sequence of ints), s the
+# stream, which ends a launcher's list. A launcher returns its cudaError_t;
+# an entry without s is a limit query, which returns the limit. Spaces only
+# group the letters. tests/test_torch_native.py holds each signature to its
+# prototype.
+SIGNATURES = {
+    "mel": {"freud_log_mel": "ppp i ppp ii s"},
+    "attention": {
+        "freud_qkv_attention": "p i ppp q pppp iiii f s",
+        "freud_whisper_attention": "pppp iiii q f i p s",
+    },
+    "topk_threshold": {
+        "freud_topk_thresholds_max_n": "ii",
+        "freud_topk_thresholds": "p ii pp iiiiii pppp s",
+    },
+    "topk_fused": {
+        "freud_topk_fused_max_n": "",
+        "freud_topk_sae_forward": "pppppp iiiii pppppppp s",
+        "freud_topk_sae_encode": "pppp iii pp s",
+        "freud_topk_sae_decode": "ppppp iii ppp s",
+    },
+    "topk_sharded": {
+        "freud_shard_max_local": "",
+        "freud_shard_candidates": "p i pp iiii p i s",
+        "freud_shard_combine": "p iiiii p iiiiii pppp s",
+    },
+    "topk_backward": {
+        "freud_topk_bwd_pair": "p i ppp iii p s",
+        "freud_topk_bwd_route": "pp i ppp iii ppp s",
+    },
+    "topk_indexed": {
+        "freud_topk_indexed_max_n": "i",
+        "freud_topk_indexed": "p i p iiii pppp s",
+    },
+    "moe": {
+        "freud_moe_max_all": "",
+        "freud_moe_route": "pp iii f i ppp s",
+        "freud_moe_plan": "p iii ppp s",
+        "freud_moe_permute": "pp iii p s",
+        "freud_moe_gateup": "p ii pp ii ppp s",
+        "freud_moe_down": "p ii p ii ppp s",
+        "freud_moe_combine": "ppppp iii p s",
+    },
+}
+_CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
+           "q": ctypes.POINTER(ctypes.c_longlong), "s": ctypes.c_void_p}
+
 _thread_lock = threading.Lock()
 _cuda_libs: dict[str, ctypes.CDLL] = {}
+_entry_points: dict[str, dict] = {}  # library → name → bound ctypes function
 build_seconds: dict[str, float] = {}
 build_logs: dict[str, str] = {}  # nvcc/ptxas output (registers, spills)
 
@@ -133,18 +194,118 @@ def cuda_libraries(*names: str) -> list[ctypes.CDLL]:
         if failed:
             raise RuntimeError("\n".join(failed))
         for n in todo:
-            _cuda_libs[n] = ctypes.CDLL(str(outs[n]))
+            _bind(n, ctypes.CDLL(str(outs[n])))
     return [_cuda_libs[n] for n in names]
 
 
-def cuda_library(name: str) -> ctypes.CDLL:
-    """Build (once) and load ``csrc/<name>.cu`` as a ctypes library."""
-    return cuda_libraries(name)[0]
+def _bind(name: str, lib: ctypes.CDLL) -> None:
+    """Declare ``SIGNATURES[name]`` and ``freud_cuda_error_string`` (which
+    ``csrc/common.cuh`` gives every library) on ``lib``, and launch library
+    ``name``'s entry points from it."""
+    fns = {}
+    for entry, sig in SIGNATURES[name].items():
+        fn = getattr(lib, entry)
+        fn.restype = ctypes.c_int
+        fn.argtypes = [_CTYPES[c] for c in sig.replace(" ", "")]
+        fns[entry] = fn
+    fns["freud_cuda_error_string"] = lib.freud_cuda_error_string
+    fns["freud_cuda_error_string"].restype = ctypes.c_char_p
+    fns["freud_cuda_error_string"].argtypes = [ctypes.c_int]
+    _cuda_libs[name], _entry_points[name] = lib, fns
+    limit.cache_clear()
 
 
-def check_cuda_status(status: int, what: str, lib: ctypes.CDLL) -> None:
-    """Raise on a nonzero ``cudaError_t`` returned by a launcher (each
-    kernel library exports ``freud_cuda_error_string``)."""
+def swap_library(name: str, lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Launch library ``name``'s entry points from ``lib`` (a build of a
+    patched copy of its source, to time a knock-out); → the library they
+    came from, to swap back."""
+    old = cuda_libraries(name)[0]
+    _bind(name, lib)
+    return old
+
+
+def check_cuda_status(status: int, what: str, error_string) -> None:
+    """Raise on a nonzero ``cudaError_t`` returned by a launcher, in the
+    words of ``error_string`` (a library's ``freud_cuda_error_string``)."""
     if status != 0:
-        msg = lib.freud_cuda_error_string(status).decode()
+        msg = error_string(status).decode()
         raise RuntimeError(f"{what}: CUDA error {status} ({msg})")
+
+
+@functools.cache
+def limit(library: str, name: str, *args: int) -> int:
+    """The value of a limit query (an entry without a stream), read from the
+    library once for each ``args``."""
+    cuda_libraries(library)
+    return _entry_points[library][name](*args)
+
+
+def count_launch(fn) -> None:
+    """One launch of ``fn``'s kernel: into ``fn.captured`` while the stream
+    captures a CUDA graph (each replay adds it to ``fn.launches``,
+    ``train/graph.py``), else into ``fn.launches``."""
+    if torch.cuda.is_current_stream_capturing():
+        fn.captured += 1
+    else:
+        fn.launches += 1
+
+
+class Kernel:
+    """A launcher of ``csrc/<library>.cu``, bound when its library loads.
+
+    A call takes the prototype's parameters but the stream: tensors (their
+    ``data_ptr()``), None (NULL), ints, floats and sequences of ints (as
+    long long arrays). It launches on the first tensor's device and that
+    device's current stream, raises with ``what`` on a nonzero status, and
+    counts one launch of the wrapper that ``counted`` marked. It neither
+    synchronises nor allocates on the card, so it runs under CUDA graph
+    capture."""
+
+    def __init__(self, library: str, name: str, what: str):
+        sig = SIGNATURES[library][name].replace(" ", "")
+        if not sig.endswith("s"):
+            raise ValueError(f"{name} is a limit query, not a launcher (see limit)")
+        self.library, self.name, self.what = library, name, what
+        self.arity = len(sig) - 1
+        self.counter = None  # the wrapper whose launches this counts
+
+    def __call__(self, *args) -> None:
+        if len(args) != self.arity:
+            raise TypeError(f"{self.name} takes {self.arity} arguments and the "
+                            f"stream, got {len(args)}")
+        fns = _entry_points.get(self.library)
+        if fns is None:
+            cuda_libraries(self.library)
+            fns = _entry_points[self.library]
+        device = None
+        c_args = []
+        for a in args:
+            if isinstance(a, torch.Tensor):
+                device = a.device if device is None else device
+                a = a.data_ptr()
+            elif isinstance(a, (tuple, list)):
+                a = (ctypes.c_longlong * len(a))(*a)
+            c_args.append(a)
+        with torch.cuda.device(device):
+            status = fns[self.name](*c_args, torch.cuda.current_stream(device).cuda_stream)
+        check_cuda_status(status, self.what, fns["freud_cuda_error_string"])
+        if self.counter is not None:
+            count_launch(self.counter)
+
+
+# every wrapper ``counted`` marked, in import order
+COUNTED: list = []
+
+
+def counted(kernel: Kernel):
+    """Decorator of a public kernel wrapper that launches ``kernel``:
+    ``.launches`` counts its launches and ``.captured`` those captured into
+    a CUDA graph, to which ``train/graph.py`` adds each replay's."""
+
+    def mark(fn):
+        fn.launches = fn.captured = 0
+        kernel.counter = fn
+        COUNTED.append(fn)
+        return fn
+
+    return mark

@@ -34,17 +34,14 @@ and ``chip_smoke.py`` hold the kernels to that too).
 Each wrapper dispatches on the device: a CUDA tensor launches the kernel
 (head_dim 64 — every Whisper size), a CPU tensor takes the plain version.
 ``fused_qkv_attention.launches`` and ``whisper_attention.launches`` count
-kernel launches.
+kernel launches (``_native.counted``).
 """
 
 from __future__ import annotations
 
-import ctypes
-import functools
-
 import torch
 
-from .._native import check_cuda_status, cuda_library
+from .._native import Kernel, counted
 
 HEAD_DIM = 64  # the kernel's head_dim (csrc/attention.cu kHeadDim)
 FUSED_MAX_D = 768  # the fused kernel's widest d (csrc/attention.cu kMaxFusedD)
@@ -87,29 +84,11 @@ def fused_qkv_attention_plain(x, wq, bq, wk, wv, bv, heads: int,
     return out.transpose(1, 2).reshape(b, s, d).to(x.dtype)
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("attention")
-    lib.freud_qkv_attention.restype = ctypes.c_int
-    lib.freud_qkv_attention.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_float, ctypes.c_void_p,
-    ]
-    lib.freud_whisper_attention.restype = ctypes.c_int
-    lib.freud_whisper_attention.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_void_p, ctypes.c_float, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_QKV = Kernel("attention", "freud_qkv_attention", "fused qkv attention kernel")
+_WHISPER = Kernel("attention", "freud_whisper_attention", "whisper attention kernel")
 
 
+@counted(_QKV)
 def fused_qkv_attention(
     x: torch.Tensor,    # (b, s, d) — post-LN block input
     wq: torch.Tensor, bq: torch.Tensor,
@@ -149,7 +128,6 @@ def fused_qkv_attention(
     # the weights as f32 (d_in, d_out) views in any layout: the kernel packs
     # [Wq | Wk | Wv] to bf16 itself, on every call
     ws = [w.to(torch.float32) for w in (wq, wk, wv)]
-    wstrides = (ctypes.c_longlong * 6)(*(st for w in ws for st in w.stride()))
     bq32 = bq.to(torch.float32).contiguous()
     bv32 = bv.to(torch.float32).contiguous()
     out = torch.empty_like(x)
@@ -159,19 +137,9 @@ def fused_qkv_attention(
     planes = 3 if x.dtype == torch.bfloat16 else 4
     scratch = torch.empty((planes * b * s * d + 3 * d * d,), dtype=torch.bfloat16,
                           device=x.device)
-    lib = _library()
-    with torch.cuda.device(x.device):
-        status = lib.freud_qkv_attention(
-            x.data_ptr(), int(x.dtype == torch.bfloat16), ws[0].data_ptr(),
-            ws[1].data_ptr(), ws[2].data_ptr(), wstrides, bq32.data_ptr(),
-            bv32.data_ptr(), scratch.data_ptr(), out.data_ptr(), b, s, d, heads,
-            float(HEAD_DIM ** -0.5), torch.cuda.current_stream(x.device).cuda_stream)
-    check_cuda_status(status, "fused qkv attention kernel", lib)
-    fused_qkv_attention.launches += 1
+    _QKV(x, int(x.dtype == torch.bfloat16), *ws, [st for w in ws for st in w.stride()],
+         bq32, bv32, scratch, out, b, s, d, heads, float(HEAD_DIM ** -0.5))
     return out
-
-
-fused_qkv_attention.launches = 0
 
 
 def whisper_attention_plain(q, k, v, matmul_dtype=None, stable: bool = True) -> torch.Tensor:
@@ -214,6 +182,7 @@ def _check_head_view(name: str, t: torch.Tensor, shape, dtype, device) -> None:
                          "exceeds the kernel's 32-bit offsets")
 
 
+@counted(_WHISPER)
 def whisper_attention(
     q: torch.Tensor,   # (b, h, s, dh) — any strides with dh contiguous
     k: torch.Tensor,
@@ -258,22 +227,10 @@ def whisper_attention(
     out = torch.empty((b, s, h, dh), dtype=q.dtype, device=q.device).transpose(1, 2)
     if b * h * s == 0:
         return out
-    strides = (ctypes.c_longlong * 12)(
-        *(st for t in (q, k, v, out) for st in t.stride()[:3]))
     # f32 input is rounded to bf16 (b, h, s, dh) scratch before the TMA loads
     scratch = (None if q.dtype == torch.bfloat16 else
                torch.empty((3, b, h, s, dh), dtype=torch.bfloat16, device=q.device))
-    lib = _library()
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        status = lib.freud_whisper_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            int(q.dtype == torch.bfloat16), b, h, s, strides,
-            float(dh ** -0.5), int(stable),
-            None if scratch is None else scratch.data_ptr(), stream)
-    check_cuda_status(status, "whisper attention kernel", lib)
-    whisper_attention.launches += 1
+    _WHISPER(q, k, v, out, int(q.dtype == torch.bfloat16), b, h, s,
+             [st for t in (q, k, v, out) for st in t.stride()[:3]], float(dh ** -0.5),
+             int(stable), scratch)
     return out
-
-
-whisper_attention.launches = 0

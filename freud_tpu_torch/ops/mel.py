@@ -16,18 +16,17 @@ and projects onto each mel band's nonzero bins in f32 (the header of
 kernel, a CPU tensor takes the plain version
 (``freud_tpu_torch.audio.mel.log_mel_spectrogram``). There is no fallback
 from one to the other. ``log_mel_spectrogram_cuda.launches`` counts kernel
-launches.
+launches (``_native.counted``).
 """
 
 from __future__ import annotations
 
-import ctypes
 import functools
 
 import numpy as np
 import torch
 
-from .._native import check_cuda_status, cuda_library
+from .._native import Kernel, counted
 from ..audio.filters import mel_filterbank
 from ..audio.mel import N_FREQS, _dft_basis, log_mel_spectrogram, reflect_pad_center
 from ..constants import N_FFT, N_FRAMES, N_SAMPLES
@@ -123,18 +122,10 @@ def _operands(device: torch.device, n_mels: int) -> tuple[torch.Tensor, ...]:
             torch.from_numpy(table).to(device))
 
 
-@functools.cache
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("mel")
-    lib.freud_log_mel.restype = ctypes.c_int
-    lib.freud_log_mel.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_LOG_MEL = Kernel("mel", "freud_log_mel", "log-mel kernel")
 
 
+@counted(_LOG_MEL)
 def log_mel_spectrogram_cuda(audio: torch.Tensor, n_mels: int = 80) -> torch.Tensor:
     """(B, 480000) f32 waveforms → (B, n_mels, 3000) f32 Whisper log-mels.
 
@@ -162,15 +153,5 @@ def log_mel_spectrogram_cuda(audio: torch.Tensor, n_mels: int = 80) -> torch.Ten
     if batch == 0:
         return out
     clip_max = torch.empty((batch,), dtype=torch.int32, device=device)
-    lib = _library()
-    with torch.cuda.device(device):
-        status = lib.freud_log_mel(
-            audio.data_ptr(), basis.data_ptr(), weights.data_ptr(), weights.numel(),
-            bands.data_ptr(), out.data_ptr(), clip_max.data_ptr(), batch, n_mels,
-            torch.cuda.current_stream(device).cuda_stream)
-    check_cuda_status(status, "log-mel kernel", lib)
-    log_mel_spectrogram_cuda.launches += 1
+    _LOG_MEL(audio, basis, weights, weights.numel(), bands, out, clip_max, batch, n_mels)
     return out
-
-
-log_mel_spectrogram_cuda.launches = 0

@@ -31,18 +31,15 @@ card, and the grouped products read them there (their grids are sized for
 the worst case). A CUDA tensor launches the kernels, which take contiguous
 bf16 operands and raise on any other; a CPU tensor takes the ``*_plain``
 version (which reads the counts on the host). ``.launches`` counts a
-wrapper's calls on the card.
+wrapper's calls on the card (``_native.counted``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 import torch.nn.functional as F
 
-from .._native import check_cuda_status, cuda_library
-from .topk_threshold import count_launch
+from .._native import Kernel, counted, limit
 
 # ------------------------------------------------------------ plain versions
 
@@ -125,29 +122,12 @@ def combine_plain(x, fixed, y, pos, wsel):
 # -------------------------------------------------------------- the kernels
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("moe")
-    p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    sigs = {
-        "freud_moe_route": [p, p, i, i, i, f, i, p, p, p, p],
-        "freud_moe_plan": [p, i, i, i, p, p, p, p],
-        "freud_moe_permute": [p, p, i, i, i, p, p],
-        "freud_moe_gateup": [p, i, i, p, p, i, i, p, p, p, p],
-        "freud_moe_down": [p, i, i, p, i, i, p, p, p, p],
-        "freud_moe_combine": [p, p, p, p, p, i, i, i, p, p],
-    }
-    for name, args in sigs.items():
-        fn = getattr(lib, name)
-        fn.restype = ctypes.c_int
-        fn.argtypes = args
-    lib.freud_moe_max_all.restype = ctypes.c_int
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
-
-
-def _stream(t: torch.Tensor) -> int:
-    return torch.cuda.current_stream(t.device).cuda_stream
+_ROUTE = Kernel("moe", "freud_moe_route", "moe route kernel")
+_PLAN = Kernel("moe", "freud_moe_plan", "moe plan kernel")
+_PERMUTE = Kernel("moe", "freud_moe_permute", "moe permute kernel")
+_GATEUP = Kernel("moe", "freud_moe_gateup", "moe gate/up kernel")
+_DOWN = Kernel("moe", "freud_moe_down", "moe down kernel")
+_COMBINE = Kernel("moe", "freud_moe_combine", "moe combine kernel")
 
 
 def _on_card(what: str, *tensors) -> bool:
@@ -163,60 +143,50 @@ def _on_card(what: str, *tensors) -> bool:
     return True
 
 
+@counted(_ROUTE)
 def route(u: torch.Tensor, w_router: torch.Tensor, top_p: float, top_k: int):
     """u (T, d), w_router (n_all, d) → (probs, sel, wsel) (module docstring)."""
     if not _on_card("moe route", u):
         return route_plain(u, w_router, top_p, top_k)
-    lib = _library()
     t, d = u.shape
     n_all = w_router.shape[0]
-    if n_all > lib.freud_moe_max_all() or top_k > n_all or d % 8:
+    if n_all > limit("moe", "freud_moe_max_all") or top_k > n_all or d % 8:
         raise ValueError(f"moe route: {n_all} router outputs, top_k {top_k}, d {d}")
     w = w_router.float().contiguous()
     probs = torch.empty((t, n_all), dtype=torch.float32, device=u.device)
     sel = torch.empty((t, top_k), dtype=torch.int32, device=u.device)
     wsel = torch.empty((t, top_k), dtype=torch.float32, device=u.device)
-    status = lib.freud_moe_route(u.data_ptr(), w.data_ptr(), t, d, n_all, float(top_p),
-                                 top_k, probs.data_ptr(), sel.data_ptr(), wsel.data_ptr(),
-                                 _stream(u))
-    check_cuda_status(status, "moe route kernel", lib)
-    count_launch(route)
+    _ROUTE(u, w, t, d, n_all, float(top_p), top_k, probs, sel, wsel)
     return probs, sel, wsel
 
 
+@counted(_PLAN)
 def plan(sel: torch.Tensor, n_dyn: int, counts: torch.Tensor):
     """sel (T, top_k) int32; counts (n_all,) int32, written → (offsets,
     pos) (module docstring)."""
     if not sel.is_cuda:
         return plan_plain(sel, n_dyn, counts)
-    lib = _library()
     sel = sel.contiguous()
     offsets = torch.empty((n_dyn,), dtype=torch.int32, device=sel.device)
     pos = torch.empty(sel.shape, dtype=torch.int32, device=sel.device)
     if counts.dtype != torch.int32 or not counts.is_contiguous():
         raise ValueError("moe plan: counts must be a contiguous int32 tensor")
-    status = lib.freud_moe_plan(sel.data_ptr(), sel.numel(), counts.numel(), n_dyn,
-                                counts.data_ptr(), offsets.data_ptr(), pos.data_ptr(),
-                                _stream(sel))
-    check_cuda_status(status, "moe plan kernel", lib)
-    count_launch(plan)
+    _PLAN(sel, sel.numel(), counts.numel(), n_dyn, counts, offsets, pos)
     return offsets, pos
 
 
+@counted(_PERMUTE)
 def permute(u: torch.Tensor, pos: torch.Tensor, rows_max: int) -> torch.Tensor:
     """u (T, d), pos (T, top_k) → a (rows_max, d) (module docstring)."""
     if not _on_card("moe permute", u):
         return permute_plain(u, pos, rows_max)
-    lib = _library()
     t, d = u.shape
     a = torch.empty((rows_max, d), dtype=u.dtype, device=u.device)
-    status = lib.freud_moe_permute(u.data_ptr(), pos.contiguous().data_ptr(), t, pos.shape[1],
-                                   d, a.data_ptr(), _stream(u))
-    check_cuda_status(status, "moe permute kernel", lib)
-    count_launch(permute)
+    _PERMUTE(u, pos.contiguous(), t, pos.shape[1], d, a)
     return a
 
 
+@counted(_GATEUP)
 def gateup(a, counts, offsets, w_gate, w_up) -> torch.Tensor:
     """a (rows_max, d); w_gate, w_up (n_dyn, I, d) → h (rows_max, I)."""
     if not _on_card("moe gateup", a, w_gate, w_up):
@@ -224,16 +194,12 @@ def gateup(a, counts, offsets, w_gate, w_up) -> torch.Tensor:
     n_dyn, i, d = w_gate.shape
     if d % 64 or i % 128:
         raise ValueError(f"moe gateup: d {d} must divide by 64 and I {i} by 128")
-    lib = _library()
     h = torch.empty((a.shape[0], i), dtype=a.dtype, device=a.device)
-    status = lib.freud_moe_gateup(a.data_ptr(), a.shape[0], d, w_gate.data_ptr(),
-                                  w_up.data_ptr(), n_dyn, i, counts.data_ptr(),
-                                  offsets.data_ptr(), h.data_ptr(), _stream(a))
-    check_cuda_status(status, "moe gate/up kernel", lib)
-    count_launch(gateup)
+    _GATEUP(a, a.shape[0], d, w_gate, w_up, n_dyn, i, counts, offsets, h)
     return h
 
 
+@counted(_DOWN)
 def down(h, counts, offsets, w_down) -> torch.Tensor:
     """h (rows_max, I); w_down (n_dyn, d, I) → y (rows_max, d)."""
     if not _on_card("moe down", h, w_down):
@@ -241,32 +207,17 @@ def down(h, counts, offsets, w_down) -> torch.Tensor:
     n_dyn, d, i = w_down.shape
     if i % 64 or d % 256:
         raise ValueError(f"moe down: I {i} must divide by 64 and d {d} by 256")
-    lib = _library()
     y = torch.empty((h.shape[0], d), dtype=h.dtype, device=h.device)
-    status = lib.freud_moe_down(h.data_ptr(), h.shape[0], i, w_down.data_ptr(), n_dyn, d,
-                                counts.data_ptr(), offsets.data_ptr(), y.data_ptr(),
-                                _stream(h))
-    check_cuda_status(status, "moe down kernel", lib)
-    count_launch(down)
+    _DOWN(h, h.shape[0], i, w_down, n_dyn, d, counts, offsets, y)
     return y
 
 
+@counted(_COMBINE)
 def combine(x, fixed, y, pos, wsel) -> torch.Tensor:
     """x, fixed (T, d); y (rows_max, d); pos, wsel (T, top_k) → (T, d)."""
     if not _on_card("moe combine", x, fixed, y):
         return combine_plain(x, fixed, y, pos, wsel)
-    lib = _library()
     t, d = x.shape
     out = torch.empty_like(x)
-    status = lib.freud_moe_combine(x.data_ptr(), fixed.data_ptr(), y.data_ptr(),
-                                   pos.contiguous().data_ptr(),
-                                   wsel.contiguous().data_ptr(), t, pos.shape[1], d,
-                                   out.data_ptr(), _stream(x))
-    check_cuda_status(status, "moe combine kernel", lib)
-    count_launch(combine)
+    _COMBINE(x, fixed, y, pos.contiguous(), wsel.contiguous(), t, pos.shape[1], d, out)
     return out
-
-
-for _fn in (route, plan, permute, gateup, down, combine):
-    _fn.launches = 0
-    _fn.captured = 0

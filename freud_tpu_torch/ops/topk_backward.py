@@ -26,17 +26,14 @@ Each wrapper dispatches on the device: a CUDA tensor launches the kernels
 version, the expressions the backward ran before the kernels. ``.launches``
 counts a wrapper's calls on the card; a call captured into a CUDA graph
 counts in ``.captured``, and each replay adds it to ``.launches``
-(``train/graph.py``).
+(``_native.counted``, ``train/graph.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .._native import check_cuda_status, cuda_library
-from .topk_threshold import count_launch
+from .._native import Kernel, counted
 
 GROUP_ROWS = 128  # rows a block walks; topk_route's partial sums are per group
 
@@ -65,22 +62,8 @@ def topk_route_plain(d, acts, t_main, t_aux, dead_f):
     return d_acts, torch.sum(d_acts, dim=0, dtype=torch.float32)
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("topk_backward")
-    lib.freud_topk_bwd_pair.restype = ctypes.c_int
-    lib.freud_topk_bwd_pair.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_topk_bwd_route.restype = ctypes.c_int
-    lib.freud_topk_bwd_route.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_PAIR = Kernel("topk_backward", "freud_topk_bwd_pair", "topk backward masked pair kernel")
+_ROUTE = Kernel("topk_backward", "freud_topk_bwd_route", "topk backward route kernel")
 
 
 def _operands(acts, t_main, t_aux, dead_f):
@@ -101,6 +84,7 @@ def _operands(acts, t_main, t_aux, dead_f):
             t_aux.reshape(m).to(f32).contiguous(), dead_f.to(f32).contiguous())
 
 
+@counted(_PAIR)
 def topk_masked_pair(acts: torch.Tensor, t_main: torch.Tensor, t_aux: torch.Tensor,
                      dead_f: torch.Tensor) -> torch.Tensor:
     """acts (M, n_dict) f32 or bf16, t_main and t_aux (M, 1) f32, dead_f
@@ -109,22 +93,12 @@ def topk_masked_pair(acts: torch.Tensor, t_main: torch.Tensor, t_aux: torch.Tens
     if not acts.is_cuda:
         return topk_masked_pair_plain(acts, t_main, t_aux, dead_f)
     m, n, acts, t_main, t_aux, dead_f = _operands(acts, t_main, t_aux, dead_f)
-    lib = _library()
     pair = torch.empty((2 * m, n), dtype=acts.dtype, device=acts.device)
-    with torch.cuda.device(acts.device):
-        stream = torch.cuda.current_stream(acts.device).cuda_stream
-        status = lib.freud_topk_bwd_pair(
-            acts.data_ptr(), int(acts.dtype == torch.float32), t_main.data_ptr(),
-            t_aux.data_ptr(), dead_f.data_ptr(), m, n, GROUP_ROWS, pair.data_ptr(), stream)
-    check_cuda_status(status, "topk backward masked pair kernel", lib)
-    count_launch(topk_masked_pair)
+    _PAIR(acts, int(acts.dtype == torch.float32), t_main, t_aux, dead_f, m, n, GROUP_ROWS, pair)
     return pair
 
 
-topk_masked_pair.launches = 0
-topk_masked_pair.captured = 0
-
-
+@counted(_ROUTE)
 def topk_route(d: torch.Tensor, acts: torch.Tensor, t_main: torch.Tensor,
                t_aux: torch.Tensor, dead_f: torch.Tensor):
     """d (2M, n_dict) = [d1; d2] in acts' dtype; acts, t_main, t_aux, dead_f
@@ -136,21 +110,10 @@ def topk_route(d: torch.Tensor, acts: torch.Tensor, t_main: torch.Tensor,
     if d.shape != (2 * m, n) or d.dtype != acts.dtype or d.device != acts.device:
         raise ValueError(f"d must be (2M, n_dict) {acts.dtype} on {acts.device}, got "
                          f"{tuple(d.shape)} {d.dtype} on {d.device}")
-    lib = _library()
     d = d.contiguous()
     d_acts = torch.empty((m, n), dtype=acts.dtype, device=acts.device)
     db_enc = torch.empty((n,), dtype=torch.float32, device=acts.device)
     partials = torch.empty((-(-m // GROUP_ROWS), n), dtype=torch.float32, device=acts.device)
-    with torch.cuda.device(acts.device):
-        stream = torch.cuda.current_stream(acts.device).cuda_stream
-        status = lib.freud_topk_bwd_route(
-            d.data_ptr(), acts.data_ptr(), int(acts.dtype == torch.float32),
-            t_main.data_ptr(), t_aux.data_ptr(), dead_f.data_ptr(), m, n, GROUP_ROWS,
-            d_acts.data_ptr(), partials.data_ptr(), db_enc.data_ptr(), stream)
-    check_cuda_status(status, "topk backward route kernel", lib)
-    count_launch(topk_route)
+    _ROUTE(d, acts, int(acts.dtype == torch.float32), t_main, t_aux, dead_f, m, n, GROUP_ROWS,
+           d_acts, partials, db_enc)
     return d_acts, db_enc
-
-
-topk_route.launches = 0
-topk_route.captured = 0

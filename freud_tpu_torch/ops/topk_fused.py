@@ -28,17 +28,16 @@ own dictionary rows.
 Each wrapper dispatches on the device: a CUDA tensor launches the kernel, a
 CPU tensor takes its ``*_plain`` version. ``.launches`` counts a wrapper's
 kernel launches; a launch captured into a CUDA graph counts in
-``.captured``, and each replay adds it to ``.launches`` (``train/graph.py``).
+``.captured``, and each replay adds it to ``.launches`` (``_native.counted``,
+``train/graph.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .._native import check_cuda_status, cuda_library
-from .topk_threshold import count_launch, fired_from_bits, topk_thresholds_fired_plain
+from .._native import Kernel, counted, limit
+from .topk_threshold import fired_from_bits, topk_thresholds_fired_plain
 
 
 def topk_sae_encode_plain(x2, enc_w_t, enc_b, b_dec):
@@ -70,33 +69,9 @@ def topk_sae_forward_plain(x2, enc_w_t, enc_b, b_dec, W_dec, dead_f,
     return acts, y_main, y_aux, t_main, t_aux, fired
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("topk_fused")
-    lib.freud_topk_fused_max_n.restype = ctypes.c_int
-    lib.freud_topk_fused_max_n.argtypes = []
-    lib.freud_topk_sae_forward.restype = ctypes.c_int
-    lib.freud_topk_sae_forward.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_topk_sae_encode.restype = ctypes.c_int
-    lib.freud_topk_sae_encode.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p,
-    ]
-    lib.freud_topk_sae_decode.restype = ctypes.c_int
-    lib.freud_topk_sae_decode.argtypes = [
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_FORWARD = Kernel("topk_fused", "freud_topk_sae_forward", "topk SAE forward kernel")
+_ENCODE = Kernel("topk_fused", "freud_topk_sae_encode", "topk SAE encode kernel")
+_DECODE = Kernel("topk_fused", "freud_topk_sae_decode", "topk SAE decode kernel")
 
 
 def _check(m_like: torch.Tensor, d: int, n: int, *operands) -> None:
@@ -129,6 +104,7 @@ def _encode_operands(x2, enc_w_t, enc_b, b_dec):
             enc_b.to(torch.bfloat16).contiguous(), b_dec.to(torch.float32).contiguous())
 
 
+@counted(_FORWARD)
 def topk_sae_forward(
     x2: torch.Tensor,       # (M, d_in) f32
     enc_w_t: torch.Tensor,  # (d_in, n_dict) — encoder weight, transposed
@@ -150,8 +126,7 @@ def topk_sae_forward(
     _check(x2, d, n, W_dec, dead_f)
     if min(k, k_aux) < 1:
         raise ValueError(f"k {k}, k_aux {k_aux} must be >= 1")
-    lib = _library()
-    max_n = lib.freud_topk_fused_max_n()
+    max_n = limit("topk_fused", "freud_topk_fused_max_n")
     if n > max_n:
         raise ValueError(f"n_dict {n} is wider than the selection's rows ({max_n})")
     w_dec = W_dec.to(torch.bfloat16).contiguous()
@@ -167,23 +142,12 @@ def topk_sae_forward(
     # mask as bits, padded to whole 64-column slices of the decode
     xs = torch.empty((m, d), dtype=torch.bfloat16, device=dev)
     dead_bits = torch.zeros((2 * -(-n // 64),), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.freud_topk_sae_forward(
-            x2.data_ptr(), b_dec32.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(),
-            w_dec.data_ptr(), dead.data_ptr(), m, n, d, k, k_aux, acts.data_ptr(),
-            y_main.data_ptr(), y_aux.data_ptr(), t_main.data_ptr(),
-            t_aux.data_ptr(), fired.data_ptr(), xs.data_ptr(), dead_bits.data_ptr(),
-            stream)
-    check_cuda_status(status, "topk SAE forward kernel", lib)
-    count_launch(topk_sae_forward)
+    _FORWARD(x2, b_dec32, w_enc, b_enc, w_dec, dead, m, n, d, k, k_aux, acts, y_main, y_aux,
+             t_main, t_aux, fired, xs, dead_bits)
     return acts, y_main, y_aux, t_main, t_aux, fired_from_bits(fired, n)
 
 
-topk_sae_forward.launches = 0
-topk_sae_forward.captured = 0
-
-
+@counted(_ENCODE)
 def topk_sae_encode(x2: torch.Tensor, enc_w_t: torch.Tensor, enc_b: torch.Tensor,
                     b_dec: torch.Tensor) -> torch.Tensor:
     """The forward's encode (operands as ``topk_sae_forward``'s): → acts
@@ -191,23 +155,13 @@ def topk_sae_encode(x2: torch.Tensor, enc_w_t: torch.Tensor, enc_b: torch.Tensor
     if not x2.is_cuda:
         return topk_sae_encode_plain(x2, enc_w_t, enc_b, b_dec)
     m, d, n, x2, w_enc, b_enc, b_dec32 = _encode_operands(x2, enc_w_t, enc_b, b_dec)
-    lib = _library()
     acts = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
     xs = torch.empty((m, d), dtype=torch.bfloat16, device=x2.device)  # bf16(x − b_dec)
-    with torch.cuda.device(x2.device):
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        status = lib.freud_topk_sae_encode(
-            x2.data_ptr(), b_dec32.data_ptr(), w_enc.data_ptr(), b_enc.data_ptr(), m, n, d,
-            acts.data_ptr(), xs.data_ptr(), stream)
-    check_cuda_status(status, "topk SAE encode kernel", lib)
-    count_launch(topk_sae_encode)
+    _ENCODE(x2, b_dec32, w_enc, b_enc, m, n, d, acts, xs)
     return acts
 
 
-topk_sae_encode.launches = 0
-topk_sae_encode.captured = 0
-
-
+@counted(_DECODE)
 def topk_sae_decode(acts: torch.Tensor, W_dec: torch.Tensor, dead_f: torch.Tensor,
                     t_main: torch.Tensor, t_aux: torch.Tensor):
     """The forward's masked decodes of acts (M, n_dict) bf16 under the
@@ -226,7 +180,6 @@ def topk_sae_decode(acts: torch.Tensor, W_dec: torch.Tensor, dead_f: torch.Tenso
                          f"t_main {tuple(t_main.shape)}, t_aux {tuple(t_aux.shape)} do not "
                          f"match acts {(m, n)}")
     _check(acts, d, n, W_dec, dead_f, t_main, t_aux)
-    lib = _library()
     dev = acts.device
     acts = acts.contiguous()
     w_dec = W_dec.to(torch.bfloat16).contiguous()
@@ -236,16 +189,5 @@ def topk_sae_decode(acts: torch.Tensor, W_dec: torch.Tensor, dead_f: torch.Tenso
     y_main = torch.empty((m, d), dtype=torch.float32, device=dev)
     y_aux = torch.empty_like(y_main)
     dead_bits = torch.zeros((2 * -(-n // 64),), dtype=torch.int32, device=dev)  # scratch
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.freud_topk_sae_decode(
-            acts.data_ptr(), w_dec.data_ptr(), dead.data_ptr(), t_main.data_ptr(),
-            t_aux.data_ptr(), m, n, d, y_main.data_ptr(), y_aux.data_ptr(),
-            dead_bits.data_ptr(), stream)
-    check_cuda_status(status, "topk SAE decode kernel", lib)
-    count_launch(topk_sae_decode)
+    _DECODE(acts, w_dec, dead, t_main, t_aux, m, n, d, y_main, y_aux, dead_bits)
     return y_main, y_aux
-
-
-topk_sae_decode.launches = 0
-topk_sae_decode.captured = 0

@@ -25,18 +25,16 @@ count comes from the width alone.
 The wrapper dispatches on the device: a CUDA tensor launches the kernel (or
 raises on a shape or type it does not take), a CPU tensor takes the plain
 version. ``topk_indexed.launches`` counts calls that launched
-(``.captured`` under CUDA graph capture).
+(``.captured`` under CUDA graph capture; ``_native.counted``).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from .._native import check_cuda_status, cuda_library
-from .topk_threshold import count_launch
+from .._native import Kernel, counted
 
 K_MAX = 256  # the largest k the kernel takes
 # the widest segment a launch takes, in columns (csrc/topk_indexed.cu
@@ -82,21 +80,10 @@ def topk_indexed_plain(latents: torch.Tensor, k: int, bias: Optional[torch.Tenso
     return vals[..., :k], idx[..., :k]
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("topk_indexed")
-    lib.freud_topk_indexed_max_n.restype = ctypes.c_int
-    lib.freud_topk_indexed_max_n.argtypes = [ctypes.c_int]
-    lib.freud_topk_indexed.restype = ctypes.c_int
-    lib.freud_topk_indexed.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_INDEXED = Kernel("topk_indexed", "freud_topk_indexed", "indexed topk kernel")
 
 
+@counted(_INDEXED)
 def topk_indexed(latents: torch.Tensor, k: int, bias: Optional[torch.Tensor] = None):
     """(values (…, k) in latents' type, indices (…, k) int64) of each row of
     ``latents`` (…, n) f32 or bf16, or of ``relu(latents + bias)`` with a
@@ -122,18 +109,6 @@ def topk_indexed(latents: torch.Tensor, k: int, bias: Optional[torch.Tensor] = N
         seg_idx = torch.empty((m * parts, k), dtype=torch.int32, device=dev)
     if bias is not None:
         bias = bias.to(dev).contiguous()
-    lib = _library()
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.freud_topk_indexed(
-            x.data_ptr(), int(x.dtype == torch.bfloat16),
-            None if bias is None else bias.data_ptr(), m, n, k, parts, vals.data_ptr(),
-            idx.data_ptr(), None if seg_raw is None else seg_raw.data_ptr(),
-            None if seg_idx is None else seg_idx.data_ptr(), stream)
-    check_cuda_status(status, "indexed topk kernel", lib)
-    count_launch(topk_indexed)
+    _INDEXED(x, int(x.dtype == torch.bfloat16), bias, m, n, k, parts, vals, idx, seg_raw,
+             seg_idx)
     return vals.reshape(*lead, k), idx.reshape(*lead, k)
-
-
-topk_indexed.launches = 0
-topk_indexed.captured = 0

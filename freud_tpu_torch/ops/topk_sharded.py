@@ -37,19 +37,18 @@ Each wrapper dispatches on the device: a CUDA tensor launches its kernel,
 a CPU tensor takes its ``*_plain`` version (``torch.topk`` on the keys, then
 ``replay_kth``'s scalar replay). ``shard_candidates.launches`` and
 ``combine_shard_thresholds.launches`` count kernel launches (``.captured``
-under CUDA graph capture, as ``train/graph.py`` reads them).
+under CUDA graph capture, as ``train/graph.py`` reads them; ``_native.counted``).
 """
 
 from __future__ import annotations
 
-import ctypes
 from typing import Optional
 
 import torch
 
-from .._native import check_cuda_status, cuda_library
+from .._native import Kernel, counted, limit
 from ..parallel import mesh as mesh_lib
-from .topk_threshold import ITERS, count_launch, fired_from_bits, key_value, order_key
+from .topk_threshold import ITERS, fired_from_bits, key_value, order_key
 
 HEADER = 5  # lo_all, hi_all, lo_dead, hi_dead, d_s
 _NONE = 0xFFFFFFFF  # "no finite key" (a min over nothing)
@@ -127,28 +126,12 @@ def shard_candidates_plain(acts: torch.Tensor, dead: torch.Tensor, k_sel: int, k
     return _as_words(torch.cat([main, aux, header], dim=-1))
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("topk_sharded")
-    lib.freud_shard_max_local.restype = ctypes.c_int
-    lib.freud_shard_max_local.argtypes = []
-    lib.freud_shard_candidates.restype = ctypes.c_int
-    lib.freud_shard_candidates.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_int,
-        ctypes.c_void_p,
-    ]
-    lib.freud_shard_combine.restype = ctypes.c_int
-    lib.freud_shard_combine.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_CANDIDATES = Kernel("topk_sharded", "freud_shard_candidates",
+                     "sharded topk candidates kernel")
+_COMBINE = Kernel("topk_sharded", "freud_shard_combine", "sharded topk combine kernel")
 
 
+@counted(_CANDIDATES)
 def shard_candidates(acts: torch.Tensor, dead: torch.Tensor, k_sel: int, k_aux: int,
                      kind: int) -> torch.Tensor:
     """Launch (a): → (M, ``candidate_width(n_s, k_sel, k_aux)``) int32 for
@@ -165,27 +148,17 @@ def shard_candidates(acts: torch.Tensor, dead: torch.Tensor, k_sel: int, k_aux: 
     want = torch.float32 if kind == F32 else torch.bfloat16
     if acts.dtype != want:
         raise TypeError(f"key kind {kind} takes {want}, got {acts.dtype}")
-    lib = _library()
-    if n > lib.freud_shard_max_local():
+    widest = limit("topk_sharded", "freud_shard_max_local")
+    if n > widest:
         raise ValueError(f"a shard of {n} columns is wider than the candidates "
-                         f"kernel's rows ({lib.freud_shard_max_local()})")
+                         f"kernel's rows ({widest})")
     acts = acts.contiguous()
     width = candidate_width(n, k_sel, k_aux)
     out = torch.empty((m, width), dtype=torch.int32, device=acts.device)
     dead8 = dead.to(device=acts.device, dtype=torch.uint8).contiguous()
     dead_bits = torch.empty((-(-n // 32),), dtype=torch.int32, device=acts.device)
-    with torch.cuda.device(acts.device):
-        stream = torch.cuda.current_stream(acts.device).cuda_stream
-        status = lib.freud_shard_candidates(
-            acts.data_ptr(), kind, dead8.data_ptr(), dead_bits.data_ptr(), m, n, k_sel,
-            k_aux, out.data_ptr(), width, stream)
-    check_cuda_status(status, "sharded topk candidates kernel", lib)
-    count_launch(shard_candidates)
+    _CANDIDATES(acts, kind, dead8, dead_bits, m, n, k_sel, k_aux, out, width)
     return out
-
-
-shard_candidates.launches = 0
-shard_candidates.captured = 0
 
 
 def _kth(keys: torch.Tensor, k: int) -> torch.Tensor:
@@ -257,6 +230,7 @@ def combine_shard_thresholds_plain(gathered: torch.Tensor, acts: torch.Tensor, n
     return ts[0], ts[1], ts[2] if k_multi else None, fired
 
 
+@counted(_COMBINE)
 def combine_shard_thresholds(gathered: torch.Tensor, acts: torch.Tensor, n_dict: int,
                              k_main: int, k_aux: int, k_multi: int, kind: int,
                              iters: int = ITERS):
@@ -273,7 +247,6 @@ def combine_shard_thresholds(gathered: torch.Tensor, acts: torch.Tensor, n_dict:
     if acts.shape[0] != m or c_main < 1:
         raise ValueError(f"gathered {tuple(gathered.shape)} does not match acts "
                          f"{tuple(acts.shape)} and k_aux {k_aux}")
-    lib = _library()
     gathered = gathered.contiguous()
     acts = acts.contiguous()
     dev = acts.device
@@ -281,19 +254,9 @@ def combine_shard_thresholds(gathered: torch.Tensor, acts: torch.Tensor, n_dict:
     t_aux = torch.empty_like(t_main)
     t_multi = torch.empty_like(t_main) if k_multi else None
     fired = torch.zeros((-(-n_local // 32),), dtype=torch.int32, device=dev)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        status = lib.freud_shard_combine(
-            gathered.data_ptr(), p, m, width, c_main, k_aux, acts.data_ptr(), kind,
-            n_local, n_dict, k_main, k_multi, iters, t_main.data_ptr(), t_aux.data_ptr(),
-            t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
-    check_cuda_status(status, "sharded topk combine kernel", lib)
-    count_launch(combine_shard_thresholds)
+    _COMBINE(gathered, p, m, width, c_main, k_aux, acts, kind, n_local, n_dict, k_main,
+             k_multi, iters, t_main, t_aux, t_multi, fired)
     return t_main, t_aux, t_multi, fired_from_bits(fired, n_local)
-
-
-combine_shard_thresholds.launches = 0
-combine_shard_thresholds.captured = 0
 
 
 def sharded_thresholds_fired(acts: torch.Tensor, dead: torch.Tensor, k_main: int,

@@ -27,16 +27,14 @@ order.
 the kernel, a CPU tensor takes ``topk_thresholds_fired_plain``.
 ``topk_thresholds_fired.launches`` counts kernel launches; a launch captured into a
 CUDA graph counts in ``.captured``, and each replay adds it to ``.launches``
-(``train/graph.py``).
+(``_native.counted``, ``train/graph.py``).
 """
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
-from .._native import check_cuda_status, cuda_library
+from .._native import Kernel, counted, limit
 
 ITERS = 26  # the JAX kernel's float bisection count (topk_threshold.py:25)
 
@@ -122,16 +120,6 @@ def replay_kth(masked: torch.Tensor, k: int, iters: int = ITERS) -> torch.Tensor
     return lo
 
 
-def count_launch(fn) -> None:
-    """One launch of ``fn``'s kernel: into ``fn.captured`` while the stream
-    captures a CUDA graph (each replay adds it to ``fn.launches``,
-    ``train/graph.py``), else into ``fn.launches``."""
-    if torch.cuda.is_current_stream_capturing():
-        fn.captured += 1
-    else:
-        fn.launches += 1
-
-
 def fired_from_bits(words: torch.Tensor, n: int) -> torch.Tensor:
     """(ceil(n / 32),) int32 words, bit j % 32 of word j / 32 for column j
     → (n,) bool."""
@@ -162,22 +150,10 @@ def topk_thresholds_fired_plain(acts, dead_mask, k_main: int, k_aux: int,
     return t_main, t_aux, t_multi, fired
 
 
-def _library() -> ctypes.CDLL:
-    lib = cuda_library("topk_threshold")
-    lib.freud_topk_thresholds_max_n.restype = ctypes.c_int
-    lib.freud_topk_thresholds_max_n.argtypes = [ctypes.c_int, ctypes.c_int]
-    lib.freud_topk_thresholds.restype = ctypes.c_int
-    lib.freud_topk_thresholds.argtypes = [
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_int, ctypes.c_int, ctypes.c_int, ctypes.c_int,
-        ctypes.c_int, ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
-        ctypes.c_void_p, ctypes.c_void_p, ctypes.c_void_p,
-    ]
-    lib.freud_cuda_error_string.restype = ctypes.c_char_p
-    lib.freud_cuda_error_string.argtypes = [ctypes.c_int]
-    return lib
+_THRESHOLDS = Kernel("topk_threshold", "freud_topk_thresholds", "topk thresholds kernel")
 
 
+@counted(_THRESHOLDS)
 def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
                           k_main: int, k_aux: int, iters: int = ITERS,
                           k_multi: int = 0, signed: bool = False):
@@ -200,8 +176,7 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
         raise ValueError(f"k_main {k_main}, k_aux {k_aux} must be >= 1, k_multi >= 0")
     exact = exact_path(acts, signed)
     bf16 = acts.dtype == torch.bfloat16
-    lib = _library()
-    max_n = lib.freud_topk_thresholds_max_n(int(bf16), int(exact))
+    max_n = limit("topk_threshold", "freud_topk_thresholds_max_n", int(bf16), int(exact))
     if n > max_n:
         raise ValueError(f"n_dict {n} is wider than the kernel's rows ({max_n} "
                          f"for {acts.dtype})")
@@ -213,17 +188,6 @@ def topk_thresholds_fired(acts: torch.Tensor, dead_mask: torch.Tensor,
     words = -(-n // 32)
     fired = torch.zeros((words,), dtype=torch.int32, device=acts.device)
     dead_bits = torch.empty((words,), dtype=torch.int32, device=acts.device)
-    with torch.cuda.device(acts.device):
-        stream = torch.cuda.current_stream(acts.device).cuda_stream
-        status = lib.freud_topk_thresholds(
-            acts.data_ptr(), int(bf16), int(exact),
-            dead.data_ptr(), dead_bits.data_ptr(), m, n, k_main, k_aux, k_multi, iters,
-            t_main.data_ptr(), t_aux.data_ptr(),
-            t_multi.data_ptr() if k_multi else None, fired.data_ptr(), stream)
-    check_cuda_status(status, "topk thresholds kernel", lib)
-    count_launch(topk_thresholds_fired)
+    _THRESHOLDS(acts, int(bf16), int(exact), dead, dead_bits, m, n, k_main, k_aux, k_multi,
+                iters, t_main, t_aux, t_multi, fired)
     return t_main, t_aux, t_multi, fired_from_bits(fired, n)
-
-
-topk_thresholds_fired.launches = 0
-topk_thresholds_fired.captured = 0

@@ -12,7 +12,8 @@ blocks the step before freed.
 
 Kernel launches under replay: a wrapper counts into ``.captured`` while
 its stream is capturing (it launches nothing then), and each replay adds
-the launches it holds to the wrapper's ``.launches``.
+the launches it holds to the wrapper's ``.launches``, for every wrapper
+``_native.counted`` marked.
 
 The tensor maps that kernels #1, #2, #4 and #5 build on the host
 (``csrc/hopper.cuh``) are kernel parameters, so capture bakes them in with
@@ -28,6 +29,7 @@ from typing import Callable
 import torch
 
 from .. import profiling
+from .._native import COUNTED
 from ..data.device_cache import sample_rows
 
 
@@ -46,7 +48,7 @@ class CapturedChunk:
 
 
 def capture_chunk(step: Callable[[int], dict], n_steps: int, state: list,
-                  counted: tuple, what: str) -> CapturedChunk:
+                  what: str) -> CapturedChunk:
     """Capture ``step(0) … step(n_steps - 1)`` (each → a dict of 0-dim
     metric tensors) as one CUDA graph.
 
@@ -69,7 +71,7 @@ def capture_chunk(step: Callable[[int], dict], n_steps: int, state: list,
     # what the warm-up cached in the shared pool is of no use to the
     # graph's private pool
     torch.cuda.empty_cache()
-    before = {fn: fn.captured for fn in counted}
+    before = {fn: fn.captured for fn in COUNTED}
     graph = torch.cuda.CUDAGraph()
     i = 0
     try:
@@ -86,11 +88,12 @@ def capture_chunk(step: Callable[[int], dict], n_steps: int, state: list,
             f"as a CUDA graph ({type(e).__name__}: {e}); the chunk does not "
             "fall back to eager steps (set fused_steps to 0 to train per step)"
         ) from e
-    return CapturedChunk(graph, out, {fn: fn.captured - before[fn] for fn in counted})
+    launches = {fn: fn.captured - n for fn, n in before.items() if fn.captured > n}
+    return CapturedChunk(graph, out, launches)
 
 
 def run_chunk(chunks: dict, step: Callable[[torch.Tensor], dict], window: torch.Tensor,
-              indices: torch.Tensor, state: list, counted: tuple, what: str,
+              indices: torch.Tensor, state: list, what: str,
               graph: bool | None = None) -> dict:
     """``step`` (a (B, T, d) device batch → a dict of metric tensors) on the
     window rows ``indices[i]`` for each of the (n_steps, B) index block's
@@ -113,7 +116,7 @@ def run_chunk(chunks: dict, step: Callable[[torch.Tensor], dict], window: torch.
         idx = torch.zeros(key, dtype=torch.int64, device=window.device)
         with profiling.span("chunk_capture"):
             chunk = capture_chunk(lambda i: step(sample_rows(window, idx[i])), n_steps,
-                                  state, counted, what)
+                                  state, what)
         captured = chunks[key] = (window, idx, chunk)
     _, idx, chunk = captured
     idx.copy_(indices)

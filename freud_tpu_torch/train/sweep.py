@@ -56,7 +56,7 @@ from ..models.sae import config as sae_config
 from ..models.sae.serialize import save_checkpoint, state_dict_from_params
 from ..parallel import mesh as mesh_lib
 from .graph import run_chunk
-from .trainer import STEP_KERNELS, SAETrainer
+from .trainer import SAETrainer
 
 
 class SAESweepTrainer:
@@ -212,7 +212,7 @@ class SAESweepTrainer:
         lead = self.members[0]
         stack = run_chunk(
             self._chunks, lambda x: self._step_all(x, shared=True, mesh=mesh), window,
-            indices, self._state(), STEP_KERNELS,
+            indices, self._state(),
             f"train_chunk_shared ({self.variant}, {self.n_models} models)",
             graph=lead.chunk_is_graph(window))
         self.step += indices.shape[0]

@@ -89,7 +89,7 @@ from ..analysis.features import sae_roundtrip_tap_params, sae_steer_fn
 from ..audio.decode import load_audio
 from ..audio.mel import mels_from_array
 from ..constants import get_n_mels
-from ..data.device_cache import DeviceShuffleCache, sample_rows_raw
+from ..data.device_cache import DeviceShuffleCache
 from ..data.loaders import init_dataloader, resample_padding_rows
 from ..data.prefetch import prefetch_iter
 from ..device import resolve_device
@@ -98,10 +98,6 @@ from ..models.sae import l1 as l1_mod
 from ..models.sae import topk as topk_mod
 from ..models.sae.serialize import params_from_state_dict
 from ..models.whisper.runtime import WhisperRuntime, pin_full_f32
-from ..ops.topk_backward import topk_masked_pair, topk_route
-from ..ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
-from ..ops.topk_sharded import combine_shard_thresholds, shard_candidates
-from ..ops.topk_threshold import topk_thresholds_fired
 from ..parallel import mesh as mesh_lib
 from .checkpoint import (
     AsyncCheckpointWriter,
@@ -114,10 +110,6 @@ from .checkpoint import (
 from .graph import run_chunk
 from .optim import make_optimizer
 
-# the kernel wrappers a train step can launch (their launches are counted
-# under graph replay)
-STEP_KERNELS = (topk_sae_forward, topk_sae_encode, topk_sae_decode, topk_thresholds_fired,
-                shard_candidates, combine_shard_thresholds, topk_masked_pair, topk_route)
 N_TRANSCRIPTS = 4  # validation files transcribed per validation
 
 
@@ -362,7 +354,7 @@ class SAETrainer:
                 raise ValueError(f"indices {tuple(indices.shape)} must be "
                                  f"({n_steps}, {batch_size})")
             metrics = run_chunk(self._chunks, self._chunk_step(), window, indices,
-                                self._state(), STEP_KERNELS, f"{what} ({self.variant})",
+                                self._state(), f"{what} ({self.variant})",
                                 graph=self.chunk_is_graph(window))
             self.step += n_steps
         return metrics
@@ -381,20 +373,6 @@ class SAETrainer:
         if self.mesh is None:
             raise ValueError("train_chunk_pod needs a mesh (SAETrainer(mesh=...))")
         return self._run_chunk(cache, local_batch, n_steps, indices, "train_chunk_pod")
-
-    def _build_pod_sampler(self, n_steps: int, batch_size: int):
-        """A host-local sampler: ``(window, generator) → ((n_steps,
-        batch_size, T, d) rows in the window's storage dtype, generator)``,
-        the draw of one ``cache.draw(n_steps, batch_size)`` and its rows (the
-        pod chunk samples inside its graph; this stages the same rows for a
-        caller that wants them on the host side)."""
-
-        def sampler(window: torch.Tensor, generator: torch.Generator):
-            idx = torch.randint(0, window.shape[0], (n_steps, batch_size),
-                                generator=generator, device=window.device)
-            return sample_rows_raw(window, idx), generator
-
-        return sampler
 
     def step_working_bytes(self, batch_rows: int) -> int:
         """An estimate of the device bytes a train step needs at

@@ -37,6 +37,7 @@ import numpy as np
 import pytest
 import torch
 
+from freud_tpu_torch import _native
 from freud_tpu_torch.audio.mel import log_mel_spectrogram
 from freud_tpu_torch.models.whisper import WhisperDims, WhisperRuntime
 from freud_tpu_torch.ops.attention import (
@@ -383,8 +384,7 @@ def test_sharded_selection_takes_the_widest_f32_shard(cuda):
     n_s = 52379
     acts, dead, _ = _shard_inputs(cuda, ts.F32, n_s, 2, "many", m=64)
     _check_sharded_selection(acts, dead, ts.F32, 2, False, topk_thresholds_fired_plain)
-    lib = ts._library()
-    widest = lib.freud_shard_max_local()
+    widest = _native.limit("topk_sharded", "freud_shard_max_local")
     assert widest >= n_s
     with pytest.raises(ValueError):
         ts.shard_candidates(torch.zeros((4, widest + 1), device=cuda),
@@ -960,9 +960,8 @@ def test_topk_indexed_main_path_shapes(cuda, m, n):
     from freud_tpu_torch.ops import topk_indexed as ti
     from freud_tpu_torch.ops.topk_indexed import topk_indexed, topk_indexed_plain
 
-    lib = ti._library()
-    assert [lib.freud_topk_indexed_max_n(bf16) for bf16 in (0, 1)] == [
-        ti.MAX_N[torch.float32], ti.MAX_N[torch.bfloat16]]
+    assert [_native.limit("topk_indexed", "freud_topk_indexed_max_n", bf16)
+            for bf16 in (0, 1)] == [ti.MAX_N[torch.float32], ti.MAX_N[torch.bfloat16]]
 
     gen = torch.Generator(device=cuda).manual_seed(m)
     x = torch.relu(torch.randn((m, n), device=cuda, generator=gen) - 1.0)

@@ -296,9 +296,8 @@ def test_train_chunk_matches_jax(store, variant, amp):
 
 def test_pod_chunk_raises(store):
     """The pod chunk is ported: it needs a mesh; on a one-process mesh its
-    steps equal per-step pod steps on the same window rows bit for bit; the
-    pod sampler stages one draw's rows in the window's dtype (the ranks'
-    chunks are tests/test_torch_distributed.py's)."""
+    steps equal per-step pod steps on the same window rows bit for bit (the
+    ranks' chunks are tests/test_torch_distributed.py's)."""
     from freud_tpu_torch.parallel.mesh import Mesh
 
     path, _ = store
@@ -324,13 +323,6 @@ def test_pod_chunk_raises(store):
         torch.testing.assert_close(a, b, rtol=0, atol=0)
     for k, v in out[False][1].items():
         torch.testing.assert_close(out[True][1][k], v, rtol=0, atol=0)
-    cache = DeviceShuffleCache(path, "L", capacity_files=10, refresh_files=0, seed=7,
-                               cache_dtype="bfloat16", device="cpu")
-    g = torch.Generator().manual_seed(5)
-    stack, g2 = trainer._build_pod_sampler(3, 4)(cache.cache, g)
-    assert g2 is g and stack.dtype == torch.bfloat16 and stack.shape == (3, 4, T, D)
-    want = torch.randint(0, 10, (3, 4), generator=torch.Generator().manual_seed(5))
-    torch.testing.assert_close(stack, dc.sample_rows_raw(cache.cache, want), rtol=0, atol=0)
 
 
 # ------------------------------------------------------------ validation
