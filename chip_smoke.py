@@ -30,7 +30,11 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      ``csrc/topk_backward.cu``, bit-equal to their plain versions, db_enc
      within its f32 rounding bound, in bf16 and f32 at tiny_topk's shape,
      with none and every latent dead, at large_v1_audioset's and at one
-     rank's columns of its dictionary split in two), with its stated
+     rank's columns of its dictionary split in two; the 3xTF32 product,
+     ``csrc/gemm_f32x3.cu``, at large collection's three encoder linears
+     and both collect cells' SAE encode products, over every row against
+     float64 within 2× cuBLAS f32's error and 30× under one TF32
+     product's, timed beside cuBLAS f32), with its stated
      tolerance, and both timed
      (median CUDA-event time after warm-up), beside the kernel's bound
      (freud_tpu_torch.flops, from this run's inputs; every time must be at
@@ -71,7 +75,7 @@ the large_v1_audioset TopK recipe (d_in 1280, n_dict 20480, k 32, k_aux
      random:large-v1 at batch 32 over 34 30-s WAVs and a shorter one,
      random:large-v3 at batch 16 over 17 30-s WAVs; stores (n, 1500, 1280),
      the blocked attention kernel launched 17 times a batch and the fused
-     one never; RTFx;
+     one never, the 3xTF32 product six times a block; RTFx;
   9. test:large-v3 (2 layers at full width, 128 bands) on the card against
      the CPU plain path, 2 files at block 1;
  10. the train CLI from configs/train/large_v1_audioset.json on the
@@ -1129,6 +1133,92 @@ def check_topk_indexed(torch, device, card) -> dict:
         del z, b, got, want
         torch.cuda.empty_cache()
     rec["bound_by"] = "bytes"
+    return rec
+
+
+# the collect cells' f32 products: (label, M, K, N, bias) of large
+# collection's q/k/v/out, mlp.0 and mlp.2 at batch 32, its SAE encode
+# (n_dict 20,480), and the omni cell's SAE encode (32 × 200 positions of
+# d 3,584, n_dict 57,344)
+GEMM_SHAPES = (("", 32 * 1500, 1280, 1280, True), ("mlp0_", 32 * 1500, 1280, 5120, True),
+               ("mlp2_", 32 * 1500, 5120, 1280, True),
+               ("sae_", 32 * 1500, 1280, 20480, False),
+               ("omni_sae_", 32 * 200, 3584, 57344, False))
+GEMM_REF_ROWS = 4096  # rows of the float64 reference built at a time
+
+
+def gemm_errors(torch, x, w, b, outs) -> list:
+    """Each of ``outs``' largest error against the float64 product of
+    x · wᵀ (+ b), over every row, divided by the product's RMS; the
+    reference is built ``GEMM_REF_ROWS`` rows at a time."""
+    wd = w.double()
+    bd = b.double() if b is not None else 0.0
+    worst, sq = [0.0] * len(outs), 0.0
+    for r0 in range(0, x.shape[0], GEMM_REF_ROWS):
+        rows = slice(r0, r0 + GEMM_REF_ROWS)
+        ref = x[rows].double() @ wd.T + bd
+        sq += ref.pow(2).sum().item()
+        for i, y in enumerate(outs):
+            worst[i] = max(worst[i], (y[rows].double() - ref).abs().max().item())
+        del ref
+    rms = (sq / (x.shape[0] * w.shape[0])) ** 0.5
+    return [v / rms for v in worst]
+
+
+def check_gemm_f32x3(torch, device, card) -> dict:
+    """The 3xTF32 product (``ops/gemm_f32x3``) at ``GEMM_SHAPES``: its
+    largest error over every row against a float64 product, over the
+    output's RMS, at most 2× cuBLAS f32's (TF32 off) and 30× under one TF32
+    product's; two launches bit-equal, one launch a call; timed beside
+    cuBLAS f32 (``F.linear``, the library call it replaces) and its bound.
+    The plain recipe's error is read on the first ``GEMM_REF_ROWS`` rows."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3, gemm_f32x3_plain
+
+    F = torch.nn.functional
+    gen = torch.Generator(device).manual_seed(SEED + 29)
+    rec = {"library": "F.linear in f32, TF32 off (cuBLAS)"}
+
+    for label, m, k, n, bias in GEMM_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=device)
+        w = (torch.rand((n, k), generator=gen, device=device) * 2 - 1) / k ** 0.5
+        b = torch.randn((n,), generator=gen, device=device) * 0.1 if bias else None
+        with torch.no_grad():
+            before = gemm_f32x3.launches
+            got = gemm_f32x3(x, w, b)
+            again = gemm_f32x3(x, w, b)
+            torch.cuda.synchronize()
+            assert gemm_f32x3.launches == before + 2, label
+            assert torch.equal(got, again), label
+            del again
+            lib = F.linear(x, w, b)
+            torch.backends.cuda.matmul.allow_tf32 = True
+            try:
+                tf32 = F.linear(x, w, b)
+            finally:
+                torch.backends.cuda.matmul.allow_tf32 = False
+            e_kernel, e_cublas, e_tf32 = gemm_errors(torch, x, w, b, [got, lib, tf32])
+            del lib, tf32
+            xs = x[:GEMM_REF_ROWS]
+            e_plain = gemm_errors(torch, xs, w, b, [gemm_f32x3_plain(xs, w, b)])[0]
+            assert e_kernel <= 2 * e_cublas and 30 * e_kernel <= e_tf32, (
+                label, e_kernel, e_cublas, e_tf32)
+            bound = flops.gemm_f32x3_bound(m, k, n, bias=bias)
+            ms = cuda_ms(lambda: gemm_f32x3(x, w, b), reps=10)
+            lib_ms = cuda_ms(lambda: F.linear(x, w, b), warmup=1, reps=5)
+        assert ms >= bound.bound_ms, (label, ms, bound.bound_ms)
+        rec.update({f"{label}ms": ms, f"{label}library_ms": lib_ms,
+                    f"{label}bound_ms": bound.bound_ms, f"{label}err": e_kernel,
+                    f"{label}cublas_err": e_cublas, f"{label}tf32_err": e_tf32,
+                    f"{label}plain_err": e_plain})
+        print(f"gemm_f32x3 ({m}, {k}) x ({n}, {k})ᵀ f32: err/rms over every row {e_kernel:.3g} "
+              f"(cuBLAS f32 {e_cublas:.3g}, TF32 {e_tf32:.3g}; the plain recipe on the first "
+              f"{GEMM_REF_ROWS} rows {e_plain:.3g}); kernel {ms:.4f} ms, cuBLAS f32 "
+              f"{lib_ms:.4f} ms, bound {bound.bound_ms:.4f} ms ({bound.bound_by}) on {card}")
+        del x, w, b, got
+        torch.cuda.empty_cache()
+    rec["plain_ms"] = None  # the plain recipe repeats the products in f32: no yardstick
+    rec["bound_by"] = "operations"
     return rec
 
 
@@ -5123,6 +5213,7 @@ def main() -> int:
     from freud_tpu_torch import _native, profiling
     from freud_tpu_torch.analysis.features import activation_length_from_samples
     from freud_tpu_torch.ops.attention import fused_qkv_attention, whisper_attention
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3
     from freud_tpu_torch.ops.mel import log_mel_spectrogram_cuda
     from freud_tpu_torch.ops.topk_backward import topk_masked_pair, topk_route
     from freud_tpu_torch.ops.topk_fused import topk_sae_forward
@@ -5185,6 +5276,7 @@ def main() -> int:
     thresh_rec = check_topk_threshold(torch, device, card)
     backward_recs = check_topk_backward(torch, device, card)
     indexed_rec = check_topk_indexed(torch, device, card)
+    gemm_rec = check_gemm_f32x3(torch, device, card)
     moe_recs = check_moe(torch, device, card)
     omni_rec = check_omni_forward(torch, device, card)
 
@@ -5391,17 +5483,24 @@ def main() -> int:
         card_vs_cpu_batch(torch, device, store)
 
         # phase 7 — collection with the trained TopK SAE attached: the
-        # encode's selection once a batch
+        # encode's selection and its f32 product once a batch, beside the
+        # out, mlp.0 and mlp.2 products of each block
         topk_indexed.launches = log_mel_spectrogram_cuda.launches = 0
+        fused_qkv_attention.launches = gemm_f32x3.launches = 0
         sstats = collect({**config, "sae_model": str(ckpts / "bestval.pth"),
                           "out_folder": str(tmp / "sae")}, tmp / "sae.json")
+        torch.cuda.synchronize()
         sae_batches = log_mel_spectrogram_cuda.launches  # one a batch
         launches["topk_indexed"] = topk_indexed.launches
         per_unit["topk_indexed"] = (topk_indexed.launches / sae_batches, "SAE collection batch")
+        sae_gemm = gemm_f32x3.launches - 3 * fused_qkv_attention.launches
         print(f"SAE encode's selection: {topk_indexed.launches} launches in {sae_batches} "
-              f"batches")
+              f"batches; gemm_f32x3 {gemm_f32x3.launches} launches beside "
+              f"{fused_qkv_attention.launches} blocks' attention: {sae_gemm} SAE encodes")
         assert topk_indexed.launches == sae_batches >= n_batches, (topk_indexed.launches,
                                                                    sae_batches)
+        assert sae_gemm == sae_batches, (gemm_f32x3.launches, fused_qkv_attention.launches,
+                                         sae_batches)
         smeta = json.loads((tmp / "sae" / f"{LAYER}_metadata.json").read_text())
         vals = np.load(tmp / "sae" / f"{LAYER}_activation_values.npy", mmap_mode="r")
         idx = np.load(tmp / "sae" / f"{LAYER}_feature_indices.npy", mmap_mode="r")
@@ -5462,7 +5561,7 @@ def main() -> int:
             launches[f"server_{k}"] = fn.launches
 
         # phase 8 — collection at large width, from the repo's large configs
-        large_launches = {"log_mel": 0, "whisper_attention": 0}
+        large_launches = {"log_mel": 0, "whisper_attention": 0, "gemm_f32x3": 0}
         large_batches = 0
         large_stores = {}
         for name, cfg_file, batch, n_long, short in (
@@ -5482,16 +5581,20 @@ def main() -> int:
             log_mel_spectrogram_cuda.launches = 0
             whisper_attention.launches = 0
             fused_qkv_attention.launches = 0
+            gemm_f32x3.launches = 0
             lstats = collect(lcfg, tmp / f"collect_{name}.json")
             torch.cuda.synchronize()
             got = {"log_mel": log_mel_spectrogram_cuda.launches,
                    "whisper_attention": whisper_attention.launches,
-                   "fused_qkv_attention": fused_qkv_attention.launches}
+                   "fused_qkv_attention": fused_qkv_attention.launches,
+                   "gemm_f32x3": gemm_f32x3.launches}
             print(f"launches in the random:{name} collection: {got} "
                   f"({n_lbatches} batches of {batch})")
             assert got["log_mel"] >= n_lbatches, got
             assert got["whisper_attention"] >= 17 * n_lbatches, got
             assert got["fused_qkv_attention"] == 0, got
+            # q, k, v, out, mlp.0 and mlp.2 of each f32 block: six a block
+            assert got["gemm_f32x3"] == 6 * got["whisper_attention"], got
             for k in large_launches:
                 large_launches[k] += got[k]
             large_batches += n_lbatches
@@ -5512,6 +5615,8 @@ def main() -> int:
 
         per_unit["whisper_attention"] = (
             large_launches["whisper_attention"] / large_batches, "large collection batch")
+        per_unit["gemm_f32x3"] = (
+            large_launches["gemm_f32x3"] / large_batches, "large collection batch")
 
         # phase 9 — test:large-v3 (2 layers at full width) card against CPU
         gcfg = {**json.loads((REPO / "configs/features/large_v3_block_16_dev.json").read_text()),
@@ -5854,6 +5959,13 @@ def main() -> int:
          "launches": launches["topk_indexed"], **unit("topk_indexed"),
          "launches_server_large": server_large["top_features"]["launches"]["topk_indexed"],
          **indexed_rec})
+    # the 3xTF32 product: no TPU kernel's port (the JAX package leaves the
+    # encoder's linears and the SAE encode's product to XLA)
+    kernels.append(
+        {"name": "gemm_f32x3", "route": "cuda", "source": "freud_tpu_torch/csrc/gemm_f32x3.cu",
+         "replaces": "cuBLAS's f32 SIMT product for the f32 encoder linears and the SAE "
+                     "encode (freud_tpu leaves them to XLA)",
+         "launches": large_launches["gemm_f32x3"], **unit("gemm_f32x3"), **gemm_rec})
     # Uni-MoE-2.0-Omni's MoE: no TPU kernel's port (the JAX package has no
     # such model); its plain versions are ops/moe.py's
     kernels += [

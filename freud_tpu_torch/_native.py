@@ -96,6 +96,7 @@ SIGNATURES = {
         "freud_moe_down": "p ii p ii ppp s",
         "freud_moe_combine": "ppppp iii p s",
     },
+    "gemm_f32x3": {"freud_gemm_f32x3": "pppppp iii s"},
 }
 _CTYPES = {"p": ctypes.c_void_p, "i": ctypes.c_int, "f": ctypes.c_float,
            "q": ctypes.POINTER(ctypes.c_longlong), "s": ctypes.c_void_p}

@@ -306,6 +306,15 @@ def topk_sae_forward_bound(rows: int, d_in: int, n_dict: int, k: int, k_aux: int
     return KernelBound(flops, "bf16", nbytes)
 
 
+def gemm_f32x3_bound(rows: int, k: int, n: int, bias: bool = True) -> KernelBound:
+    """The 3xTF32 product (``csrc/gemm_f32x3.cu``): the split reads W (N, K)
+    f32 and writes its two TF32 limbs, the product reads x (M, K) f32, both
+    limbs and the bias (N,) f32 → y (M, N) f32; three products of 2·M·K·N
+    against the ``"tf32"`` peak."""
+    nbytes = 4.0 * (rows * k + 5 * n * k + rows * n) + (4.0 * n if bias else 0.0)
+    return KernelBound(3 * 2.0 * rows * k * n, "tf32", nbytes)
+
+
 def moe_gateup_bound(rows: int, d: int, width: int, n_dyn: int) -> KernelBound:
     """The MoE's grouped gate/up product (``csrc/moe.cu``): ``rows`` routed
     rows (M, d) bf16 and ``n_dyn`` experts' gate and up (width, d) bf16 →

@@ -56,6 +56,7 @@ import numpy as np
 import torch
 from torch import nn
 
+from ...ops.gemm_f32x3 import linear
 from ...ops.topk_backward import topk_masked_pair, topk_route
 from ...ops.topk_fused import topk_sae_decode, topk_sae_encode, topk_sae_forward
 from ...ops.topk_indexed import topk_indexed, topk_indexed_plain
@@ -149,12 +150,14 @@ def _mm(a: torch.Tensor, b: torch.Tensor, bf16: bool,
 
 
 def _encoder_product(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:
-    """(x − b_dec) · encoder_weightᵀ, operands in ``matmul_dtype``."""
+    """(x − b_dec) · encoder_weightᵀ, operands in ``matmul_dtype``; CUDA f32
+    outside autograd on the 3xTF32 kernel (``ops.gemm_f32x3``'s routing
+    rule: collection, serving and search)."""
     sae_in = x - (params.b_dec if b_dec is None else b_dec)
     W = params.encoder_weight
     if matmul_dtype is not None:
         sae_in, W = sae_in.to(matmul_dtype), W.to(matmul_dtype)
-    return sae_in @ W.T
+    return linear(sae_in, W)
 
 
 def pre_acts(params, x: torch.Tensor, matmul_dtype=None, b_dec=None) -> torch.Tensor:

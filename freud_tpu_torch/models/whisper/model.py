@@ -26,10 +26,12 @@ kernel (``ops.attention.fused_qkv_attention``), a CUDA tensor with d > 768
 (medium, large) projects q/k/v with the ``nn.Linear``s and launches the
 blocked kernel (``ops.attention.whisper_attention``) — both bf16 products
 with f32 statistics — and a CPU tensor takes the plain f32 path. The MLP,
-the q/k/v projections at d > 768, the out-projection and the convs stay
-``torch.matmul`` and ``F.conv1d`` — the JAX package left them to XLA. For
-f32 on CUDA the caller pins TF32 off (``WhisperRuntime`` does), or cuDNN
-would run the convs in TF32.
+the q/k/v projections at d > 768 and the out-projection (the JAX package
+left them to XLA) go through ``ops.gemm_f32x3.linear``: CUDA f32 outside
+autograd takes the 3xTF32 tensor-core kernel, f32-grade sums; anything
+else ``F.linear``. The convs stay ``F.conv1d``. For f32 on CUDA the caller
+pins TF32 off (``WhisperRuntime`` does), or cuDNN would run the convs in
+TF32.
 
 The text decoder (``TextDecoder``: ``token_embedding``,
 ``positional_embedding``, ``blocks.N.{attn_ln, attn, cross_attn_ln,
@@ -64,6 +66,7 @@ from ...ops.attention import (
     whisper_attention,
     whisper_attention_plain,
 )
+from ...ops.gemm_f32x3 import linear
 from .config import WhisperDims
 
 Captures = dict[str, torch.Tensor]
@@ -136,6 +139,12 @@ def attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return torch.matmul(weights, v)
 
 
+def _linear(layer: nn.Linear, x: torch.Tensor) -> torch.Tensor:
+    """``layer(x)``; CUDA f32 outside autograd on the 3xTF32 kernel
+    (``ops.gemm_f32x3.linear``'s routing rule)."""
+    return linear(x, layer.weight, layer.bias)
+
+
 def _tapper(capture: frozenset, substitute: Mapping, store: Captures):
     """The capture/substitution callback of one forward: ``tap(name, x)``
     replaces x by ``substitute[name]`` (cast to x's device and dtype) and
@@ -181,18 +190,19 @@ class MultiHeadAttention(nn.Module):
                 x, self.query.weight.t(), self.query.bias, self.key.weight.t(),
                 self.value.weight.t(), self.value.bias, self.n_head,
             )
-            return self.out(out)
+            return _linear(self.out, out)
 
         def heads(t):  # (b, s, d) → a (b, h, s, dh) view, no copy
             return t.view(b, s, self.n_head, d // self.n_head).transpose(1, 2)
 
-        q, k, v = heads(self.query(x)), heads(self.key(x)), heads(self.value(x))
+        q, k, v = (heads(_linear(self.query, x)), heads(_linear(self.key, x)),
+                   heads(_linear(self.value, x)))
         if route == "kernel":
             out = whisper_attention(q, k, v)
         else:
             out = whisper_attention_plain(q, k, v)
         # the kernel writes (b, s, h, dh) memory: merging the heads is free
-        return self.out(out.transpose(1, 2).reshape(b, s, d))
+        return _linear(self.out, out.transpose(1, 2).reshape(b, s, d))
 
 
 class ResidualAttentionBlock(nn.Module):
@@ -221,9 +231,9 @@ class ResidualAttentionBlock(nn.Module):
 
             x = x + self.cross_attn(self.cross_attn_ln(x), xa=xa, weights_tap=weights)
         h = tap(f"{prefix}.mlp_ln", self.mlp_ln(x))
-        h = tap(f"{prefix}.mlp.0", self.mlp[0](h))
+        h = tap(f"{prefix}.mlp.0", _linear(self.mlp[0], h))
         h = tap(f"{prefix}.mlp.1", self.mlp[1](h))
-        h = tap(f"{prefix}.mlp.2", self.mlp[2](h))
+        h = tap(f"{prefix}.mlp.2", _linear(self.mlp[2], h))
         h = tap(f"{prefix}.mlp", h)
         return tap(prefix, x + h)
 

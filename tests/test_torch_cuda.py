@@ -28,7 +28,11 @@ d_acts bit for bit against the plain versions, db_enc within the f32
 rounding bound of its two-level sum; the SAE encode's indexed top-k —
 values and indices bit for bit against the stable ``torch.sort`` on the
 card (and the CPU's sort, off rows with NaN, which it orders otherwise),
-with the fused bias and ReLU against ``pre_acts``' add and ReLU."""
+with the fused bias and ReLU against ``pre_acts``' add and ReLU; the 3xTF32
+product — its largest error against a float64 product over the output's
+RMS at most 2× cuBLAS f32's (TF32 off) and 30× under one TF32 product's at
+the cells' shapes, two launches bit for bit, ragged shapes within the
+plain recipe's bound."""
 
 import copy
 import time
@@ -1013,3 +1017,184 @@ def test_encode_on_card_takes_the_kernel_and_matches_cpu(cuda, monkeypatch):
     picked = torch.gather(dense, -1, got.top_indices.cpu())
     assert (picked - cpu.top_acts).abs().max().item() < 1e-5 * scale
     assert (got.top_indices.cpu() != cpu.top_indices).float().mean().item() < 1e-3
+
+
+# ------------------------------------------------------- the 3xTF32 product
+
+GEMM_GATE_SHAPES = [(1280, 1280), (1280, 5120), (5120, 1280), (1280, 20480), (3584, 57344)]
+
+
+def _gemm_operands(cuda, m, k, n, seed, bias=True):
+    gen = torch.Generator(device=cuda).manual_seed(seed)
+    x = torch.randn((m, k), device=cuda, generator=gen)
+    w = (torch.rand((n, k), device=cuda, generator=gen) * 2 - 1) / k ** 0.5
+    b = torch.randn(n, device=cuda, generator=gen) * 0.1 if bias else None
+    return x, w, b
+
+
+def _rms_err(y, ref):
+    return ((y.double() - ref).abs().max() / ref.pow(2).mean().sqrt()).item()
+
+
+@pytest.mark.parametrize("m", [1500, 4096])
+@pytest.mark.parametrize("k,n", GEMM_GATE_SHAPES)
+def test_gemm_f32x3_accuracy_gate(cuda, m, k, n):
+    """At the cells' shapes the kernel's largest error against a float64
+    product, over the output's RMS, is at most 2× cuBLAS f32's on the same
+    operands (TF32 off) and at least 30× under one TF32 product's."""
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3
+
+    x, w, b = _gemm_operands(cuda, m, k, n, seed=k + n + m, bias=n <= 5120)
+    with torch.no_grad():
+        ref = x.double() @ w.double().T
+        if b is not None:
+            ref += b.double()
+        got = _rms_err(gemm_f32x3(x, w, b), ref)
+        f32 = _rms_err(torch.nn.functional.linear(x, w, b), ref)
+        torch.backends.cuda.matmul.allow_tf32 = True
+        try:
+            tf32 = _rms_err(torch.nn.functional.linear(x, w, b), ref)
+        finally:
+            torch.backends.cuda.matmul.allow_tf32 = False
+    assert got <= 2 * f32, (got, f32)
+    assert 30 * got <= tf32, (got, tf32)
+
+
+@pytest.mark.parametrize("m,k,n,bias", [(1500, 1280, 1280, True), (1, 32, 8, True),
+                                        (130, 36, 130, False), (77, 64, 5, True),
+                                        (257, 384, 1536, True)])
+def test_gemm_f32x3_repeats_and_follows_the_recipe(cuda, m, k, n, bias):
+    """Two launches agree bit for bit; ragged M, N and K (past the tile,
+    the slice, an odd N) within the recipe's bound of the plain version;
+    one launch a call."""
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3, gemm_f32x3_plain
+
+    x, w, b = _gemm_operands(cuda, m, k, n, seed=m + k, bias=bias)
+    with torch.no_grad():
+        before = gemm_f32x3.launches
+        y1 = gemm_f32x3(x.view(1, m, k), w, b)
+        y2 = gemm_f32x3(x, w, b)
+        torch.cuda.synchronize()
+        assert gemm_f32x3.launches == before + 2
+        assert y1.shape == (1, m, n) and torch.equal(y1[0], y2)
+        ref = x.double() @ w.double().T + (b.double() if bias else 0)
+        plain = gemm_f32x3_plain(x, w, b)
+    assert _rms_err(y2, ref) <= 2 * _rms_err(plain, ref) + 2.0 ** -23
+
+
+def test_gemm_f32x3_weight_limbs_follow_an_in_place_change(cuda):
+    """W changed in place, with its version counter moved or not (through
+    ``.data``), is read as it is now."""
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3
+
+    x, w, b = _gemm_operands(cuda, 512, 256, 384, seed=9)
+    w = torch.nn.Parameter(w, requires_grad=False)
+    with torch.no_grad():
+        first = gemm_f32x3(x, w, b)
+        w.mul_(-2.0)
+        second = gemm_f32x3(x, w, b)
+        fresh = gemm_f32x3(x, w.detach().clone(), b)
+        version = w._version
+        w.data.mul_(0.5)
+        assert w._version == version
+        third = gemm_f32x3(x, w, b)
+        fresh3 = gemm_f32x3(x, w.detach().clone(), b)
+    assert torch.equal(second, fresh) and not torch.equal(first, second)
+    assert torch.equal(third, fresh3) and not torch.equal(second, third)
+
+
+def test_gemm_f32x3_under_graph_capture(cuda):
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3
+
+    x, w, b = _gemm_operands(cuda, 1500, 1280, 5120, seed=11)
+    with torch.no_grad():
+        gemm_f32x3(x, w, b)  # builds and loads the library before the capture
+        torch.cuda.synchronize()
+        g = torch.cuda.CUDAGraph()
+        before = (gemm_f32x3.launches, gemm_f32x3.captured)
+        with torch.cuda.graph(g):
+            out = gemm_f32x3(x, w, b)
+        assert (gemm_f32x3.launches, gemm_f32x3.captured) == (before[0], before[1] + 1)
+        x2, w2, _ = _gemm_operands(cuda, 1500, 1280, 5120, seed=12)
+        x.copy_(x2)
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gemm_f32x3(x, w, b))
+        w.copy_(w2)  # the replay splits W again: it reads the new weight
+        g.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(out, gemm_f32x3(x, w, b))
+
+
+def test_gemm_f32x3_launches_per_encoder_forward_and_encode(cuda):
+    """One launch per routed linear (q, k, v, out, mlp.0, mlp.2 of each
+    block at d 1280) and one per SAE encode; none in bf16, under autograd,
+    or for a decode step's few rows."""
+    from freud_tpu_torch.models.sae import topk as topk_mod
+    from freud_tpu_torch.models.sae.config import TopKAutoEncoderConfig
+    from freud_tpu_torch.models.whisper import init_encoder
+    from freud_tpu_torch.ops.gemm_f32x3 import gemm_f32x3, linear
+
+    dims = WhisperDims(n_mels=80, n_audio_ctx=1500, n_audio_state=1280,
+                       n_audio_head=20, n_audio_layer=2, n_vocab=51865,
+                       n_text_ctx=448, n_text_state=1280, n_text_head=20,
+                       n_text_layer=1)
+    enc = init_encoder(dims, seed=4)
+    mels = torch.from_numpy(
+        np.random.default_rng(14).standard_normal((1, 80, 3000)).astype(np.float32) * 0.5)
+    cfg = TopKAutoEncoderConfig(k=32, expansion_factor=16)
+    params = topk_mod.init_topk(1280, cfg, seed=5).to(cuda)
+    with torch.inference_mode():
+        want = enc(mels, capture=("encoder.blocks.1",))[1]["encoder.blocks.1"]
+        enc = enc.to(cuda)
+        before = gemm_f32x3.launches
+        got = enc(mels.to(cuda), capture=("encoder.blocks.1",))[1]["encoder.blocks.1"]
+        topk_mod.encode(params, got, cfg)
+        torch.cuda.synchronize()
+        assert gemm_f32x3.launches == before + 6 * 2 + 1
+        before = gemm_f32x3.launches
+        linear(got[:, :100], enc.blocks[0].mlp[0].weight)  # under a row tile
+        enc.to(torch.bfloat16)(mels.to(cuda, torch.bfloat16), capture=("encoder.blocks.0",))
+        torch.cuda.synchronize()
+        assert gemm_f32x3.launches == before
+    x = got.clone().requires_grad_(True)
+    with torch.enable_grad():
+        topk_mod.pre_acts(params, x).sum().backward()
+    assert gemm_f32x3.launches == before
+    got = got.cpu()
+    assert ((got - want).abs().max() / want.abs().max()).item() < 5e-2
+
+
+def test_validation_between_graph_replays_reads_the_current_encoder(cuda, tmp_path,
+                                                                   monkeypatch):
+    """The train chunks update the encoder weight in place inside CUDA graph
+    replays, which move no version counter. Validation after each chunk
+    runs its SAE encode on the 3xTF32 product and reads the weight as the
+    replays left it: its statistics and reconstructions match a validation
+    of the same state on ``F.linear``."""
+    from freud_tpu_torch.data.device_cache import DeviceShuffleCache
+    from freud_tpu_torch.ops import gemm_f32x3 as G
+    from freud_tpu_torch.train.trainer import SAETrainer
+
+    path, data = _activation_store(tmp_path / "s")
+    trainer = SAETrainer("topk", {"expansion_factor": 16, "k": 32}, 384, optimizer="adam",
+                         lr=1e-2, steps=50, device=cuda)
+    val = data[:2]
+    cache = DeviceShuffleCache(path, "encoder.blocks.2", 12, refresh_files=0, device=cuda)
+    seen = []
+    try:
+        for _ in range(3):
+            trainer.train_chunk(cache, 4, 3)  # captured once, then replayed
+            before = G.gemm_f32x3.launches
+            got = trainer.validate_files(val, sae_out=True)
+            assert G.gemm_f32x3.launches == before + len(val)
+            with monkeypatch.context() as mp:
+                mp.setattr(G, "takes_kernel", lambda *a: False)
+                want = trainer.validate_files(val, sae_out=True)
+            seen.append(got["fvu"])
+            np.testing.assert_allclose(got["fvu"], want["fvu"], rtol=1e-4)
+            np.testing.assert_allclose(got["sae_out"], want["sae_out"], rtol=0,
+                                       atol=1e-4 * np.abs(want["sae_out"]).max())
+    finally:
+        cache.close()
+    assert not np.array_equal(seen[0], seen[-1])  # the replays moved the encoder

@@ -94,6 +94,11 @@ MAIN_PATH = [
      1.2723, "operations"),
     (flops.topk_sae_decode_bound(48000, 1280, 10240, 48000 * 336), 41.28768e9,
      1.52738304e9, 0.4559, "bytes"),
+    # the 3xTF32 product at large collection's q/k/v/out and the omni SAE encode
+    (flops.gemm_f32x3_bound(48000, 1280, 1280), 471.8592e9, 524.29312e6, 0.9533,
+     "operations"),
+    (flops.gemm_f32x3_bound(6400, 3584, 57344, bias=False), 7.8920024064e12,
+     5.67017472e9, 15.9434, "operations"),
     # the TopK backward's masked pair and route: 6 and 8 bytes an entry in
     # bf16, 12 and 16 on the f32 route
     (flops.topk_bwd_pair_bound(48000, 20480), 0.0, 5.89870592e9, 1.7608, "bytes"),

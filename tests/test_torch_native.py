@@ -77,7 +77,7 @@ COUNTED_WRAPPERS = [
     ("moe", "route"), ("moe", "plan"), ("moe", "permute"), ("moe", "gateup"),
     ("moe", "down"), ("moe", "combine"), ("topk_indexed", "topk_indexed"),
     ("mel", "log_mel_spectrogram_cuda"), ("attention", "fused_qkv_attention"),
-    ("attention", "whisper_attention"),
+    ("attention", "whisper_attention"), ("gemm_f32x3", "gemm_f32x3"),
 ]
 
 
