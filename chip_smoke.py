@@ -331,7 +331,14 @@ their plain versions at the omni cell's shapes, skewed routing and a
 ragged token count, then captures ``lm.layers.20`` of the benchmark's
 Uni-MoE-2.0-Omni at its published widths (weights drawn on the card) once
 under ``set_sync_debug_mode("error")``, asserting 21 launches of each MoE
-wrapper (``--moe-only`` runs these two checks alone).
+wrapper; then LongCat-Flash-Omni's: the top-k route, plan, the grouped
+products over the held experts and combine with the identity range against
+their plain versions at the LongCat cell's shapes (13,024 tokens, 768 router
+entries, top 12, 16 held experts, tied logits, held ranges with no rows or
+every token), the route and the products timed beside their bounds, and one
+capture at ``lm.layers.3`` of the benchmark's LongCat-Flash-Omni at its
+published widths under the same sync check, asserting one launch of each
+wrapper a double layer (``--moe-only`` runs these four checks alone).
 
 Usage: python3 chip_smoke.py [--bench | --pod-only | --model-axis-only | --moe-only |
 --topk-only | --knockouts] (needs one CUDA card)
@@ -1384,6 +1391,216 @@ def check_omni_forward(torch, device, card) -> dict:
     del rt, acts
     torch.cuda.empty_cache()
     return {"launches": launches, "ms": ms}
+
+
+# LongCat-Flash-Omni's MoE at the collection cell's shapes: 32 clips of 407
+# positions, d 6,144, a router of 512 routed experts and 256 identity entries,
+# top 12 weighted ×6, this card's 16 held experts of width 2,048
+LC_TOKENS, LC_D, LC_WIDTH, LC_TOP_K, LC_SCALE = 32 * 407, 6144, 2048, 12, 6.0
+LC_ROUTED, LC_ROUTER, LC_HELD, LC_IDENT = 512, 768, (0, 16), (512, 768)
+LC_RAGGED_TOKENS = 1037
+
+
+def check_longcat_moe(torch, device, card) -> dict:
+    """LongCat-Flash-Omni's MoE kernels (``csrc/moe.cu``: the biased top-k
+    route, plan and the grouped products over a held range, combine with the
+    identity range) against their plain versions at the LongCat cell's
+    shapes: logits drawn at the router's scale (~200 rows a held expert),
+    rows of tied logits, the held experts never chosen, twelve of them taking
+    every token, the share [496, 512) and a ragged token count. The route's
+    probabilities within 2e-7 of the plain version's, each relative to its
+    value, and its selection, weights and classes bit-equal to the plain rule
+    on the kernel's own probabilities (ties to the lower index); plan,
+    permute and combine bit for bit; the grouped products within 1e-2 of the
+    plain products' largest value. At the drawn routing each kernel is timed
+    beside its plain version, the route and the products beside their bounds.
+    → {kernel: record}."""
+    from freud_tpu_torch import flops
+    from freud_tpu_torch.ops import moe
+
+    gen = torch.Generator(device).manual_seed(SEED + 37)
+
+    def uniform(*shape, fan):
+        return ((torch.rand(shape, generator=gen, device=device) * 2 - 1)
+                / fan ** 0.5).bfloat16()
+
+    n_held = LC_HELD[1] - LC_HELD[0]
+    w_gate = uniform(n_held, LC_WIDTH, LC_D, fan=LC_D)
+    w_up = uniform(n_held, LC_WIDTH, LC_D, fan=LC_D)
+    w_down = uniform(n_held, LC_D, LC_WIDTH, fan=LC_WIDTH)
+    recs = {}
+    for label, tokens, case in (("", LC_TOKENS, None), ("ties_", LC_TOKENS, "ties"),
+                                ("none_held_", LC_TOKENS, "none"),
+                                ("twelve_", LC_TOKENS, "twelve"),
+                                ("share_", LC_TOKENS, "share"),
+                                ("ragged_", LC_RAGGED_TOKENS, None)):
+        logits = torch.randn(tokens, LC_ROUTER, generator=gen, device=device) * 2.25
+        bias = torch.randn(LC_ROUTER, generator=gen, device=device) * 1e-3
+        held = (496, 512) if case == "share" else LC_HELD
+        if case == "ties":  # equal logits in blocks of 4 entries, no bias
+            logits = logits[:, ::4].repeat_interleave(4, dim=1).contiguous()
+            bias = torch.zeros_like(bias)
+        elif case == "none":
+            bias[:n_held] = -1.0
+        elif case == "twelve":
+            bias[:LC_TOP_K] = 1.0
+        probs, sel, wsel, cls = moe.route_topk(logits, bias, LC_TOP_K, LC_SCALE, held, LC_IDENT)
+        p_probs, p_sel, _, _ = moe.route_topk_plain(logits, bias, LC_TOP_K, LC_SCALE, held,
+                                                    LC_IDENT)
+        route_err = float(((probs - p_probs).abs() / p_probs).max())
+        rule = moe.select_topk(probs, bias, LC_TOP_K, LC_SCALE, held, LC_IDENT)
+        rule_eq = all(torch.equal(g, w) for g, w in zip((sel, wsel, cls), rule))
+        sel_diff = int((sel != p_sel).any(1).sum())
+        assert route_err <= 2e-7 and rule_eq, (label, route_err, rule_eq)
+        if case == "ties":  # a tie inside the top 12 went to the lower index
+            assert bool((sel[:, 1:] > sel[:, :-1]).any()), label
+        counts = torch.zeros(LC_ROUTER, dtype=torch.int32, device=device)
+        p_counts = counts.clone()
+        offsets, pos = moe.plan(sel, n_held, counts, held[0])
+        p_offsets, p_pos = moe.plan_plain(sel, n_held, p_counts, held[0])
+        assert torch.equal(counts, p_counts) and torch.equal(offsets, p_offsets), label
+        assert torch.equal(pos, p_pos) and int(counts.sum()) == tokens * LC_TOP_K, label
+        hc = counts[held[0]:held[1]]
+        rows = int(hc.sum())
+        active = int((hc > 0).sum())
+        if case == "none":
+            assert rows == 0, label
+        elif case == "twelve":
+            assert hc[:LC_TOP_K].tolist() == [tokens] * LC_TOP_K and rows == tokens * LC_TOP_K
+        u = (torch.randn(tokens, LC_D, generator=gen, device=device) * 0.5).bfloat16()
+        rows_max = tokens * LC_TOP_K
+        a = moe.permute(u, pos, rows_max)
+        assert torch.equal(a[:rows], moe.permute_plain(u, pos, rows_max)[:rows]), label
+        h = moe.gateup(a, counts, offsets, w_gate, w_up, held[0])
+        p_h = moe.gateup_plain(a, counts, offsets, w_gate, w_up, held[0])
+        y = moe.down(p_h, counts, offsets, w_down, held[0])
+        p_y = moe.down_plain(p_h, counts, offsets, w_down, held[0])
+        gateup_err = down_err = 0.0
+        if rows:
+            gateup_err = float((h[:rows].float() - p_h[:rows].float()).abs().max()
+                               / p_h[:rows].float().abs().max())
+            down_err = float((y[:rows].float() - p_y[:rows].float()).abs().max()
+                             / p_y[:rows].float().abs().max())
+        x, fixed = u.flip(0).contiguous(), (u * 0.25).contiguous()
+        out = moe.combine(x, fixed, p_y, pos, wsel, u, sel, LC_IDENT)
+        combine_eq = torch.equal(out.view(torch.int16), moe.combine_plain(
+            x, fixed, p_y, pos, wsel, u, sel, LC_IDENT).view(torch.int16))
+        print(f"longcat moe {label or 'drawn_'}({tokens} tokens, held {held}, {rows} held rows "
+              f"on {active} experts, {int(counts[LC_IDENT[0]:].sum())} identity slots): route "
+              f"{route_err:.2e} of each p from plain, its rule bit-equal, {sel_diff} rows "
+              f"select otherwise than the plain route; plan and permute bit-equal, gate/up "
+              f"{gateup_err:.2e} and down {down_err:.2e} of max from plain, combine bit-equal "
+              f"{combine_eq}")
+        assert gateup_err <= 1e-2 and down_err <= 1e-2 and combine_eq, label
+        recs[f"lc_{label}errors"] = {"route": route_err, "select_rows_otherwise": sel_diff,
+                                     "gateup": gateup_err, "down": down_err, "rows": rows,
+                                     "active": active}
+        if label == "":
+            gateup_b, down_b = flops.moe_held_bounds(rows, active, LC_D, LC_WIDTH)
+            timed = {
+                "moe_route_topk": (
+                    lambda: moe.route_topk(logits, bias, LC_TOP_K, LC_SCALE, held, LC_IDENT),
+                    lambda: moe.route_topk_plain(logits, bias, LC_TOP_K, LC_SCALE, held,
+                                                 LC_IDENT),
+                    flops.moe_route_topk_bound(tokens, LC_ROUTER, LC_TOP_K)),
+                "moe_gateup_held": (
+                    lambda: moe.gateup(a, counts, offsets, w_gate, w_up, held[0]),
+                    lambda: moe.gateup_plain(a, counts, offsets, w_gate, w_up, held[0]),
+                    gateup_b),
+                "moe_down_held": (
+                    lambda: moe.down(p_h, counts, offsets, w_down, held[0]),
+                    lambda: moe.down_plain(p_h, counts, offsets, w_down, held[0]), down_b),
+                "moe_plan+permute+combine_identity": (
+                    lambda: (moe.plan(sel, n_held, counts, held[0]),
+                             moe.permute(u, pos, rows_max),
+                             moe.combine(x, fixed, p_y, pos, wsel, u, sel, LC_IDENT)),
+                    lambda: (moe.plan_plain(sel, n_held, p_counts, held[0]),
+                             moe.permute_plain(u, pos, rows_max),
+                             moe.combine_plain(x, fixed, p_y, pos, wsel, u, sel, LC_IDENT)),
+                    None)}
+            for name, (fn, plain, b) in timed.items():
+                ms, plain_ms = cuda_ms(fn, reps=10), cuda_ms(plain, warmup=1, reps=3)
+                recs[name] = {"ms": ms, "plain_ms": plain_ms, "rows": rows}
+                line = f"{name} ({tokens} tokens, {rows} held rows): kernel {ms:.4f} ms, " \
+                       f"plain {plain_ms:.4f} ms"
+                if b is not None:
+                    recs[name].update(bound_ms=b.bound_ms, bound_by=b.bound_by,
+                                      roofline_pct=100 * b.bound_ms / ms)
+                    line += f", bound {b.bound_ms:.4f} ms ({b.bound_by}), " \
+                            f"{100 * b.bound_ms / ms:.1f}% of it"
+                print(f"{line} on {card}")
+        del logits, probs, p_probs, u, a, h, p_h, y, p_y, x, fixed, out
+        torch.cuda.empty_cache()
+    return recs
+
+
+LONGCAT_CONFIG = REPO / "portbench" / "configs" / "longcat_flash_omni.json"
+LONGCAT_TAP, LONGCAT_CLIPS = "lm.layers.3", 2
+
+
+def check_longcat_forward(torch, device, card) -> dict:
+    """One capture at ``lm.layers.3`` of the benchmark's LongCat-Flash-Omni
+    (its published widths and share, 4 double layers, weights drawn on the
+    card by the benchmark's seed rule with plain random routers and no
+    selection bias) through ``LongCatRuntime``, after a warm one, with the
+    launch counts set to 0 just before it: the router's 3xTF32 product and
+    each held-share MoE wrapper launch once a layer, Uni-MoE's route never,
+    none falls back to its plain version, and nothing synchronises with the
+    host; every layer's routes count 12 slots a token. → {"launches":
+    {wrapper: n}, "held_rows": [a layer], "ms": the capture's wall}."""
+    import math
+    import zlib
+
+    from freud_tpu_torch.models.longcat import LongCatRuntime
+    from freud_tpu_torch.ops import gemm_f32x3, moe
+    from portbench import longcat_data, omni_data
+
+    cfg = json.loads(LONGCAT_CONFIG.read_text())
+    hf = omni_data.hf_config(cfg, omni_data.prompt_ids(SEED, cfg["vocab_size"], 24, 8))
+    layers = int(LONGCAT_TAP.split(".")[2]) + 1
+    d = cfg["hidden_size"]
+    n_router = cfg["deployment"]["n_routed_experts"] + cfg["zero_expert_num"]
+    gen = torch.Generator().manual_seed(SEED + 41)
+    routers = [(torch.randn(n_router, d, generator=gen) * cfg["init"]["router_scale"]
+                / math.sqrt(d), torch.zeros(n_router)) for _ in range(layers)]
+    sd = longcat_data.state_dict(lambda *parts: zlib.crc32(repr(parts).encode()),
+                                 {**hf, "num_layers": layers}, device, routers)
+    rt = LongCatRuntime("longcat-flash-omni", LONGCAT_TAP, torch.bfloat16, device,
+                        weights=(hf, sd))
+    del sd
+    mels = torch.randn(LONGCAT_CLIPS, cfg["audio_tower"]["n_mels"], 3000,
+                       generator=gen).to(device)
+    wrappers = (gemm_f32x3.gemm_f32x3, moe.route_topk, moe.plan, moe.permute, moe.gateup,
+                moe.down, moe.combine, moe.route)
+    rt.activations_with_lengths(mels)  # warm: cuBLAS and SDPA pick their kernels
+    torch.cuda.synchronize()
+    for fn in wrappers:
+        fn.launches = 0
+    t0 = time.perf_counter()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        acts, _ = rt.activations_with_lengths(mels)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    torch.cuda.synchronize()
+    ms = 1e3 * (time.perf_counter() - t0)
+    launches = {fn.__name__: fn.launches for fn in wrappers}
+    routes = rt.counters()
+    tokens = LONGCAT_CLIPS * rt.cfg.seq_len
+    lo, hi = rt.cfg.held
+    held_rows = routes[:, lo:hi].sum(1).tolist()
+    print(f"longcat forward ({LONGCAT_CLIPS} clips to {LONGCAT_TAP}, {routes.shape[0]} double "
+          f"layers): launches {launches}, slots {routes.sum(1).tolist()} of {tokens} tokens, "
+          f"held rows {held_rows}, {ms:.1f} ms on {card}")
+    assert routes.shape == (layers, n_router), tuple(routes.shape)
+    assert launches.pop("route") == 0, launches
+    assert all(n == layers for n in launches.values()), launches
+    assert routes.sum(1).tolist() == [tokens * cfg["moe_topk"]] * layers
+    assert acts.shape == (LONGCAT_CLIPS, rt.cfg.query_tokens, d)
+    assert bool(torch.isfinite(acts.float()).all())
+    del rt, acts
+    torch.cuda.empty_cache()
+    return {"launches": launches, "held_rows": held_rows, "ms": ms}
 
 
 def write_wavs(folder: Path, lengths: list[int], broken: bool = False,
@@ -5262,6 +5479,8 @@ def main() -> int:
     if args.moe_only:
         print(json.dumps({"moe": {**check_moe(torch, device, card),
                                   "omni_forward": check_omni_forward(torch, device, card),
+                                  **check_longcat_moe(torch, device, card),
+                                  "longcat_forward": check_longcat_forward(torch, device, card),
                                   "card": card}}))
         return 0
     from freud_tpu_torch import flops
@@ -5279,6 +5498,8 @@ def main() -> int:
     gemm_rec = check_gemm_f32x3(torch, device, card)
     moe_recs = check_moe(torch, device, card)
     omni_rec = check_omni_forward(torch, device, card)
+    lc_moe_recs = check_longcat_moe(torch, device, card)
+    lc_rec = check_longcat_forward(torch, device, card)
 
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         tmp = Path(tmp)
@@ -5973,6 +6194,13 @@ def main() -> int:
          "replaces": "none (ops/moe.py's plain versions)", **moe_recs[name],
          "launches_omni_forward": {n: omni_rec["launches"][n] for n in name[4:].split("+")}}
         for name in ("moe_gateup", "moe_down", "moe_route+plan+permute+combine")]
+    # LongCat-Flash-Omni's held-share MoE: the same source, its own route
+    kernels += [
+        {"name": name, "route": "cuda", "source": "freud_tpu_torch/csrc/moe.cu",
+         "replaces": "none (ops/moe.py's plain versions)", **lc_moe_recs[name],
+         "launches_longcat_forward": lc_rec["launches"][wrapper]}
+        for name, wrapper in (("moe_route_topk", "route_topk"), ("moe_gateup_held", "gateup"),
+                              ("moe_down_held", "down"))]
     for k in kernels:  # a time under its bound would mean a wrong bound
         assert k["ms"] >= k["bound_ms"], (k["name"], k["ms"], k["bound_ms"])
         print(f"{k['name']}: {k['ms']:.4f} ms, {100 * k['bound_ms'] / k['ms']:.1f}% of "

@@ -88,13 +88,14 @@ SIGNATURES = {
         "freud_topk_indexed": "p i p iiii pppp s",
     },
     "moe": {
-        "freud_moe_max_all": "",
+        "freud_moe_max_all": "i",
         "freud_moe_route": "pp iii f i ppp s",
-        "freud_moe_plan": "p iii ppp s",
+        "freud_moe_route_topk": "pp iii f iiii pppp s",
+        "freud_moe_plan": "p iiii ppp s",
         "freud_moe_permute": "pp iii p s",
-        "freud_moe_gateup": "p ii pp ii ppp s",
-        "freud_moe_down": "p ii p ii ppp s",
-        "freud_moe_combine": "ppppp iii p s",
+        "freud_moe_gateup": "p ii pp ii pppp s",
+        "freud_moe_down": "p ii p ii pppp s",
+        "freud_moe_combine": "ppppppp iiiii p s",
     },
     "gemm_f32x3": {"freud_gemm_f32x3": "pppppp iii s"},
 }

@@ -35,7 +35,7 @@ from ..models.sae import config as sae_config
 from ..models.sae import l1 as l1_mod
 from ..models.sae import serialize as sae_serialize
 from ..models.sae import topk as topk_mod
-from ..models.omni import OmniRuntime, is_omni
+from ..models import audio_lm_runtime
 from ..models.whisper import WhisperRuntime
 from ..device import resolve_device
 from ..parallel import mesh as mesh_lib
@@ -145,14 +145,16 @@ class FlyActivationLoader:
         shard: tuple[int, int] | None = None,
         model_weights: tuple | None = None,
     ):
-        """``whisper_model`` names a Whisper model or Uni-MoE-2.0-Omni
-        (``uni-moe-2.0-omni``, or its checkpoint directory), whose taps are
-        ``lm.layers.N`` (a clip's audio tokens) and ``encoder.blocks.N`` (its
-        Whisper tower); ``model_weights=(hf_config,
-        state_dict)`` hands its weights over in memory (the loader takes the
-        state dict's tensors). Its per-layer router counts ride to the host
-        with each batch's fetch and are recorded as the ``moe.tokens``
-        counter (``profiling.count``) when the batch is yielded.
+        """``whisper_model`` names a Whisper model or an audio language
+        model (``uni-moe-2.0-omni``, ``longcat-flash-omni``, or its checkpoint
+        directory), whose taps are ``lm.layers.N`` (a clip's audio tokens)
+        and ``encoder.blocks.N`` (its Whisper tower); ``model_weights=
+        (hf_config, state_dict)`` hands its weights over in memory (the
+        loader takes the state dict's tensors; the config's ``model_type``
+        picks the model). Its per-layer router counts ride to the host with
+        each batch's fetch and are recorded as its runtime's counter
+        (``moe.tokens``, ``longcat.routes``; ``profiling.count``) when the
+        batch is yielded.
 
         ``max_new_tokens`` sizes a decoder layer's capture buffer
         (n_prompt + max_new_tokens rows a file); encoder layers ignore it.
@@ -178,18 +180,19 @@ class FlyActivationLoader:
                 raise ValueError(
                     f"batch_size {batch_size} not divisible by the mesh's data "
                     f"axis ({mesh.data_size})")
-        if model_weights is not None or is_omni(whisper_model):
+        lm_runtime = audio_lm_runtime(whisper_model, model_weights)
+        if lm_runtime is not None:
             if mesh is not None or shard is not None:
-                raise ValueError("Uni-MoE-2.0-Omni collects on one card (no mesh or shard)")
-            self.runtime = OmniRuntime(whisper_model, layer_name,
-                                       compute_dtype=compute_dtype, device=self.device,
-                                       weights=model_weights)
+                raise ValueError(f"{lm_runtime.MODEL} collects on one card (no mesh or shard)")
+            self.runtime = lm_runtime(whisper_model, layer_name, compute_dtype=compute_dtype,
+                                      device=self.device, weights=model_weights)
         else:
             self.runtime = WhisperRuntime(whisper_model, layer_name,
                                           compute_dtype=compute_dtype,
                                           max_new_tokens=max_new_tokens,
                                           device=self.device)
         self._counters = getattr(self.runtime, "counters", None)
+        self._counter_name = getattr(self.runtime, "COUNTER", None)
         self._decoder_layer = layer_name.startswith("decoder.")
         self.batch_size = batch_size
         # the sequential-scan guard of analysis/search.py reads both
@@ -307,7 +310,7 @@ class FlyActivationLoader:
     def _finalize(self, outs, filenames, lengths):
         if self._counters is not None:
             *outs, table = outs
-            profiling.count("moe.tokens", table)
+            profiling.count(self._counter_name, table)
         ok = decodable_mask(lengths, filenames)
         if not ok.all():
             outs = tuple(o[torch.from_numpy(ok).to(o.device)]

@@ -344,3 +344,19 @@ def moe_route_bound(tokens: int, d: int, n_router: int, top_k: int, rows: int) -
               + 2 * 2.0 * rows * d + slots
               + 3 * 2.0 * tokens * d + 2.0 * rows * d + 2 * slots)
     return KernelBound(0.0, "bf16", nbytes)
+
+
+def moe_route_topk_bound(tokens: int, n_router: int, top_k: int) -> KernelBound:
+    """The MoE's top-k route (``csrc/moe.cu`` ``route_topk_kernel``), bound
+    by bytes: the f32 logits (T, n_router) and the bias read, the f32
+    probabilities written, and each slot's int32 entry, f32 weight and int8
+    class. Its exponentials and comparisons are left out."""
+    nbytes = 4.0 * tokens * n_router + 4.0 * n_router + 4.0 * tokens * n_router
+    return KernelBound(0.0, "bf16", nbytes + 9.0 * tokens * top_k)
+
+
+def moe_held_bounds(rows: float, active: int, d: int, width: int) -> tuple:
+    """The grouped gate/up and down products over a share of the experts:
+    ``rows`` held rows, of which ``active`` experts took at least one (only
+    those experts' weights are read) → (gate/up, down) bounds."""
+    return (moe_gateup_bound(rows, d, width, active), moe_down_bound(rows, d, width, active))

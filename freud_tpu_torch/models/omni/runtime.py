@@ -25,18 +25,26 @@ from ...device import resolve_device
 from .load import load_model
 
 
-def _tap_kind(layer_name: str) -> tuple[str, int]:
+def _tap_kind(layer_name: str, model: str) -> tuple[str, int]:
     parts = layer_name.split(".")
     if parts[:2] == ["lm", "layers"] and len(parts) == 3 and parts[2].isdigit():
         return "lm", int(parts[2])
     if parts[:2] == ["encoder", "blocks"] and len(parts) == 3 and parts[2].isdigit():
         return "tower", int(parts[2])
-    raise ValueError(f"unknown capture layer {layer_name!r} for Uni-MoE-2.0-Omni (lm.layers.N "
+    raise ValueError(f"unknown capture layer {layer_name!r} for {model} (lm.layers.N "
                      "or encoder.blocks.N)")
 
 
 class OmniRuntime:
-    """Capture at one tap of Uni-MoE-2.0-Omni's audio path on one device."""
+    """Capture at one tap of Uni-MoE-2.0-Omni's audio path on one device.
+    Another audio language model with the same capture interface subclasses
+    it with its own ``MODEL`` (its name in messages), ``COUNTER`` (the
+    profiling counter its ``counters()`` table is recorded under) and
+    ``load`` (its ``load_model``)."""
+
+    MODEL = "Uni-MoE-2.0-Omni"
+    COUNTER = "moe.tokens"
+    load = staticmethod(load_model)
 
     def __init__(self, model_name: str, layer_name: Optional[str] = None,
                  compute_dtype: torch.dtype = torch.bfloat16,
@@ -51,12 +59,12 @@ class OmniRuntime:
                                      hint='pass device="cpu" to run on the CPU')
         if self.device.type == "cuda" and compute_dtype != torch.bfloat16:
             # the MoE kernels take bf16 only, the model's own precision
-            raise ValueError(f"Uni-MoE-2.0-Omni runs on the card in bfloat16, not "
+            raise ValueError(f"{self.MODEL} runs on the card in bfloat16, not "
                              f"{compute_dtype} (precision=\"bfloat16\")")
-        kind, idx = _tap_kind(layer_name) if layer_name else ("lm", -1)
+        kind, idx = _tap_kind(layer_name, self.MODEL) if layer_name else ("lm", -1)
         n_layers = idx + 1 if kind == "lm" and idx >= 0 else (0 if layer_name else None)
-        self.model = load_model(model_name, self.device, compute_dtype, weights=weights,
-                                n_layers=n_layers)
+        self.model = self.load(model_name, self.device, compute_dtype, weights=weights,
+                               n_layers=n_layers)
         self.cfg = self.model.cfg
         if kind == "lm" and idx >= self.cfg.num_hidden_layers:
             raise ValueError(f"{layer_name}: the model has {self.cfg.num_hidden_layers} layers")

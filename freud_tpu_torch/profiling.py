@@ -27,7 +27,10 @@ the ``parent`` span open on the thread, ``thread``, ``start_ns``) with the
 reading as ``value``: any array-like, a ``DeviceFetch`` whose copy is still
 in flight included, which is read only when ``counter_values`` asks (so
 recording one adds no synchronisation). ``moe.tokens``, a batch's (layer,
-router entry) token counts of Uni-MoE-2.0-Omni, is one.
+router entry) token counts of Uni-MoE-2.0-Omni, is one; ``longcat.routes``,
+a batch's (layer, router entry) slot counts of LongCat-Flash-Omni over all
+768 entries (held experts, those other cards hold and identity entries), is
+another.
 
 Spans time the host: a span around asynchronous CUDA work measures the
 enqueue unless the stage itself waits for the device. These wait:

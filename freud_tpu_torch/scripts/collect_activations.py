@@ -26,6 +26,11 @@ clip's 200 audio tokens of 0.1 s each; ``n_frames`` counts those that cover
 real audio) and ``encoder.blocks.N`` (its Whisper tower).
 It runs on the card in ``precision="bfloat16"``, the model's own (any
 other precision is refused there; the CPU also runs float32).
+``longcat-flash-omni`` (LongCat-Flash-Omni, found under
+``$FREUD_LONGCAT_DIR``) takes the same taps and precision: a clip's 375
+audio tokens of 0.08 s each at ``lm.layers.N``, after double layer N, on a
+card holding its share of the routed experts (the checkpoint's
+``deployment``).
 
 With ``sae_model`` (a trainer checkpoint) the SAE encodes each batch on
 the device: an L1 SAE stores its dense latents, a TopK SAE an indexed store
@@ -275,8 +280,8 @@ def main(argv=None):
     parser = argparse.ArgumentParser(description=__doc__)
     parser.add_argument("--config", type=str, required=True,
                         help="Path to feature configuration file (whisper_model: a "
-                             "Whisper name, or uni-moe-2.0-omni with layer_name "
-                             "lm.layers.N or encoder.blocks.N)")
+                             "Whisper name, or uni-moe-2.0-omni or longcat-flash-omni "
+                             "with layer_name lm.layers.N or encoder.blocks.N)")
     parser.add_argument("--resume", action="store_true",
                         help="continue an interrupted collection: skip "
                              "already-stored files and append to the store")

@@ -74,7 +74,7 @@ COUNTED_WRAPPERS = [
     ("topk_sharded", "shard_candidates"), ("topk_sharded", "combine_shard_thresholds"),
     ("topk_backward", "topk_masked_pair"), ("topk_backward", "topk_route"),
     # collection, serving and the omni model
-    ("moe", "route"), ("moe", "plan"), ("moe", "permute"), ("moe", "gateup"),
+    ("moe", "route"), ("moe", "route_topk"), ("moe", "plan"), ("moe", "permute"), ("moe", "gateup"),
     ("moe", "down"), ("moe", "combine"), ("topk_indexed", "topk_indexed"),
     ("mel", "log_mel_spectrogram_cuda"), ("attention", "fused_qkv_attention"),
     ("attention", "whisper_attention"), ("gemm_f32x3", "gemm_f32x3"),
